@@ -1,0 +1,61 @@
+"""Diagonal-Gaussian prototype scoring (counterpart of mgproto_tpu/ops/gaussian.py).
+
+    log N(x; mu, sigma) = -d/2 log(2 pi) - sum_d log sigma_d
+                          - 1/2 sum_d ((x_d - mu_d) / sigma_d)^2
+
+evaluated by the same quadratic expansion as the JAX package: one [N, d] x
+[d, P] matmul for the cross term plus rank-1 broadcasts, all in float32.
+"""
+
+from __future__ import annotations
+
+import math
+
+import torch
+
+_LOG_2PI = math.log(2.0 * math.pi)
+
+DEFAULT_SIGMA_EPS = 1e-10
+
+
+def precompute_diag_gaussian(means: torch.Tensor, sigmas: torch.Tensor, eps: float):
+    """Flatten [..., d] prototypes to [P, d] and return
+      (m_scaled [P, d] = mu / sigma^2,
+       inv_var  [P, d] = 1 / sigma^2,
+       const    [P]    = -d/2 log(2pi) - sum log sigma - 1/2 mu.(mu/sigma^2))
+    so that  log N(x) = const + x @ m_scaled.T - 1/2 (x*x) @ inv_var.T."""
+    d = means.shape[-1]
+    m = means.float().reshape(-1, d)
+    s = (sigmas.float() + eps).reshape(-1, d)
+    inv_var = 1.0 / (s * s)
+    m_scaled = m * inv_var
+    const = (
+        -0.5 * d * _LOG_2PI
+        - torch.log(s).sum(-1)
+        - 0.5 * (m * m_scaled).sum(-1)
+    )
+    return m_scaled, inv_var, const
+
+
+def diag_gaussian_log_prob(
+    x: torch.Tensor,
+    means: torch.Tensor,
+    sigmas: torch.Tensor,
+    eps: float = DEFAULT_SIGMA_EPS,
+) -> torch.Tensor:
+    """[N, d] features -> [N, *leading] log-densities under every prototype."""
+    x = x.float()
+    lead = means.shape[:-1]
+    m_scaled, inv_var, const = precompute_diag_gaussian(means, sigmas, eps)
+    x_quad = torch.matmul(x * x, inv_var.T)
+    cross = torch.matmul(x, m_scaled.T)
+    out = const[None, :] + cross - 0.5 * x_quad
+    return out.reshape(x.shape[0], *lead)
+
+
+def mixture_log_likelihood(
+    log_prob: torch.Tensor, log_priors: torch.Tensor
+) -> torch.Tensor:
+    """log p(x|c) = logsumexp_k [log pi_{c,k} + log N(x; mu_{c,k})].
+    log_prob [..., C, K], log_priors [C, K] (-inf for pruned slots)."""
+    return torch.logsumexp(log_prob + log_priors, dim=-1)
