@@ -5,15 +5,19 @@
 
 Phases, one JSON line each:
   1. env:    torch/CUDA versions and the card (name, power limit);
-  2. build:  both CUDA kernels compiled from mgproto_tpu_torch/csrc/;
+  2. build:  the four CUDA kernels compiled from mgproto_tpu_torch/csrc/,
+             one nvcc per source, in parallel;
   3. kernel: each kernel held against its plain PyTorch version on the card
-             at the shapes the flagship serving path gives it (score_pool at
+             at the shapes the flagship paths give it (score_pool at
              HW = 196 and 784 and on exact ties; the BN epilogue at the four
-             ResNet-34 stage shapes in f32 and bf16), and timed beside its
+             ResNet-34 stage shapes in f32 and bf16; the score_pool
+             backward at B = 80, P = 2000, T = 20, HW = 196 and 784, also
+             bitwise across two launches; the EM E-step at A = 80 and 200
+             classes of N = 800 rows, K = 10, d = 64), and timed beside its
              bound, the plain version and (score_pool) the unfused
              torch.matmul + torch.topk, as device time (torch.profiler);
-             the epilogue's inputs rotate through copies larger than the
-             L2, so they come from HBM as on the served path;
+             inputs larger than a few MB rotate through copies larger than
+             the L2, so they come from HBM as on the main paths;
   4. serve:  the flagship ResNet-34 MGProto (C=200, K=10, d=64, T=20, 224 px,
              seeded random weights) calibrated on 16 ID images and served
              through ServingEngine; every id answered once, bad payloads
@@ -51,6 +55,30 @@ R34_STAGES = ((3, 112, 64), (4, 56, 128), (6, 28, 256), (3, 14, 512))
 # fail this limit), so the precision the numerics policy forbids is caught.
 SERVE_ATOL = 1e-4
 SCORE_ATOL = 1e-4  # score_pool vs plain: FMA chain vs cuBLAS order, |v| <= ~15
+# score_pool backward and E-step statistics vs plain: summation order only,
+# so 1e-5 of the plain output's largest magnitude; the E-step's mean
+# log-likelihood (|ll| ~ 50) within 1e-4
+BWD_RTOL = 1e-5
+ESTEP_RTOL = 1e-5
+ESTEP_LL_ATOL = 1e-4
+TRAIN_BATCH = 80
+TRAIN_STEPS = 6  # then one warm step
+# kernel route vs plain route, first train step from one state, on the card.
+# The two share the cuDNN convolutions; they differ in rounding in the
+# epilogue (x*a + b with folded constants against (x - mean)*a + bias), the
+# scoring pool, its backward and the E-step. Loss relative 1e-5; EM
+# log-likelihood atol 1e-3 (|ll| ~ 50); priors atol 1e-5. The trunk
+# gradient of a train-mode BatchNorm net at random init is ill-conditioned:
+# the BN affine gradients are sums of nearly cancelling terms, and scaling
+# the input images by 1 + 1e-7 moves the gradient by several 1e-3 in
+# relative norm (measured here as `grad_rel_floor`: the plain route against
+# itself on that perturbed input). So the gradient tolerance is 2e-2
+# relative norm: above that floor, far below what a wrong term in a
+# backward gives (O(1)).
+TRAIN_LOSS_RTOL = 1e-5
+TRAIN_GRAD_RTOL = 2e-2
+TRAIN_LL_ATOL = 1e-3
+TRAIN_PRIOR_ATOL = 1e-5
 
 
 class SmokeFailure(RuntimeError):
@@ -212,10 +240,7 @@ def kernel_phase():
             scale = (0.5 + torch.rand(ch, generator=g)).cuda()
             bias = (0.1 * torch.randn(ch, generator=g)).cuda()
             a, b = fold_constants(mean, var, scale, bias, 1e-5)
-            copies = max(2, -(-int(ROTATE_BYTES) // (2 * x.numel() * x.element_size())))
-            ring = itertools.cycle([(x.clone(memory_format=torch.channels_last),
-                                     r.clone(memory_format=torch.channels_last))
-                                    for _ in range(copies)])
+            ring, copies = ring_of((x, r), 2 * x.numel() * x.element_size())
 
             def kernel():
                 xi, ri = next(ring)
@@ -248,6 +273,8 @@ def kernel_phase():
                 epi["max_abs_err"] = max(epi["max_abs_err"], err)
                 for key in ("ms", "plain_ms", "bound_ms"):
                     epi[key] += blocks * rec[key]
+    bwd = [score_pool_bwd_case(hw, means, sigmas, g) for hw in (196, 784)]
+    est = [em_estep_case(a, g) for a in (80, 200)]
     return [
         {
             "name": "score_pool", "route": "cuda",
@@ -266,7 +293,122 @@ def kernel_phase():
             "ms": epi["ms"], "plain_ms": epi["plain_ms"],
             "bound_ms": epi["bound_ms"], "bound_by": "bytes", "library_ms": None,
         },
+        {
+            "name": "score_pool_bwd", "route": "cuda",
+            "source": "mgproto_tpu_torch/csrc/score_pool_bwd.cu",
+            "replaces": "mgproto_tpu/ops/fused_scoring.py:91",
+            "launches": None, "max_abs_err": max(r["max_abs_err"] for r in bwd),
+            "ms": bwd[0]["ms"], "plain_ms": bwd[0]["plain_ms"],
+            "bound_ms": bwd[0]["bound_ms"], "bound_by": bwd[0]["bound_by"],
+            "library_ms": None,
+        },
+        {
+            "name": "em_estep", "route": "cuda",
+            "source": "mgproto_tpu_torch/csrc/em_estep.cu",
+            "replaces": "mgproto_tpu/ops/em_kernels.py:59",
+            "launches": None, "max_abs_err": max(r["max_abs_err"] for r in est),
+            "ms": est[0]["ms"], "plain_ms": est[0]["plain_ms"],
+            "bound_ms": est[0]["bound_ms"], "bound_by": est[0]["bound_by"],
+            "library_ms": None,
+        },
     ]
+
+
+def ring_of(tensors, nbytes):
+    """An endless cycle over copies of `tensors` (`nbytes` a copy; memory
+    format kept) holding ROTATE_BYTES in all, at least two, so each call
+    reads its inputs from HBM. Returns (cycle, number of copies)."""
+    copies = max(2, -(-int(ROTATE_BYTES) // int(nbytes)))
+    return itertools.cycle([tuple(t.clone() for t in tensors) for _ in range(copies)]), copies
+
+
+def score_pool_bwd_case(hw, means, sigmas, g):
+    """The feature gradient at the flagship train shapes: kernel vs plain,
+    bitwise across two launches, timed on rotating inputs."""
+    import torch
+
+    from mgproto_tpu_torch.ops.fused_scoring import (
+        launch_score_pool, launch_score_pool_bwd, score_pool_bwd_plain,
+    )
+    from mgproto_tpu_torch.ops.gaussian import precompute_diag_gaussian
+
+    b, t, d = TRAIN_BATCH, 20, 64
+    msc, ivar, const = (x.contiguous() for x in precompute_diag_gaussian(means, sigmas, 1e-10))
+    p = msc.shape[0]
+    feat = torch.nn.functional.normalize(torch.randn(b, hw, d, generator=g), dim=-1).cuda()
+    _, idx = launch_score_pool(feat, msc, ivar, const, t)
+    cot = torch.randn(b, p, t, generator=g).cuda()
+    out = launch_score_pool_bwd(cot, idx, feat, msc, ivar)
+    again = launch_score_pool_bwd(cot, idx, feat, msc, ivar)
+    ref = score_pool_bwd_plain(cot, idx, feat, msc, ivar)
+    torch.cuda.synchronize()
+    err = (out - ref).abs().max().item()
+    scale = ref.abs().max().item()
+    check(torch.isfinite(out).all() and out.shape == (b, hw, d), f"score_pool_bwd hw{hw}: bad output")
+    check(err <= BWD_RTOL * scale, f"score_pool_bwd hw{hw}: max err {err} > {BWD_RTOL} x {scale}")
+    check(torch.equal(out, again), f"score_pool_bwd hw{hw}: two launches differ")
+    nbytes = 4.0 * (2 * b * p * t + 2 * b * hw * d + 2 * p * d)
+    ring, copies = ring_of((cot, idx, feat), 4.0 * (2 * b * p * t + b * hw * d))
+
+    def kernel():
+        c_, i_, f_ = next(ring)
+        return launch_score_pool_bwd(c_, i_, f_, msc, ivar)
+
+    def plain():
+        c_, i_, f_ = next(ring)
+        return score_pool_bwd_plain(c_, i_, f_, msc, ivar)
+
+    live = int((cot != 0).sum())  # entries the kernel works on (zero g is skipped)
+    bms, by = bound_ms(4.0 * live * d, nbytes)
+    rec = {"B": b, "HW": hw, "P": p, "T": t, "d": d, "live_entries": live,
+           "max_abs_err": err, "max_abs_plain": scale,
+           "bitwise_repeat": True, "input_copies": copies,
+           "ms": device_ms(kernel), "event_ms": event_ms(kernel), "plain_ms": device_ms(plain),
+           "bound_ms": bms, "bound_by": by}
+    emit("kernel", kernel="score_pool_bwd", **rec)
+    return rec
+
+
+def em_estep_case(a, g):
+    """The E-step over A classes of a flagship bank: kernel vs plain, timed
+    on rotating bank slabs."""
+    import torch
+
+    from mgproto_tpu_torch.ops.em_kernels import _prepare, em_estep_stats_plain, launch_em_estep
+
+    n, k, d = 800, 10, 64
+    x = torch.nn.functional.normalize(torch.randn(a, n, d, generator=g), dim=-1).cuda()
+    means = torch.nn.functional.normalize(torch.rand(a, k, d, generator=g), dim=-1).cuda()
+    sigmas = torch.full((a, k, d), 1.0 / (2 * torch.pi) ** 0.5).cuda()
+    priors = torch.softmax(torch.randn(a, k, generator=g), -1).cuda()
+    msc, ivar, const = (t.contiguous() for t in _prepare(means, sigmas, priors, 1e-10))
+    got = launch_em_estep(x, msc, ivar, const)
+    want = em_estep_stats_plain(x, means, sigmas, priors)
+    torch.cuda.synchronize()
+    ll_err = (got[0] - want[0]).abs().max().item()
+    errs = [(o - r).abs().max().item() for o, r in zip(got[1:], want[1:])]
+    scales = [r.abs().max().item() for r in want[1:]]
+    check(all(torch.isfinite(o).all() for o in got), f"em_estep A={a}: non-finite output")
+    check(ll_err <= ESTEP_LL_ATOL, f"em_estep A={a}: ll err {ll_err} > {ESTEP_LL_ATOL}")
+    for name, e, sc in zip(("s", "sx", "sxx"), errs, scales):
+        check(e <= ESTEP_RTOL * sc, f"em_estep A={a}: {name} err {e} > {ESTEP_RTOL} x {sc}")
+    ring, copies = ring_of((x,), 4.0 * a * n * d)
+
+    def kernel():
+        return launch_em_estep(next(ring)[0], msc, ivar, const)
+
+    def plain():
+        return em_estep_stats_plain(next(ring)[0], means, sigmas, priors)
+
+    flops = 8.0 * a * n * k * d  # two products for w, two for sx / sxx
+    nbytes = 4.0 * (a * n * d + 2 * a * k * d + a * k) + 4.0 * (a + a * k + 2 * a * k * d)
+    bms, by = bound_ms(flops, nbytes)
+    rec = {"A": a, "N": n, "K": k, "d": d, "max_abs_err": max(errs), "ll_err": ll_err,
+           "errs_s_sx_sxx": errs, "input_copies": copies,
+           "ms": device_ms(kernel), "event_ms": event_ms(kernel), "plain_ms": device_ms(plain),
+           "bound_ms": bms, "bound_by": by}
+    emit("kernel", kernel="em_estep", **rec)
+    return rec
 
 
 # -------------------------------------------------------------------- serve
@@ -375,34 +517,52 @@ def serve_phase():
     return launches, dispatches
 
 
-def profile_phase(engine, images):
-    """Device time by kernel family over 5 bucket-8 dispatches, and the
-    device's idle share of that window (torch.profiler kernel events)."""
+KERNEL_FAMILIES = ("score_pool_bwd", "score_pool", "bn_epilogue", "em_estep")
+
+
+def family(name):
+    name = name.lower()
+    for fam in KERNEL_FAMILIES:
+        if fam in name:
+            return fam
+    # cuDNN/cuBLAS kernels: implicit-GEMM, FFT and weight/data-gradient engines
+    if any(w in name for w in ("conv", "gemm", "xmma", "cudnn", "sm90", "wgrad", "dgrad",
+                               "fft", "complex", "cutlass")):
+        return "conv/gemm"
+    return "memcpy" if "memcpy" in name else "other"
+
+
+def device_breakdown(run, reps):
+    """Device time by kernel family over `reps` calls of `run`, and the
+    device's idle share of that window (torch.profiler GPU activity events,
+    overlapping spans merged). None when the profiler saw no device event."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
-    engine._dispatch(images)
+    run()
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
-        for _ in range(5):
-            engine._dispatch(images)
+        for _ in range(reps):
+            run()
+        torch.cuda.synchronize()
         wall_us = (time.perf_counter() - t0) * 1e6
-    spans, by_family = [], {}
+    spans, by_family, other = [], {}, {}
     for e in prof.events():
-        if e.device_type != torch.autograd.DeviceType.CUDA:
+        # user annotations (e.g. the optimizer's step range) are drawn on the
+        # GPU timeline too; they are not device work
+        if e.device_type != torch.autograd.DeviceType.CUDA or getattr(e, "is_user_annotation", False):
             continue
         start, end = e.time_range.start, e.time_range.end
         spans.append((start, end))
-        name = e.name.lower()
-        fam = ("score_pool" if "score_pool" in name else
-               "bn_epilogue" if "bn_epilogue" in name else
-               "conv/gemm" if any(w in name for w in ("conv", "gemm", "xmma", "cudnn", "sm90")) else
-               "memcpy" if "memcpy" in name else "other")
+        fam = family(e.name)
         by_family[fam] = by_family.get(fam, 0.0) + (end - start) / 1e3
+        if fam == "other":
+            key = e.name[:80]
+            ms, n = other.get(key, (0.0, 0))
+            other[key] = (ms + (end - start) / 1e3, n + 1)
     if not spans:
-        emit("profile", note="profiler recorded no device events: not measured")
-        return
+        return None
     spans.sort()
     busy, cur_s, cur_e = 0.0, *spans[0]
     for s_, e_ in spans[1:]:
@@ -411,10 +571,200 @@ def profile_phase(engine, images):
         else:
             cur_e = max(cur_e, e_)
     busy += cur_e - cur_s
-    emit("profile", bucket=int(images.shape[0]), dispatches=5,
-         device_ms_per_dispatch={k: v / 5 for k, v in sorted(by_family.items())},
-         device_busy_ms_per_dispatch=busy / 5e3, wall_ms_per_dispatch=wall_us / 5e3,
-         device_idle_share=1.0 - busy / wall_us)
+    top_other = sorted(other.items(), key=lambda kv: -kv[1][0])[:10]
+    return {
+        "device_ms_per_call": {k: v / reps for k, v in sorted(by_family.items())},
+        "other_top_ms_per_call": [[name, ms / reps, n / reps] for name, (ms, n) in top_other],
+        "device_busy_ms_per_call": busy / reps / 1e3, "wall_ms_per_call": wall_us / reps / 1e3,
+        "device_idle_share": 1.0 - busy / wall_us,
+    }
+
+
+def profile_phase(engine, images):
+    """Device time by kernel family over 5 bucket-8 dispatches."""
+    rec = device_breakdown(lambda: engine._dispatch(images), 5)
+    if rec is None:
+        emit("profile", path="serve", note="profiler recorded no device events: not measured")
+        return
+    emit("profile", path="serve", bucket=int(images.shape[0]), dispatches=5, **rec)
+
+
+# -------------------------------------------------------------------- train
+def clone_state(src, cfg):
+    """A TrainState for `cfg` holding a copy of `src`'s weights, BatchNorm
+    statistics, proxies, GMM, bank and step, with fresh optimizers."""
+    import torch
+
+    from mgproto_tpu_torch.core.memory import Memory
+    from mgproto_tpu_torch.core.state import create_train_state
+
+    dst = create_train_state(cfg, torch.Generator().manual_seed(0), src.gmm.means.device)
+    dst.model.load_state_dict(src.model.state_dict())
+    with torch.no_grad():
+        dst.proxies.copy_(src.proxies)
+        dst.gmm.means.copy_(src.gmm.means)
+    dst.gmm = dst.gmm._replace(sigmas=src.gmm.sigmas.clone(), priors=src.gmm.priors.clone(),
+                               keep=src.gmm.keep.clone())
+    dst.memory = Memory(*(t.clone() for t in src.memory))
+    dst.step = src.step
+    return dst
+
+
+def launch_counts():
+    from mgproto_tpu_torch.ops.em_kernels import em_estep_stats
+    from mgproto_tpu_torch.ops.fused_epilogue import fused_bn_epilogue
+    from mgproto_tpu_torch.ops.fused_scoring import score_pool, score_pool_bwd
+
+    return {"score_pool": score_pool.launches, "bn_epilogue": fused_bn_epilogue.launches,
+            "score_pool_bwd": score_pool_bwd.launches, "em_estep": em_estep_stats.launches}
+
+
+def reset_launch_counts():
+    from mgproto_tpu_torch.ops.em_kernels import em_estep_stats
+    from mgproto_tpu_torch.ops.fused_epilogue import fused_bn_epilogue
+    from mgproto_tpu_torch.ops.fused_scoring import score_pool, score_pool_bwd
+
+    for fn in (score_pool, fused_bn_epilogue, score_pool_bwd, em_estep_stats):
+        fn.launches = 0
+
+
+def train_phase():
+    """The flagship training step on the card; returns the launch counts of
+    the driven run and its number of steps."""
+    import dataclasses
+
+    import numpy as np
+    import torch
+
+    from mgproto_tpu_torch.config import Config
+    from mgproto_tpu_torch.core.memory import Memory
+    from mgproto_tpu_torch.engine.train import Trainer
+
+    cfg = Config()
+    m = cfg.model
+    trainer = Trainer(cfg, steps_per_epoch=100, device="cuda")
+    check(trainer.fused and trainer.em_cfg.max_active_classes == TRAIN_BATCH,
+          "the flagship trainer did not resolve to the kernels and a compact width of 80")
+    state = trainer.init_state(seed=0)
+    gen = torch.Generator(device="cuda").manual_seed(1)
+    c, cap, d = m.num_classes, m.mem_capacity, m.proto_dim
+    bank = torch.randn(c, cap, d, generator=gen, device="cuda")
+    state.memory = Memory(
+        feats=torch.nn.functional.normalize(bank, dim=-1),
+        length=torch.full((c,), cap, dtype=torch.int32, device="cuda"),
+        cursor=torch.zeros(c, dtype=torch.int32, device="cuda"),
+        updated=torch.ones(c, dtype=torch.bool, device="cuda"),
+    )
+    plain_cfg = cfg.replace(
+        model=dataclasses.replace(m, fused_scoring=False, fused_epilogue=False),
+        em=dataclasses.replace(cfg.em, fused_estep=False),
+    )
+    plain_trainer = Trainer(plain_cfg, steps_per_epoch=100, device="cuda")
+    plain_state = clone_state(state, plain_cfg)
+    floor_state = clone_state(state, plain_cfg)
+
+    rng = np.random.default_rng(0)
+    batches = [(rng.normal(size=(TRAIN_BATCH, m.img_size, m.img_size, 3)).astype(np.float32),
+                rng.integers(0, c, size=TRAIN_BATCH)) for _ in range(TRAIN_STEPS + 1)]
+    per_step = {"score_pool": 1, "bn_epilogue": 16, "score_pool_bwd": 1}
+    step_s, losses, first = [], [], None
+    torch.cuda.synchronize()
+    reset_launch_counts()
+    for i, (images, labels) in enumerate(batches[:TRAIN_STEPS]):
+        means0 = state.gmm.means.detach().clone()
+        before = launch_counts()
+        t0 = time.perf_counter()
+        state, met = trainer.train_step(state, images, labels, use_mine=True, update_gmm=True)
+        torch.cuda.synchronize()
+        step_s.append(time.perf_counter() - t0)
+        delta = {k: v - before[k] for k, v in launch_counts().items()}
+        loss = met.loss.item()
+        losses.append(loss)
+        check(np.isfinite(loss) and not met.nonfinite, f"train step {i}: loss {loss}")
+        want = dict(per_step, em_estep=cfg.em.num_em_loop)
+        check(delta == want, f"train step {i}: launches {delta}, expected {want}")
+        check(met.em_compact_fallback == (1 if i == 0 else 0),
+              f"train step {i}: em_compact_fallback {met.em_compact_fallback}")
+        if i == 0:
+            check(met.em_active == c, f"first EM call touched {met.em_active} classes, not {c}")
+            first = {
+                "loss": loss,
+                "grad": torch.cat([p.grad.reshape(-1) for p in trainer.params(state)]),
+                "ll": trainer.last_bank.em.log_likelihood.item(),
+                "priors": state.gmm.priors.clone(),
+            }
+        else:
+            untouched = torch.ones(c, dtype=torch.bool, device="cuda")
+            untouched[torch.as_tensor(labels, device="cuda")] = False
+            check(met.em_active == c - int(untouched.sum()), f"train step {i}: em_active {met.em_active}")
+            check(torch.equal(state.gmm.means.detach()[untouched], means0[untouched]),
+                  f"train step {i}: an untouched class's means moved")
+    trunk0 = [p.detach().clone() for p in state.model.features.parameters()]
+    before = launch_counts()
+    state, met = trainer.train_step(state, *batches[TRAIN_STEPS], use_mine=True,
+                                    update_gmm=True, warm=True)
+    torch.cuda.synchronize()
+    launches = launch_counts()
+    delta = {k: v - before[k] for k, v in launches.items()}
+    check(delta == dict(per_step, em_estep=cfg.em.num_em_loop), f"warm step: launches {delta}")
+    check(np.isfinite(met.loss.item()), "warm step: non-finite loss")
+    check(all(torch.equal(p.detach(), q) for p, q in zip(state.model.features.parameters(), trunk0)),
+          "the warm step moved the trunk")
+
+    # the plain route: the same first step from the same state, on the card
+    plain_state, pmet = plain_trainer.train_step(plain_state, *batches[0], use_mine=True,
+                                                 update_gmm=True)
+    plain_grad = torch.cat([p.grad.reshape(-1) for p in plain_trainer.params(plain_state)])
+    images0, labels0 = batches[0]
+    floor_state, _ = plain_trainer.train_step(floor_state, images0 * np.float32(1 + 1e-7), labels0,
+                                              use_mine=True, update_gmm=True)
+    floor_grad = torch.cat([p.grad.reshape(-1) for p in plain_trainer.params(floor_state)])
+    grad_floor = ((floor_grad - plain_grad).norm() / plain_grad.norm()).item()
+    del floor_state, floor_grad
+    loss_err = abs(pmet.loss.item() - first["loss"])
+    grad_err = ((first["grad"] - plain_grad).norm() / plain_grad.norm()).item()
+    sizes = {name: sum(p.numel() for p in ps) for name, ps in (
+        ("features", state.model.features.parameters()), ("add_on", state.model.add_on.parameters()),
+        ("embedding", state.model.embedding.parameters()), ("proxies", [state.proxies]))}
+    group_err, at = {}, 0
+    for name, n in sizes.items():
+        a, b = first["grad"][at:at + n], plain_grad[at:at + n]
+        group_err[name] = ((a - b).norm() / b.norm()).item()
+        at += n
+    ll_err = abs(plain_trainer.last_bank.em.log_likelihood.item() - first["ll"])
+    prior_err = (plain_state.gmm.priors - first["priors"]).abs().max().item()
+    check(pmet.em_compact_fallback == 1, "plain route: first EM call did not fall back")
+    check(loss_err <= TRAIN_LOSS_RTOL * abs(first["loss"]),
+          f"kernel vs plain route: loss differs by {loss_err}")
+    check(grad_err <= TRAIN_GRAD_RTOL, f"kernel vs plain route: trunk gradient rel err {grad_err}")
+    check(ll_err <= TRAIN_LL_ATOL, f"kernel vs plain route: EM log-likelihood differs by {ll_err}")
+    check(prior_err <= TRAIN_PRIOR_ATOL, f"kernel vs plain route: priors differ by {prior_err}")
+
+    timed = step_s[1:]
+    med = float(np.median(timed))
+    emit("train", batch=TRAIN_BATCH, steps=TRAIN_STEPS, warm_steps=1, losses=losses,
+         launches=launches, step_s=step_s, step_s_median=med, step_s_min=float(min(timed)),
+         img_per_s=TRAIN_BATCH / med, peak_mem_gb=torch.cuda.max_memory_allocated() / 1e9,
+         first_step_vs_plain={"loss_abs_err": loss_err, "loss": first["loss"],
+                              "grad_rel_err": grad_err, "grad_rel_err_by_group": group_err,
+                              "grad_rel_floor": grad_floor, "em_ll_abs_err": ll_err,
+                              "em_ll": first["ll"], "priors_max_abs_err": prior_err},
+         tolerances={"loss_rtol": TRAIN_LOSS_RTOL, "grad_rtol": TRAIN_GRAD_RTOL,
+                     "ll_atol": TRAIN_LL_ATOL, "prior_atol": TRAIN_PRIOR_ATOL})
+    del plain_state, plain_trainer, first
+
+    it = itertools.cycle(batches[1:TRAIN_STEPS])
+    holder = [state]
+
+    def one_step():
+        holder[0], _ = trainer.train_step(holder[0], *next(it), use_mine=True, update_gmm=True)
+
+    rec = device_breakdown(one_step, 3)
+    if rec is None:
+        emit("profile", path="train", note="profiler recorded no device events: not measured")
+    else:
+        emit("profile", path="train", batch=TRAIN_BATCH, steps=3, **rec)
+    return launches, TRAIN_STEPS + 1
 
 
 def main() -> int:
@@ -445,10 +795,15 @@ def main() -> int:
     emit("build", seconds=time.perf_counter() - t0, libraries=libs, ptxas=ptxas)
 
     kernels = kernel_phase()
-    launches, dispatches = serve_phase()
+    serve_launches, dispatches = serve_phase()
+    train_launches, train_steps = train_phase()
     for k in kernels:
-        k["launches"] = launches[k["name"]]
-    print(json.dumps({"kernels": kernels, "dispatches": dispatches}), flush=True)
+        k["launches"] = train_launches[k["name"]]
+        k["launches_per_train_step"] = k["launches"] / train_steps
+        k["serve_launches"] = serve_launches.get(k["name"], 0)
+        check(k["launches"] > 0, f"{k['name']} was not launched on the train path")
+    print(json.dumps({"kernels": kernels, "train_steps": train_steps,
+                      "serve_dispatches": dispatches}), flush=True)
     print(smi, flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

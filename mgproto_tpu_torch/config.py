@@ -1,14 +1,15 @@
 """Configuration of the port: a trimmed copy of mgproto_tpu/config.py.
 
-Only the fields the serving forward reads. The field names and defaults are
-the JAX package's, so one configuration describes both packages.
+Only the fields the serving forward and the synchronous training step read.
+The field names and defaults are the JAX package's, so one configuration
+describes both packages.
 """
 
 from __future__ import annotations
 
 import dataclasses
 import math
-from typing import Optional
+from typing import Optional, Tuple
 
 
 @dataclasses.dataclass(frozen=True)
@@ -23,11 +24,12 @@ class ModelConfig:
     add_on_type: str = "regular"  # 'regular' | 'bottleneck'
     sz_embedding: int = 32
     mine_T: int = 20
+    mem_capacity: int = 800  # per-class memory-bank capacity
     init_sigma: float = 1.0 / math.sqrt(2.0 * math.pi)
-    # only float32 is served by this package (numerics.py)
+    # only float32 is served and trained by this package (numerics.py)
     compute_dtype: str = "float32"
-    # density + top-T through the score_pool kernel (ops/fused_scoring.py).
-    # None = the kernel on CUDA, the plain version on the CPU.
+    # density + top-T through the score_pool kernels (ops/fused_scoring.py).
+    # None = the kernels on CUDA, the plain version on the CPU.
     fused_scoring: Optional[bool] = None
     # ResNet block tail through the BN epilogue kernel
     # (ops/fused_epilogue.py). None = the kernel on CUDA, plain on the CPU.
@@ -35,8 +37,72 @@ class ModelConfig:
 
 
 @dataclasses.dataclass(frozen=True)
+class EMConfig:
+    """EM over the memory bank (core/em.py)."""
+
+    num_em_loop: int = 3
+    alpha: float = 0.1  # responsibility additive smoothing
+    tau: float = 0.990  # prior momentum
+    diversity_lambda: float = 1.0
+    mean_lr: float = 3e-3  # Adam on the means
+    update_interval: int = 1  # EM every N train steps
+    # compact dirty-class EM width: -1 = auto (min(C, train batch)), 0 = dense
+    max_active_classes: int = -1
+    # E-step through the em_estep kernel (ops/em_kernels.py). None = the
+    # kernel on CUDA, the plain version on the CPU.
+    fused_estep: Optional[bool] = None
+
+
+@dataclasses.dataclass(frozen=True)
+class OptimConfig:
+    """Optimizer groups (torch Adam with L2 added to the gradient). The aux
+    embedding Linear is in no group: frozen, gradients flow through it."""
+
+    features_lr: float = 1e-4
+    add_on_lr: float = 3e-3
+    aux_proxies_lr: float = 1e-2
+    weight_decay: float = 1e-4
+    lr_decay_gamma: float = 0.4
+    lr_decay_epochs: Tuple[int, ...] = (30, 45, 60, 75, 90)
+
+
+@dataclasses.dataclass(frozen=True)
+class ScheduleConfig:
+    """The epoch gates of training."""
+
+    num_warm_epochs: int = 0
+    mine_start: int = 40
+    update_gmm_start: int = 35
+
+
+@dataclasses.dataclass(frozen=True)
+class LossConfig:
+    """Loss coefficients. The aux loss is Proxy-Anchor (the JAX package's
+    default; its other five aux losses are not ported)."""
+
+    crs_ent: float = 1.0
+    mine: float = 0.2
+    aux: float = 0.5
+
+
+@dataclasses.dataclass(frozen=True)
+class DataConfig:
+    """Batch sizes."""
+
+    train_batch_size: int = 80
+
+
+@dataclasses.dataclass(frozen=True)
 class Config:
     model: ModelConfig = dataclasses.field(default_factory=ModelConfig)
+    em: EMConfig = dataclasses.field(default_factory=EMConfig)
+    optim: OptimConfig = dataclasses.field(default_factory=OptimConfig)
+    schedule: ScheduleConfig = dataclasses.field(default_factory=ScheduleConfig)
+    loss: LossConfig = dataclasses.field(default_factory=LossConfig)
+    data: DataConfig = dataclasses.field(default_factory=DataConfig)
+
+    def replace(self, **kw) -> "Config":
+        return dataclasses.replace(self, **kw)
 
 
 def tiny_test_config(
@@ -44,6 +110,7 @@ def tiny_test_config(
     prototypes_per_class: int = 3,
     proto_dim: int = 8,
     img_size: int = 32,
+    mem_capacity: int = 16,
     mine_T: int = 4,
     arch: str = "tiny",
 ) -> Config:
@@ -57,5 +124,7 @@ def tiny_test_config(
             proto_dim=proto_dim,
             sz_embedding=8,
             mine_T=mine_T,
-        )
+            mem_capacity=mem_capacity,
+        ),
+        schedule=ScheduleConfig(mine_start=0, update_gmm_start=0),
     )

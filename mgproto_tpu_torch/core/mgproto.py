@@ -8,7 +8,9 @@
   * `GMMState`: prototype means/sigmas/priors + pruning mask.
   * `head_forward`: density -> top-T mining pool -> mine masking ->
     per-class mixture log-likelihoods, plus deduped enqueue candidates.
-    `fused=True` routes density + top-T through `score_pool`.
+    `fused=True` routes density + top-T through `score_pool`, whose
+    backward gives the feature gradient in training. The GMM is a constant
+    of the classification loss (EM trains it): callers pass detached means.
 """
 
 from __future__ import annotations
@@ -136,6 +138,15 @@ class MGProtoFeatures(nn.Module):
         return proto_map, embed
 
 
+def make_features(cfg: ModelConfig, device: torch.device) -> MGProtoFeatures:
+    """MGProtoFeatures (on the CPU) with the block-tail route `cfg`
+    resolves to on `device`."""
+    is_resnet = cfg.arch.startswith("resnet")
+    if cfg.fused_epilogue and not is_resnet:
+        raise ValueError("fused_epilogue is implemented for resnet blocks only")
+    return MGProtoFeatures(cfg, fused_epilogue=is_resnet and use_kernel(cfg.fused_epilogue, device))
+
+
 def build_mgproto(
     cfg: ModelConfig, device: Union[str, torch.device, None] = None,
     seed: Optional[int] = None,
@@ -148,10 +159,7 @@ def build_mgproto(
     `load_state_dict` (e.g. from models/convert.from_jax_variables)."""
     dev = resolve_device(device)
     apply_numerics_policy()
-    is_resnet = cfg.arch.startswith("resnet")
-    if cfg.fused_epilogue and not is_resnet:
-        raise ValueError("fused_epilogue is implemented for resnet blocks only")
-    model = MGProtoFeatures(cfg, fused_epilogue=is_resnet and use_kernel(cfg.fused_epilogue, dev))
+    model = make_features(cfg, dev)
     gen = torch.Generator().manual_seed(0 if seed is None else int(seed))
     if seed is not None:
         init_random_weights(model, gen)
@@ -199,7 +207,8 @@ def head_forward(
 ):
     """GMM head on an add-on feature map [B, H, W, d]: returns (logits
     [B, C, T], pooled activations, enqueue candidates (feats [B*K, d],
-    classes [B*K], valid [B*K]))."""
+    classes [B*K], valid [B*K])). The candidates are detached: the bank
+    holds no autograd history."""
     if fused:
         pooled, _ = _fused_pool(proto_map, gmm, mine_T)
     else:
@@ -221,7 +230,7 @@ def head_forward(
         idx = pooled.top1_idx[rows, sel]  # [B, K]
         feats = pooled.top1_feat[rows, sel]  # [B, K, d]
         valid = dedup_first_occurrence(idx)
-        enq = (feats.reshape(b * k, d), sel.repeat_interleave(k), valid.reshape(b * k))
+        enq = (feats.detach().reshape(b * k, d), sel.repeat_interleave(k), valid.reshape(b * k))
     else:
         dev = proto_map.device
         enq = (

@@ -8,18 +8,22 @@ The inverse of mgproto_tpu/models/convert.py (torch -> flax), written anew:
   * flax module names -> torchvision names: `layer1_0` -> `layer1.0`,
     `downsample_conv`/`downsample_bn` -> `downsample.0`/`downsample.1`.
 Inputs are numpy arrays (`jax.device_get` of the variables), so this module
-needs no JAX.
+needs no JAX. `from_jax_train_state` carries a whole JAX `TrainState`
+across: params (net and proxies), batch stats, GMM, memory bank and step.
 """
 
 from __future__ import annotations
 
 import re
-from typing import Any, Dict, Mapping, Tuple
+from typing import Any, Dict, Mapping, Tuple, Union
 
 import numpy as np
 import torch
 
+from mgproto_tpu_torch.config import Config
+from mgproto_tpu_torch.core.memory import Memory
 from mgproto_tpu_torch.core.mgproto import GMMState
+from mgproto_tpu_torch.core.state import TrainState, create_train_state
 
 _RENAMES = (
     (re.compile(r"^layer(\d+)_(\d+)$"), r"layer\1.\2"),
@@ -79,3 +83,34 @@ def from_jax_variables(
         keep=torch.from_numpy(np.array(gmm.keep, bool)),
     )
     return sd, torch_gmm
+
+
+def from_jax_train_state(
+    state: Any, cfg: Config, device: Union[str, torch.device, None] = None,
+) -> TrainState:
+    """A JAX `TrainState` (numpy leaves: `jax.device_get(state)`) -> the
+    port's `TrainState` on `device`, built for `cfg`: the model's weights
+    and BatchNorm statistics, the proxies, the GMM (its means become the
+    mean optimizer's leaf), the memory bank (feats/length/cursor/updated)
+    and `step`. Optimizer moments start at zero."""
+    new = create_train_state(cfg, torch.Generator().manual_seed(0), device)
+    dev = new.gmm.means.device
+    sd, gmm = from_jax_variables(
+        {"params": state.params["net"], "batch_stats": state.batch_stats}, state.gmm
+    )
+    new.model.load_state_dict(sd, strict=True)
+    with torch.no_grad():
+        new.proxies.copy_(torch.from_numpy(np.array(state.params["proxies"], np.float32)))
+        new.gmm.means.copy_(gmm.means)
+    new.gmm = new.gmm._replace(
+        sigmas=gmm.sigmas.to(dev), priors=gmm.priors.to(dev), keep=gmm.keep.to(dev)
+    )
+    mem = state.memory
+    new.memory = Memory(
+        feats=torch.from_numpy(np.array(mem.feats, np.float32)).to(dev),
+        length=torch.from_numpy(np.array(mem.length, np.int32)).to(dev),
+        cursor=torch.from_numpy(np.array(mem.cursor, np.int32)).to(dev),
+        updated=torch.from_numpy(np.array(mem.updated, bool)).to(dev),
+    )
+    new.step = int(np.asarray(state.step))
+    return new

@@ -19,7 +19,7 @@ from mgproto_tpu_torch.ops.fused_epilogue import BNEpilogue
 
 
 def _tail(planes: int, fused: bool):
-    return BNEpilogue(planes, eps=1e-5, momentum=0.1) if fused else batch_norm(planes)
+    return BNEpilogue(planes, eps=1e-5) if fused else batch_norm(planes)
 
 
 def _finish(bn, out, identity, fused: bool):

@@ -26,6 +26,8 @@ BUILD_DIR = os.path.join(os.path.dirname(_PKG), "build", "torch_kernels")
 SOURCES = {
     "score_pool": "score_pool.cu",
     "bn_epilogue": "bn_epilogue.cu",
+    "score_pool_bwd": "score_pool_bwd.cu",
+    "em_estep": "em_estep.cu",
 }
 
 _PTR, _INT, _I64 = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
@@ -39,6 +41,12 @@ SIGNATURES = {
     "bn_epilogue": {
         "bn_epilogue_f32": ([_PTR] * 5 + [_I64, _INT, _PTR], _INT),
         "bn_epilogue_bf16": ([_PTR] * 5 + [_I64, _INT, _PTR], _INT),
+    },
+    "score_pool_bwd": {
+        "score_pool_bwd": ([_PTR] * 6 + [_INT] * 5 + [_PTR], _INT),
+    },
+    "em_estep": {
+        "em_estep": ([_PTR] * 8 + [_INT] * 4 + [_PTR], _INT),
     },
 }
 

@@ -6,6 +6,12 @@ and the shortcut once and writes the block output once, with the per-channel
 constants a = scale * rsqrt(var + eps), b = bias - mean * a folded here in
 f32.
 
+Gradient: the JAX package has no Pallas backward for the epilogue; its
+backward is the VJP of `epilogue_reference`, recomputed. `_EpilogueFn` does
+the same with autograd. `mean` and `var` are differentiable inputs, so in
+train mode the gradient through the batch statistics stays in the caller's
+graph (`BNEpilogue`).
+
 Layout: 4-D activations are NCHW tensors in `torch.channels_last` memory, so
 their storage is the JAX package's [B, H, W, C] rows, [M, C]. The wrapper
 checks the layout on every device and never copies to fix it.
@@ -17,8 +23,8 @@ CPU tensor it runs `epilogue_reference`, the plain BatchNorm arithmetic.
 from __future__ import annotations
 
 import torch
-from torch import nn
 
+from mgproto_tpu_torch.models.common import BatchNorm
 from mgproto_tpu_torch.ops import _build
 
 _KERNEL_DTYPES = {torch.float32: "bn_epilogue_f32", torch.bfloat16: "bn_epilogue_bf16"}
@@ -94,34 +100,50 @@ def fused_bn_epilogue(x, mean, var, scale, bias, residual, eps: float = 1e-5):
         return epilogue_reference(x, mean, var, scale, bias, residual, eps, x.dtype)
     if x.device.type != "cuda":
         raise ValueError(f"bn epilogue runs on cuda or cpu, not {x.device}")
-    if torch.is_grad_enabled() and any(
-        t.requires_grad for t in (x, mean, var, scale, bias, residual)
-    ):
-        raise NotImplementedError(
-            "the epilogue's backward comes with the training slice; run "
-            "under torch.no_grad()/inference_mode()"
-        )
+    inputs = (x, mean, var, scale, bias, residual)
+    if torch.is_grad_enabled() and any(t.requires_grad for t in inputs):
+        return _EpilogueFn.apply(*inputs, eps)
     return launch_bn_epilogue(x, residual, *fold_constants(mean, var, scale, bias, eps))
 
 
 fused_bn_epilogue.launches = 0  # kernel launches since the last reset
 
 
-class BNEpilogue(nn.BatchNorm2d):
+class _EpilogueFn(torch.autograd.Function):
+    """The kernel forward; the backward is autograd of `epilogue_reference`
+    on the saved inputs, recomputed (the JAX package's `_bn_add_relu_bwd`)."""
+
+    @staticmethod
+    def forward(ctx, x, mean, var, scale, bias, residual, eps):
+        ctx.eps = eps
+        ctx.save_for_backward(x, mean, var, scale, bias, residual)
+        return launch_bn_epilogue(x, residual, *fold_constants(mean, var, scale, bias, eps))
+
+    @staticmethod
+    def backward(ctx, g):
+        need = ctx.needs_input_grad[:6]
+        with torch.enable_grad():
+            inputs = [t.detach().requires_grad_(n) for t, n in zip(ctx.saved_tensors, need)]
+            out = epilogue_reference(*inputs, ctx.eps, inputs[0].dtype)
+            wrt = [t for t, n in zip(inputs, need) if n]
+            grads = iter(torch.autograd.grad(out, wrt, g))
+        return (*(next(grads) if n else None for n in need), None)
+
+
+class BNEpilogue(BatchNorm):
     """BatchNorm + residual add + ReLU with the tail in one pass.
 
-    A `BatchNorm2d` (weight/bias parameters, running_mean/running_var/
-    num_batches_tracked buffers, eps 1e-5), so weights load under the same
-    `bn2`/`bn3` names whether or not the epilogue is fused. Eval mode only in
-    this slice: train-mode statistics and flax's biased running-variance
-    update come with the training slice."""
+    A `BatchNorm` (models/common.py: `BatchNorm2d` parameters and buffers,
+    eps 1e-5, flax's train-mode statistics and biased running update), so
+    weights load under the same `bn2`/`bn3` names whether or not the
+    epilogue is fused. Train mode normalizes with the batch statistics,
+    which stay graph nodes; eval mode with the running ones."""
 
     def forward(self, x, residual):  # type: ignore[override]
         if self.training:
-            raise NotImplementedError(
-                "BNEpilogue runs in eval mode (running statistics) only"
-            )
+            mean, var = self.batch_statistics(x)
+        else:
+            mean, var = self.running_mean, self.running_var
         return fused_bn_epilogue(
-            x, self.running_mean, self.running_var, self.weight, self.bias,
-            residual, eps=self.eps,
+            x, mean, var, self.weight, self.bias, residual, eps=self.eps,
         )

@@ -11,14 +11,26 @@ density at the kernel's index must equal the kernel's value within the same
 atol (a near-tie, not a wrong pick). The epilogue kernel does f32 math and
 rounds once, so it is held against the plain version computed in f32 and
 rounded to the activation dtype: atol 1e-5 (FMA contraction), plus one bf16
-ulp (rtol 2^-7) in bf16.
+ulp (rtol 2^-7) in bf16. The score_pool backward and the E-step statistics:
+atol 1e-5 x the largest magnitude of the plain output (summation order), ll
+atol 1e-4; the backward is also bitwise-equal across two launches. Autograd
+through the kernels against autograd through the plain versions: the same
+tolerances on the gradients.
 """
 
 import pytest
 import torch
 
+from mgproto_tpu_torch.ops import _build
 from mgproto_tpu_torch.ops import fused_epilogue as fe
-from mgproto_tpu_torch.ops.fused_scoring import score_pool, score_pool_plain
+from mgproto_tpu_torch.ops.em_kernels import em_estep_stats, em_estep_stats_plain
+from mgproto_tpu_torch.ops.fused_scoring import (
+    launch_score_pool_bwd,
+    score_pool,
+    score_pool_bwd,
+    score_pool_bwd_plain,
+    score_pool_plain,
+)
 from mgproto_tpu_torch.ops.gaussian import precompute_diag_gaussian
 
 ATOL = 1e-4
@@ -79,12 +91,96 @@ def test_score_pool_kernel_ties_to_lowest_index():
     assert torch.equal(vals, pvals)
 
 
+def _close_to_plain(got, want, scale=1e-5):
+    torch.testing.assert_close(got, want, rtol=0, atol=scale * want.abs().max().item())
+
+
 @pytest.mark.cuda
-def test_score_pool_refuses_grad():
+def test_score_pool_gradient_flows():
+    """The forward and backward kernels under autograd, against autograd of
+    the plain version on the same (near-tie-free) indices."""
     _need_cuda()
-    feat, means, sigmas = _score_inputs(1, 16, 2, 3, 8)
-    with pytest.raises(NotImplementedError):
-        score_pool(feat.requires_grad_(), means, sigmas, 4)
+    feat, means, sigmas = _score_inputs(2, 49, 7, 10, 64, seed=3)  # P = 70
+    g = torch.randn(2, 70, 20, generator=torch.Generator().manual_seed(4)).cuda()
+    fwd, bwd = score_pool.launches, score_pool_bwd.launches
+    x = feat.clone().requires_grad_()
+    vals, idx = score_pool(x, means, sigmas, 20)
+    vals.backward(g)
+    assert (score_pool.launches, score_pool_bwd.launches) == (fwd + 1, bwd + 1)
+    xp = feat.clone().requires_grad_()
+    pvals, pidx = score_pool_plain(xp, means, sigmas, 20)
+    assert torch.equal(idx, pidx)
+    pvals.backward(g)
+    _close_to_plain(x.grad, xp.grad)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("hw", [196, 784])
+def test_score_pool_bwd_kernel_matches_plain_and_is_deterministic(hw):
+    _need_cuda()
+    feat, means, sigmas = _score_inputs(3, hw, 30, 10, 64, seed=5)  # P = 300, ragged tile
+    _, idx = score_pool(feat, means, sigmas, 20)
+    msc, ivar, _ = (t.contiguous() for t in precompute_diag_gaussian(means, sigmas, 1e-10))
+    g = torch.randn(3, 300, 20, generator=torch.Generator().manual_seed(6)).cuda()
+    idx32 = idx.int().contiguous()
+    out = launch_score_pool_bwd(g, idx32, feat, msc, ivar)
+    again = launch_score_pool_bwd(g, idx32, feat, msc, ivar)
+    assert torch.equal(out, again)
+    _close_to_plain(out, score_pool_bwd_plain(g, idx32, feat, msc, ivar))
+    assert torch.equal(score_pool_bwd(g, idx32, feat, msc, ivar), out)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("k", [3, 10])
+def test_em_estep_kernel_matches_plain(k):
+    _need_cuda()
+    gen = torch.Generator().manual_seed(7)
+    a, n, d = 5, 800, 64
+    x = torch.nn.functional.normalize(torch.randn(a, n, d, generator=gen), dim=-1).cuda()
+    means = torch.nn.functional.normalize(torch.randn(a, k, d, generator=gen), dim=-1).cuda()
+    sigmas = (0.3 + 0.2 * torch.rand(a, k, d, generator=gen)).cuda()
+    priors = torch.softmax(torch.randn(a, k, generator=gen), -1).cuda()
+    before = em_estep_stats.launches
+    got = em_estep_stats(x, means, sigmas, priors)
+    assert em_estep_stats.launches == before + 1
+    want = em_estep_stats_plain(x, means, sigmas, priors)
+    torch.testing.assert_close(got[0], want[0], rtol=0, atol=1e-4)
+    for o, r in zip(got[1:], want[1:]):
+        _close_to_plain(o, r)
+    with pytest.raises(ValueError, match="K <= 32"):
+        em_estep_stats(x[:, :, :8], means[:, :1, :8].expand(a, 33, 8), sigmas[:, :1, :8].expand(a, 33, 8),
+                       torch.full((a, 33), 1 / 33, device="cuda"))
+
+
+@pytest.mark.cuda
+def test_epilogue_autograd_matches_plain():
+    """Train mode: the kernel forward with the recomputed backward against
+    autograd of the plain arithmetic, gradients for all six inputs."""
+    _need_cuda()
+    gen = torch.Generator().manual_seed(8)
+    c = 64
+    shape = (2, 7, 7, c)
+
+    def leaves():
+        g2 = torch.Generator().manual_seed(9)
+        x = torch.randn(shape, generator=g2).cuda().permute(0, 3, 1, 2)
+        r = torch.randn(shape, generator=g2).cuda().permute(0, 3, 1, 2)
+        stats = [(0.1 * torch.randn(c, generator=g2)).cuda(), (0.5 + torch.rand(c, generator=g2)).cuda(),
+                 (0.5 + torch.rand(c, generator=g2)).cuda(), (0.1 * torch.randn(c, generator=g2)).cuda()]
+        return [t.requires_grad_() for t in (x, *stats, r)]
+
+    g = torch.randn(shape, generator=gen).cuda().permute(0, 3, 1, 2)
+    kin = leaves()
+    before = fe.fused_bn_epilogue.launches
+    out = fe.fused_bn_epilogue(*kin)
+    assert fe.fused_bn_epilogue.launches == before + 1
+    out.backward(g)
+    pin = leaves()
+    ref = fe.epilogue_reference(*pin, 1e-5, torch.float32)
+    ref.backward(g)
+    torch.testing.assert_close(out, ref, rtol=0, atol=1e-5)
+    for a, b in zip(kin, pin):
+        _close_to_plain(a.grad, b.grad)
 
 
 @pytest.mark.cuda
@@ -114,3 +210,11 @@ def test_wrappers_refuse_devices_without_a_kernel():
     stat = torch.empty(8, device="meta")
     with pytest.raises(ValueError, match="cuda or cpu"):
         fe.fused_bn_epilogue(x, stat, stat, stat, stat, x)
+
+
+def test_a_failed_kernel_build_raises(monkeypatch, tmp_path):
+    """No fallback: a build that nvcc refuses raises, naming the kernel."""
+    monkeypatch.setattr(_build, "BUILD_DIR", str(tmp_path))
+    monkeypatch.setattr(_build, "_nvcc", lambda: "false")
+    with pytest.raises(_build.KernelBuildError, match="em_estep"):
+        _build.build_all(["em_estep", "score_pool_bwd"])

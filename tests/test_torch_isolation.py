@@ -11,7 +11,9 @@ import torch
 
 from mgproto_tpu_torch.config import tiny_test_config
 from mgproto_tpu_torch.core.mgproto import build_mgproto, init_gmm
+from mgproto_tpu_torch.core.state import create_train_state
 from mgproto_tpu_torch.engine.eval import Evaluator
+from mgproto_tpu_torch.engine.train import Trainer
 from mgproto_tpu_torch.numerics import resolve_device
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
@@ -82,3 +84,15 @@ def test_entry_points_need_cuda_or_an_explicit_cpu():
     with pytest.raises(RuntimeError, match="device='cpu'"):
         Evaluator(model, gmm, cfg)
     assert Evaluator(model, gmm, cfg, device="cpu").device.type == "cpu"
+
+
+def test_training_entry_points_need_cuda_or_an_explicit_cpu():
+    if torch.cuda.is_available():
+        pytest.skip("a CUDA device is present: the default device is valid")
+    cfg = tiny_test_config()
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        Trainer(cfg, steps_per_epoch=1)
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        create_train_state(cfg, torch.Generator())
+    trainer = Trainer(cfg, steps_per_epoch=1, device="cpu")
+    assert trainer.init_state(0).gmm.means.device.type == "cpu"

@@ -9,7 +9,9 @@ the port, which runs on the CPU.
 Tolerances: proto map and embedding atol 1e-4; logits and log p(x)
 atol 1e-3, rtol 1e-4 — XLA's and ATen's CPU convolutions sum in different
 orders through the trunk, and the density amplifies a feature error by up
-to |mu - x| / sigma^2.
+to |mu - x| / sigma^2. In train mode (batch statistics, the epilogue's
+recomputed backward): losses atol 1e-4, new running statistics atol 1e-5,
+trunk gradients relative norm 1e-4 per parameter tensor.
 """
 
 import dataclasses
@@ -25,7 +27,8 @@ from mgproto_tpu.engine.train import Trainer
 from mgproto_tpu_torch.config import Config, ModelConfig
 from mgproto_tpu_torch.core.mgproto import GMMState, MGProtoFeatures
 from mgproto_tpu_torch.engine.eval import Evaluator
-from mgproto_tpu_torch.models.convert import from_jax_variables
+from mgproto_tpu_torch.engine.train import Trainer as PortTrainer
+from mgproto_tpu_torch.models.convert import from_jax_train_state, from_jax_variables
 
 
 def _perturbed_state(trainer, state, seed=0):
@@ -91,6 +94,38 @@ def test_port_matches_jax_eval(arch):
     np.testing.assert_allclose(out_t.log_px.numpy(), np.asarray(out_j.log_px),
                                rtol=1e-4, atol=1e-3)
     assert isinstance(ev.gmm, GMMState)
+
+
+@pytest.mark.parametrize("arch", ["resnet18"])
+def test_port_matches_jax_train_mode(arch):
+    """One training step's losses, trunk gradients (through the BN epilogue's
+    recomputed backward and the score_pool backward) and new BatchNorm
+    running statistics, both sides in train mode."""
+    trainer, state, tcfg, _, _ = _both_sides(arch)
+    rng = np.random.default_rng(5)
+    images = rng.normal(size=(3, 32, 32, 3)).astype(np.float32)
+    labels = np.array([1, 3, 1], np.int32)
+    grad_fn = jax.jit(jax.grad(trainer._loss_fn, has_aux=True))
+    grads, (new_stats, _, ce, mine, aux, _) = grad_fn(
+        state.params, state.batch_stats, state.gmm, images, labels, jax.numpy.float32(1))
+
+    pt = PortTrainer(tcfg, steps_per_epoch=1, device="cpu")
+    ps = from_jax_train_state(jax.device_get(state), tcfg, device="cpu")
+    ps, m = pt.train_step(ps, images, labels, use_mine=True, update_gmm=False)
+    assert not m.nonfinite
+    for got, want in ((m.cross_entropy, ce), (m.mine, mine), (m.aux, aux)):
+        np.testing.assert_allclose(got.item(), float(want), atol=1e-4)
+    ref, _ = from_jax_variables({"params": grads["net"], "batch_stats": new_stats},
+                                jax.device_get(state.gmm))
+    sd = ps.model.state_dict()
+    for name, p in ps.model.named_parameters():
+        want = np.asarray(ref[name])
+        err = np.linalg.norm(p.grad.numpy() - want) / np.linalg.norm(want)
+        assert err <= 1e-4, (name, err)
+    for key in ref:
+        if key.endswith(("running_mean", "running_var")):
+            np.testing.assert_allclose(sd[key].numpy(), np.asarray(ref[key]), atol=1e-5,
+                                       err_msg=key)
 
 
 def test_converter_maps_torchvision_names():

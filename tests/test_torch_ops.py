@@ -7,6 +7,13 @@ run them. Tolerances:
     d-long dot products in different orders; values are O(10).
   * bf16 epilogue: rtol 2e-2, atol 3e-2 (a few bf16 ulps at |y| <= 4) — the
     plain version rounds to bf16 after every op, the kernel once.
+  * score_pool feature gradient: atol 1e-5 x max |JAX gradient| (|grad|
+    ~ 1/sigma^2 ~ 10) — the JAX VJP sums by HIGHEST-precision matmuls, the
+    port by scatter_add and ATen matmuls.
+  * E-step statistics: rtol 1e-5 against the largest magnitude of each
+    output (s, sx, sxx), ll atol 1e-4 (|ll| ~ 50).
+  * BatchNorm train mode: output, input gradient and running statistics
+    atol 1e-5 (f32 reductions in another order).
 The CUDA kernels themselves are held against these plain versions in
 tests/test_torch_cuda.py and chip_smoke.py.
 """
@@ -17,14 +24,23 @@ import numpy as np
 import pytest
 import torch
 
+from mgproto_tpu.models.common import BatchNorm as JaxBatchNorm
 from mgproto_tpu.ops import fused_epilogue as jfe
 from mgproto_tpu.ops import gaussian as jg
 from mgproto_tpu.ops import pooling as jp
+from mgproto_tpu.ops.em_kernels import em_estep_stats as jax_em_estep_stats
 from mgproto_tpu.ops.fused_scoring import score_pool as jax_score_pool
+from mgproto_tpu_torch.models.common import BatchNorm
 from mgproto_tpu_torch.ops import fused_epilogue as tfe
 from mgproto_tpu_torch.ops import gaussian as tg
 from mgproto_tpu_torch.ops import pooling as tp
-from mgproto_tpu_torch.ops.fused_scoring import score_pool, score_pool_plain
+from mgproto_tpu_torch.ops.em_kernels import em_estep_stats, em_estep_stats_plain
+from mgproto_tpu_torch.ops.fused_scoring import (
+    score_pool,
+    score_pool_bwd,
+    score_pool_bwd_plain,
+    score_pool_plain,
+)
 
 ATOL = 1e-4
 
@@ -182,12 +198,113 @@ def test_epilogue_refuses_a_layout_it_would_have_to_copy():
 
 def test_cpu_tensors_leave_launch_counters_at_zero():
     score_pool.launches = 0
+    score_pool_bwd.launches = 0
+    em_estep_stats.launches = 0
     tfe.fused_bn_epilogue.launches = 0
     rng = np.random.default_rng(5)
     means, sigmas = _protos(rng, 2, 3, 8)
-    score_pool(_t(_feat(rng, 1, 16, 8)), _t(means), _t(sigmas), 4)
+    feat = _t(_feat(rng, 1, 16, 8)).requires_grad_()
+    vals, _ = score_pool(feat, _t(means), _t(sigmas), 4)
+    vals.sum().backward()
+    em_estep_stats(_t(_feat(rng, 2, 16, 8)), _t(means), _t(sigmas), torch.full((2, 3), 1 / 3))
     (_, _, tx, tr), tstats, _ = _epilogue_inputs(jnp.float32)
     tfe.fused_bn_epilogue(tx, *tstats, tr)
-    assert score_pool.launches == 0
+    assert score_pool.launches == score_pool_bwd.launches == 0
+    assert em_estep_stats.launches == 0
     assert tfe.fused_bn_epilogue.launches == 0
+
+
+@pytest.mark.parametrize("hw,c,k", [(16, 4, 3), (49, 30, 10)])  # P = 12, 300
+def test_score_pool_feature_gradient_matches_jax_vjp(hw, c, k):
+    """The autograd Function's backward (plain version on the CPU) against
+    the JAX custom VJP, whose backward is the Pallas `_bwd_kernel` run in
+    interpret mode; and the plain backward formula on its own."""
+    rng = np.random.default_rng(6)
+    b, d, t = 2, 16, 4
+    feat = _feat(rng, b, hw, d)
+    means, sigmas = _protos(rng, c, k, d)
+    g = rng.normal(size=(b, c * k, t)).astype(np.float32)
+
+    def f(x):
+        return jax_score_pool(x, means, sigmas, t, 1e-10, True)[0]
+
+    vals_j, vjp = jax.vjp(f, jnp.asarray(feat))
+    (grad_j,) = vjp(jnp.asarray(g))
+    tf = _t(feat).requires_grad_()
+    vals, idx = score_pool(tf, _t(means), _t(sigmas), t)
+    vals.backward(_t(g))
+    np.testing.assert_allclose(vals.detach().numpy(), np.asarray(vals_j), atol=ATOL)
+    grad_j = np.asarray(grad_j)
+    tol = 1e-5 * np.abs(grad_j).max()
+    np.testing.assert_allclose(tf.grad.numpy(), grad_j, rtol=0, atol=tol)
+    msc, ivar, _ = tg.precompute_diag_gaussian(_t(means), _t(sigmas), 1e-10)
+    direct = score_pool_bwd_plain(_t(g), idx.int(), _t(feat), msc, ivar)
+    np.testing.assert_allclose(direct.numpy(), grad_j, rtol=0, atol=tol)
+
+
+@pytest.mark.parametrize("a,n,k,d", [(3, 40, 3, 8), (2, 64, 10, 16)])
+def test_em_estep_stats_matches_jax(a, n, k, d):
+    rng = np.random.default_rng(7)
+    x = _feat(rng, a, n, d)
+    means, sigmas = _protos(rng, a, k, d)
+    priors = rng.uniform(0.05, 1.0, size=(a, k)).astype(np.float32)
+    priors /= priors.sum(-1, keepdims=True)
+    ref = jax_em_estep_stats(x, means, sigmas, priors, 1e-10, interpret=True)
+    out = em_estep_stats(_t(x), _t(means), _t(sigmas), _t(priors))
+    plain = em_estep_stats_plain(_t(x), _t(means), _t(sigmas), _t(priors))
+    ll_j = np.asarray(ref[0])
+    for got in (out, plain):
+        np.testing.assert_allclose(got[0].numpy(), ll_j, atol=1e-4)
+        for o, r in zip(got[1:], ref[1:]):
+            r = np.asarray(r)
+            np.testing.assert_allclose(o.numpy(), r, rtol=0, atol=1e-5 * np.abs(r).max())
+    assert torch.allclose(out[1].sum(-1), torch.full((a,), float(n)), atol=1e-3)
+
+
+@pytest.mark.parametrize("fused", [False, True])
+def test_batchnorm_train_mode_matches_flax(fused):
+    """Train-mode BatchNorm (plain and as the epilogue's tail) against flax:
+    output, input gradient (through the batch statistics) and the new
+    running statistics with flax's biased variance."""
+    rng = np.random.default_rng(8)
+    shape, c = (3, 5, 5, 16), 16
+    x = (rng.normal(size=shape) * 2 + 0.5).astype(np.float32)
+    r = rng.normal(size=shape).astype(np.float32)
+    g = rng.normal(size=shape).astype(np.float32)
+    params = {"scale": rng.uniform(0.5, 1.5, c).astype(np.float32),
+              "bias": rng.normal(scale=0.1, size=c).astype(np.float32)}
+    stats = {"mean": rng.normal(scale=0.1, size=c).astype(np.float32),
+             "var": rng.uniform(0.5, 1.5, c).astype(np.float32)}
+    if fused:
+        jmod = jfe.BNEpilogue()
+
+        def apply(v, xx):
+            return jmod.apply(v, xx, r, use_running_average=False, mutable=["batch_stats"])
+    else:
+        jmod = JaxBatchNorm()
+
+        def apply(v, xx):
+            return jmod.apply(v, xx, use_running_average=False, mutable=["batch_stats"])
+    variables = {"params": params, "batch_stats": stats}
+    (y_j, new_j), vjp = jax.vjp(lambda xx: apply(variables, xx), jnp.asarray(x))
+    (gx_j,) = vjp((jnp.asarray(g), jax.tree_util.tree_map(jnp.zeros_like, new_j)))
+
+    bn = (tfe.BNEpilogue(c) if fused else BatchNorm(c)).train()
+    bn.load_state_dict({
+        "weight": _t(params["scale"]), "bias": _t(params["bias"]),
+        "running_mean": _t(stats["mean"]), "running_var": _t(stats["var"]),
+        "num_batches_tracked": torch.tensor(0),
+    })
+    tx = _t(x).permute(0, 3, 1, 2).requires_grad_()
+    y = bn(tx, _t(r).permute(0, 3, 1, 2)) if fused else bn(tx)
+    y.backward(_t(g).permute(0, 3, 1, 2))
+    np.testing.assert_allclose(y.detach().permute(0, 2, 3, 1).numpy(), np.asarray(y_j), atol=1e-5)
+    np.testing.assert_allclose(tx.grad.permute(0, 2, 3, 1).numpy(), np.asarray(gx_j), atol=1e-5)
+    bs = new_j["batch_stats"]
+    np.testing.assert_allclose(bn.running_mean.numpy(), np.asarray(bs["mean"]), atol=1e-6)
+    np.testing.assert_allclose(bn.running_var.numpy(), np.asarray(bs["var"]), atol=1e-5)
+    # torch's own BatchNorm2d moves the running variance by N/(N-1) more
+    n = x.size // c
+    unbiased = 0.9 * stats["var"] + 0.1 * x.reshape(-1, c).var(0, ddof=1)
+    assert np.abs(bn.running_var.numpy() - unbiased).max() > 1e-3 / n
 
