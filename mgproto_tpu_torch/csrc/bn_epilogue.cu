@@ -24,6 +24,8 @@
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include "kernel_common.cuh"
+
 namespace {
 
 struct F32x4 {
@@ -109,10 +111,6 @@ int bn_epilogue_bf16(const void* x, const void* r, const float* a,
                      const float* b, void* out, long long n, int C,
                      void* stream) {
   return launch<Bf16x4>(x, r, a, b, out, n, C, stream);
-}
-
-const char* kernel_error_string(int code) {
-  return cudaGetErrorString((cudaError_t)code);
 }
 
 }  // extern "C"

@@ -34,6 +34,8 @@
 #include <cuda_runtime.h>
 #include <math_constants.h>
 
+#include "kernel_common.cuh"
+
 namespace {
 
 constexpr int kThreads = 256;
@@ -161,19 +163,7 @@ int smem_bytes(int D, int K) {
   return (2 * K * DP + K + 2 * CH * DP + CH * K + CH + 2 * K * D) * 4;
 }
 
-constexpr int kMaxDevices = 64;
-int g_smem_opt_in[kMaxDevices];
-
-cudaError_t reserve_smem(int smem) {
-  int dev = 0;
-  cudaError_t e = cudaGetDevice(&dev);
-  if (e != cudaSuccess) return e;
-  if (dev < kMaxDevices && smem <= g_smem_opt_in[dev]) return cudaSuccess;
-  e = cudaFuncSetAttribute(em_estep_kernel,
-                           cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
-  if (e == cudaSuccess && dev < kMaxDevices) g_smem_opt_in[dev] = smem;
-  return e;
-}
+kernel_common::SmemOptIn g_smem_opt_in;
 
 }  // namespace
 
@@ -186,15 +176,12 @@ int em_estep(const float* x, const float* msc, const float* ivar,
              int A, int N, int D, int K, void* stream) {
   if (K < 1 || K > KMAX) return (int)cudaErrorInvalidValue;
   const int smem = smem_bytes(D, K);
-  const cudaError_t e = reserve_smem(smem);
+  const cudaError_t e =
+      kernel_common::reserve_smem(g_smem_opt_in, em_estep_kernel, smem);
   if (e != cudaSuccess) return (int)e;
   em_estep_kernel<<<A, kThreads, smem, (cudaStream_t)stream>>>(
       x, msc, ivar, cnst, ll, s, sx, sxx, N, D, K);
   return (int)cudaGetLastError();
-}
-
-const char* kernel_error_string(int code) {
-  return cudaGetErrorString((cudaError_t)code);
 }
 
 }  // extern "C"

@@ -34,6 +34,8 @@
 #include <cuda_runtime.h>
 #include <math_constants.h>
 
+#include "kernel_common.cuh"
+
 namespace {
 
 constexpr int TP = 64;  // prototypes per block, one per thread
@@ -131,22 +133,7 @@ score_pool_fwd_kernel(const float* __restrict__ feat,   // [B, HW, D]
 // Dynamic shared memory a launch needs, in bytes.
 int smem_bytes(int D, int T) { return (2 * D * TP + CH * D + 2 * T * TP) * 4; }
 
-// The opt-in limit of dynamic shared memory is a per-device attribute of the
-// kernel: it is raised once per device, and again only for a larger request.
-// A request beyond what the card allows fails there, with the error returned.
-constexpr int kMaxDevices = 64;
-int g_smem_opt_in[kMaxDevices];
-
-cudaError_t reserve_smem(int smem) {
-  int dev = 0;
-  cudaError_t e = cudaGetDevice(&dev);
-  if (e != cudaSuccess) return e;
-  if (dev < kMaxDevices && smem <= g_smem_opt_in[dev]) return cudaSuccess;
-  e = cudaFuncSetAttribute(score_pool_fwd_kernel,
-                           cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
-  if (e == cudaSuccess && dev < kMaxDevices) g_smem_opt_in[dev] = smem;
-  return e;
-}
+kernel_common::SmemOptIn g_smem_opt_in;
 
 }  // namespace
 
@@ -157,16 +144,13 @@ int score_pool_fwd(const float* feat, const float* msc, const float* ivar,
                    const float* cnst, float* vals, int* idx, int B, int HW,
                    int P, int D, int T, void* stream) {
   const int smem = smem_bytes(D, T);
-  const cudaError_t e = reserve_smem(smem);
+  const cudaError_t e =
+      kernel_common::reserve_smem(g_smem_opt_in, score_pool_fwd_kernel, smem);
   if (e != cudaSuccess) return (int)e;
   dim3 grid((P + TP - 1) / TP, B);
   score_pool_fwd_kernel<<<grid, TP, smem, (cudaStream_t)stream>>>(
       feat, msc, ivar, cnst, vals, idx, HW, P, D, T);
   return (int)cudaGetLastError();
-}
-
-const char* kernel_error_string(int code) {
-  return cudaGetErrorString((cudaError_t)code);
 }
 
 }  // extern "C"

@@ -40,6 +40,8 @@
 
 #include <cuda_runtime.h>
 
+#include "kernel_common.cuh"
+
 namespace {
 
 constexpr int kThreads = 256;  // 8 warps
@@ -119,22 +121,7 @@ score_pool_bwd_kernel(const float* __restrict__ g,     // [B, P, T]
 
 int smem_bytes(int D) { return (R * TP + 2 * R * D) * 4 + (R * TP + R) * 4; }
 
-// The dynamic shared-memory opt-in is raised once per device, and again
-// only for a larger request (as in score_pool.cu). A request beyond what the
-// card allows fails there, with the error returned.
-constexpr int kMaxDevices = 64;
-int g_smem_opt_in[kMaxDevices];
-
-cudaError_t reserve_smem(int smem) {
-  int dev = 0;
-  cudaError_t e = cudaGetDevice(&dev);
-  if (e != cudaSuccess) return e;
-  if (dev < kMaxDevices && smem <= g_smem_opt_in[dev]) return cudaSuccess;
-  e = cudaFuncSetAttribute(score_pool_bwd_kernel,
-                           cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
-  if (e == cudaSuccess && dev < kMaxDevices) g_smem_opt_in[dev] = smem;
-  return e;
-}
+kernel_common::SmemOptIn g_smem_opt_in;
 
 }  // namespace
 
@@ -145,16 +132,13 @@ int score_pool_bwd(const float* g, const int* idx, const float* feat,
                    const float* msc, const float* ivar, float* out, int B,
                    int HW, int P, int D, int T, void* stream) {
   const int smem = smem_bytes(D);
-  const cudaError_t e = reserve_smem(smem);
+  const cudaError_t e =
+      kernel_common::reserve_smem(g_smem_opt_in, score_pool_bwd_kernel, smem);
   if (e != cudaSuccess) return (int)e;
   dim3 grid((HW + R - 1) / R, B);
   score_pool_bwd_kernel<<<grid, kThreads, smem, (cudaStream_t)stream>>>(
       g, idx, feat, msc, ivar, out, HW, P, D, T);
   return (int)cudaGetLastError();
-}
-
-const char* kernel_error_string(int code) {
-  return cudaGetErrorString((cudaError_t)code);
 }
 
 }  // extern "C"

@@ -75,9 +75,12 @@ def _nvcc() -> str:
 
 
 def _target(name: str) -> str:
-    src = os.path.join(CSRC, SOURCES[name])
-    with open(src, "rb") as f:
-        h = hashlib.sha256(f.read())
+    h = hashlib.sha256()
+    # the source and the headers every source may include
+    headers = sorted(f for f in os.listdir(CSRC) if f.endswith(".cuh"))
+    for fname in (SOURCES[name], *headers):
+        with open(os.path.join(CSRC, fname), "rb") as f:
+            h.update(f.read())
     h.update(" ".join(NVCC_FLAGS).encode())
     return os.path.join(BUILD_DIR, f"lib{name}-{h.hexdigest()[:16]}.so")
 
