@@ -18,9 +18,10 @@ Phases, one JSON line each:
              two launches; the EM E-step at A = 80 and 200 classes of
              N = 800 rows, K = 10, d = 64. Each is timed beside its bound,
              the plain version and (score_pool) the unfused torch.matmul +
-             torch.topk, as device time (torch.profiler); inputs larger than
-             a MB rotate through copies larger than the L2, so they come from
-             HBM as on the main paths;
+             torch.topk, as device time (CUDA events around calls queued
+             behind a spin kernel); inputs larger than a MB rotate through
+             copies larger than the L2, so they come from HBM as on the main
+             paths;
   4. serve:  the flagship ResNet-34 MGProto (C=200, K=10, d=64, T=20, 224 px,
              seeded random weights) calibrated on 16 ID images and served
              through ServingEngine; every id answered once, bad payloads
@@ -59,6 +60,8 @@ HBM_BYTES_S = 3.35e12  # H100 SXM data sheet: HBM3
 # a timing loop cycles through copies of its inputs that together hold 4x the
 # H100's 50 MB L2, so each launch reads them from HBM as the served path does
 ROTATE_BYTES = 4 * 50e6
+# device_ms's first spin ahead of the timed calls: ~8.5 ms at 1.98 GHz
+SPIN_CYCLES = 1 << 24
 # ResNet-34 without the stem pool at 224 px: (blocks, H=W, C) per stage
 R34_STAGES = ((3, 112, 64), (4, 56, 128), (6, 28, 256), (3, 14, 512))
 # served log p(x) / logits vs the CPU plain path. cuDNN and oneDNN sum the 36
@@ -135,25 +138,32 @@ def event_ms(fn, iters=50, warmup=3):
 
 
 def device_ms(fn, iters=20, warmup=3):
-    """Mean device time per call of `fn`: the summed durations of the GPU
-    activities (kernels, copies) it issued, from torch.profiler, over
-    `iters` warmed calls. Host gaps between kernels are not counted."""
+    """Mean device time per call of `fn` over `iters` warmed calls. The calls
+    are queued behind a spin kernel (torch.cuda._sleep) that outlasts the
+    host's issue of all of them, so the two CUDA events around them time the
+    device's work back to back, without the host's launch gaps. The spin
+    grows until the first event is still pending when the host has issued
+    the last call; a `fn` that synchronizes never gets there and fails."""
     import torch
-    from torch.profiler import ProfilerActivity, profile
 
     for _ in range(warmup):
         fn()
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+    cycles = SPIN_CYCLES
+    for _ in range(4):
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        torch.cuda._sleep(cycles)
+        start.record()
         for _ in range(iters):
             fn()
-        torch.cuda.synchronize()
-    total_us = sum(
-        e.time_range.elapsed_us() for e in prof.events()
-        if e.device_type == torch.autograd.DeviceType.CUDA
-    )
-    check(total_us > 0, "torch.profiler recorded no device time")
-    return total_us / iters / 1e3
+        end.record()
+        queued = not start.query()
+        end.synchronize()
+        if queued:
+            return start.elapsed_time(end) / iters
+        cycles *= 8
+    raise SmokeFailure("device_ms: the host did not queue the calls before the spin ended")
 
 
 def rel_error(got, want):

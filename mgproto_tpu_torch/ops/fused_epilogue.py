@@ -36,7 +36,9 @@ def epilogue_reference(x, mean, var, scale, bias, residual, eps, compute_dtype):
     the ReLU — mgproto_tpu's `epilogue_reference` op for op."""
     dt = compute_dtype
     shape = (1, -1, 1, 1) if x.dim() == 4 else (-1,)
-    mul = torch.rsqrt(var.to(dt) + torch.tensor(eps, dtype=dt, device=var.device))
+    # eps rounded to dt as a device fill: a host scalar copied to the card
+    # would synchronize the stream, once per call of the training backward
+    mul = torch.rsqrt(var.to(dt) + torch.full((), eps, dtype=dt, device=var.device))
     mul = (mul * scale.to(dt)).reshape(shape)
     y = (x.to(dt) - mean.to(dt).reshape(shape)) * mul
     y = y + bias.to(dt).reshape(shape) + residual.to(dt)
