@@ -9,19 +9,20 @@ Phases, one JSON line each:
              one nvcc per source, in parallel;
   3. kernel: each kernel held against its plain PyTorch version on the card
              at the shapes the flagship's serve path (B = 8) and train step
-             (B = 80) give it: score_pool at B = 8, HW = 196 and 784, on
-             exact ties, and at B = 80, HW = 196; the BN epilogue at the four
-             ResNet-34 stage shapes, at B = 8 in f32 and bf16 and at B = 80
-             in f32 on the batch's own statistics; the score_pool backward
-             at B = 80, P = 2000, T = 20 on the train step's mined gradient
-             (HW = 196) and on a dense one (HW = 196 and 784), bitwise across
-             two launches; the EM E-step at A = 80 and 200 classes of
-             N = 800 rows, K = 10, d = 64. Each is timed beside its bound,
-             the plain version and (score_pool) the unfused torch.matmul +
-             torch.topk, as device time (CUDA events around calls queued
-             behind a spin kernel); inputs larger than a MB rotate through
-             copies larger than the L2, so they come from HBM as on the main
-             paths;
+             (B = 80) give it: score_pool at B = 8, HW = 196 and 784, at
+             B = 80 and 1, HW = 196, at a ragged P = 2037 and on exact ties;
+             the BN epilogue at the four ResNet-34 stage shapes, at B = 8 in
+             f32 and bf16 and at B = 80 in f32 on the batch's own
+             statistics; the score_pool backward at B = 80, P = 2000, T = 20
+             on the train step's mined gradient (HW = 196), on a dense one
+             (HW = 196 and 784) and on a hub input (equal feature rows,
+             mined g), bitwise across two launches; the EM E-step at A = 80
+             and 200 classes of N = 800 rows, K = 10, d = 64. Each is timed
+             beside its bound, the plain version and (score_pool) the
+             unfused torch.matmul + torch.topk, as device time (CUDA events
+             around calls queued behind a spin kernel); inputs larger than a
+             MB rotate through copies larger than the L2, so they come from
+             HBM as on the main paths;
   4. serve:  the flagship ResNet-34 MGProto (C=200, K=10, d=64, T=20, 224 px,
              seeded random weights) calibrated on 16 ID images and served
              through ServingEngine; every id answered once, bad payloads
@@ -36,7 +37,9 @@ Phases, one JSON line each:
              three other routes (every kernel off; the epilogue off on both
              sides, so only the scoring kernels and the E-step differ; and
              the plain route on images scaled by 1 + 1e-7, the floor), and
-             activations and their gradients are compared along the trunk;
+             activations and their gradients are compared along the trunk,
+             and the scoring route reports the score_pool kernel's index
+             agreement with the plain pool on its own first-step features;
              then a profile of three steps by kernel family.
 Then the kernel summary line (times at the train step's shapes, the serve
 path's beside them), the card line as nvidia-smi prints it, and last
@@ -242,11 +245,19 @@ def kernel_phase():
     means = torch.nn.functional.normalize(torch.rand(c, k, d, generator=g), dim=-1).cuda()
     sigmas = torch.full((c, k, d), 1.0 / (2 * torch.pi) ** 0.5).cuda()
     cases = []
-    for b, hw, path in ((8, 196, "serve"), (8, 784, "serve"), (TRAIN_BATCH, 196, "train")):
+    for b, hw, path in ((8, 196, "serve"), (8, 784, "serve"), (TRAIN_BATCH, 196, "train"),
+                        (1, 196, "serve")):
         feat = torch.nn.functional.normalize(torch.randn(b, hw, d, generator=g), dim=-1).cuda()
         rec, _ = score_pool_case(f"{path}_b{b}_hw{hw}", feat, means, sigmas, t)
         cases.append(rec)
         emit("kernel", kernel="score_pool", path=path, **rec)
+    # a ragged prototype count: the last 128-prototype tile holds 117 (2037 = 15 * 128 + 117)
+    rmeans = torch.nn.functional.normalize(torch.rand(2037, 1, d, generator=g), dim=-1).cuda()
+    rsig = torch.full((2037, 1, d), 1.0 / (2 * torch.pi) ** 0.5).cuda()
+    feat = torch.nn.functional.normalize(torch.randn(8, 196, d, generator=g), dim=-1).cuda()
+    rec, _ = score_pool_case("ragged_p2037_b8_hw196", feat, rmeans, rsig, t)
+    cases.append(rec)
+    emit("kernel", kernel="score_pool", path="serve", **rec)
     # exact ties: dyadic values repeated at 4 positions each (row n = base[n % 49])
     base = torch.randint(-4, 5, (8, 49, d), generator=g).float() / 16
     tfeat = base.repeat(1, 4, 1).cuda()
@@ -276,8 +287,9 @@ def kernel_phase():
                 e["max_abs_err"] = max(e["max_abs_err"], rec["max_abs_err"])
                 for key in ("ms", "plain_ms", "bound_ms"):
                     e[key] += blocks * rec[key]
-    bwd = [score_pool_bwd_case(hw, mined, means, sigmas, g)
-           for hw, mined in ((196, True), (196, False), (784, False))]
+    bwd = [score_pool_bwd_case(hw, mined, means, sigmas, g, hub)
+           for hw, mined, hub in ((196, True, False), (196, False, False), (784, False, False),
+                                  (196, True, True))]
     est = [em_estep_case(a, g) for a in (80, 200)]
 
     def serve(rec, library=True):
@@ -397,12 +409,15 @@ def ring_of(tensors, nbytes):
     return itertools.cycle([tuple(t.clone() for t in tensors) for _ in range(copies)]), copies
 
 
-def score_pool_bwd_case(hw, mined, means, sigmas, g):
+def score_pool_bwd_case(hw, mined, means, sigmas, g, hub=False):
     """The feature gradient at the flagship train shapes: kernel vs plain,
     bitwise across two launches, timed on rotating inputs. `mined` gives g
     the train step's pattern: the mining mask (ops/pooling.py) leaves a
     sample's own class all T levels and every other prototype its top-1
-    only, so the rest of g is exactly zero; otherwise g is dense."""
+    only, so the rest of g is exactly zero; otherwise g is dense. `hub`
+    makes a sample's feature rows equal, so every prototype's top-T is the
+    same T patches (ties to the lowest index): each of them gathers P
+    entries, the other patches none."""
     import torch
 
     from mgproto_tpu_torch.ops.fused_scoring import (
@@ -415,7 +430,11 @@ def score_pool_bwd_case(hw, mined, means, sigmas, g):
     msc, ivar, const = (x.contiguous() for x in precompute_diag_gaussian(means, sigmas, 1e-10))
     p = msc.shape[0]
     feat = torch.nn.functional.normalize(torch.randn(b, hw, d, generator=g), dim=-1).cuda()
+    if hub:
+        feat = feat[:, :1].expand(b, hw, d).contiguous()
     _, idx = launch_score_pool(feat, msc, ivar, const, t)
+    if hub:
+        check(bool((idx < t).all()), "score_pool_bwd hub: the top-T lists did not concentrate")
     cot = torch.randn(b, p, t, generator=g)
     if mined:
         labels = torch.randint(0, c, (b,), generator=g)
@@ -429,7 +448,7 @@ def score_pool_bwd_case(hw, mined, means, sigmas, g):
     torch.cuda.synchronize()
     err = (out - ref).abs().max().item()
     scale = ref.abs().max().item()
-    what = f"score_pool_bwd hw{hw} {'mined' if mined else 'dense'}"
+    what = f"score_pool_bwd hw{hw} {'mined' if mined else 'dense'}{' hub' if hub else ''}"
     check(torch.isfinite(out).all() and out.shape == (b, hw, d), f"{what}: bad output")
     check(err <= BWD_RTOL * scale, f"{what}: max err {err} > {BWD_RTOL} x {scale}")
     check(torch.equal(out, again), f"{what}: two launches differ")
@@ -446,7 +465,7 @@ def score_pool_bwd_case(hw, mined, means, sigmas, g):
 
     live = int((cot != 0).sum())  # entries the kernel works on (zero g is skipped)
     bms, by = bound_ms(4.0 * live * d, nbytes)
-    rec = {"g": "mined" if mined else "dense", "B": b, "HW": hw, "P": p, "T": t, "d": d,
+    rec = {"g": "mined" if mined else "dense", "hub": hub, "B": b, "HW": hw, "P": p, "T": t, "d": d,
            "live_entries": live, "live_share": live / (b * p * t),
            "max_abs_err": err, "max_abs_plain": scale,
            "bitwise_repeat": True, "input_copies": copies,
@@ -739,20 +758,35 @@ def rel_norm(got, want):
     return ((got - want).norm() / want.norm()).item()
 
 
+def route_features(probe):
+    """The scored features [B, HW, d] of a route's first step: its add-on
+    output, L2-normalized per patch as the head does."""
+    from mgproto_tpu_torch.core.mgproto import l2_normalize
+
+    x = probe.act["add_on"].permute(0, 2, 3, 1)
+    return l2_normalize(x.reshape(x.shape[0], -1, x.shape[-1]).float()).contiguous()
+
+
 def top_t_changed(probe, ref, gmm0, t_levels):
     """Pooled (sample, prototype) lists whose top-T indices differ between
     two routes' features, both scored by the plain pool (so only the
     features differ)."""
-    from mgproto_tpu_torch.core.mgproto import l2_normalize
     from mgproto_tpu_torch.ops.fused_scoring import score_pool_plain
 
-    def idx(p):
-        x = p.act["add_on"].permute(0, 2, 3, 1)
-        x = l2_normalize(x.reshape(x.shape[0], -1, x.shape[-1]).float())
-        return score_pool_plain(x, *gmm0, t_levels)[1]
-
-    a, b = idx(probe), idx(ref)
+    a, b = (score_pool_plain(route_features(p), *gmm0, t_levels)[1] for p in (probe, ref))
     return int((a != b).any(-1).sum()), a.shape[0] * a.shape[1]
+
+
+def forward_agreement(probe, gmm0, t_levels):
+    """The score_pool kernel against its plain version on a route's own
+    first-step features: the share of equal indices and the largest value
+    difference."""
+    from mgproto_tpu_torch.ops.fused_scoring import score_pool, score_pool_plain
+
+    x = route_features(probe)
+    vals, idx = score_pool(x, *gmm0, t_levels)
+    pvals, pidx = score_pool_plain(x, *gmm0, t_levels)
+    return (idx == pidx).float().mean().item(), (vals - pvals).abs().max().item()
 
 
 def route_record(name, run, ref, gmm0, t_levels):
@@ -897,6 +931,9 @@ def train_phase():
         at += n
     ref["groups"] = groups
     records = {name: route_record(name, run, ref, gmm0, m.mine_T) for name, run in runs.items()}
+    agree, fwd_err = forward_agreement(runs["scoring"]["probe"], gmm0, m.mine_T)
+    records["scoring"].update(index_agreement=agree, fwd_max_abs_err=fwd_err)
+    check(fwd_err <= SCORE_ATOL, f"score_pool at the train step's features: max err {fwd_err}")
     pmet = ref["met"]
     check(pmet.em_compact_fallback == 1, "plain route: first EM call did not fall back")
     grad_floor = records["floor"]["grad_rel_err"]

@@ -32,6 +32,14 @@ cudaError_t reserve_smem(SmemOptIn& opt_in, Kernel kernel, int smem) {
   return e;
 }
 
+// The number of SMs of the current device, for grids sized to the card.
+inline cudaError_t sm_count(int* sms) {
+  int dev = 0;
+  cudaError_t e = cudaGetDevice(&dev);
+  if (e != cudaSuccess) return e;
+  return cudaDeviceGetAttribute(sms, cudaDevAttrMultiProcessorCount, dev);
+}
+
 }  // namespace kernel_common
 
 // The message of a cudaError_t a launcher returned.

@@ -43,7 +43,8 @@ SIGNATURES = {
         "bn_epilogue_bf16": ([_PTR] * 5 + [_I64, _INT, _PTR], _INT),
     },
     "score_pool_bwd": {
-        "score_pool_bwd": ([_PTR] * 6 + [_INT] * 5 + [_PTR], _INT),
+        "score_pool_bwd": ([_PTR] * 7 + [_INT] * 5 + [_PTR], _INT),
+        "score_pool_bwd_scratch_bytes": ([_INT] * 5, _I64),
     },
     "em_estep": {
         "em_estep": ([_PTR] * 8 + [_INT] * 4 + [_PTR], _INT),

@@ -13,8 +13,9 @@ here, so the backward returns a gradient for `feat` only,
     w[n, p]      = sum_t g[p, t] * [idx[p, t] == n],
 
 computed by csrc/score_pool_bwd.cu (which replaces the Pallas `_bwd_kernel`)
-from the saved features and indices, every output element summed by one
-thread in a fixed order, so the result is deterministic.
+from the saved features and indices: the live (nonzero) entries of g are
+sorted by patch, and every sum is taken in a fixed order without float
+atomics, so the result is deterministic.
 
 On a CUDA tensor `score_pool` launches the kernels (or raises); on a CPU
 tensor it runs the plain versions, `score_pool_plain` and
@@ -30,6 +31,20 @@ import torch
 from mgproto_tpu_torch.ops import _build
 from mgproto_tpu_torch.ops.gaussian import DEFAULT_SIGMA_EPS, precompute_diag_gaussian
 from mgproto_tpu_torch.ops.pooling import top_t
+
+
+# what the CUDA kernels take: csrc/score_pool.cu keeps each top-T list in
+# registers and a [2d, 128] prototype slab in shared memory
+KERNEL_MAX_T = 32
+KERNEL_MAX_D = 64
+
+
+def _check_kernel_widths(t_levels, d):
+    if t_levels > KERNEL_MAX_T or d > KERNEL_MAX_D:
+        raise ValueError(
+            f"score_pool kernels take at most T={KERNEL_MAX_T} levels and d={KERNEL_MAX_D}, "
+            f"got T={t_levels}, d={d}"
+        )
 
 
 def _plain_fwd(feat, m_scaled, inv_var, const, t_levels: int):
@@ -80,6 +95,7 @@ def launch_score_pool(feat, m_scaled, inv_var, const, t_levels: int):
         _check_f32(name, t, shape, feat.device)
     if not 1 <= t_levels <= hw:
         raise ValueError(f"t_levels={t_levels} must be in [1, HW={hw}]")
+    _check_kernel_widths(t_levels, d)
     lib = _build.load("score_pool")
     vals = torch.empty(b, p, t_levels, dtype=torch.float32, device=feat.device)
     idx = torch.empty(b, p, t_levels, dtype=torch.int32, device=feat.device)
@@ -99,7 +115,7 @@ def launch_score_pool_bwd(g, idx, feat, m_scaled, inv_var):
     int32 (the forward's: each prototype's T indices distinct), feat
     [B, HW, d], m_scaled/inv_var [P, d], contiguous on one CUDA device.
     Returns grad_feat [B, HW, d] float32, deterministic (no float atomics).
-    Counts one launch."""
+    Counts one launch (the kernel's compaction and accumulation passes)."""
     b, hw, d = feat.shape
     p, t_levels = g.shape[1], g.shape[2]
     for name, t, shape in (("g", g, (b, p, t_levels)), ("feat", feat, (b, hw, d)),
@@ -108,11 +124,15 @@ def launch_score_pool_bwd(g, idx, feat, m_scaled, inv_var):
     if (idx.dtype != torch.int32 or not idx.is_contiguous()
             or idx.shape != g.shape or idx.device != feat.device):
         raise ValueError(f"score_pool_bwd kernel: idx must be a contiguous int32 {tuple(g.shape)} tensor")
+    _check_kernel_widths(t_levels, d)
     lib = _build.load("score_pool_bwd")
     out = torch.empty(b, hw, d, dtype=torch.float32, device=feat.device)
+    # the kernels' worst-case scratch: every entry live, every patch a hub
+    scratch = torch.empty(lib.score_pool_bwd_scratch_bytes(b, hw, p, d, t_levels),
+                          dtype=torch.uint8, device=feat.device)
     code = lib.score_pool_bwd(
         g.data_ptr(), idx.data_ptr(), feat.data_ptr(), m_scaled.data_ptr(),
-        inv_var.data_ptr(), out.data_ptr(), b, hw, p, d, t_levels,
+        inv_var.data_ptr(), out.data_ptr(), scratch.data_ptr(), b, hw, p, d, t_levels,
         torch.cuda.current_stream(feat.device).cuda_stream,
     )
     _build.check(lib, code, "score_pool_bwd launch")

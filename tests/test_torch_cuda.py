@@ -25,6 +25,9 @@ from mgproto_tpu_torch.ops import _build
 from mgproto_tpu_torch.ops import fused_epilogue as fe
 from mgproto_tpu_torch.ops.em_kernels import em_estep_stats, em_estep_stats_plain
 from mgproto_tpu_torch.ops.fused_scoring import (
+    KERNEL_MAX_D,
+    KERNEL_MAX_T,
+    launch_score_pool,
     launch_score_pool_bwd,
     score_pool,
     score_pool_bwd,
@@ -61,8 +64,8 @@ def assert_score_pool_close(vals, idx, pvals, pidx, dens, atol=ATOL):
     torch.testing.assert_close(vals, pvals, rtol=0, atol=atol)
     picked = torch.gather(dens, 2, idx)
     torch.testing.assert_close(picked, vals, rtol=0, atol=atol)
-    for row in idx.reshape(-1, idx.shape[-1]):
-        assert row.unique().numel() == row.numel()
+    srt, _ = idx.sort(-1)
+    assert bool((srt[..., 1:] != srt[..., :-1]).all()), "an index repeats within a top-T list"
 
 
 @pytest.mark.cuda
@@ -128,6 +131,96 @@ def test_score_pool_bwd_kernel_matches_plain_and_is_deterministic(hw):
     assert torch.equal(out, again)
     _close_to_plain(out, score_pool_bwd_plain(g, idx32, feat, msc, ivar))
     assert torch.equal(score_pool_bwd(g, idx32, feat, msc, ivar), out)
+
+
+P_RAGGED = 2037  # 2000 + 37: the last prototype tile of either kernel is partial
+
+
+def _ragged_inputs(b, hw, seed):
+    """Flagship-width features and a ragged prototype count (C = 2037, K = 1)."""
+    return _score_inputs(b, hw, P_RAGGED, 1, 64, seed=seed)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("t", [1, 20])
+@pytest.mark.parametrize("hw", [49, 196, 784])
+@pytest.mark.parametrize("b", [1, 8, 80])
+def test_score_pool_kernel_at_flagship_widths(b, hw, t):
+    """The forward at the serve and train batch sizes, every feature-map
+    size the configurations give, T = 1 and 20, and a ragged P."""
+    _need_cuda()
+    feat, means, sigmas = _ragged_inputs(b, hw, seed=10 + hw + t)
+    before = score_pool.launches
+    vals, idx = score_pool(feat, means, sigmas, t)
+    again, idx2 = score_pool(feat, means, sigmas, t)
+    assert score_pool.launches == before + 2
+    assert vals.shape == (b, P_RAGGED, t) and torch.isfinite(vals).all()
+    assert torch.equal(vals, again) and torch.equal(idx, idx2)
+    pvals, pidx = score_pool_plain(feat, means, sigmas, t)
+    assert_score_pool_close(vals, idx, pvals, pidx, _densities(feat, means, sigmas))
+
+
+def _bwd_case(b, hw, t, g_kind, hub, seed):
+    """Inputs of the backward: the forward's indices and a gradient that is
+    dense, mined (the train step's pattern: a sample's own class keeps all
+    T levels, every other prototype its top-1) or zero. `hub` makes every
+    feature row of a sample equal, so every prototype picks the same T
+    patches (ties go to the lowest indices)."""
+    feat, means, sigmas = _ragged_inputs(b, hw, seed)
+    if hub:
+        feat = feat[:, :1].expand(b, hw, feat.shape[-1]).contiguous()
+    _, idx = score_pool(feat, means, sigmas, t)
+    msc, ivar, _ = (x.contiguous() for x in precompute_diag_gaussian(means, sigmas, 1e-10))
+    gen = torch.Generator().manual_seed(seed + 1)
+    g = torch.randn(b, P_RAGGED, t, generator=gen)
+    if g_kind == "mined":
+        k = 10  # prototypes per class, as at the flagship
+        labels = torch.randint(0, P_RAGGED // k, (b,), generator=gen)
+        own = (torch.arange(P_RAGGED)[None, :] // k) == labels[:, None]
+        g = g * (own[:, :, None] | (torch.arange(t) == 0)[None, None, :])
+    elif g_kind == "zero":
+        g = torch.zeros_like(g)
+    return g.cuda(), idx.int().contiguous(), feat, msc, ivar
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("g_kind", ["dense", "mined"])
+@pytest.mark.parametrize("t", [1, 20])
+@pytest.mark.parametrize("hw", [49, 196, 784])
+def test_score_pool_bwd_kernel_at_flagship_widths(hw, t, g_kind):
+    _need_cuda()
+    g, idx, feat, msc, ivar = _bwd_case(8, hw, t, g_kind, hub=False, seed=20 + hw + t)
+    before = score_pool_bwd.launches
+    out = launch_score_pool_bwd(g, idx, feat, msc, ivar)
+    again = launch_score_pool_bwd(g, idx, feat, msc, ivar)
+    assert score_pool_bwd.launches == before + 2
+    assert torch.equal(out, again)
+    _close_to_plain(out, score_pool_bwd_plain(g, idx, feat, msc, ivar))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("g_kind", ["dense", "mined"])
+@pytest.mark.parametrize("hw", [196, 784])
+def test_score_pool_bwd_kernel_on_hub_patches(hw, g_kind):
+    """Every prototype's top-T on the same T patches: each of those patches
+    gathers P entries (split over many warps), the rest none."""
+    _need_cuda()
+    g, idx, feat, msc, ivar = _bwd_case(8, hw, 20, g_kind, hub=True, seed=30 + hw)
+    assert bool((idx < 20).all()), "the hub input did not concentrate the top-T lists"
+    out = launch_score_pool_bwd(g, idx, feat, msc, ivar)
+    again = launch_score_pool_bwd(g, idx, feat, msc, ivar)
+    assert torch.equal(out, again)
+    _close_to_plain(out, score_pool_bwd_plain(g, idx, feat, msc, ivar))
+    assert torch.equal(out[:, 20:], torch.zeros_like(out[:, 20:]))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("hub", [False, True])
+def test_score_pool_bwd_kernel_zero_gradient_is_exactly_zero(hub):
+    _need_cuda()
+    g, idx, feat, msc, ivar = _bwd_case(8, 196, 20, "zero", hub=hub, seed=40)
+    out = launch_score_pool_bwd(g, idx, feat, msc, ivar)
+    assert torch.equal(out, torch.zeros_like(out))
 
 
 @pytest.mark.cuda
@@ -210,6 +303,21 @@ def test_wrappers_refuse_devices_without_a_kernel():
     stat = torch.empty(8, device="meta")
     with pytest.raises(ValueError, match="cuda or cpu"):
         fe.fused_bn_epilogue(x, stat, stat, stat, stat, x)
+
+
+@pytest.mark.parametrize("t,d", [(KERNEL_MAX_T + 1, 8), (4, KERNEL_MAX_D + 1)])
+def test_score_pool_kernels_refuse_widths_they_do_not_take(t, d):
+    """The forward keeps at most KERNEL_MAX_T levels in registers and both
+    kernels take d <= KERNEL_MAX_D; wider inputs are refused before anything
+    is built or launched."""
+    feat = torch.zeros(1, 2 * KERNEL_MAX_T, d)
+    consts = torch.zeros(3, d), torch.ones(3, d), torch.zeros(3)
+    with pytest.raises(ValueError, match="at most"):
+        launch_score_pool(feat, *consts, t)
+    g = torch.zeros(1, 3, t)
+    idx = torch.zeros(1, 3, t, dtype=torch.int32)
+    with pytest.raises(ValueError, match="at most"):
+        launch_score_pool_bwd(g, idx, feat, *consts[:2])
 
 
 def test_a_failed_kernel_build_raises(monkeypatch, tmp_path):
