@@ -16,8 +16,11 @@ Phases, one JSON line each:
              statistics; the score_pool backward at B = 80, P = 2000, T = 20
              on the train step's mined gradient (HW = 196), on a dense one
              (HW = 196 and 784) and on a hub input (equal feature rows,
-             mined g), bitwise across two launches; the EM E-step at A = 80
-             and 200 classes of N = 800 rows, K = 10, d = 64. Each is timed
+             mined g), bitwise across two launches; the EM E-step over
+             A = 200 classes of N = 800 rows, K = 10, d = 64 and over a
+             compact slab of 80 of them (bitwise across two launches, and
+             equal to the same classes in the A = 200 call), and on that
+             slab with sigmas in 0.3-0.5. Each is timed
              beside its bound, the plain version and (score_pool) the
              unfused torch.matmul + torch.topk, as device time (CUDA events
              around calls queued behind a spin kernel); inputs larger than a
@@ -290,7 +293,7 @@ def kernel_phase():
     bwd = [score_pool_bwd_case(hw, mined, means, sigmas, g, hub)
            for hw, mined, hub in ((196, True, False), (196, False, False), (784, False, False),
                                   (196, True, True))]
-    est = [em_estep_case(a, g) for a in (80, 200)]
+    est = em_estep_cases(g)
 
     def serve(rec, library=True):
         keys = ("ms", "plain_ms", "bound_ms") + (("library_ms",) if library else ())
@@ -336,7 +339,8 @@ def kernel_phase():
             "launches": None, "max_abs_err": max(r["max_abs_err"] for r in est),
             "ms": est[0]["ms"], "plain_ms": est[0]["plain_ms"],
             "bound_ms": est[0]["bound_ms"], "bound_by": est[0]["bound_by"],
-            "library_ms": None, "at": "A=80 (the compact width), N=800",
+            "library_ms": None, "at": "A=80 (the compact width), N=800, K=10",
+            "dense": dict(serve(est[1], False), at="A=200 (the dense fallback)"),
         },
     ]
 
@@ -475,46 +479,75 @@ def score_pool_bwd_case(hw, mined, means, sigmas, g, hub=False):
     return rec
 
 
-def em_estep_case(a, g):
-    """The E-step over A classes of a flagship bank: kernel vs plain, timed
-    on rotating bank slabs."""
+def em_estep_case(name, x, means, sigmas, priors, timed=True):
+    """The E-step over one slab of classes: kernel vs plain, bitwise across
+    two launches, timed on rotating bank slabs. Returns the record and the
+    kernel's outputs."""
     import torch
 
     from mgproto_tpu_torch.ops.em_kernels import _prepare, em_estep_stats_plain, launch_em_estep
 
-    n, k, d = 800, 10, 64
-    x = torch.nn.functional.normalize(torch.randn(a, n, d, generator=g), dim=-1).cuda()
-    means = torch.nn.functional.normalize(torch.rand(a, k, d, generator=g), dim=-1).cuda()
-    sigmas = torch.full((a, k, d), 1.0 / (2 * torch.pi) ** 0.5).cuda()
-    priors = torch.softmax(torch.randn(a, k, generator=g), -1).cuda()
+    a, n, d = x.shape
+    k = means.shape[1]
     msc, ivar, const = (t.contiguous() for t in _prepare(means, sigmas, priors, 1e-10))
     got = launch_em_estep(x, msc, ivar, const)
+    again = launch_em_estep(x, msc, ivar, const)
     want = em_estep_stats_plain(x, means, sigmas, priors)
     torch.cuda.synchronize()
     ll_err = (got[0] - want[0]).abs().max().item()
     errs = [(o - r).abs().max().item() for o, r in zip(got[1:], want[1:])]
     scales = [r.abs().max().item() for r in want[1:]]
-    check(all(torch.isfinite(o).all() for o in got), f"em_estep A={a}: non-finite output")
-    check(ll_err <= ESTEP_LL_ATOL, f"em_estep A={a}: ll err {ll_err} > {ESTEP_LL_ATOL}")
-    for name, e, sc in zip(("s", "sx", "sxx"), errs, scales):
-        check(e <= ESTEP_RTOL * sc, f"em_estep A={a}: {name} err {e} > {ESTEP_RTOL} x {sc}")
-    ring, copies = ring_of((x,), 4.0 * a * n * d)
+    what = f"em_estep {name}"
+    check(all(torch.isfinite(o).all() for o in got), f"{what}: non-finite output")
+    check(ll_err <= ESTEP_LL_ATOL, f"{what}: ll err {ll_err} > {ESTEP_LL_ATOL}")
+    for stat, e, sc in zip(("s", "sx", "sxx"), errs, scales):
+        check(e <= ESTEP_RTOL * sc, f"{what}: {stat} err {e} > {ESTEP_RTOL} x {sc}")
+    check(all(torch.equal(p, q) for p, q in zip(got, again)), f"{what}: two launches differ")
+    rec = {"case": name, "A": a, "N": n, "K": k, "d": d, "max_abs_err": max(errs),
+           "ll_err": ll_err, "errs_s_sx_sxx": errs, "max_abs_plain_s_sx_sxx": scales,
+           "bitwise_repeat": True}
+    if timed:
+        ring, copies = ring_of((x,), 4.0 * a * n * d)
 
-    def kernel():
-        return launch_em_estep(next(ring)[0], msc, ivar, const)
+        def kernel():
+            return launch_em_estep(next(ring)[0], msc, ivar, const)
 
-    def plain():
-        return em_estep_stats_plain(next(ring)[0], means, sigmas, priors)
+        def plain():
+            return em_estep_stats_plain(next(ring)[0], means, sigmas, priors)
 
-    flops = 8.0 * a * n * k * d  # two products for w, two for sx / sxx
-    nbytes = 4.0 * (a * n * d + 2 * a * k * d + a * k) + 4.0 * (a + a * k + 2 * a * k * d)
-    bms, by = bound_ms(flops, nbytes)
-    rec = {"A": a, "N": n, "K": k, "d": d, "max_abs_err": max(errs), "ll_err": ll_err,
-           "errs_s_sx_sxx": errs, "input_copies": copies,
-           "ms": device_ms(kernel), "event_ms": event_ms(kernel), "plain_ms": device_ms(plain),
-           "bound_ms": bms, "bound_by": by}
+        # the work itself: the partial-statistics scratch is not counted
+        flops = 8.0 * a * n * k * d  # two products for w, two for sx / sxx
+        nbytes = 4.0 * (a * n * d + 2 * a * k * d + a * k) + 4.0 * (a + a * k + 2 * a * k * d)
+        bms, by = bound_ms(flops, nbytes)
+        rec.update(input_copies=copies, ms=device_ms(kernel), event_ms=event_ms(kernel),
+                   plain_ms=device_ms(plain), bound_ms=bms, bound_by=by)
     emit("kernel", kernel="em_estep", **rec)
-    return rec
+    return rec, got
+
+
+def em_estep_cases(g):
+    """The E-step at the train step's two widths: every class of a flagship
+    bank (A = 200, the dense call the first EM round falls back to) and a
+    compact slab of 80 of them gathered as core/em.py gathers it, which
+    must give the same bits as those classes inside the A = 200 call; then
+    the slab again with sigmas drawn in 0.3-0.5 (sharp responsibilities)."""
+    import torch
+
+    c, n, k, d = 200, 800, 10, 64
+    x = torch.nn.functional.normalize(torch.randn(c, n, d, generator=g), dim=-1).cuda()
+    means = torch.nn.functional.normalize(torch.rand(c, k, d, generator=g), dim=-1).cuda()
+    sigmas = torch.full((c, k, d), 1.0 / (2 * torch.pi) ** 0.5).cuda()
+    priors = torch.softmax(torch.randn(c, k, generator=g), -1).cuda()
+    idx = torch.randperm(c, generator=g)[:TRAIN_BATCH].sort().values.cuda()
+    dense, dense_out = em_estep_case("A=200", x, means, sigmas, priors)
+    slab = [t[idx].contiguous() for t in (x, means, sigmas, priors)]
+    compact, compact_out = em_estep_case("A=80", *slab)
+    check(all(torch.equal(f[idx], s) for f, s in zip(dense_out, compact_out)),
+          "em_estep: classes of the A=80 slab differ from the same classes in the A=200 call")
+    compact["slab_independent"] = True
+    sharp_sig = (0.3 + 0.2 * torch.rand(TRAIN_BATCH, k, d, generator=g)).cuda()
+    sharp, _ = em_estep_case("A=80, sigma 0.3-0.5", slab[0], slab[1], sharp_sig, slab[3], timed=False)
+    return compact, dense, sharp
 
 
 # -------------------------------------------------------------------- serve

@@ -47,7 +47,8 @@ SIGNATURES = {
         "score_pool_bwd_scratch_bytes": ([_INT] * 5, _I64),
     },
     "em_estep": {
-        "em_estep": ([_PTR] * 8 + [_INT] * 4 + [_PTR], _INT),
+        "em_estep": ([_PTR] * 9 + [_INT] * 4 + [_PTR], _INT),
+        "em_estep_scratch_bytes": ([_INT] * 4, _I64),
     },
 }
 

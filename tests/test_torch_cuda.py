@@ -13,7 +13,8 @@ rounds once, so it is held against the plain version computed in f32 and
 rounded to the activation dtype: atol 1e-5 (FMA contraction), plus one bf16
 ulp (rtol 2^-7) in bf16. The score_pool backward and the E-step statistics:
 atol 1e-5 x the largest magnitude of the plain output (summation order), ll
-atol 1e-4; the backward is also bitwise-equal across two launches. Autograd
+atol 1e-4; both are also bitwise-equal across two launches, and the E-step
+gives a class the same bits in any slab of classes. Autograd
 through the kernels against autograd through the plain versions: the same
 tolerances on the gradients.
 """
@@ -23,7 +24,7 @@ import torch
 
 from mgproto_tpu_torch.ops import _build
 from mgproto_tpu_torch.ops import fused_epilogue as fe
-from mgproto_tpu_torch.ops.em_kernels import em_estep_stats, em_estep_stats_plain
+from mgproto_tpu_torch.ops.em_kernels import em_estep_stats, em_estep_stats_plain, launch_em_estep
 from mgproto_tpu_torch.ops.fused_scoring import (
     KERNEL_MAX_D,
     KERNEL_MAX_T,
@@ -223,26 +224,75 @@ def test_score_pool_bwd_kernel_zero_gradient_is_exactly_zero(hub):
     assert torch.equal(out, torch.zeros_like(out))
 
 
+def _estep_inputs(a, n, k, d, seed):
+    """A bank slab of unit rows and components with sigmas in 0.3-0.5, so
+    responsibilities are sharp."""
+    g = torch.Generator(device="cuda").manual_seed(seed)
+    x = torch.nn.functional.normalize(torch.randn(a, n, d, generator=g, device="cuda"), dim=-1)
+    means = torch.nn.functional.normalize(torch.randn(a, k, d, generator=g, device="cuda"), dim=-1)
+    sigmas = 0.3 + 0.2 * torch.rand(a, k, d, generator=g, device="cuda")
+    priors = torch.softmax(torch.randn(a, k, generator=g, device="cuda"), -1)
+    return x, means, sigmas, priors
+
+
+# N around the kernel's 64-row blocks (1, 63, 64, 65), the flagship's 800
+# (a ragged last block of 32) and 1000
 @pytest.mark.cuda
-@pytest.mark.parametrize("k", [3, 10])
-def test_em_estep_kernel_matches_plain(k):
+@pytest.mark.parametrize("a", [1, 80, 200])
+@pytest.mark.parametrize("n", [1, 63, 64, 65, 800, 1000])
+@pytest.mark.parametrize("k", [1, 3, 10, 32])
+def test_em_estep_kernel_matches_plain(a, n, k):
+    """Kernel vs plain (ll atol 1e-4; s/sx/sxx 1e-5 x max), one launch
+    counted per E-step, and bitwise-equal repeats."""
     _need_cuda()
-    gen = torch.Generator().manual_seed(7)
-    a, n, d = 5, 800, 64
-    x = torch.nn.functional.normalize(torch.randn(a, n, d, generator=gen), dim=-1).cuda()
-    means = torch.nn.functional.normalize(torch.randn(a, k, d, generator=gen), dim=-1).cuda()
-    sigmas = (0.3 + 0.2 * torch.rand(a, k, d, generator=gen)).cuda()
-    priors = torch.softmax(torch.randn(a, k, generator=gen), -1).cuda()
+    x, means, sigmas, priors = _estep_inputs(a, n, k, 64, seed=7 + n + k)
     before = em_estep_stats.launches
     got = em_estep_stats(x, means, sigmas, priors)
     assert em_estep_stats.launches == before + 1
+    again = em_estep_stats(x, means, sigmas, priors)
     want = em_estep_stats_plain(x, means, sigmas, priors)
     torch.testing.assert_close(got[0], want[0], rtol=0, atol=1e-4)
     for o, r in zip(got[1:], want[1:]):
         _close_to_plain(o, r)
-    with pytest.raises(ValueError, match="K <= 32"):
-        em_estep_stats(x[:, :, :8], means[:, :1, :8].expand(a, 33, 8), sigmas[:, :1, :8].expand(a, 33, 8),
-                       torch.full((a, 33), 1 / 33, device="cuda"))
+    for o, r in zip(got, again):
+        assert torch.equal(o, r), "two launches differ"
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("k", [3, 10])
+def test_em_estep_kernel_is_slab_independent(k):
+    """Classes run in a compact slab of 80 give the same bits as the same
+    classes inside the A=200 call (the dense fallback)."""
+    _need_cuda()
+    x, means, sigmas, priors = _estep_inputs(200, 800, k, 64, seed=11)
+    idx = torch.randperm(200, generator=torch.Generator().manual_seed(12))[:80].cuda()
+    full = em_estep_stats(x, means, sigmas, priors)
+    slab = em_estep_stats(*(t[idx].contiguous() for t in (x, means, sigmas, priors)))
+    for f, s_ in zip(full, slab):
+        assert torch.equal(f[idx], s_)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("d", [4, 8, 16, 60])
+def test_em_estep_kernel_narrow_features(d):
+    """Features narrower than 64 (a multiple of 4) against plain."""
+    _need_cuda()
+    x, means, sigmas, priors = _estep_inputs(3, 100, 10, d, seed=13)
+    got = em_estep_stats(x, means, sigmas, priors)
+    want = em_estep_stats_plain(x, means, sigmas, priors)
+    torch.testing.assert_close(got[0], want[0], rtol=0, atol=1e-4)
+    for o, r in zip(got[1:], want[1:]):
+        _close_to_plain(o, r)
+
+
+@pytest.mark.parametrize("k,d", [(33, 64), (10, 6), (10, 68), (10, 0)])
+def test_em_estep_kernel_refuses_shapes_it_does_not_take(k, d):
+    """The kernel takes K <= 32 and d a multiple of 4 up to 64; other
+    shapes are refused before anything is built or launched."""
+    x = torch.zeros(2, 8, d)
+    consts = torch.zeros(2, k, d), torch.ones(2, k, d), torch.zeros(2, k)
+    with pytest.raises(ValueError, match="em_estep kernel takes"):
+        launch_em_estep(x, *consts)
 
 
 @pytest.mark.cuda
