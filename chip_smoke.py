@@ -43,11 +43,27 @@ Phases, one JSON line each:
              activations and their gradients are compared along the trunk,
              and the scoring route reports the score_pool kernel's index
              agreement with the plain pool on its own first-step features;
-             then a profile of three steps by kernel family.
+             then a profile of three steps by kernel family;
+  6. input:  the training input path: a seeded folder of 800 JPEGs (200
+             classes x 4, 500x375, quality 90) under build/input_phase/,
+             read by build_pipelines' train loader (ImageFolder, the
+             geometry-only TrainTransform, 8 spawn workers, the shared-memory
+             ring) on the uint8 wire with per-sample seeds; the host native
+             library built and held to its numpy plain version; two passes
+             over epoch 0's first two batches, and the thread backend, give
+             the same bytes (sha256); the augmentation tail on the card held
+             to the same function on the CPU and timed; the first step on
+             the uint8 route held to the same batch augmented on the CPU and
+             shipped as f32; one batch on each wire copied alone, timed by
+             put_batch's CUDA events on its copy stream; then the flagship
+             trained for one epoch (10 steps at batch 80, mining and EM on)
+             through Trainer.train_epoch with the launches counted and each
+             step's copy timed the same way (beside PCIe Gen5 x16's peak),
+             and a profile of the next epoch.
 Then the kernel summary line (times at the train step's shapes, the serve
-path's beside them), the card line as nvidia-smi prints it, and last
-`{"ok": true, "device": {...}}`. Any failed check exits non-zero before that
-line is printed.
+path's beside them; `launches` counted on the input phase's epoch), the card
+line as nvidia-smi prints it, and last `{"ok": true, "device": {...}}`. Any
+failed check exits non-zero before that line is printed.
 """
 
 from __future__ import annotations
@@ -63,6 +79,9 @@ HERE = os.path.dirname(os.path.abspath(__file__))
 
 F32_TFLOPS = 67e12  # H100 SXM data sheet: non-tensor float32
 HBM_BYTES_S = 3.35e12  # H100 SXM data sheet: HBM3
+# H100 SXM data sheet: PCIe Gen5 x16, 128 GB/s both ways; one direction's
+# 64 GB/s less the 128b/130b line code
+PCIE_BYTES_S = 64e9 * 128 / 130
 # a timing loop cycles through copies of its inputs that together hold 4x the
 # H100's 50 MB L2, so each launch reads them from HBM as the served path does
 ROTATE_BYTES = 4 * 50e6
@@ -106,6 +125,14 @@ TRAIN_SCORING_GRAD_RTOL = 1e-4
 TRAIN_GRAD_FLOOR_MULT = 2.0
 TRAIN_LL_ATOL = 1e-3
 TRAIN_PRIOR_ATOL = 1e-5
+# the input phase: the augmentation tail on the card against the same
+# function on the CPU (f32 elementwise ops in one order; the card's and the
+# CPU's division and rounding of the mean luma may differ in the last ulp);
+# the first step on the uint8 route against the same batch augmented on the
+# CPU and shipped as f32: the train phase's loss tolerance
+TAIL_ATOL = 1e-5
+INPUT_CLASSES, INPUT_PER_CLASS, INPUT_HW = 200, 4, (375, 500)
+INPUT_WORKERS = 8
 # where activations and their gradients are compared between routes
 PROBES = ("features.bn1", "features.layer1", "features.layer2", "features.layer3",
           "features.layer4", "add_on")
@@ -749,6 +776,24 @@ def clone_state(src, cfg):
     return dst
 
 
+def full_bank(m, seed):
+    """A flagship memory bank on the card, every queue full of seeded unit
+    vectors and marked updated (so the first EM call is dense)."""
+    import torch
+
+    from mgproto_tpu_torch.core.memory import Memory
+
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+    c, cap, d = m.num_classes, m.mem_capacity, m.proto_dim
+    bank = torch.randn(c, cap, d, generator=gen, device="cuda")
+    return Memory(
+        feats=torch.nn.functional.normalize(bank, dim=-1),
+        length=torch.full((c,), cap, dtype=torch.int32, device="cuda"),
+        cursor=torch.zeros(c, dtype=torch.int32, device="cuda"),
+        updated=torch.ones(c, dtype=torch.bool, device="cuda"),
+    )
+
+
 def launch_counts():
     from mgproto_tpu_torch.ops.em_kernels import em_estep_stats
     from mgproto_tpu_torch.ops.fused_epilogue import fused_bn_epilogue
@@ -861,25 +906,19 @@ def train_phase():
     import numpy as np
     import torch
 
-    from mgproto_tpu_torch.config import Config
-    from mgproto_tpu_torch.core.memory import Memory
+    from mgproto_tpu_torch.config import Config, DataConfig
     from mgproto_tpu_torch.engine.train import Trainer
 
-    cfg = Config()
+    # f32 batches of seeded noise, no augmentation: the input phase drives
+    # the uint8 wire and the augmentation tail
+    cfg = Config(data=DataConfig(device_augment=False))
     m = cfg.model
     trainer = Trainer(cfg, steps_per_epoch=100, device="cuda")
     check(trainer.fused and trainer.em_cfg.max_active_classes == TRAIN_BATCH,
           "the flagship trainer did not resolve to the kernels and a compact width of 80")
     state = trainer.init_state(seed=0)
-    gen = torch.Generator(device="cuda").manual_seed(1)
-    c, cap, d = m.num_classes, m.mem_capacity, m.proto_dim
-    bank = torch.randn(c, cap, d, generator=gen, device="cuda")
-    state.memory = Memory(
-        feats=torch.nn.functional.normalize(bank, dim=-1),
-        length=torch.full((c,), cap, dtype=torch.int32, device="cuda"),
-        cursor=torch.zeros(c, dtype=torch.int32, device="cuda"),
-        updated=torch.ones(c, dtype=torch.bool, device="cuda"),
-    )
+    c = m.num_classes
+    state.memory = full_bank(m, seed=1)
     gmm0 = (state.gmm.means.detach().clone(), state.gmm.sigmas.clone())
 
     def route(plain):
@@ -1012,6 +1051,275 @@ def train_phase():
     return launches, TRAIN_STEPS + 1
 
 
+# -------------------------------------------------------------------- input
+def write_jpeg_tree(root, classes, per_class, hw, seed=0):
+    """`classes` folders of `per_class` JPEGs (quality 90) at hw = (H, W):
+    smooth seeded content, a bilinear upsample of a 6 x 8 grid of random
+    colours, as CUB's photographs are smooth at 8 x 8 JPEG blocks."""
+    import numpy as np
+    from PIL import Image
+
+    rng = np.random.default_rng(seed)
+    h, w = hw
+    for c in range(classes):
+        cdir = os.path.join(root, f"{c:03d}.class")
+        os.makedirs(cdir, exist_ok=True)
+        for i in range(per_class):
+            coarse = Image.fromarray(rng.integers(0, 256, size=(6, 8, 3), dtype=np.uint8))
+            coarse.resize((w, h), Image.BILINEAR).save(os.path.join(cdir, f"{i}.jpg"), quality=90)
+
+
+def input_config(root, batch, workers, model=None):
+    """The input phase's Config: the folder as the train, push and test
+    directories, the process backend, the uint8 wire, mining and EM on from
+    epoch 0."""
+    from mgproto_tpu_torch.config import Config, DataConfig, ModelConfig, ScheduleConfig
+
+    return Config(
+        model=model if model is not None else ModelConfig(),
+        data=DataConfig(train_dir=root, test_dir=root, train_push_dir=root,
+                        train_batch_size=batch, test_batch_size=batch,
+                        train_push_batch_size=batch, num_workers=workers,
+                        worker_backend="process", device_augment=True),
+        schedule=ScheduleConfig(num_warm_epochs=0, mine_start=0, update_gmm_start=0),
+    )
+
+
+def batch_digest(batches):
+    """sha256 of the uint8 bytes, labels, ids and seeds of host batches."""
+    import hashlib
+
+    h = hashlib.sha256()
+    for batch in batches:
+        for a in batch:
+            h.update(a.dtype.str.encode())
+            h.update(a.tobytes())
+    return h.hexdigest()
+
+
+def first_batches(loader, n, epoch=0):
+    """The first `n` batches of `epoch` (the loader's epoch counter is set
+    back, so the same batches come again on a second call)."""
+    loader.epoch = epoch
+    out = []
+    for batch in loader:
+        out.append(batch)
+        if len(out) == n:
+            break
+    return out
+
+
+def loader_determinism(cfg, device):
+    """Two passes over epoch 0's first two batches of build_pipelines'
+    train loader (process backend, shared memory), and the thread backend's,
+    by sha256. Returns the loaders and the record."""
+    import dataclasses
+
+    from mgproto_tpu_torch.data import build_pipelines
+
+    loaders = build_pipelines(cfg, device=device)
+    thread_cfg = cfg.replace(data=dataclasses.replace(cfg.data, worker_backend="thread"))
+    thread = build_pipelines(thread_cfg, device=device)
+    train = loaders[0]
+    t0 = time.perf_counter()
+    first = first_batches(train, 2)
+    first_s = time.perf_counter() - t0
+    digests = [batch_digest(first), batch_digest(first_batches(train, 2)),
+               batch_digest(first_batches(thread[0], 2))]
+    for dl in (*thread[:3], *thread[3]):
+        dl.close()
+    check(train.with_seeds and train.worker_backend == "process",
+          "the train loader is not the process backend on the uint8 wire with seeds")
+    check(first[0][0].dtype.name == "uint8" and first[0][3].dtype.name == "uint32",
+          f"train batches are {first[0][0].dtype} with {first[0][3].dtype} seeds")
+    check(digests[0] == digests[1], "two passes over epoch 0's first batches differ")
+    check(digests[0] == digests[2], "the thread and process backends' batches differ")
+    return loaders, first, {"sha256": digests[0], "passes_equal": True,
+                            "thread_equals_process": True, "first_two_batches_s": first_s}
+
+
+def uint8_route_check(cfg, state, batch, cpu_images, device):
+    """The first step from `state` on the uint8 route (the seeds' draws, the
+    tail on `device`) against the same batch augmented on the CPU
+    (`cpu_images`, f32) on a trainer with augmentation off."""
+    import dataclasses
+
+    import numpy as np
+
+    from mgproto_tpu_torch.engine.train import Trainer
+
+    images, labels, _, seeds = batch
+    f32_cfg = cfg.replace(data=dataclasses.replace(cfg.data, device_augment=False))
+    runs = {}
+    for name, rcfg, args in (("uint8", cfg, (images, labels)), ("f32", f32_cfg, (cpu_images, labels))):
+        tr = Trainer(rcfg, steps_per_epoch=10, device=device)
+        st = clone_state(state, rcfg)
+        _, met = tr.train_step(st, *args, use_mine=True, update_gmm=True,
+                               seeds=seeds if name == "uint8" else None)
+        runs[name] = met.loss.item()
+        del st, tr
+    err = abs(runs["uint8"] - runs["f32"])
+    check(all(np.isfinite(v) for v in runs.values()), f"uint8 route: non-finite loss {runs}")
+    check(err <= TRAIN_LOSS_RTOL * abs(runs["f32"]),
+          f"uint8 route vs CPU-augmented f32 route: loss differs by {err} ({runs})")
+    return {"loss_uint8": runs["uint8"], "loss_f32_cpu_augmented": runs["f32"], "loss_abs_err": err,
+            "loss_rtol": TRAIN_LOSS_RTOL}
+
+
+def h2d_copies(trainers, batches, reps=5):
+    """Host-to-device copy time of one batch per wire, alone on the card:
+    `put_batch`'s events around its copies on the copy stream, median of
+    `reps` puts after one that warms the pinned and device caches. Each put
+    is read and freed before the next, so its blocks are reused and no
+    allocation falls between the events (pinning is host work before the
+    first)."""
+    import numpy as np
+
+    out = {}
+    for name, trainer in trainers.items():
+        ms = []
+        for i in range(reps + 1):
+            put = trainer.put_batch(batches[name])
+            ms.append(put.copy_ms())
+            nbytes = put.h2d_bytes
+            del put
+        med = float(np.median(ms[1:]))
+        out[name] = {"bytes": nbytes, "ms": med, "gb_s": nbytes / med / 1e6,
+                     "share_of_pcie": nbytes / med / 1e-3 / PCIE_BYTES_S, "ms_all": ms}
+    return out
+
+
+def input_phase():
+    """The training input path on the card; returns the launch counts of the
+    loader-fed epoch and its number of steps."""
+    import dataclasses
+
+    import numpy as np
+    import torch
+
+    from mgproto_tpu_torch import native
+    from mgproto_tpu_torch.engine.train import Trainer
+    from mgproto_tpu_torch.ops.augment import augment_draws, augment_tail
+    from mgproto_tpu_torch.utils.images import IMAGENET_MEAN, IMAGENET_STD
+
+    root = os.path.join(HERE, "build", "input_phase", "train")
+    t0 = time.perf_counter()
+    write_jpeg_tree(root, INPUT_CLASSES, INPUT_PER_CLASS, INPUT_HW)
+    write_s = time.perf_counter() - t0
+
+    # the host native library: built here (g++), held to its plain version
+    t0 = time.perf_counter()
+    native.load()
+    native_s = time.perf_counter() - t0
+    img = np.random.default_rng(2).integers(0, 256, size=(224, 224, 3), dtype=np.uint8)
+    check(np.array_equal(native.u8_to_f32_norm(img, IMAGENET_MEAN, IMAGENET_STD),
+                         native.u8_to_f32_norm_plain(img, IMAGENET_MEAN, IMAGENET_STD)),
+          "host native u8_to_f32_norm differs from its numpy plain version")
+
+    cfg = input_config(root, TRAIN_BATCH, INPUT_WORKERS)
+    loaders, first, determinism = loader_determinism(cfg, "cuda")
+    train_loader = loaders[0]
+    try:
+        steps = len(train_loader)
+        check(steps == INPUT_CLASSES * INPUT_PER_CLASS // TRAIN_BATCH, f"{steps} batches an epoch")
+
+        # the tail on the card against the same function on the CPU
+        images, labels, _, seeds = first[0]
+        draws = augment_draws(seeds)
+        cpu = augment_tail(torch.from_numpy(images), torch.from_numpy(draws))
+        gpu_in = (torch.from_numpy(images).cuda(), torch.from_numpy(draws).cuda())
+        gpu = augment_tail(*gpu_in)
+        tail_err = (gpu.cpu() - cpu).abs().max().item()
+        check(torch.isfinite(gpu).all() and gpu.shape == images.shape,
+              "augment_tail on the card: bad output")
+        check(tail_err <= TAIL_ATOL, f"augment_tail card vs CPU: {tail_err} > {TAIL_ATOL}")
+        ring, copies = ring_of(gpu_in, images.nbytes)
+        # ~80 launches a call: 5 calls stay inside the card's queue of
+        # pending launches, which would otherwise fill behind the spin
+        tail_ms = device_ms(lambda: augment_tail(*next(ring)), iters=5)
+        # one read of the u8 batch and the draws, one write of the f32 batch
+        tail_bound, tail_by = bound_ms(0.0, images.nbytes * 5.0 + draws.nbytes)
+        del ring, gpu, gpu_in
+
+        trainer = Trainer(cfg, steps_per_epoch=steps, device="cuda")
+        check(trainer.fused and trainer.device_augment, "the input trainer did not resolve to "
+              "the kernels and the device augmentation tail")
+        state = trainer.init_state(seed=0)
+        state.memory = full_bank(cfg.model, seed=1)
+        route = uint8_route_check(cfg, state, first[0], cpu.numpy(), "cuda")
+        f32_cfg = cfg.replace(data=dataclasses.replace(cfg.data, device_augment=False))
+        alone = h2d_copies(
+            {"uint8": trainer, "f32": Trainer(f32_cfg, steps_per_epoch=steps, device="cuda")},
+            {"uint8": first[0], "f32": (cpu.numpy(), labels)})
+        del cpu
+
+        # the main path: one epoch from the loader, kernel launches counted
+        torch.cuda.synchronize()
+        reset_launch_counts()
+        t0 = time.perf_counter()
+        state, met = trainer.train_epoch(state, train_loader, 0)
+        torch.cuda.synchronize()
+        epoch_s = time.perf_counter() - t0
+        launches = launch_counts()
+        log = trainer.step_log
+        want = {"score_pool": steps, "bn_epilogue": 16 * steps, "score_pool_bwd": steps,
+                "em_estep": cfg.em.num_em_loop * steps}
+        check(len(log) == steps, f"train_epoch took {len(log)} steps, not {steps}")
+        check(launches == want, f"input epoch: launches {launches}, expected {want}")
+        check(np.isfinite(met.loss.item()) and not met.nonfinite, f"input epoch: loss {met.loss}")
+        check(met.em_active > 0, "input epoch: EM touched no class")
+
+        step_s = [r.step_s for r in log]
+        wait_s = [r.wait_s for r in log]
+        copy_ms = [r.copy_ms for r in log]
+        copy_gb_s = log[0].h2d_bytes / float(np.median(copy_ms)) / 1e6
+        steady = slice(1, None)
+        med = float(np.median(step_s[steady]))
+        emit("input", batch=TRAIN_BATCH, steps=steps, classes=INPUT_CLASSES,
+             images=INPUT_CLASSES * INPUT_PER_CLASS, source_hw=list(INPUT_HW),
+             workers=INPUT_WORKERS, backend="process", wire="uint8",
+             jpeg_write_s=write_s, native_build_s=native_s, determinism=determinism,
+             tail={"max_abs_err_vs_cpu": tail_err, "atol": TAIL_ATOL, "ms": tail_ms,
+                   "bound_ms": tail_bound, "bound_by": tail_by, "input_copies": copies,
+                   "at": f"B={TRAIN_BATCH}, 224x224x3 uint8"},
+             uint8_route=route, launches=launches, loss=met.loss.item(),
+             em_active=met.em_active, epoch_s=epoch_s, step_s=step_s, wait_s=wait_s,
+             step_s_median=med, img_per_s=TRAIN_BATCH / med,
+             loader_wait_share=sum(wait_s[steady]) / sum(step_s[steady]),
+             loader_wait_share_all_steps=sum(wait_s) / sum(step_s),
+             h2d_image_bytes_per_step=log[0].image_bytes, h2d_bytes_per_step=log[0].h2d_bytes,
+             h2d={"in_epoch_ms": copy_ms, "in_epoch_ms_median": float(np.median(copy_ms)),
+                  "in_epoch_gb_s_median": copy_gb_s,
+                  "in_epoch_share_of_pcie": copy_gb_s * 1e9 / PCIE_BYTES_S,
+                  "alone": alone, "pcie_gb_s": PCIE_BYTES_S / 1e9},
+             peak_mem_gb=torch.cuda.max_memory_allocated() / 1e9)
+
+        holder = [state]
+
+        def one_epoch():
+            holder[0], _ = trainer.train_epoch(holder[0], train_loader, 1)
+
+        rec = device_breakdown(one_epoch, 1)
+        if rec is None:
+            emit("profile", path="input", note="profiler recorded no device events: not measured")
+        else:
+            per_step = {k: v / steps for k, v in rec["device_ms_per_call"].items()}
+            # the profiled epoch's first step waits for the loader's first
+            # two batches with the card idle; the share without that wait
+            first_wait_ms = trainer.step_log[0].wait_s * 1e3
+            busy, wall = rec["device_busy_ms_per_call"], rec["wall_ms_per_call"]
+            emit("profile", path="input", batch=TRAIN_BATCH, steps=steps,
+                 device_ms_per_step=per_step, device_busy_ms_per_step=busy / steps,
+                 wall_ms_per_step=wall / steps, device_idle_share=rec["device_idle_share"],
+                 first_step_wait_ms=first_wait_ms,
+                 device_idle_share_after_first_wait=1.0 - busy / (wall - first_wait_ms),
+                 other_top_ms_per_epoch=rec["other_top_ms_per_call"])
+    finally:
+        for dl in (*loaders[:3], *loaders[3]):
+            dl.close()
+    return launches, steps
+
+
 def main() -> int:
     if not os.path.isdir(os.path.join(HERE, "mgproto_tpu_torch")):
         print("chip_smoke: mgproto_tpu_torch/ not found beside this script", file=sys.stderr)
@@ -1042,12 +1350,18 @@ def main() -> int:
     kernels = kernel_phase()
     serve_launches, dispatches = serve_phase()
     train_launches, train_steps = train_phase()
+    input_launches, input_steps = input_phase()
     for k in kernels:
-        k["launches"] = train_launches[k["name"]]
-        k["launches_per_train_step"] = k["launches"] / train_steps
+        # `launches`: the loader-fed epoch of the input phase (this path's
+        # main run); the train phase's and the serve phase's beside them
+        k["launches"] = input_launches[k["name"]]
+        k["launches_per_input_step"] = k["launches"] / input_steps
+        k["train_launches"] = train_launches[k["name"]]
+        k["launches_per_train_step"] = k["train_launches"] / train_steps
         k["serve_launches"] = serve_launches.get(k["name"], 0)
-        check(k["launches"] > 0, f"{k['name']} was not launched on the train path")
-    print(json.dumps({"kernels": kernels, "train_steps": train_steps,
+        check(k["launches"] > 0, f"{k['name']} was not launched on the input path")
+        check(k["train_launches"] > 0, f"{k['name']} was not launched on the train path")
+    print(json.dumps({"kernels": kernels, "input_steps": input_steps, "train_steps": train_steps,
                       "serve_dispatches": dispatches}), flush=True)
     print(smi, flush=True)
     print(json.dumps({"ok": True, "device": {

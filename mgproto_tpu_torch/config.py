@@ -1,6 +1,7 @@
 """Configuration of the port: a trimmed copy of mgproto_tpu/config.py.
 
-Only the fields the serving forward and the synchronous training step read.
+Only the fields the serving forward, the synchronous training step and the
+training input path read.
 The field names and defaults are the JAX package's, so one configuration
 describes both packages.
 """
@@ -87,9 +88,29 @@ class LossConfig:
 
 @dataclasses.dataclass(frozen=True)
 class DataConfig:
-    """Batch sizes."""
+    """Dataset paths, batch sizes and the input pipeline (reference
+    settings.py:8-24; data/__init__.py `build_pipelines`)."""
 
+    train_dir: str = ""
+    test_dir: str = ""
+    train_push_dir: str = ""
+    ood_dirs: Tuple[str, ...] = ()
     train_batch_size: int = 80
+    test_batch_size: int = 80
+    train_push_batch_size: int = 80
+    num_workers: int = 8
+    # "thread" overlaps PIL decode with device compute; "process" (spawn
+    # pool, dataset pickled once per worker) also runs the numpy
+    # augmentation math past the GIL. Applied to the TRAIN loader only.
+    worker_backend: str = "thread"
+    # batches `Trainer.train_epoch` holds in flight (data/loader.py
+    # `device_prefetch`), so batch N+1's host-to-device copy overlaps step N
+    prefetch_depth: int = 2
+    # uint8 wire + device augmentation tail (ops/augment.py): the host train
+    # pipeline stops at geometry and ships uint8; flip, colour jitter and
+    # normalize run in the step on the batch's device, seeded per sample.
+    # None = on for a CUDA device, off for the CPU; True/False force it.
+    device_augment: Optional[bool] = None
 
 
 @dataclasses.dataclass(frozen=True)
@@ -100,6 +121,7 @@ class Config:
     schedule: ScheduleConfig = dataclasses.field(default_factory=ScheduleConfig)
     loss: LossConfig = dataclasses.field(default_factory=LossConfig)
     data: DataConfig = dataclasses.field(default_factory=DataConfig)
+    seed: int = 0  # the loaders' shuffle and augmentation streams
 
     def replace(self, **kw) -> "Config":
         return dataclasses.replace(self, **kw)

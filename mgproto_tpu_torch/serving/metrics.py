@@ -1,4 +1,4 @@
-"""Serving metrics: names and a minimal in-process registry.
+"""Serving and loader metrics: names and a minimal in-process registry.
 
 A trimmed copy of mgproto_tpu/serving/metrics.py on a registry of its own:
 labeled counters, gauges and histograms held in memory, read back with
@@ -24,6 +24,11 @@ DEGRADED_REQUESTS = "serving_degraded_requests_total"
 DEVICE_ERRORS = "serving_device_errors_total"
 BATCH_FILL = "serving_batch_fill_ratio"
 BATCH_FILL_HIST = "serving_batch_fill_fraction"
+# the input pipeline (data/loader.py)
+LOADER_RETRIES = "resilience_retries_total"  # label scope="loader"
+LOADER_SENTINEL_ROWS = "loader_sentinel_rows_total"
+LOADER_WORKER_RESTARTS = "loader_worker_restarts_total"
+LOADER_SHM_SLABS = "loader_shm_slabs_in_use"
 
 FILL_BUCKETS = (0.125, 0.25, 0.375, 0.5, 0.625, 0.75, 0.875, 1.0)
 TIME_BUCKETS = (0.001, 0.0025, 0.005, 0.01, 0.025, 0.05, 0.1, 0.25, 0.5, 1.0, 2.5, 5.0)

@@ -376,3 +376,54 @@ def test_a_failed_kernel_build_raises(monkeypatch, tmp_path):
     monkeypatch.setattr(_build, "_nvcc", lambda: "false")
     with pytest.raises(_build.KernelBuildError, match="em_estep"):
         _build.build_all(["em_estep", "score_pool_bwd"])
+
+
+@pytest.mark.cuda
+def test_augment_tail_on_the_card_matches_the_cpu():
+    """The device augmentation tail (plain PyTorch, ops/augment.py) on the
+    card against the same function on the CPU: f32 elementwise ops in one
+    order, so within 1e-5 absolute in normalized units."""
+    _need_cuda()
+    import numpy as np
+
+    from mgproto_tpu_torch.data.loader import augment_seeds
+    from mgproto_tpu_torch.ops.augment import augment_draws, augment_tail
+
+    images = torch.randint(0, 256, (8, 224, 224, 3), dtype=torch.uint8,
+                           generator=torch.Generator().manual_seed(0))
+    draws = torch.from_numpy(augment_draws(augment_seeds(0, 0, np.arange(8))))
+    want = augment_tail(images, draws)
+    got = augment_tail(images.cuda(), draws.cuda())
+    assert got.device.type == "cuda" and got.dtype == torch.float32
+    assert (got.cpu() - want).abs().max().item() <= 1e-5
+
+
+@pytest.mark.cuda
+def test_put_batch_copies_on_the_copy_stream():
+    """Trainer.put_batch on CUDA: pinned staging, copies on the copy stream
+    behind an event, uint8 kept, the draws made from the seeds; the step's
+    stream waits for the event before reading the tensors."""
+    _need_cuda()
+    import numpy as np
+
+    from mgproto_tpu_torch.config import DataConfig, tiny_test_config
+    from mgproto_tpu_torch.engine.train import Trainer
+    from mgproto_tpu_torch.ops.augment import augment_draws
+
+    cfg = tiny_test_config().replace(data=DataConfig(device_augment=True))
+    trainer = Trainer(cfg, steps_per_epoch=1, device="cuda")
+    rng = np.random.default_rng(0)
+    images = rng.integers(0, 256, size=(4, 32, 32, 3), dtype=np.uint8)
+    labels = np.array([0, 1, 2, 3], np.int32)
+    seeds = np.array([1, 2, 3, 4], np.uint32)
+    batch = trainer._claim(trainer.put_batch((images, labels, np.arange(4), seeds)))
+    assert batch.ready is not None and batch.images.dtype == torch.uint8
+    assert batch.images.device.type == batch.draws.device.type == "cuda"
+    assert np.array_equal(batch.images.cpu().numpy(), images)
+    assert np.array_equal(batch.labels.cpu().numpy(), labels)
+    assert np.array_equal(batch.draws.cpu().numpy(), augment_draws(seeds))
+    assert batch.copy_ms() > 0.0
+    state = trainer.init_state(0)
+    state, met = trainer.train_step(state, images, labels, use_mine=True, update_gmm=False,
+                                    seeds=seeds)
+    assert np.isfinite(met.loss.item())

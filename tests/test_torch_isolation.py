@@ -60,6 +60,8 @@ for m in mods:
 spec = importlib.util.spec_from_file_location("chip_smoke", {SMOKE!r})
 importlib.util.module_from_spec(spec)
 spec.loader.exec_module(importlib.util.module_from_spec(spec))
+missing = [m for m in {INPUT_PATH_MODULES!r} if m not in mods]
+assert not missing, missing
 print(len(mods))
 """
     out = subprocess.run(
@@ -67,7 +69,39 @@ print(len(mods))
         timeout=120,
     )
     assert out.returncode == 0, out.stderr
-    assert int(out.stdout.strip()) >= 20
+    assert int(out.stdout.strip()) >= 30
+
+
+# the input path's modules, walked and imported above with JAX blocked
+INPUT_PATH_MODULES = (
+    "mgproto_tpu_torch.data", "mgproto_tpu_torch.data.folder", "mgproto_tpu_torch.data.loader",
+    "mgproto_tpu_torch.data.transforms", "mgproto_tpu_torch.native",
+    "mgproto_tpu_torch.ops.augment", "mgproto_tpu_torch.ops.prng",
+    "mgproto_tpu_torch.utils.images", "mgproto_tpu_torch.utils.retry",
+)
+# what a spawn loader worker unpickles: it must import without torch (and
+# without PIL, which only opening an image needs)
+WORKER_MODULES = ("mgproto_tpu_torch.data.loader", "mgproto_tpu_torch.data.folder",
+                  "mgproto_tpu_torch.data.transforms", "mgproto_tpu_torch.native")
+
+
+def test_worker_modules_import_without_torch_or_pil():
+    code = f"""
+import importlib, sys
+for name in ("torch", "PIL") + {FORBIDDEN!r}:
+    sys.modules[name] = None
+for m in {WORKER_MODULES!r}:
+    importlib.import_module(m)
+from mgproto_tpu_torch.data import DataLoader, ImageFolder, transforms
+transforms.TrainTransform(32, device_augment=True)
+print(sorted(m for m in sys.modules if m.split(".")[0] in ("torch", "PIL") and sys.modules[m]))
+"""
+    out = subprocess.run(
+        [sys.executable, "-c", code], cwd=REPO, capture_output=True, text=True,
+        timeout=120,
+    )
+    assert out.returncode == 0, out.stderr
+    assert out.stdout.strip() == "[]"
 
 
 def test_entry_points_need_cuda_or_an_explicit_cpu():

@@ -24,6 +24,11 @@ Tolerances:
     both sides are handed the SAME gradients, one optimizer step agrees to
     atol 1e-6.
   * the five-step loss trajectory: atol 1e-3 per step.
+  * two loader-fed `train_epoch` steps (uint8 wire, device augmentation on
+    both sides, the same JPEG tree): the last step's losses and metrics atol
+    1e-4, the bank's features and the priors atol 1e-5, the means within
+    2 lr per EM round as above. The JAX tail runs under jit, 6e-6 from the
+    port's in normalized units (tests/test_torch_augment.py).
 """
 
 import dataclasses
@@ -34,7 +39,9 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
+from PIL import Image
 
+from mgproto_tpu.config import DataConfig as JaxDataConfig
 from mgproto_tpu.config import EMConfig as JaxEMConfig
 from mgproto_tpu.config import tiny_test_config as jax_tiny_config
 from mgproto_tpu.core import em as jem
@@ -42,14 +49,19 @@ from mgproto_tpu.core import losses as jl
 from mgproto_tpu.core import memory as jmem
 from mgproto_tpu.core.mgproto import GMMState as JaxGMMState
 from mgproto_tpu.core.state import staircase_schedule
+from mgproto_tpu.data import DataLoader as JaxDataLoader
+from mgproto_tpu.data import ImageFolder as JaxImageFolder
+from mgproto_tpu.data.transforms import TrainTransform as JaxTrainTransform
 from mgproto_tpu.engine.train import Trainer as JaxTrainer
 from mgproto_tpu.ops.gaussian import e_step as jax_e_step
-from mgproto_tpu_torch.config import EMConfig, tiny_test_config
+from mgproto_tpu_torch.config import DataConfig, EMConfig, tiny_test_config
 from mgproto_tpu_torch.core import em as tem
 from mgproto_tpu_torch.core import losses as tl
 from mgproto_tpu_torch.core import memory as tmem
 from mgproto_tpu_torch.core.mgproto import GMMState
 from mgproto_tpu_torch.core.state import set_joint_lrs, staircase_lr
+from mgproto_tpu_torch.data import DataLoader, ImageFolder
+from mgproto_tpu_torch.data.transforms import TrainTransform
 from mgproto_tpu_torch.engine.train import Trainer
 from mgproto_tpu_torch.models.convert import from_jax_train_state, from_jax_variables
 from mgproto_tpu_torch.ops.gaussian import e_step
@@ -394,3 +406,103 @@ def test_m_step_objective_and_mean_gradient_match_jax(fused):
     np.testing.assert_allclose(tmeans.grad.numpy(), jgrad, rtol=0,
                                atol=1e-5 * np.abs(jgrad).max())
     assert k == 3
+
+
+@pytest.fixture(scope="module")
+def jpeg_tree(tmp_path_factory):
+    """4 classes x 5 JPEGs of seeded smooth content at varying sizes."""
+    root = tmp_path_factory.mktemp("train_imgs")
+    rng = np.random.default_rng(0)
+    for c in range(4):
+        (root / f"c{c}").mkdir()
+        for i in range(5):
+            coarse = Image.fromarray(rng.integers(0, 256, size=(4, 5, 3), dtype=np.uint8))
+            h, w = int(rng.integers(40, 90)), int(rng.integers(40, 90))
+            coarse.resize((w, h), Image.BILINEAR).save(root / f"c{c}" / f"{i}.jpg", quality=90)
+    return str(root)
+
+
+def test_loader_fed_epoch_with_device_augmentation_matches_jax(jpeg_tree):
+    """Two steps of `train_epoch` from each package's loader over the same
+    tree, the uint8 wire and the augmentation tail on, from one state (a
+    full bank, so EM runs on both steps)."""
+    batch = 8
+    jcfg, tcfg = _configs()
+    jcfg = jcfg.replace(data=JaxDataConfig(train_batch_size=batch, device_augment=True))
+    tcfg = tcfg.replace(data=DataConfig(train_batch_size=batch, device_augment=True))
+    jtrainer = JaxTrainer(jcfg, steps_per_epoch=2)
+    jstate = jax.jit(jtrainer.init_state)(jax.random.PRNGKey(0))
+    m = jcfg.model
+    rng = np.random.default_rng(3)
+    feats = rng.normal(size=(m.num_classes, m.mem_capacity, m.proto_dim)).astype(np.float32)
+    feats /= np.linalg.norm(feats, axis=-1, keepdims=True)
+    jstate = jstate.replace(memory=jmem.Memory(
+        feats=jnp.asarray(feats), length=jnp.full(m.num_classes, m.mem_capacity, jnp.int32),
+        cursor=jnp.zeros(m.num_classes, jnp.int32), updated=jnp.zeros(m.num_classes, bool)))
+    ptrainer = Trainer(tcfg, steps_per_epoch=2, device="cpu")
+    pstate = from_jax_train_state(jax.device_get(jstate), tcfg, device="cpu")
+    assert ptrainer.device_augment
+
+    kw = dict(shuffle=True, drop_last=True, seed=5, with_seeds=True, num_workers=0)
+    jloader = JaxDataLoader(JaxImageFolder(jpeg_tree, JaxTrainTransform(32, True)), batch, **kw)
+    ploader = DataLoader(ImageFolder(jpeg_tree, TrainTransform(32, True)), batch, **kw)
+    # the JAX epoch takes (images, labels, seeds); the port's takes the
+    # loader's (images, labels, ids, seeds) as they come
+    jnew, jm = jtrainer.train_epoch(jstate, ((b[0], b[1], b[3]) for b in jloader), 0)
+    pstate, pm = ptrainer.train_epoch(pstate, ploader, 0)
+
+    assert len(ptrainer.step_log) == int(jnew.step) == pstate.step == 2
+    assert all(r.image_bytes == batch * 32 * 32 * 3 for r in ptrainer.step_log)
+    for name in ("loss", "cross_entropy", "mine", "aux", "accuracy", "full_mem_ratio"):
+        np.testing.assert_allclose(float(getattr(pm, name)), float(getattr(jm, name)),
+                                   atol=1e-4, err_msg=name)
+    assert pm.em_active == int(jm.em_active) > 0
+    assert pm.em_compact_fallback == int(jm.em_compact_fallback)
+    jmem_new = jax.device_get(jnew.memory)
+    for name in ("length", "cursor", "updated"):
+        np.testing.assert_array_equal(getattr(pstate.memory, name).numpy(),
+                                      np.asarray(getattr(jmem_new, name)), err_msg=name)
+    assert not np.array_equal(np.asarray(jmem_new.feats), feats)  # the epoch enqueued
+    np.testing.assert_allclose(pstate.memory.feats.numpy(), np.asarray(jmem_new.feats), atol=1e-5)
+    np.testing.assert_allclose(pstate.gmm.priors.numpy(), np.asarray(jnew.gmm.priors), atol=1e-5)
+    np.testing.assert_allclose(pstate.gmm.means.detach().numpy(), np.asarray(jnew.gmm.means),
+                               atol=2 * 3 * 3e-3)
+
+
+def test_put_batch_and_split_batch():
+    """Batch intake on the CPU: uint8 stays uint8, seeds become the [B, 5]
+    draws (zero seeds when none came), ids are dropped (a 3-tuple's third
+    array is ids, whatever its dtype), uint8 without device augmentation is
+    refused, and so are f32 images with it on."""
+    from mgproto_tpu_torch.engine.train import split_batch
+    from mgproto_tpu_torch.ops.augment import augment_draws
+
+    _, tcfg = _configs()
+    images = np.zeros((3, 32, 32, 3), np.uint8)
+    labels = np.array([0, 1, 2], np.int32)
+    ids = np.arange(3, dtype=np.int64)
+    seeds = np.array([5, 6, 7], np.uint32)
+    assert split_batch((images, labels))[2] is None
+    assert split_batch((images, labels, ids))[2] is None
+    assert split_batch((images, labels, seeds))[2] is None
+    assert split_batch((images, labels, ids, seeds))[2] is seeds
+    with pytest.raises(ValueError):
+        split_batch((images,))
+
+    on = Trainer(tcfg.replace(data=DataConfig(device_augment=True)), 1, device="cpu")
+    b = on.put_batch((images, labels, ids, seeds))
+    assert b.images.dtype == torch.uint8 and b.labels.dtype == torch.int64
+    np.testing.assert_array_equal(b.draws.numpy(), augment_draws(seeds))
+    assert b.image_bytes == images.nbytes and b.ready is None and b.copy_ms() is None
+    zero = on.put_batch((images, labels))
+    np.testing.assert_array_equal(zero.draws.numpy(), augment_draws(np.zeros(3, np.uint32)))
+
+    off = Trainer(tcfg, 1, device="cpu")
+    assert not off.device_augment and off.put_batch((images, labels)).draws is None
+    state = off.init_state(0)
+    with pytest.raises(ValueError, match="uint8 images with device augmentation off"):
+        off.train_step(state, images, labels, use_mine=True, update_gmm=False)
+    normalized = np.zeros(images.shape, np.float32)
+    with pytest.raises(ValueError, match="float32 images with device augmentation on"):
+        on.train_step(on.init_state(0), normalized, labels, use_mine=True, update_gmm=False,
+                      seeds=seeds)
