@@ -59,11 +59,25 @@ Phases, one JSON line each:
              trained for one epoch (10 steps at batch 80, mining and EM on)
              through Trainer.train_epoch with the launches counted and each
              step's copy timed the same way (beside PCIe Gen5 x16's peak),
-             and a profile of the next epoch.
+             and a profile of the next epoch;
+  7. schedule: the whole training schedule through cli/train.run_training
+             at the flagship (the input phase's folder as the train, push
+             and test set, a second seeded folder of 5 classes x 16 as one
+             OoD set; 2 epochs with mining and EM from a full seeded bank,
+             push at epoch 1, top-8 prune; cuDNN deterministic): every
+             stage checkpoint, the launches of the run, of one test pass and
+             of one push scan; the test pass's log p(x) on the kernel route
+             against the plain route on the card; pushed means against the
+             features recomputed at their (image, patch); the pruned priors;
+             a checkpoint's save, restore and bytes, bit-exact; the run
+             resumed from epoch 0's checkpoint against the uninterrupted
+             one, bit for bit; and one step on a batch holding a label -1
+             sentinel row. Its checkpoints are removed at the end.
 Then the kernel summary line (times at the train step's shapes, the serve
-path's beside them; `launches` counted on the input phase's epoch), the card
-line as nvidia-smi prints it, and last `{"ok": true, "device": {...}}`. Any
-failed check exits non-zero before that line is printed.
+path's beside them; `launches` counted on the input phase's epoch,
+`schedule_launches` on the schedule phase's run), the card line as
+nvidia-smi prints it, and last `{"ok": true, "device": {...}}`. Any failed
+check exits non-zero before that line is printed.
 """
 
 from __future__ import annotations
@@ -133,6 +147,14 @@ TRAIN_PRIOR_ATOL = 1e-5
 TAIL_ATOL = 1e-5
 INPUT_CLASSES, INPUT_PER_CLASS, INPUT_HW = 200, 4, (375, 500)
 INPUT_WORKERS = 8
+# the schedule phase: a second folder as its OoD set, 2 epochs, top-8 prune
+OOD_CLASSES, OOD_PER_CLASS = 5, 16
+SCHEDULE_EPOCHS = 2
+SCHEDULE_PRUNE_M = 8
+# pushed means against the features recomputed at their (image, patch) in
+# a batch of another size: the convolutions may pick other algorithms, so
+# SERVE_ATOL, not bit equality
+PUSH_FEATURE_SAMPLE = 16
 # where activations and their gradients are compared between routes
 PROBES = ("features.bn1", "features.layer1", "features.layer2", "features.layer3",
           "features.layer4", "add_on")
@@ -1320,6 +1342,320 @@ def input_phase():
     return launches, steps
 
 
+# ------------------------------------------------------------------ schedule
+def schedule_config(train_root, ood_root, model_dir):
+    """The schedule phase's Config: the input phase's folder as the train,
+    push and test set, one OoD folder, mining and EM from epoch 0, push at
+    epoch 1, the top-8 prune."""
+    import dataclasses
+
+    from mgproto_tpu_torch.config import ScheduleConfig
+
+    cfg = input_config(train_root, TRAIN_BATCH, INPUT_WORKERS)
+    return cfg.replace(
+        data=dataclasses.replace(cfg.data, ood_dirs=(ood_root,)),
+        schedule=ScheduleConfig(num_train_epochs=SCHEDULE_EPOCHS, mine_start=0,
+                                update_gmm_start=0, push_start=1, push_every=1,
+                                prune_top_m=SCHEDULE_PRUNE_M),
+        model_dir=model_dir)
+
+
+def state_tensors(state):
+    from mgproto_tpu_torch.utils.checkpoint import _tensors, state_payload
+
+    return dict(_tensors(state_payload(state)))
+
+
+def state_view(state, copy=False):
+    """(tensors by name, (step, joint_updates)) of a train state; `copy`
+    clones the tensors, so the view outlives later in-place updates."""
+    tensors = state_tensors(state)
+    if copy:
+        tensors = {k: v.detach().clone() for k, v in tensors.items()}
+    return tensors, (state.step, state.joint_updates)
+
+
+def state_mismatches(a, b):
+    """Names of the tensors (and counters) of two train states, or views of
+    them, that are not bit-equal."""
+    import torch
+
+    (ta, ca), (tb, cb) = (x if isinstance(x, tuple) else state_view(x) for x in (a, b))
+    bad = sorted(set(ta) ^ set(tb))
+    bad += [k for k in ta.keys() & tb.keys()
+            if ta[k].dtype != tb[k].dtype or not torch.equal(ta[k].cpu(), tb[k].cpu())]
+    if ca != cb:
+        bad.append("step/joint_updates")
+    return bad
+
+
+def metric_records(model_dir):
+    with open(os.path.join(model_dir, "metrics.jsonl")) as f:
+        return [{k: v for k, v in json.loads(line).items() if not k.endswith("_s") and k != "time"}
+                for line in f]
+
+
+def pushed_features_check(trainer, state, push_ds, model_dir):
+    """Each of a sample of pushed prototypes' means against the L2-normalized
+    feature at its (image, patch), recomputed on the card."""
+    import numpy as np
+    import torch
+
+    from mgproto_tpu_torch.core.mgproto import l2_normalize
+    from mgproto_tpu_torch.engine.eval import eval_mode, to_device_images
+    from mgproto_tpu_torch.engine.push import load_push_provenance
+    from mgproto_tpu_torch.utils.images import preprocess_input
+
+    prov = load_push_provenance(model_dir)
+    c, k = state.gmm.priors.shape
+    ids = np.array(prov["image_id"]).reshape(c, k)
+    sp = np.array(prov["spatial_idx"]).reshape(c, k)
+    pushed = np.argwhere(ids >= 0)
+    sample = pushed[np.random.default_rng(0).choice(len(pushed), PUSH_FEATURE_SAMPLE,
+                                                    replace=False)]
+    loaded = [push_ds.load(int(ids[ci, ki])) for ci, ki in sample]
+    check(all(lbl == ci for (_, lbl, _), (ci, _) in zip(loaded, sample)),
+          "a prototype was pushed onto an image of another class")
+    x = to_device_images(preprocess_input(np.stack([a for a, _, _ in loaded])), trainer.device)
+    with eval_mode(state.model) as model:
+        proto_map, _ = model(x)
+        b, h, w, d = proto_map.shape
+        feat = l2_normalize(proto_map, dim=-1).reshape(b, h * w, d)
+        dev = feat.device
+        got = feat[torch.arange(b, device=dev),
+                   torch.from_numpy(sp[sample[:, 0], sample[:, 1]]).to(dev)]
+        want = state.gmm.means.detach()[torch.from_numpy(sample[:, 0]).to(dev),
+                                        torch.from_numpy(sample[:, 1]).to(dev)]
+        err = (got - want).abs().max().item()
+    check(err <= SERVE_ATOL, f"pushed means vs recomputed features: {err} > {SERVE_ATOL}")
+    return {"prototypes_checked": int(len(sample)), "max_abs_err": err, "atol": SERVE_ATOL,
+            "pushed": int(len(pushed)), "of": int(c * k)}
+
+
+def sentinel_step_check(cfg, state, batch):
+    """C1 on the card: one flagship step on a batch whose first row is the
+    loader's sentinel (zero image, label -1). The loss is finite and the
+    row enqueues nothing: class C-1, which no labelled row of the batch
+    holds, keeps its bank rows and length, and only the labelled rows'
+    classes are written."""
+    import numpy as np
+    import torch
+
+    from mgproto_tpu_torch.engine.train import Trainer
+
+    images, labels, _, seeds = (a.copy() for a in batch)
+    c = cfg.model.num_classes
+    labels[labels == c - 1] = c - 2  # keep class C-1 for the sentinel to miss
+    images[0], labels[0] = 0, -1
+    trainer = Trainer(cfg, steps_per_epoch=10, device="cuda")
+    st = clone_state(state, cfg)
+    st.memory = full_bank(cfg.model, seed=3)
+    before = [t.clone() for t in st.memory]
+    st, met = trainer.train_step(st, images, labels, use_mine=True, update_gmm=True, seeds=seeds)
+    written = (st.memory.feats != before[0]).any(-1).any(-1).cpu().numpy()
+    loss = met.loss.item()
+    check(np.isfinite(loss) and not met.nonfinite, f"sentinel step: loss {loss}")
+    check(torch.equal(st.memory.length[c - 1], before[1][c - 1]) and not written[c - 1],
+          "sentinel step: the label -1 row was enqueued into class C-1")
+    check(set(np.nonzero(written)[0]) <= set(labels[labels >= 0].tolist()),
+          "sentinel step: a class outside the batch's labels was written")
+    return {"loss": loss, "classes_written": int(written.sum()), "em_active": met.em_active}
+
+
+def schedule_phase(smi):
+    """The whole schedule on the card; returns the launch counts of the
+    run."""
+    import dataclasses
+    import shutil
+
+    import numpy as np
+    import torch
+
+    from mgproto_tpu_torch.cli import train as cli_train
+    from mgproto_tpu_torch.cli.train import run_training
+    from mgproto_tpu_torch.data import build_pipelines
+    from mgproto_tpu_torch.engine.evaluate import _run_eval
+    from mgproto_tpu_torch.engine.push import _greedy_assign, scan_candidates
+    from mgproto_tpu_torch.engine.train import Trainer
+    from mgproto_tpu_torch.utils import checkpoint as ck
+
+    train_root = os.path.join(HERE, "build", "input_phase", "train")
+    if not os.path.isdir(train_root):
+        write_jpeg_tree(train_root, INPUT_CLASSES, INPUT_PER_CLASS, INPUT_HW)
+    base = os.path.join(HERE, "build", "schedule_phase")
+    shutil.rmtree(base, ignore_errors=True)
+    ood_root = os.path.join(base, "ood")
+    write_jpeg_tree(ood_root, OOD_CLASSES, OOD_PER_CLASS, INPUT_HW, seed=7)
+    cfg = schedule_config(train_root, ood_root, os.path.join(base, "run"))
+    det = (torch.backends.cudnn.deterministic, torch.backends.cudnn.benchmark)
+    torch.backends.cudnn.deterministic, torch.backends.cudnn.benchmark = True, False
+    try:
+        # the start: seeded random weights and a full seeded bank, handed
+        # to run_training as a checkpoint to resume (epoch -1)
+        trainer = Trainer(cfg, steps_per_epoch=INPUT_CLASSES * INPUT_PER_CLASS // TRAIN_BATCH,
+                          device="cuda")
+        start = trainer.init_state(0)
+        start.memory = full_bank(cfg.model, seed=1)
+        start_path = ck.save_checkpoint(base, start, "start",
+                                        metadata={"epoch": -1, "stage": "nopush"})
+        del start
+
+        # the state that the run saves mid-run (epoch 0's nopush checkpoint),
+        # copied as it is saved, for check 5
+        saved_mid_run = {}
+
+        def save_and_keep(ckpt_dir, state, epoch, stage, *args, **kwargs):
+            path = ck.save_state_w_condition(ckpt_dir, state, epoch, stage, *args, **kwargs)
+            if (epoch, stage) == (0, "nopush"):
+                saved_mid_run[path] = state_view(state, copy=True)
+            return path
+
+        cli_train.save_state_w_condition = save_and_keep
+        torch.cuda.synchronize()
+        reset_launch_counts()
+        t0 = time.perf_counter()
+        try:
+            state, acc = run_training(cfg, resume=start_path, keep_last=3, device="cuda")
+        finally:
+            cli_train.save_state_w_condition = ck.save_state_w_condition
+        torch.cuda.synchronize()
+        run_s = time.perf_counter() - t0
+        launches = launch_counts()
+        ckpts = ck.list_checkpoints(cfg.model_dir)
+        stages = sorted({c[1] for c in ckpts})
+        check(stages == ["nopush", "prune", "push"], f"stage checkpoints {stages}")
+        check(state.step == SCHEDULE_EPOCHS * trainer.steps_per_epoch, f"step {state.step}")
+        steps = state.step
+        for name in ("score_pool", "bn_epilogue", "score_pool_bwd", "em_estep"):
+            check(launches[name] > 0, f"{name} was not launched on the schedule path")
+        records = metric_records(cfg.model_dir)
+        with open(os.path.join(cfg.model_dir, "metrics.jsonl")) as f:
+            timed = [json.loads(line) for line in f]
+
+        # one test pass and one push scan, by themselves: launches and times;
+        # the first train batch for check 6 (the thread backend gives the
+        # process backend's bytes, as the input phase checks)
+        thread_cfg = cfg.replace(data=dataclasses.replace(cfg.data, worker_backend="thread"))
+        train_loader, push_loader, test_loader, oods = build_pipelines(thread_cfg, device="cuda")
+        try:
+            first = first_batches(train_loader, 1)[0]
+            t0 = time.perf_counter()
+            test_batches = [(b[0], b[1]) for b in test_loader]
+            test_load_s = time.perf_counter() - t0
+            push_batches = list(push_loader)
+            push_ds = push_loader.dataset
+        finally:
+            for dl in (train_loader, push_loader, test_loader, *oods):
+                dl.close()
+        n_test = sum(int((b[1] >= 0).sum()) for b in test_batches)
+        torch.cuda.synchronize()
+        reset_launch_counts()
+        t0 = time.perf_counter()
+        lp_kernel, _, _, _, _ = _run_eval(trainer, state, test_batches)
+        torch.cuda.synchronize()
+        test_s = time.perf_counter() - t0
+        test_launches = launch_counts()
+        check(test_launches["score_pool"] == len(test_batches)
+              and test_launches["bn_epilogue"] == 16 * len(test_batches),
+              f"test pass launches {test_launches} over {len(test_batches)} batches")
+        reset_launch_counts()
+        t0 = time.perf_counter()
+        cand = scan_candidates(trainer, state, push_batches)
+        torch.cuda.synchronize()
+        scan_s = time.perf_counter() - t0
+        push_launches = launch_counts()
+        check(push_launches["bn_epilogue"] == 16 * len(push_batches),
+              f"push scan launches {push_launches} over {len(push_batches)} batches")
+        t0 = time.perf_counter()
+        _greedy_assign(*cand, cfg.model.num_classes)
+        assign_s = time.perf_counter() - t0
+
+        # check 2: the kernel route against the plain route, same state
+        plain_cfg = cfg.replace(model=dataclasses.replace(
+            cfg.model, fused_scoring=False, fused_epilogue=False))
+        plain_trainer = Trainer(plain_cfg, steps_per_epoch=trainer.steps_per_epoch, device="cuda")
+        plain_state = clone_state(state, plain_cfg)
+        lp_plain, _, _, _, _ = _run_eval(plain_trainer, plain_state, test_batches)
+        route_err = float(np.abs(lp_kernel - lp_plain).max())
+        check(np.isfinite(lp_kernel).all() and lp_kernel.shape == (n_test,),
+              "test pass: bad log p(x)")
+        check(route_err <= SERVE_ATOL,
+              f"test pass log p(x), kernel vs plain route: {route_err} > {SERVE_ATOL}")
+        del plain_state, plain_trainer
+
+        # check 3: pushed means are the features at their (image, patch)
+        pushed = pushed_features_check(trainer, state, push_ds, cfg.model_dir)
+
+        # check 4: the prune
+        keep = state.gmm.keep
+        check(bool((state.gmm.priors[~keep] == 0).all()), "a pruned prior is not 0")
+        check(int(keep.sum(-1).min()) >= SCHEDULE_PRUNE_M,
+              f"a class keeps {int(keep.sum(-1).min())} < {SCHEDULE_PRUNE_M} slots")
+
+        # check 5: the checkpoint saved mid-run, a checkpoint's round trip,
+        # timed, and the run's own prune checkpoint, restored into fresh states
+        epoch0 = [c[3] for c in ckpts if c[:2] == (0, "nopush")][0]
+        check(list(saved_mid_run) == [epoch0], f"mid-run saves {list(saved_mid_run)}")
+        bad = state_mismatches(ck.restore_checkpoint(epoch0, trainer.init_state(1)),
+                               saved_mid_run.pop(epoch0))
+        check(not bad, f"epoch 0's checkpoint differs from the state it saved in {bad[:5]}")
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        timing_path = ck.save_checkpoint(os.path.join(base, "timing"), state, "9timing1.0000")
+        save_s = time.perf_counter() - t0
+        ckpt_bytes = sum(os.path.getsize(os.path.join(timing_path, f))
+                         for f in os.listdir(timing_path))
+        t0 = time.perf_counter()
+        restored = ck.restore_checkpoint(timing_path, trainer.init_state(1))
+        torch.cuda.synchronize()
+        restore_s = time.perf_counter() - t0
+        bad = state_mismatches(restored, state)
+        check(not bad, f"checkpoint round trip differs in {bad[:5]}")
+        prune_ckpt = [c[3] for c in ckpts if c[1] == "prune"][0]
+        bad = state_mismatches(ck.restore_checkpoint(prune_ckpt, restored), state)
+        check(not bad, f"the run's prune checkpoint differs from the final state in {bad[:5]}")
+        del restored
+
+        # the run resumed from epoch 0's checkpoint, against the uninterrupted one
+        resumed_cfg = cfg.replace(model_dir=os.path.join(base, "resumed"))
+        t0 = time.perf_counter()
+        resumed, acc_r = run_training(resumed_cfg, resume=epoch0, device="cuda")
+        torch.cuda.synchronize()
+        resume_s = time.perf_counter() - t0
+        bad = state_mismatches(resumed, state)
+        resumed_records = metric_records(resumed_cfg.model_dir)
+        check(not bad, f"the resumed run's final state differs in {bad[:5]}")
+        check(resumed_records == records[-len(resumed_records):] and acc_r == acc,
+              "the resumed run's losses or test results differ from the uninterrupted run's")
+        del resumed
+
+        # check 6: a label -1 sentinel row on the card
+        sentinel = sentinel_step_check(cfg, state, first)
+
+        train_s = [r["train_s"] for r in timed if "train_s" in r]
+        test_pass_s = [r["test_s"] for r in timed if "test_s" in r]
+        emit("schedule", card=smi, epochs=SCHEDULE_EPOCHS, steps=steps, batch=TRAIN_BATCH,
+             cudnn_deterministic=True, run_s=run_s, launches=launches,
+             train_s_per_epoch=train_s, test_pass_s_in_run=test_pass_s,
+             push_s_in_run=[r["push_s"] for r in timed if "push_s" in r],
+             test_pass={"images": n_test, "batches": len(test_batches), "s": test_s,
+                        "img_per_s": n_test / test_s, "host_load_s": test_load_s,
+                        "launches": test_launches,
+                        "log_px_kernel_vs_plain_max_abs_err": route_err, "atol": SERVE_ATOL},
+             push={"scan_s": scan_s, "assign_s": assign_s, "batches": len(push_batches),
+                   "launches": push_launches, "features": pushed},
+             checkpoint={"bytes": ckpt_bytes, "save_s": save_s, "restore_s": restore_s,
+                         "bit_exact": True, "mid_run_bit_exact": True},
+             resume={"from": os.path.basename(epoch0), "s": resume_s, "bit_exact": True},
+             final_accuracy=acc, pushed=pushed["pushed"],
+             pruned=int((~keep).sum().item()), kept_min_per_class=int(keep.sum(-1).min()),
+             sentinel_step=sentinel, peak_mem_gb=torch.cuda.max_memory_allocated() / 1e9)
+        return launches
+    finally:
+        torch.backends.cudnn.deterministic, torch.backends.cudnn.benchmark = det
+        shutil.rmtree(base, ignore_errors=True)
+
+
 def main() -> int:
     if not os.path.isdir(os.path.join(HERE, "mgproto_tpu_torch")):
         print("chip_smoke: mgproto_tpu_torch/ not found beside this script", file=sys.stderr)
@@ -1351,6 +1687,7 @@ def main() -> int:
     serve_launches, dispatches = serve_phase()
     train_launches, train_steps = train_phase()
     input_launches, input_steps = input_phase()
+    schedule_launches = schedule_phase(smi)
     for k in kernels:
         # `launches`: the loader-fed epoch of the input phase (this path's
         # main run); the train phase's and the serve phase's beside them
@@ -1359,6 +1696,7 @@ def main() -> int:
         k["train_launches"] = train_launches[k["name"]]
         k["launches_per_train_step"] = k["train_launches"] / train_steps
         k["serve_launches"] = serve_launches.get(k["name"], 0)
+        k["schedule_launches"] = schedule_launches[k["name"]]
         check(k["launches"] > 0, f"{k['name']} was not launched on the input path")
         check(k["train_launches"] > 0, f"{k['name']} was not launched on the train path")
     print(json.dumps({"kernels": kernels, "input_steps": input_steps, "train_steps": train_steps,

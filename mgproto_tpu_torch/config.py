@@ -1,7 +1,7 @@
 """Configuration of the port: a trimmed copy of mgproto_tpu/config.py.
 
-Only the fields the serving forward, the synchronous training step and the
-training input path read.
+Only the fields the serving forward, the synchronous training step, the
+training input path and the training schedule (cli/train.py) read.
 The field names and defaults are the JAX package's, so one configuration
 describes both packages.
 """
@@ -10,7 +10,7 @@ from __future__ import annotations
 
 import dataclasses
 import math
-from typing import Optional, Tuple
+from typing import List, Optional, Tuple
 
 
 @dataclasses.dataclass(frozen=True)
@@ -69,11 +69,22 @@ class OptimConfig:
 
 @dataclasses.dataclass(frozen=True)
 class ScheduleConfig:
-    """The epoch gates of training."""
+    """The training schedule: epoch gates, push epochs and the final prune."""
 
+    num_train_epochs: int = 120
     num_warm_epochs: int = 0
     mine_start: int = 40
     update_gmm_start: int = 35
+    push_start: int = 100
+    push_every: int = 10
+    prune_top_m: int = 8
+    # rescale the kept priors to sum to 1 per class after the prune
+    # (core/mgproto.py `prune_top_m`); False keeps the reference's priors
+    prune_renormalize: bool = False
+
+    def push_epochs(self) -> List[int]:
+        return [e for e in range(self.num_train_epochs)
+                if e % self.push_every == 0 and e >= self.push_start]
 
 
 @dataclasses.dataclass(frozen=True)
@@ -122,6 +133,8 @@ class Config:
     loss: LossConfig = dataclasses.field(default_factory=LossConfig)
     data: DataConfig = dataclasses.field(default_factory=DataConfig)
     seed: int = 0  # the loaders' shuffle and augmentation streams
+    # checkpoints, train.log, metrics.jsonl and push_provenance.json
+    model_dir: str = "./saved_models"
 
     def replace(self, **kw) -> "Config":
         return dataclasses.replace(self, **kw)
@@ -148,5 +161,6 @@ def tiny_test_config(
             mine_T=mine_T,
             mem_capacity=mem_capacity,
         ),
-        schedule=ScheduleConfig(mine_start=0, update_gmm_start=0),
+        schedule=ScheduleConfig(num_train_epochs=2, mine_start=0, update_gmm_start=0,
+                                push_start=1, push_every=1, prune_top_m=2),
     )

@@ -244,3 +244,27 @@ def head_forward(
 def log_px(logits_level0: torch.Tensor) -> torch.Tensor:
     """OoD score log p(x) = logsumexp over classes of log p(x|c)."""
     return torch.logsumexp(logits_level0, dim=-1)
+
+
+def prune_top_m(gmm: GMMState, top_m: int, renormalize: bool = False) -> GMMState:
+    """Keep each class's top-M prototypes by prior; zero the others' priors.
+
+    The keep set is `prior >= the M-th largest prior` of the class, so ties
+    at the threshold keep more than M slots (the reference's `>=`). Pruned
+    slots keep their means and sigmas; their zero prior removes them from
+    the mixture (`head_forward`). Priors are not renormalized unless
+    `renormalize` (opt-in): then the kept priors of a class sum to 1.
+    Returns a new GMMState; the means tensor is shared, not copied."""
+    if not 1 <= top_m <= gmm.k_per_class:
+        raise ValueError(f"top_m {top_m} not in [1, {gmm.k_per_class}]")
+    thresh = torch.topk(gmm.priors, top_m, dim=-1).values[:, -1]  # [C]
+    keep = gmm.priors >= thresh[:, None]
+    priors = torch.where(keep, gmm.priors, torch.zeros_like(gmm.priors))
+    if renormalize:
+        # summed left to right over K, the order XLA's reduction takes, so
+        # the renormalized priors are bit-equal to the JAX package's
+        total = priors[:, 0]
+        for j in range(1, priors.shape[1]):
+            total = total + priors[:, j]
+        priors = priors / torch.clamp_min(total, 1e-12)[:, None]
+    return gmm._replace(priors=priors, keep=keep)

@@ -44,6 +44,7 @@ from mgproto_tpu_torch.core.em import BankAux, bank_update, resolve_em_config
 from mgproto_tpu_torch.core.mgproto import head_forward
 from mgproto_tpu_torch.core.state import TrainState, create_train_state, set_joint_lrs
 from mgproto_tpu_torch.data.loader import device_prefetch
+from mgproto_tpu_torch.engine.eval import EvalOutput, eval_forward, eval_mode, to_device_images
 from mgproto_tpu_torch.models.common import BatchNorm
 from mgproto_tpu_torch.numerics import apply_numerics_policy, resolve_device, use_kernel
 from mgproto_tpu_torch.ops.augment import augment_draws, augment_tail, resolve_device_augment
@@ -256,6 +257,17 @@ class Trainer:
             em_active=bank.num_active, em_compact_fallback=bank.compact_fallback,
             nonfinite=not ok,
         )
+
+    def eval_step(self, state: TrainState, images, labels=None) -> EvalOutput:
+        """The eval forward of `state` on one host batch of normalized f32
+        images (the JAX `eval_step`): the state's model in eval mode under
+        inference mode for the call, its train mode put back after, so the
+        next train step sees the state as it was."""
+        if labels is not None:
+            labels = _host_tensor(labels).to(torch.int64)
+        with eval_mode(state.model) as model:
+            return eval_forward(model, state.gmm, to_device_images(images, self.device), labels,
+                                self.cfg.model.mine_T, self.fused)
 
     def epoch_flags(self, state: TrainState, epoch: int) -> Dict[str, bool]:
         """Python-side epoch gates (the JAX `epoch_flags`)."""

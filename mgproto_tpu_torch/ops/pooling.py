@@ -42,16 +42,24 @@ def top_t_pool(
     )
 
 
+def one_hot_rows(labels: torch.Tensor, num_classes: int) -> torch.Tensor:
+    """[B, C] bool, `jax.nn.one_hot`'s rows: a label outside [0, C), such as
+    the loader's sentinel -1, gives a zero row (torch's one_hot raises)."""
+    return labels.long()[:, None] == torch.arange(num_classes, device=labels.device)
+
+
 def mine_mask_activations(
     log_act: torch.Tensor, labels: Optional[torch.Tensor]
 ) -> torch.Tensor:
     """Hard-mining mask: non-ground-truth prototypes keep their top-1
     activation at every level, ground-truth ones their t-th best.
-    log_act [B, C, K, T]; labels [B] or None (eval: unchanged)."""
+    log_act [B, C, K, T]; labels [B] or None (eval: unchanged). A label
+    outside [0, C), the loader's sentinel -1, has no ground-truth class: its
+    row keeps the top-1 everywhere (`one_hot_rows`)."""
     if labels is None:
         return log_act
     c = log_act.shape[1]
-    is_gt = torch.nn.functional.one_hot(labels.long(), c).bool()
+    is_gt = one_hot_rows(labels, c)
     keep = is_gt[:, :, None, None]
     return torch.where(keep, log_act, log_act[..., :1].expand_as(log_act))
 

@@ -427,3 +427,113 @@ def test_put_batch_copies_on_the_copy_stream():
     state, met = trainer.train_step(state, images, labels, use_mine=True, update_gmm=False,
                                     seeds=seeds)
     assert np.isfinite(met.loss.item())
+
+
+def _tiny_cuda_trainer(device_augment=False):
+    from mgproto_tpu_torch.config import DataConfig, tiny_test_config
+    from mgproto_tpu_torch.engine.train import Trainer
+
+    cfg = tiny_test_config().replace(data=DataConfig(device_augment=device_augment))
+    return cfg, Trainer(cfg, steps_per_epoch=4, device="cuda")
+
+
+def _full_bank(state, seed=1):
+    g = torch.Generator().manual_seed(seed)
+    mem = state.memory
+    feats = torch.nn.functional.normalize(torch.randn(mem.feats.shape, generator=g), dim=-1)
+    return mem._replace(feats=feats.to(mem.feats.device),
+                        length=torch.full_like(mem.length, mem.capacity))
+
+
+@pytest.mark.cuda
+def test_a_sentinel_row_trains_on_the_card():
+    """A batch holding the loader's sentinel row (zero image, label -1) runs
+    through the kernels on the card: a finite loss within 1e-4 of the same
+    step on the CPU, and the bank untouched by that row (its class -1 is
+    dropped: the lengths and written slots match the CPU's)."""
+    _need_cuda()
+    import numpy as np
+
+    cfg, trainer = _tiny_cuda_trainer()
+    assert trainer.fused
+    rng = np.random.default_rng(0)
+    images = rng.normal(size=(6, 32, 32, 3)).astype(np.float32)
+    labels = np.array([0, 1, -1, 1, 0, 2], np.int32)
+    images[2] = 0.0
+    out = {}
+    for dev, tr in (("cuda", trainer), ("cpu", type(trainer)(cfg, 4, device="cpu"))):
+        state = tr.init_state(0)
+        state.memory = _full_bank(state)
+        before = state.memory.feats.clone()
+        state, met = tr.train_step(state, images, labels, use_mine=True, update_gmm=True)
+        written = (state.memory.feats != before).any(-1).cpu()
+        out[dev] = (met.loss.item(), state.memory.length.cpu(), written)
+    assert np.isfinite(out["cuda"][0]) and abs(out["cuda"][0] - out["cpu"][0]) <= 1e-4
+    assert torch.equal(out["cuda"][1], out["cpu"][1])
+    assert torch.equal(out["cuda"][2], out["cpu"][2]) and not out["cuda"][2][3].any()
+
+
+@pytest.mark.cuda
+def test_a_checkpoint_crosses_between_the_card_and_the_cpu(tmp_path):
+    """A trained state on the card saved, restored into a CPU state, saved
+    again and restored onto the card: every tensor, Adam state and counter
+    bit for bit."""
+    _need_cuda()
+    import numpy as np
+
+    from mgproto_tpu_torch.engine.train import Trainer
+    from mgproto_tpu_torch.utils import checkpoint as ck
+
+    cfg, trainer = _tiny_cuda_trainer()
+    state = trainer.init_state(0)
+    state.memory = _full_bank(state)
+    rng = np.random.default_rng(1)
+    for _ in range(2):
+        images = rng.normal(size=(6, 32, 32, 3)).astype(np.float32)
+        trainer.train_step(state, images, np.array([0, 1, 2, 3, 0, 1], np.int32),
+                           use_mine=True, update_gmm=True)
+    path = ck.save_checkpoint(str(tmp_path), state, "0nopush0.5000")
+    cpu = ck.restore_checkpoint(path, Trainer(cfg, 4, device="cpu").init_state(3))
+    back_path = ck.save_checkpoint(str(tmp_path), cpu, "1nopush0.5000")
+    back = ck.restore_checkpoint(back_path, trainer.init_state(4))
+    want = dict(ck._tensors(ck.state_payload(state)))
+    for restored, dev in ((cpu, "cpu"), (back, "cuda")):
+        got = dict(ck._tensors(ck.state_payload(restored)))
+        assert got.keys() == want.keys()
+        for k in want:
+            if not k.endswith("/step"):  # Adam's step lives on the host
+                assert got[k].device.type == dev, k
+            assert torch.equal(got[k].cpu(), want[k].cpu()), k
+        assert (restored.step, restored.joint_updates) == (state.step, state.joint_updates)
+
+
+@pytest.mark.cuda
+def test_evaluate_on_the_card_matches_the_cpu():
+    """The test pass (engine/evaluate.py) of one state on the card, through
+    the score_pool kernel, against the CPU's plain route: per-sample log
+    p(x) and CE within 1e-4, the same accuracy; the model is back in train
+    mode after it."""
+    _need_cuda()
+    import numpy as np
+
+    from mgproto_tpu_torch.engine import evaluate as ev
+    from mgproto_tpu_torch.engine.train import Trainer
+    from mgproto_tpu_torch.utils import checkpoint as ck
+
+    cfg, trainer = _tiny_cuda_trainer()
+    state = trainer.init_state(0)
+    cpu_trainer = Trainer(cfg, 4, device="cpu")
+    cpu = cpu_trainer.init_state(0)
+    payload = ck.state_payload(state)
+    cpu.model.load_state_dict(payload["model"])
+    with torch.no_grad():
+        cpu.gmm.means.copy_(state.gmm.means.cpu())
+    rng = np.random.default_rng(2)
+    batches = [(rng.normal(size=(6, 32, 32, 3)).astype(np.float32),
+                np.array([0, 1, 2, 3, 0, -1], np.int32)) for _ in range(3)]
+    got = ev._run_eval(trainer, state, batches)
+    want = ev._run_eval(cpu_trainer, cpu, batches)
+    assert state.model.training and got[0].shape == (15,)
+    assert np.abs(got[0] - want[0]).max() <= 1e-4
+    assert abs(got[2] - want[2]) <= 1e-4 * got[3]
+    assert np.array_equal(got[1], want[1])

@@ -24,6 +24,11 @@ Tolerances:
     both sides are handed the SAME gradients, one optimizer step agrees to
     atol 1e-6.
   * the five-step loss trajectory: atol 1e-3 per step.
+  * a batch holding a label -1 sentinel row (zero image): losses and
+    metrics atol 1e-4 and gradients as above; the bank's lengths, cursors
+    and flags exact, and every slot no labelled row wrote bit-exact (the
+    sentinel row enqueues nothing). The loss functions and the mining mask
+    on -1 labels: atol 1e-6.
   * two loader-fed `train_epoch` steps (uint8 wire, device augmentation on
     both sides, the same JPEG tree): the last step's losses and metrics atol
     1e-4, the bank's features and the priors atol 1e-5, the means within
@@ -54,6 +59,7 @@ from mgproto_tpu.data import ImageFolder as JaxImageFolder
 from mgproto_tpu.data.transforms import TrainTransform as JaxTrainTransform
 from mgproto_tpu.engine.train import Trainer as JaxTrainer
 from mgproto_tpu.ops.gaussian import e_step as jax_e_step
+from mgproto_tpu.ops.pooling import mine_mask_activations as jax_mine_mask
 from mgproto_tpu_torch.config import DataConfig, EMConfig, tiny_test_config
 from mgproto_tpu_torch.core import em as tem
 from mgproto_tpu_torch.core import losses as tl
@@ -65,6 +71,7 @@ from mgproto_tpu_torch.data.transforms import TrainTransform
 from mgproto_tpu_torch.engine.train import Trainer
 from mgproto_tpu_torch.models.convert import from_jax_train_state, from_jax_variables
 from mgproto_tpu_torch.ops.gaussian import e_step
+from mgproto_tpu_torch.ops.pooling import mine_mask_activations
 
 B = 6
 WIDTH = 2  # compact EM width, of C = 4 classes
@@ -201,6 +208,63 @@ def test_five_step_loss_trajectory_with_em():
         assert pm.em_compact_fallback == int(jm.em_compact_fallback), i
     assert pstate.step == int(jstate.step) == 5
     np.testing.assert_array_equal(pstate.memory.length.numpy(), np.asarray(jstate.memory.length))
+
+
+def test_train_step_with_a_sentinel_row_matches_jax():
+    """The loader's sentinel row (zero image, label -1) trains as in JAX: its
+    CE terms read class C-1, it has no positive proxy and no ground-truth
+    class in the mining mask, and it enqueues nothing."""
+    jtrainer, jstate, grad_fn = _jax_side()
+    ptrainer, pstate = _port_side(jstate)
+    images, labels = _batch(5, [0, 1, -1, 1, 0, 1])
+    images[2] = 0.0
+    jgrads, _ = grad_fn(jstate.params, jstate.batch_stats, jstate.gmm, images, labels,
+                        jnp.float32(1.0))
+    jnew, jm = jtrainer.train_step(jstate, images, labels, use_mine=True, update_gmm=True)
+    pstate, pm = ptrainer.train_step(pstate, images, labels, use_mine=True, update_gmm=True)
+    for name in ("loss", "cross_entropy", "mine", "aux", "accuracy", "full_mem_ratio"):
+        np.testing.assert_allclose(float(getattr(pm, name)), float(getattr(jm, name)),
+                                   atol=1e-4, err_msg=name)
+    assert not pm.nonfinite and pm.em_active == int(jm.em_active) == 2
+    ref = _port_grads(jgrads, jstate)
+    for name, p in pstate.model.named_parameters():
+        assert _rel(p.grad.numpy(), np.asarray(ref[name])) <= 1e-4, name
+    assert _rel(pstate.proxies.grad.numpy(), np.asarray(jgrads["proxies"])) <= 1e-4
+
+    jmem_new = jax.device_get(jnew.memory)
+    for name in ("length", "cursor", "updated"):
+        np.testing.assert_array_equal(getattr(pstate.memory, name).numpy(),
+                                      np.asarray(getattr(jmem_new, name)), err_msg=name)
+    old = np.asarray(jstate.memory.feats)
+    written = (np.asarray(jmem_new.feats) != old).any(-1)  # [C, cap] slots JAX wrote
+    got = pstate.memory.feats.numpy()
+    np.testing.assert_array_equal(got[~written], old[~written])
+    np.testing.assert_allclose(got[written], np.asarray(jmem_new.feats)[written], atol=1e-5)
+    # 5 labelled rows x K = 3 candidates at most, all in classes 0 and 1
+    assert 0 < written.sum() <= 15 and not written[2:].any()
+
+
+def test_losses_and_mining_mask_on_label_minus_one_match_jax():
+    rng = np.random.default_rng(8)
+    b, c, k, t, e = 4, 4, 3, 4, 8
+    logits = rng.normal(size=(b, c, t)).astype(np.float32) * 3
+    log_act = np.sort(rng.normal(size=(b, c, k, t)).astype(np.float32), -1)[..., ::-1].copy()
+    emb = rng.normal(size=(b, e)).astype(np.float32)
+    proxies = rng.normal(size=(c, e)).astype(np.float32)
+    labels = np.array([2, -1, 0, -1], np.int32)
+    lb = _t(labels)
+    pairs = (
+        (tl.cross_entropy(_t(logits[..., 0]), lb), jl.cross_entropy(logits[..., 0], labels)),
+        (tl.mine_loss(_t(logits), lb), jl.mine_loss(logits, labels)),
+        (tl.proxy_anchor(_t(emb), lb, _t(proxies)), jl.proxy_anchor(emb, labels, proxies)),
+        (mine_mask_activations(_t(log_act), lb), jax_mine_mask(log_act, labels)),
+    )
+    for got, want in pairs:
+        np.testing.assert_allclose(got.numpy(), np.asarray(want), rtol=0, atol=1e-6)
+    # the quirk kept for parity: label -1 reads class C-1
+    np.testing.assert_allclose(tl.cross_entropy(_t(logits[:2, :, 0]), _t([3, -1])).item(),
+                               tl.cross_entropy(_t(logits[:2, :, 0]), _t([3, 3])).item(),
+                               rtol=0, atol=0)
 
 
 def test_divergence_guard_skips_a_nan_batch():
