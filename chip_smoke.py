@@ -4,7 +4,9 @@
     python3 chip_smoke.py        # from the repository root; needs a CUDA GPU and nvcc
 
 Phases, one JSON line each:
-  1. env:    torch/CUDA versions and the card (name, power limit);
+  1. env:    torch/CUDA versions and the card (name, power limit); then a
+             probe line: whether cv2 and matplotlib import here (the port
+             needs neither; the probe never fails);
   2. build:  the four CUDA kernels compiled from mgproto_tpu_torch/csrc/,
              one nvcc per source, in parallel;
   3. kernel: each kernel held against its plain PyTorch version on the card
@@ -72,10 +74,24 @@ Phases, one JSON line each:
              a checkpoint's save, restore and bytes, bit-exact; the run
              resumed from epoch 0's checkpoint against the uninterrupted
              one, bit for bit; and one step on a batch holding a label -1
-             sentinel row. Its checkpoints are removed at the end.
+             sentinel row. The push renders (run_training's default): the
+             render line checks 3 JPEGs per pushed prototype, decodes a
+             seeded sample, and holds 8 crop boxes from maps upsampled on
+             the card to the boxes from the same maps on the host. Its
+             checkpoints are removed at the end but for a copy of the
+             `push` checkpoint;
+  8. interpret: that checkpoint restored through cli/interpret.run_interpret
+             (metric "all", the patch CSV) on a CUB-layout tree of 200
+             classes x 4 seeded 500x375 JPEGs with CUB's 15 parts: the four
+             metrics and the CSV rows, the clean and noisy passes' times, the
+             host post-passes' times and the epilogue's launches (16 a batch
+             and pass); then the maps on the kernel route against the plain
+             route (epilogue off), the batched peaks on the card against
+             the scalar host peaks, and purity_from_csv against the purity.
 Then the kernel summary line (times at the train step's shapes, the serve
 path's beside them; `launches` counted on the input phase's epoch,
-`schedule_launches` on the schedule phase's run), the card line as
+`schedule_launches` on the schedule phase's run, `interpret_launches` on
+the interpret phase's run_interpret), the card line as
 nvidia-smi prints it, and last `{"ok": true, "device": {...}}`. Any failed
 check exits non-zero before that line is printed.
 """
@@ -155,6 +171,24 @@ SCHEDULE_PRUNE_M = 8
 # a batch of another size: the convolutions may pick other algorithms, so
 # SERVE_ATOL, not bit equality
 PUSH_FEATURE_SAMPLE = 16
+# the push render: rendered prototypes decoded, and those whose crop box is
+# recomputed from the map on the card and from the same map on the host
+RENDER_DECODE_SAMPLE = 32
+RENDER_BOX_SAMPLE = 8
+# the interpret phase: a CUB-layout tree of 200 classes x 4 test images
+# (CUB's test split has 5,794, ~29 a class) with CUB's 15 parts, each
+# visible with probability 0.8; metrics with the JAX CLI's defaults
+CUB_PARTS = ("back", "beak", "belly", "breast", "crown", "forehead", "left eye", "left leg",
+             "left wing", "nape", "right eye", "right leg", "right wing", "tail", "throat")
+INTERPRET_PER_CLASS = 4
+PART_VISIBLE = 0.8
+# collected maps, kernel route vs plain route (epilogue off): the served
+# tolerance, of each map's maximum
+MAP_ATOL_OF_MAX = SERVE_ATOL
+# batched peaks on the card vs the scalar host peaks on the same maps: the
+# card's and the CPU's bicubic round differently, so a near-tie argmax may
+# move by one pixel on at most this share of maps
+PEAK_MOVED_SHARE = 0.01
 # where activations and their gradients are compared between routes
 PROBES = ("features.bn1", "features.layer1", "features.layer2", "features.layer3",
           "features.layer4", "add_on")
@@ -1462,9 +1496,255 @@ def sentinel_step_check(cfg, state, batch):
     return {"loss": loss, "classes_written": int(written.sum()), "em_active": met.em_active}
 
 
+def render_check(trainer, state, push_ds, model_dir, epoch):
+    """The push render of `epoch`: 3 JPEGs per pushed prototype; a seeded
+    sample decodes (each original and overlay 224 x 224 x 3, each crop the
+    size of its box); and for a smaller sample the crop box from the map
+    upsampled on the card equals the box the CPU path computes from the
+    same map copied to the host, and the crop file has that box's size.
+    That sample also times the render's two halves: the batch-1 forward,
+    and the host's upsample copy, crop, overlay and three JPEGs."""
+    import numpy as np
+    import torch
+    from PIL import Image
+
+    from mgproto_tpu_torch.core.mgproto import gt_class_log_densities
+    from mgproto_tpu_torch.engine.eval import eval_mode, to_device_images
+    from mgproto_tpu_torch.engine.push import load_push_provenance
+    from mgproto_tpu_torch.utils import vis
+    from mgproto_tpu_torch.utils.images import preprocess_input
+
+    out = os.path.join(model_dir, "img", f"epoch-{epoch}")
+    prov = load_push_provenance(model_dir)
+    c, k = state.gmm.priors.shape
+    ids = np.array(prov["image_id"]).reshape(c, k)
+    pushed = np.argwhere(ids >= 0)
+    files = sorted(os.listdir(out))
+    check(len(files) == 3 * len(pushed), f"render: {len(files)} files for {len(pushed)} pushed")
+    img = trainer.cfg.model.img_size
+    rng = np.random.default_rng(0)
+    decoded = {}
+    for ci, ki in pushed[rng.choice(len(pushed), RENDER_DECODE_SAMPLE, replace=False)]:
+        j = ci * k + ki
+        for name in (f"{j}prototype-img-original.jpg",
+                     f"{j}prototype-img-original_with_self_act.jpg", f"{j}prototype-img.jpg"):
+            with Image.open(os.path.join(out, name)) as im:
+                decoded[name] = np.asarray(im).shape
+        check(decoded[f"{j}prototype-img-original.jpg"] == (img, img, 3)
+              and decoded[f"{j}prototype-img-original_with_self_act.jpg"] == (img, img, 3),
+              f"render: prototype {j}'s pictures are not {img} x {img} x 3")
+    boxes, forward_ms, host_ms = [], [], []
+    scratch = os.path.join(os.path.dirname(model_dir), "render_timing")
+    os.makedirs(scratch, exist_ok=True)
+    with eval_mode(state.model) as model:
+        for ci, ki in pushed[rng.choice(len(pushed), RENDER_BOX_SAMPLE, replace=False)]:
+            raw = np.asarray(push_ds.load(int(ids[ci, ki]))[0], np.float32)
+            # the render's two halves, timed apart: the batch-1 forward on
+            # the card, then the upsample, crop, overlay and 3 JPEGs
+            t0 = time.perf_counter()
+            x = to_device_images(preprocess_input(raw)[None], trainer.device)
+            lp, _ = gt_class_log_densities(
+                model, state.gmm, x, torch.full((1,), int(ci), device=trainer.device))
+            act = torch.exp(lp[0, ki])
+            torch.cuda.synchronize()
+            forward_ms.append(1e3 * (time.perf_counter() - t0))
+            t0 = time.perf_counter()
+            up = vis.upsample_activation(act, raw.shape[:2]).cpu().numpy()
+            on_card = vis.find_high_activation_crop(up)
+            vis.imsave_with_bbox(os.path.join(scratch, "a.jpg"), raw, *on_card)
+            vis.imsave_with_bbox(os.path.join(scratch, "b.jpg"), vis.heatmap_overlay(raw, up),
+                                 *on_card)
+            vis.imsave(os.path.join(scratch, "c.jpg"),
+                       raw[on_card[0]:on_card[1], on_card[2]:on_card[3]])
+            host_ms.append(1e3 * (time.perf_counter() - t0))
+            on_host = vis.find_high_activation_crop(
+                vis.upsample_activation(act.cpu().numpy(), raw.shape[:2]))
+            y0, y1, x0, x1 = on_card
+            with Image.open(os.path.join(out, f"{ci * k + ki}prototype-img.jpg")) as im:
+                crop = np.asarray(im).shape
+            check(on_card == on_host, f"render: prototype ({ci}, {ki}) box {on_card} on the "
+                                      f"card, {on_host} from the host's map")
+            check(crop == (y1 - y0, x1 - x0, 3),
+                  f"render: prototype ({ci}, {ki}) crop {crop} for box {on_card}")
+            boxes.append([int(v) for v in on_card])
+    return {"files": len(files), "pushed": int(len(pushed)), "decoded": len(decoded),
+            "boxes_card_eq_host": len(boxes), "sample_boxes": boxes,
+            "forward_ms_median": float(np.median(forward_ms)),
+            "host_ms_median": float(np.median(host_ms)), "forward_ms": forward_ms,
+            "host_ms": host_ms}
+
+
+def write_cub_tree(root, classes, per_class, hw, seed):
+    """A CUB_200_2011-layout tree: the seeded JPEGs of `write_jpeg_tree`
+    under images/, every image in the test split, a seeded bounding box
+    per image, CUB's 15 parts at seeded places inside it (each visible with
+    probability PART_VISIBLE), and the five tables."""
+    import numpy as np
+
+    write_jpeg_tree(os.path.join(root, "images"), classes, per_class, hw, seed=seed)
+    rng = np.random.default_rng(seed + 1)
+    h, w = hw
+    os.makedirs(os.path.join(root, "parts"), exist_ok=True)
+    tables = {"images": [], "image_class_labels": [], "train_test_split": [],
+              "bounding_boxes": []}
+    locs = []
+    img_id = 0
+    for c in range(classes):
+        for i in range(per_class):
+            img_id += 1
+            tables["images"].append(f"{img_id} {c:03d}.class/{i}.jpg")
+            tables["image_class_labels"].append(f"{img_id} {c + 1}")
+            tables["train_test_split"].append(f"{img_id} 0")
+            x0, y0 = rng.uniform(0, w / 3), rng.uniform(0, h / 3)
+            bw, bh = rng.uniform(w / 3, w - x0), rng.uniform(h / 3, h - y0)
+            tables["bounding_boxes"].append(f"{img_id} {x0:.1f} {y0:.1f} {bw:.1f} {bh:.1f}")
+            for p in range(len(CUB_PARTS)):
+                if rng.uniform() < PART_VISIBLE:
+                    locs.append(f"{img_id} {p + 1} {rng.uniform(x0, x0 + bw):.1f} "
+                                f"{rng.uniform(y0, y0 + bh):.1f} 1")
+                else:
+                    locs.append(f"{img_id} {p + 1} 0.0 0.0 0")
+    for name, rows in tables.items():
+        with open(os.path.join(root, f"{name}.txt"), "w") as f:
+            f.write("\n".join(rows) + "\n")
+    with open(os.path.join(root, "parts", "parts.txt"), "w") as f:
+        f.write("".join(f"{p + 1} {n}\n" for p, n in enumerate(CUB_PARTS)))
+    with open(os.path.join(root, "parts", "part_locs.txt"), "w") as f:
+        f.write("\n".join(locs) + "\n")
+    return img_id
+
+
+def interpret_phase(smi, cfg, ckpt):
+    """The interpretability plane on the card: the schedule phase's push
+    checkpoint restored through cli/interpret.run_interpret on a mini-CUB,
+    then its maps on the kernel route against the plain route, the batched
+    device peaks against the scalar host peaks, the CSV against purity.
+    Returns the launch counts of the run_interpret call."""
+    import dataclasses
+    import shutil
+
+    import numpy as np
+    import torch
+
+    from mgproto_tpu_torch.cli.interpret import build_eval_loader, run_interpret
+    from mgproto_tpu_torch.data.cub_parts import CubParts
+    from mgproto_tpu_torch.engine.interpretability import (
+        collect_gt_activations,
+        peak_box,
+        peak_positions,
+        purity_from_csv,
+    )
+    from mgproto_tpu_torch.engine.train import Trainer
+    from mgproto_tpu_torch.utils.checkpoint import restore_checkpoint
+
+    base = os.path.dirname(ckpt)
+    root = os.path.join(base, "cub")
+    try:
+        t0 = time.perf_counter()
+        n_images = write_cub_tree(root, cfg.model.num_classes, INTERPRET_PER_CLASS, INPUT_HW,
+                                  seed=11)
+        write_s = time.perf_counter() - t0
+        cfg = cfg.replace(data=dataclasses.replace(cfg.data, worker_backend="thread"))
+        csv_path = os.path.join(base, "patches.csv")
+        torch.cuda.synchronize()
+        reset_launch_counts()
+        t0 = time.perf_counter()
+        res = run_interpret(cfg, root, checkpoint=ckpt, metric="all", export_csv=csv_path,
+                            device="cuda")
+        torch.cuda.synchronize()
+        run_s = time.perf_counter() - t0
+        launches = launch_counts()
+        batches = -(-n_images // cfg.data.test_batch_size)
+        check(res["images"] == n_images, f"interpret: {res['images']} images of {n_images}")
+        check(launches["bn_epilogue"] == 16 * batches * 2,
+              f"interpret launches {launches}: bn_epilogue not 16 x {batches} batches x 2 passes")
+        metrics = {m: res[m] for m in ("consistency", "stability", "purity", "purity_std")}
+        check(all(np.isfinite(v) and 0.0 <= v <= 100.0 for v in metrics.values()),
+              f"interpret: a metric outside [0, 100]: {metrics}")
+        k = cfg.model.prototypes_per_class
+        check(res["csv_rows"] == cfg.model.num_classes * k * min(10, INTERPRET_PER_CLASS),
+              f"interpret: {res['csv_rows']} CSV rows")
+        parts = CubParts(root)
+        via_csv = purity_from_csv(csv_path, parts, cfg.model.img_size)
+        check(abs(via_csv[0] - res["purity"]) <= 1e-9 and abs(via_csv[1] - res["purity_std"])
+              <= 1e-9, f"interpret: purity_from_csv {via_csv} vs evaluate_purity "
+                       f"{(res['purity'], res['purity_std'])}")
+
+        # the same checkpoint's maps on the kernel route and the plain route
+        loader = build_eval_loader(cfg, root)
+        try:
+            t0 = time.perf_counter()
+            loaded = list(loader)
+            load_s = time.perf_counter() - t0
+        finally:
+            loader.close()
+        maps = {}
+        for name, fused in (("kernel", None), ("plain", False)):
+            rcfg = cfg.replace(model=dataclasses.replace(cfg.model, fused_epilogue=fused))
+            trainer = Trainer(rcfg, steps_per_epoch=1, device="cuda")
+            state = restore_checkpoint(ckpt, trainer.init_state(rcfg.seed))
+            reset_launch_counts()
+            maps[name] = collect_gt_activations(trainer, state, loaded)[0]
+            check((launch_counts()["bn_epilogue"] > 0) == (fused is None),
+                  f"interpret: the {name} route's epilogue launches {launch_counts()}")
+            del state, trainer
+        scale = maps["plain"].amax(dim=(2, 3), keepdim=True)
+        map_err = float(((maps["kernel"] - maps["plain"]).abs() / scale).max())
+        check(map_err <= MAP_ATOL_OF_MAX,
+              f"interpret maps, kernel vs plain route: {map_err} > {MAP_ATOL_OF_MAX} of the max")
+
+        # batched device peaks against the scalar host peaks, same maps
+        img = cfg.model.img_size
+        t0 = time.perf_counter()
+        on_card = peak_positions(maps["kernel"], img)
+        torch.cuda.synchronize()
+        card_s = time.perf_counter() - t0
+        host_maps = maps["kernel"].cpu().numpy()
+        t0 = time.perf_counter()
+        on_host = np.array([[peak_box(m, img, 0)[::2] for m in row] for row in host_maps])
+        host_s = time.perf_counter() - t0
+        diff = np.abs(on_card - on_host)
+        moved = int(diff.any(-1).sum())
+        check(diff.max() <= 1 and moved <= PEAK_MOVED_SHARE * diff[..., 0].size,
+              f"interpret peaks: {moved} of {diff[..., 0].size} maps moved, by up to {diff.max()}")
+
+        sec = res["seconds"]
+        emit("interpret", card=smi, images=n_images, batch=cfg.data.test_batch_size,
+             reduced=f"CUB's test split cut from 5,794 images (~29 a class) to "
+                     f"{INTERPRET_PER_CLASS} a class, {n_images} in all",
+             **metrics, csv_rows=res["csv_rows"], run_s=run_s, write_tree_s=write_s,
+             clean_pass={"s": sec["clean_pass"], "img_per_s": n_images / sec["clean_pass"]},
+             noisy_pass={"s": sec["noisy_pass"], "img_per_s": n_images / sec["noisy_pass"]},
+             host_post_pass_s={m: sec[m] for m in ("consistency", "stability", "purity", "csv")},
+             launches=launches, bn_epilogue_expected=16 * batches * 2,
+             maps_kernel_vs_plain_of_max=map_err, atol_of_max=MAP_ATOL_OF_MAX,
+             peaks={"maps": int(diff[..., 0].size), "moved_one_px": moved,
+                    "card_s": card_s, "host_scalar_s": host_s},
+             purity_from_csv=list(via_csv), host_load_s=load_s,
+             peak_mem_gb=torch.cuda.max_memory_allocated() / 1e9)
+        return launches
+    finally:
+        shutil.rmtree(base, ignore_errors=True)
+
+
+def image_library_probe():
+    """Whether cv2 and matplotlib import on this machine, and their
+    versions (the port needs neither); never fails."""
+    code = ("import importlib, json\nout = {}\nfor m in ('cv2', 'matplotlib'):\n"
+            "    try:\n        out[m] = importlib.import_module(m).__version__\n"
+            "    except Exception as e:\n        out[m] = None\nprint(json.dumps(out))")
+    try:
+        run = subprocess.run([sys.executable, "-c", code], capture_output=True, text=True,
+                             timeout=120)
+        return json.loads(run.stdout.strip().splitlines()[-1])
+    except (OSError, subprocess.SubprocessError, ValueError, IndexError) as e:
+        return {"probe_failed": repr(e)}
+
+
 def schedule_phase(smi):
     """The whole schedule on the card; returns the launch counts of the
-    run."""
+    run, the Config and a copy of the run's `push` checkpoint (under
+    build/interpret_phase/, for the interpret phase)."""
     import dataclasses
     import shutil
 
@@ -1583,8 +1863,12 @@ def schedule_phase(smi):
               f"test pass log p(x), kernel vs plain route: {route_err} > {SERVE_ATOL}")
         del plain_state, plain_trainer
 
-        # check 3: pushed means are the features at their (image, patch)
+        # check 3: pushed means are the features at their (image, patch),
+        # and the push rendered each pushed prototype's pictures
         pushed = pushed_features_check(trainer, state, push_ds, cfg.model_dir)
+        render = render_check(trainer, state, push_ds, cfg.model_dir, epoch=1)
+        emit("render", card=smi, epoch=1,
+             render_s_in_run=[r["render_s"] for r in timed if "render_s" in r], **render)
 
         # check 4: the prune
         keep = state.gmm.keep
@@ -1650,7 +1934,11 @@ def schedule_phase(smi):
              final_accuracy=acc, pushed=pushed["pushed"],
              pruned=int((~keep).sum().item()), kept_min_per_class=int(keep.sum(-1).min()),
              sentinel_step=sentinel, peak_mem_gb=torch.cuda.max_memory_allocated() / 1e9)
-        return launches
+        push_ckpt = [c[3] for c in ckpts if c[1] == "push"][0]
+        kept = os.path.join(HERE, "build", "interpret_phase", os.path.basename(push_ckpt))
+        shutil.rmtree(os.path.dirname(kept), ignore_errors=True)
+        shutil.copytree(push_ckpt, kept)
+        return launches, cfg, kept
     finally:
         torch.backends.cudnn.deterministic, torch.backends.cudnn.benchmark = det
         shutil.rmtree(base, ignore_errors=True)
@@ -1676,6 +1964,7 @@ def main() -> int:
     ).stdout.strip().splitlines()[0]
     emit("env", torch=torch.__version__, cuda=torch.version.cuda, python=sys.version.split()[0],
          card=smi, device=torch.cuda.get_device_name(0), count=torch.cuda.device_count())
+    emit("probe", image_libraries=image_library_probe())
 
     t0 = time.perf_counter()
     libs = _build.build_all()
@@ -1687,7 +1976,8 @@ def main() -> int:
     serve_launches, dispatches = serve_phase()
     train_launches, train_steps = train_phase()
     input_launches, input_steps = input_phase()
-    schedule_launches = schedule_phase(smi)
+    schedule_launches, schedule_cfg, push_ckpt = schedule_phase(smi)
+    interpret_launches = interpret_phase(smi, schedule_cfg, push_ckpt)
     for k in kernels:
         # `launches`: the loader-fed epoch of the input phase (this path's
         # main run); the train phase's and the serve phase's beside them
@@ -1697,6 +1987,9 @@ def main() -> int:
         k["launches_per_train_step"] = k["train_launches"] / train_steps
         k["serve_launches"] = serve_launches.get(k["name"], 0)
         k["schedule_launches"] = schedule_launches[k["name"]]
+        # the interpret run: the trunk's block tails only (its density is
+        # plain torch, as in the JAX package)
+        k["interpret_launches"] = interpret_launches[k["name"]]
         check(k["launches"] > 0, f"{k['name']} was not launched on the input path")
         check(k["train_launches"] > 0, f"{k['name']} was not launched on the train path")
     print(json.dumps({"kernels": kernels, "input_steps": input_steps, "train_steps": train_steps,

@@ -5,15 +5,16 @@ Per epoch: the warm/joint phase and the mining and EM gates
 (`Trainer.epoch_flags`), one training epoch, a test pass (with the OoD sets
 when the config names any) and a `nopush` checkpoint; at the push epochs the
 prototype projection, `push_provenance.json`, a test pass and a `push`
-checkpoint. After the last epoch: the top-M prune, a test pass and a
-`prune` checkpoint. Checkpoints carry the whole train state
-(utils/checkpoint.py), so `resume` continues where a run stopped: the loaders
-are deterministic per (seed, epoch, sample), so a resumed run trains on the
-batches the uninterrupted one did. Logs go to `train.log` and
-`metrics.jsonl` under `cfg.model_dir`.
+checkpoint, and (with `render_push`, the default) the pushed prototypes'
+pictures under `model_dir/img/epoch-{epoch}`. After the last epoch: the
+top-M prune, a test pass and a `prune` checkpoint. Checkpoints carry the
+whole train state (utils/checkpoint.py), so `resume` continues where a run
+stopped: the loaders are deterministic per (seed, epoch, sample), so a
+resumed run trains on the batches the uninterrupted one did. Logs go to
+`train.log` and `metrics.jsonl` under `cfg.model_dir`.
 
 Not ported: the JAX run_training's telemetry, multi-host, chaos drills, rollback
-and preemption, autotuning, the profiler and push rendering.
+and preemption, autotuning and the profiler.
 """
 
 from __future__ import annotations
@@ -31,7 +32,7 @@ from mgproto_tpu_torch.core.mgproto import prune_top_m
 from mgproto_tpu_torch.core.state import TrainState
 from mgproto_tpu_torch.data import build_pipelines
 from mgproto_tpu_torch.engine.evaluate import evaluate, evaluate_with_ood
-from mgproto_tpu_torch.engine.push import provenance_dict, push_prototypes
+from mgproto_tpu_torch.engine.push import provenance_dict, push_prototypes, render_prototypes
 from mgproto_tpu_torch.engine.train import Trainer
 from mgproto_tpu_torch.utils.checkpoint import (
     apply_retention,
@@ -63,6 +64,7 @@ def run_training(
     resume: str = "",
     keep_last: int = 0,
     device: Union[str, torch.device, None] = None,
+    render_push: bool = True,
 ) -> Tuple[TrainState, float]:
     """Run the whole schedule of `cfg`; returns (final state, last test
     accuracy).
@@ -74,7 +76,9 @@ def run_training(
     `prune` checkpoint means the run is complete and returns at once.
     Every stage saves a checkpoint (the accuracy target is 0). `keep_last`
     > 0 keeps only the newest `keep_last` checkpoints and the most accurate
-    one, after each epoch. `device`: CUDA unless the caller names another."""
+    one, after each epoch. `device`: CUDA unless the caller names another.
+    `render_push`: draw 3 JPEGs per pushed prototype at each push epoch (the
+    JAX default); False skips the pictures."""
     resume_path = None
     if resume == "auto":
         resume_path = find_latest_checkpoint(cfg.model_dir)
@@ -106,11 +110,12 @@ def run_training(
             log(f"resumed {resume_path} -> epoch {start_epoch}")
 
         run_meta = {"compute_dtype": cfg.model.compute_dtype, "arch": cfg.model.arch}
+        img_dir = os.path.join(cfg.model_dir, "img") if render_push else None
         accu = 0.0
         log("start training")
         for epoch in range(start_epoch, cfg.schedule.num_train_epochs):
             state, accu = _run_epoch(cfg, trainer, state, epoch, train_loader, test_loader,
-                                     push_loader, ood_loaders, log, metrics, run_meta)
+                                     push_loader, ood_loaders, log, metrics, run_meta, img_dir)
             if keep_last > 0:
                 apply_retention(cfg.model_dir, keep_last)
 
@@ -128,9 +133,10 @@ def run_training(
 
 
 def _run_epoch(cfg, trainer, state, epoch, train_loader, test_loader, push_loader,
-               ood_loaders, log, metrics, run_meta):
+               ood_loaders, log, metrics, run_meta, img_dir):
     """One epoch: train, test, the `nopush` save, and at a push epoch the
-    push, its provenance, a test and the `push` save."""
+    push, its provenance, the render into `img_dir` (unless None), a test
+    and the `push` save."""
     log(f"epoch: \t{epoch}")
     flags = trainer.epoch_flags(state, epoch)
     log(f"use mining: \t{flags['use_mine']}")
@@ -164,9 +170,19 @@ def _run_epoch(cfg, trainer, state, epoch, train_loader, test_loader, push_loade
         with open(os.path.join(cfg.model_dir, "push_provenance.json"), "w") as f:
             json.dump({"epoch": epoch, **provenance_dict(push_result)}, f)
         log(f"\tpushed: \t{int(push_result.pushed.sum())} of {push_result.pushed.size}")
+        render = {}
+        if img_dir is not None:
+            push_ds = push_loader.dataset
+            # push_prototypes(save_dir=img_dir, ...) in one call, split here
+            # so the render has its own span
+            with timed_span(log, "push render") as render_span:
+                render_prototypes(trainer, state, push_result, lambda i: push_ds.load(i)[0],
+                                  img_dir, epoch)
+            render = {"render_s": render_span["s"]}
         accu, test_results = _test(trainer, state, test_loader, ood_loaders, log)
         metrics.write(state.step, {"epoch": epoch, "stage": "push", "push_s": span["s"],
-                                   "pushed": int(push_result.pushed.sum()), **test_results})
+                                   **render, "pushed": int(push_result.pushed.sum()),
+                                   **test_results})
         save_state_w_condition(cfg.model_dir, state, epoch, "push", accu, 0.0,
                                metadata=run_meta)
     return state, accu

@@ -29,7 +29,11 @@ from mgproto_tpu_torch.numerics import (
     use_kernel,
 )
 from mgproto_tpu_torch.ops.fused_scoring import score_pool
-from mgproto_tpu_torch.ops.gaussian import DEFAULT_SIGMA_EPS, diag_gaussian_log_prob
+from mgproto_tpu_torch.ops.gaussian import (
+    DEFAULT_SIGMA_EPS,
+    diag_gaussian_log_prob,
+    precompute_diag_gaussian,
+)
 from mgproto_tpu_torch.ops.pooling import (
     PooledActivations,
     dedup_first_occurrence,
@@ -177,6 +181,30 @@ def patch_log_densities(
     lp = diag_gaussian_log_prob(feat.reshape(-1, d), gmm.means, gmm.sigmas)
     lp = lp.reshape(b, h, w, gmm.num_classes, gmm.k_per_class)
     return lp.permute(0, 3, 4, 1, 2), feat
+
+
+def gt_class_log_densities(
+    model: "MGProtoFeatures", gmm: GMMState, images: torch.Tensor, labels: torch.Tensor
+) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The forward of `model` as it is (the caller sets eval mode) and each
+    image's log-density maps under its own class's K prototypes: (lp [B, K,
+    H, W], normalized feature map [B, H, W, d]). Only the class's slab is
+    scored, a [B, K, HW] product of plain torch ops; the JAX package
+    computes the [B, C, K, H, W] `patch_log_densities` and gathers the class.
+    A label outside [0, C) (a pad row) is clamped for the gather. Shared by
+    the push scan, the push render and the interpretability collector."""
+    proto_map, _ = model(images)
+    b, h, w, d = proto_map.shape
+    feat = l2_normalize(proto_map, dim=-1)
+    f = feat.reshape(b, h * w, d)
+    cls = labels.long().clamp(0, gmm.num_classes - 1)
+    k = gmm.k_per_class
+    m_scaled, inv_var, const = precompute_diag_gaussian(
+        gmm.means[cls], gmm.sigmas[cls], DEFAULT_SIGMA_EPS)
+    m_scaled, inv_var = m_scaled.reshape(b, k, d), inv_var.reshape(b, k, d)
+    lp = (const.reshape(b, k, 1) + m_scaled @ f.transpose(1, 2)
+          - 0.5 * (inv_var @ (f * f).transpose(1, 2)))  # [B, K, HW]
+    return lp.reshape(b, k, h, w), feat
 
 
 def _fused_pool(

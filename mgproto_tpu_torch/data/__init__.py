@@ -1,11 +1,11 @@
-"""Data layer of the port: datasets, transforms, loaders (the port's copy of
-mgproto_tpu/data, without the CUB evaluation set and its part annotations).
+"""Data layer of the port: datasets, transforms, loaders and the CUB part
+annotations (the port's copy of mgproto_tpu/data, without data/prep.py).
 
-`data.loader`, `data.folder`, `data.transforms` and this package import
-neither torch nor PIL: spawn loader workers unpickle the datasets and
-transforms and import only what they need."""
+`data.loader`, `data.folder`, `data.transforms`, `data.cub_parts` and this
+package import neither torch nor PIL: spawn loader workers unpickle the
+datasets and transforms and import only what they need."""
 
-from mgproto_tpu_torch.data.folder import ImageFolder, Sample
+from mgproto_tpu_torch.data.folder import Cub2011Eval, ImageFolder, Sample
 from mgproto_tpu_torch.data.loader import DataLoader
 from mgproto_tpu_torch.data.transforms import (
     ood_transform,
@@ -15,6 +15,7 @@ from mgproto_tpu_torch.data.transforms import (
 )
 
 __all__ = [
+    "Cub2011Eval",
     "ImageFolder",
     "Sample",
     "DataLoader",

@@ -6,8 +6,8 @@ Two passes, as in the JAX package:
      push set, the best patch of each of its ground-truth class's K
      prototypes: its log-density, its flat spatial index and the
      L2-normalized feature there. Only that class's K prototypes are
-     scored, a [B, K, HW] product of plain torch ops (the JAX package
-     computes the push density outside any Pallas kernel too);
+     scored (`core/mgproto.py::gt_class_log_densities`, plain torch; the
+     JAX package computes the push density outside any Pallas kernel too);
   2. the greedy assignment (`_greedy_assign`, on the host): prototypes in
      order c*K + k take their best candidate from an image no earlier
      prototype has taken.
@@ -15,25 +15,28 @@ The chosen features are written into `gmm.means` in place (the mean
 optimizer's leaf), under `torch.no_grad()`; prototypes whose class has no
 image in the push set keep their mean bit for bit.
 
+With a `save_dir`, `render_prototypes` then draws each pushed prototype
+(the JAX package's `_render`): its source image forwarded once per class,
+the map upsampled on the state's device, the crop, overlay and JPEGs on the
+host through utils/vis.py.
+
 The push loader yields resize-only images in [0, 1]; they are normalized
-here with `preprocess_input`. Rendering the chosen patches (the JAX
-package's `_render`, through utils/vis.py) is not ported: a `save_dir`
-raises.
+here with `preprocess_input`.
 """
 
 from __future__ import annotations
 
 import json
 import os
-from typing import Dict, Iterable, List, NamedTuple, Optional, Tuple
+from typing import Callable, Dict, Iterable, List, NamedTuple, Optional, Tuple
 
 import numpy as np
 import torch
 
-from mgproto_tpu_torch.core.mgproto import GMMState, MGProtoFeatures, l2_normalize
+from mgproto_tpu_torch.core.mgproto import GMMState, MGProtoFeatures, gt_class_log_densities
 from mgproto_tpu_torch.core.state import TrainState
 from mgproto_tpu_torch.engine.eval import eval_mode, to_device_images
-from mgproto_tpu_torch.ops.gaussian import DEFAULT_SIGMA_EPS, precompute_diag_gaussian
+from mgproto_tpu_torch.utils import vis
 from mgproto_tpu_torch.utils.images import preprocess_input
 
 
@@ -92,16 +95,10 @@ def scan_batch(model: MGProtoFeatures, gmm: GMMState, images: torch.Tensor,
     [B, K, d]), each image's best patch per prototype of its ground-truth
     class. The caller puts the model in eval mode. A label outside [0, C)
     (a pad row) is clamped for the gather; the greedy never picks its row."""
-    proto_map, _ = model(images)
-    b, h, w, d = proto_map.shape
-    feat = l2_normalize(proto_map, dim=-1).reshape(b, h * w, d)
-    cls = labels.long().clamp(0, gmm.num_classes - 1)
-    k = gmm.k_per_class
-    m_scaled, inv_var, const = precompute_diag_gaussian(
-        gmm.means[cls], gmm.sigmas[cls], DEFAULT_SIGMA_EPS)
-    m_scaled, inv_var = m_scaled.reshape(b, k, d), inv_var.reshape(b, k, d)
-    lp = (const.reshape(b, k, 1) + m_scaled @ feat.transpose(1, 2)
-          - 0.5 * (inv_var @ (feat * feat).transpose(1, 2)))  # [B, K, HW]
+    lp, feat = gt_class_log_densities(model, gmm, images, labels)
+    b, k, h, w = lp.shape
+    d = feat.shape[-1]
+    lp, feat = lp.reshape(b, k, h * w), feat.reshape(b, h * w, d)
     idx = lp.argmax(-1)  # the first index of the maximum, as jnp.argmax
     val = lp.gather(-1, idx[..., None])[..., 0]
     fvec = feat.gather(1, idx[..., None].expand(-1, -1, d))
@@ -184,18 +181,71 @@ def push_prototypes(
     state: TrainState,
     batches: Iterable,
     save_dir: Optional[str] = None,
+    epoch: Optional[int] = None,
+    load_image: Optional[Callable[[int], np.ndarray]] = None,
 ) -> Tuple[TrainState, PushResult]:
     """Project every prototype mean onto its nearest training patch.
 
     `batches`: (images [B, H, W, 3] in [0, 1], unnormalized; labels [B];
     image_ids [B]) host batches, the push loader's. Updates `state.gmm.means`
-    in place and returns (state, PushResult). Rendering (`save_dir`) is not
-    ported."""
-    if save_dir is not None:
-        raise NotImplementedError(
-            "push rendering (save_dir) needs the JAX package's utils/vis.py crop, upsample "
-            "and heatmap, which this package does not have yet; pass save_dir=None")
+    in place and returns (state, PushResult). With `save_dir`, renders 3
+    files per pushed prototype into `save_dir/epoch-{epoch}` (`save_dir`
+    itself when `epoch` is None); that needs `load_image`: image_id ->
+    [H, W, 3] float in [0, 1], the push transform's image."""
+    if save_dir is not None and load_image is None:
+        raise ValueError("save_dir requires load_image")
     cand = scan_candidates(trainer, state, batches)
     new_means, result = _greedy_assign(*cand, state.gmm.num_classes)
     write_back(state.gmm, new_means, result.pushed)
+    if save_dir is not None:
+        render_prototypes(trainer, state, result, load_image, save_dir, epoch)
     return state, result
+
+
+def render_prototypes(
+    trainer,
+    state: TrainState,
+    result: PushResult,
+    load_image: Callable[[int], np.ndarray],
+    save_dir: str,
+    epoch: Optional[int] = None,
+) -> str:
+    """Per pushed prototype j = c*K + k, three JPEGs (reference
+    push.py:202-226): `{j}prototype-img-original.jpg` (the source image
+    with the high-activation box), `{j}prototype-img-original_with_self_act.jpg`
+    (the activation overlay with the box) and `{j}prototype-img.jpg` (the
+    crop). Activations are exp(log-density) of the class's prototypes on
+    the image (the reference's `-proto_dist`); each chosen image is
+    forwarded once per class and its [K, H, W] map upsampled on the state's
+    device. Returns the directory written."""
+    out = os.path.join(save_dir, f"epoch-{epoch}") if epoch is not None else save_dir
+    vis.makedir(out)
+    dev = trainer.device
+    c_total, k_per_class = result.pushed.shape
+    with eval_mode(state.model) as model:
+        for c in range(c_total):
+            if not result.pushed[c].any():
+                continue
+            img_cache: Dict[int, Tuple[np.ndarray, torch.Tensor]] = {}
+            for k in range(k_per_class):
+                if not result.pushed[c, k]:
+                    continue
+                img_id = int(result.image_id[c, k])
+                if img_id not in img_cache:
+                    raw = np.asarray(load_image(img_id), np.float32)
+                    x = to_device_images(preprocess_input(raw)[None], dev)
+                    lp, _ = gt_class_log_densities(
+                        model, state.gmm, x, torch.full((1,), c, dtype=torch.long, device=dev))
+                    img_cache[img_id] = (raw, torch.exp(lp[0]))  # [K, H, W]
+                raw, acts = img_cache[img_id]
+                j = c * k_per_class + k  # the reference's flat prototype index
+                up = vis.upsample_activation(acts[k], raw.shape[:2]).cpu().numpy()
+                y0, y1, x0, x1 = vis.find_high_activation_crop(up)
+                vis.imsave_with_bbox(
+                    os.path.join(out, f"{j}prototype-img-original.jpg"),
+                    raw, y0, y1, x0, x1)
+                vis.imsave_with_bbox(
+                    os.path.join(out, f"{j}prototype-img-original_with_self_act.jpg"),
+                    vis.heatmap_overlay(raw, up), y0, y1, x0, x1)
+                vis.imsave(os.path.join(out, f"{j}prototype-img.jpg"), raw[y0:y1, x0:x1])
+    return out

@@ -537,3 +537,79 @@ def test_evaluate_on_the_card_matches_the_cpu():
     assert np.abs(got[0] - want[0]).max() <= 1e-4
     assert abs(got[2] - want[2]) <= 1e-4 * got[3]
     assert np.array_equal(got[1], want[1])
+
+
+@pytest.mark.cuda
+def test_batched_peaks_on_the_card_match_the_host_path():
+    """`peak_positions` upsamples a class's maps on the card in chunks and
+    brings back only the argmaxes: against the scalar `peak_box`, which
+    upsamples one map on the host, equal, or one pixel off in each axis on
+    at most 1 % of maps (the card's and the CPU's bicubic round
+    differently, which moves near-tie argmaxes)."""
+    _need_cuda()
+    import numpy as np
+
+    from mgproto_tpu_torch.engine.interpretability import peak_box, peak_positions
+
+    maps = np.random.default_rng(0).lognormal(size=(300, 10, 14, 14)).astype(np.float32)
+    got = peak_positions(torch.from_numpy(maps).cuda(), 224)
+    assert got.shape == (300, 10, 2)
+    want = np.array([[peak_box(m, 224, 0)[::2] for m in row] for row in maps])
+    diff = np.abs(got - want)
+    assert diff.max() <= 1 and diff.any(-1).sum() <= 0.01 * 3000, diff.any(-1).sum()
+
+
+@pytest.mark.cuda
+def test_a_render_on_the_card_matches_the_cpu(tmp_path):
+    """A push with `save_dir` on the card and the same state's push on the
+    CPU: the same pushes and file names; where a prototype's crop has the
+    same size on both sides, its crop and its boxed original decode to the
+    same pixels and its overlay within 1 level on average (the maps differ
+    by ~1e-6, which can move one jet level); at most one prototype's box
+    may move by one pixel (a near-tie at the 95th percentile)."""
+    _need_cuda()
+    import os
+
+    import numpy as np
+    from PIL import Image
+
+    from mgproto_tpu_torch.engine.push import push_prototypes
+    from mgproto_tpu_torch.engine.train import Trainer
+    from mgproto_tpu_torch.utils import checkpoint as ck
+
+    cfg, trainer = _tiny_cuda_trainer()
+    state = trainer.init_state(0)
+    cpu_trainer = Trainer(cfg, 4, device="cpu")
+    cpu = cpu_trainer.init_state(0)
+    cpu.model.load_state_dict(ck.state_payload(state)["model"])
+    with torch.no_grad():
+        cpu.gmm.means.copy_(state.gmm.means.cpu())
+    rng = np.random.default_rng(3)
+    images = rng.uniform(size=(12, 32, 32, 3)).astype(np.float32)
+    batches = [(images[i:i + 6], np.array([0, 1, 2, 3, 0, 1]), np.arange(i, i + 6))
+               for i in (0, 6)]
+    out = {}
+    for dev, tr, st in (("cuda", trainer, state), ("cpu", cpu_trainer, cpu)):
+        _, res = push_prototypes(tr, st, batches, save_dir=str(tmp_path / dev), epoch=0,
+                                 load_image=lambda i: images[i])
+        d = tmp_path / dev / "epoch-0"
+        files = {}
+        for name in os.listdir(d):
+            with Image.open(d / name) as im:
+                files[name] = np.asarray(im).astype(np.int16)
+        out[dev] = (res, files)
+    (rc, fc), (rp, fp) = out["cuda"], out["cpu"]
+    assert np.array_equal(rc.image_id, rp.image_id) and set(fc) == set(fp)
+    assert len(fc) == 3 * int(rc.pushed.sum()) > 0
+    moved = []
+    for c, k in np.argwhere(rc.pushed):
+        j = c * rc.pushed.shape[1] + k
+        crop, orig, over = (f"{j}prototype-img.jpg", f"{j}prototype-img-original.jpg",
+                            f"{j}prototype-img-original_with_self_act.jpg")
+        if fc[crop].shape != fp[crop].shape:
+            assert np.abs(np.subtract(fc[crop].shape, fp[crop].shape)).max() <= 2, j
+            moved.append(j)
+            continue
+        assert np.array_equal(fc[crop], fp[crop]) and np.array_equal(fc[orig], fp[orig]), j
+        assert np.abs(fc[over] - fp[over]).mean() <= 1.0, j
+    assert len(moved) <= 1, moved

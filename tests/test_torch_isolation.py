@@ -1,4 +1,5 @@
-"""mgproto_tpu_torch stands alone: no JAX, nothing of mgproto_tpu, and no
+"""mgproto_tpu_torch stands alone: no JAX, nothing of mgproto_tpu, neither
+cv2 nor matplotlib (neither is known to exist beside the card), and no
 silent CPU fallback at its entry points."""
 
 import ast
@@ -19,7 +20,7 @@ from mgproto_tpu_torch.numerics import resolve_device
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 PKG = os.path.join(REPO, "mgproto_tpu_torch")
 SMOKE = os.path.join(REPO, "chip_smoke.py")
-FORBIDDEN = ("jax", "jaxlib", "flax", "optax", "orbax", "mgproto_tpu")
+FORBIDDEN = ("jax", "jaxlib", "flax", "optax", "orbax", "mgproto_tpu", "cv2", "matplotlib")
 
 
 def _sources():
@@ -60,7 +61,7 @@ for m in mods:
 spec = importlib.util.spec_from_file_location("chip_smoke", {SMOKE!r})
 importlib.util.module_from_spec(spec)
 spec.loader.exec_module(importlib.util.module_from_spec(spec))
-missing = [m for m in {INPUT_PATH_MODULES!r} if m not in mods]
+missing = [m for m in {INPUT_PATH_MODULES + INTERPRET_MODULES!r} if m not in mods]
 assert not missing, missing
 print(len(mods))
 """
@@ -79,10 +80,16 @@ INPUT_PATH_MODULES = (
     "mgproto_tpu_torch.ops.augment", "mgproto_tpu_torch.ops.prng",
     "mgproto_tpu_torch.utils.images", "mgproto_tpu_torch.utils.retry",
 )
-# what a spawn loader worker unpickles: it must import without torch (and
-# without PIL, which only opening an image needs)
+# the interpretability plane's modules, walked and imported the same way
+INTERPRET_MODULES = (
+    "mgproto_tpu_torch.data.cub_parts", "mgproto_tpu_torch.utils.vis",
+    "mgproto_tpu_torch.engine.interpretability", "mgproto_tpu_torch.cli.interpret",
+)
+# what a spawn loader worker unpickles, and the CUB part tables: they must
+# import without torch (and without PIL, which only opening an image needs)
 WORKER_MODULES = ("mgproto_tpu_torch.data.loader", "mgproto_tpu_torch.data.folder",
-                  "mgproto_tpu_torch.data.transforms", "mgproto_tpu_torch.native")
+                  "mgproto_tpu_torch.data.transforms", "mgproto_tpu_torch.native",
+                  "mgproto_tpu_torch.data.cub_parts")
 
 
 def test_worker_modules_import_without_torch_or_pil():
@@ -92,7 +99,7 @@ for name in ("torch", "PIL") + {FORBIDDEN!r}:
     sys.modules[name] = None
 for m in {WORKER_MODULES!r}:
     importlib.import_module(m)
-from mgproto_tpu_torch.data import DataLoader, ImageFolder, transforms
+from mgproto_tpu_torch.data import Cub2011Eval, DataLoader, ImageFolder, transforms
 transforms.TrainTransform(32, device_augment=True)
 print(sorted(m for m in sys.modules if m.split(".")[0] in ("torch", "PIL") and sys.modules[m]))
 """
@@ -130,3 +137,17 @@ def test_training_entry_points_need_cuda_or_an_explicit_cpu():
         create_train_state(cfg, torch.Generator())
     trainer = Trainer(cfg, steps_per_epoch=1, device="cpu")
     assert trainer.init_state(0).gmm.means.device.type == "cpu"
+
+
+def test_interpret_entry_point_needs_cuda_or_an_explicit_cpu(tmp_path):
+    if torch.cuda.is_available():
+        pytest.skip("a CUDA device is present: the default device is valid")
+    from mgproto_tpu_torch.cli.interpret import run_interpret
+
+    cfg = tiny_test_config().replace(model_dir=str(tmp_path))
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        run_interpret(cfg, str(tmp_path))
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        run_interpret(cfg, str(tmp_path), device="cuda")
+    with pytest.raises(FileNotFoundError, match="no checkpoint"):
+        run_interpret(cfg, str(tmp_path), device="cpu")

@@ -8,6 +8,9 @@ prototypes), one image that is also a candidate of a second class under the
 same id (the greedy's image dedup across classes), and label -1 pad rows
 (zero image, id -1) at the end.
 
+Rendering (`save_dir`): the same file names as the JAX package's `_render`
+and the same decoded pixels (every box and crop equal).
+
 Tolerances: `pushed`, `image_id` and `spatial_idx` equal; `log_prob` atol
 1e-4; the new means atol 1e-5 (XLA's and ATen's CPU convolutions sum in
 different orders); the means of unpushed prototypes unchanged bit for bit;
@@ -21,6 +24,7 @@ each.
 import functools
 import importlib
 import json
+import os
 
 import jax
 import numpy as np
@@ -150,17 +154,71 @@ def test_greedy_assign_is_the_jax_packages():
         np.testing.assert_array_equal(a, b)
 
 
+def _load_image(batches):
+    """image_id -> its [0, 1] image in the push batches (the push loader's
+    `dataset.load(i)[0]`)."""
+    pixels = {int(i): img for images, _, ids in batches for img, i in zip(images, ids) if i >= 0}
+    return lambda i: pixels[int(i)]
+
+
+def _decoded(directory):
+    from PIL import Image
+
+    out = {}
+    for name in sorted(os.listdir(directory)):
+        with Image.open(os.path.join(directory, name)) as im:
+            out[name] = np.asarray(im)
+    return out
+
+
 def test_provenance_file_and_rendering(tmp_path):
-    _, jstate = trained_jax_state()
+    """Push with `save_dir` renders what the JAX package's `_render` does:
+    3 JPEGs per pushed prototype under `epoch-{epoch}`, the same names,
+    and decoded pixels equal to the JAX files' (each prototype pushed to
+    the same image and patch in both; every box and crop matched here, so
+    no one-pixel allowance is needed)."""
+    jtrainer, jstate = trained_jax_state()
+    batches = _push_batches()
+    _, jres = jpush.push_prototypes(jtrainer, jstate, batches, save_dir=str(tmp_path / "jax"),
+                                    epoch=2, load_image=_load_image(batches))
     ptrainer, pstate = port_state(jstate)
     assert tpush.load_push_provenance(str(tmp_path)) is None
-    with pytest.raises(NotImplementedError, match="vis"):
-        tpush.push_prototypes(ptrainer, pstate, _push_batches(), save_dir=str(tmp_path))
+    with pytest.raises(ValueError, match="load_image"):
+        tpush.push_prototypes(ptrainer, pstate, batches, save_dir=str(tmp_path / "port"))
     with pytest.raises(ValueError, match="empty"):
         tpush.push_prototypes(ptrainer, pstate, [])
-    _, res = tpush.push_prototypes(ptrainer, pstate, _push_batches())
+    _, res = tpush.push_prototypes(ptrainer, pstate, batches, save_dir=str(tmp_path / "port"),
+                                   epoch=2, load_image=_load_image(batches))
+    assert pstate.model.training
+    got, want = _decoded(tmp_path / "port" / "epoch-2"), _decoded(tmp_path / "jax" / "epoch-2")
+    assert len(got) == 3 * int(res.pushed.sum())
+    same = (res.pushed & jres.pushed & (res.image_id == jres.image_id)
+            & (res.spatial_idx == jres.spatial_idx))
+    assert same.sum() >= res.pushed.sum() - len(_near_tie_prototypes(pstate))
+    names = set()
+    for c, k in np.argwhere(res.pushed):
+        j = c * res.pushed.shape[1] + k
+        trio = {f"{j}prototype-img-original.jpg", f"{j}prototype-img-original_with_self_act.jpg",
+                f"{j}prototype-img.jpg"}
+        assert trio <= set(got), j
+        names |= trio
+        if same[c, k]:
+            for name in trio:
+                assert got[name].shape == want[name].shape, name
+                np.testing.assert_array_equal(got[name], want[name], err_msg=name)
+    assert names == set(got)
+    if not len(_near_tie_prototypes(pstate)):
+        assert set(got) == set(want)
+    assert got[f"{j}prototype-img-original.jpg"].shape == (IMG, IMG, 3)
+
+    # the provenance table beside the pictures
     with open(tmp_path / "push_provenance.json", "w") as f:
         json.dump({"epoch": 3, **tpush.provenance_dict(res)}, f)
     loaded = tpush.load_push_provenance(str(tmp_path))
     assert loaded == jpush.load_push_provenance(str(tmp_path))
     assert loaded["epoch"] == 3 and len(loaded["image_id"]) == res.pushed.size
+
+    # without an epoch the files go into save_dir itself
+    _, res2 = tpush.push_prototypes(ptrainer, pstate, batches, save_dir=str(tmp_path / "flat"),
+                                    load_image=_load_image(batches))
+    assert len(os.listdir(tmp_path / "flat")) == 3 * int(res2.pushed.sum())

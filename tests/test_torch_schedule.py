@@ -9,7 +9,9 @@
     epoch 1, prune at the end): the stage checkpoints, the step count, the
     provenance and the logs; `resume="auto"` from the prune checkpoint
     returns at once; resuming from epoch 0's `nopush` checkpoint gives the
-    uninterrupted run's final state bit for bit (the CPU is deterministic).
+    uninterrupted run's final state bit for bit (the CPU is deterministic);
+    the push renders 3 pictures per pushed prototype under `img/epoch-1`,
+    and `render_push=False` writes none.
   * the same schedule assembled from the JAX package's functions
     (`Trainer.train_epoch`, `evaluate_with_ood`, `push_prototypes`,
     `prune_top_m`) on its own loaders over the same folders, from the same
@@ -137,7 +139,12 @@ def test_run_training_stages_resume_and_logs(folders, tmp_path):
     with open(os.path.join(cfg.model_dir, "push_provenance.json")) as f:
         prov = json.load(f)
     assert prov["epoch"] == 1 and len(prov["image_id"]) == 4 * 3
+    # the render (render_push, on by default): 3 pictures per pushed prototype
+    pushed = int((np.array(prov["image_id"]) >= 0).sum())
+    assert os.listdir(os.path.join(cfg.model_dir, "img")) == ["epoch-1"]
+    assert len(os.listdir(os.path.join(cfg.model_dir, "img", "epoch-1"))) == 3 * pushed > 0
     recs = _records(cfg.model_dir)
+    assert [r["render_s"] >= 0 for r in recs if "push_s" in r] == [True]
     assert [r.get("stage") for r in recs if "acc" in r] == [None, None, "push", "prune"]
     assert recs[-1]["acc"] == acc and all("AUROC_1" in r for r in recs if "acc" in r)
     assert (state.gmm.priors[~state.gmm.keep] == 0).all()
@@ -158,6 +165,13 @@ def test_run_training_stages_resume_and_logs(folders, tmp_path):
     _assert_same_state(resumed, state)
     with pytest.raises(FileNotFoundError):
         ttrain.run_training(resumed_cfg, resume=str(tmp_path / "nothing"), device="cpu")
+
+
+def test_run_training_without_render_push_writes_no_pictures(folders, tmp_path):
+    cfg = _port_cfg(folders, tmp_path / "run")
+    ttrain.run_training(cfg, device="cpu", render_push=False)
+    assert not os.path.exists(os.path.join(cfg.model_dir, "img"))
+    assert [r.get("render_s") for r in _records(cfg.model_dir) if "push_s" in r] == [None]
 
 
 def _jax_cfg(folders):
