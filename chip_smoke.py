@@ -87,11 +87,27 @@ Phases, one JSON line each:
              host post-passes' times and the epilogue's launches (16 a batch
              and pass); then the maps on the kernel route against the plain
              route (epilogue off), the batched peaks on the card against
-             the scalar host peaks, and purity_from_csv against the purity.
+             the scalar host peaks, and purity_from_csv against the purity;
+  9. options: the flagship with compute_dtype="bfloat16" and the other
+             training options: the bf16 epilogue at the four stage shapes
+             at B = 80 on the batch's own statistics against its plain
+             version (timed beside its bf16 byte bound); the bf16 forward
+             calibrated on 16 ID images and served (launches per dispatch,
+             |d log p(x)| and |d logit| against the same weights in f32, a
+             float32-stamped calibration refused); six bf16 steps at batch
+             80 with mining and EM from a full seeded bank (launches per
+             step, the state's statistics f32, the first step against the
+             f32 first step, a profile by kernel family), then a test pass
+             and a push of that state (launches, f32 means); one step with
+             each of the five other aux losses; remat and remat_stages
+             against the plain step (cuDNN deterministic, peak memory);
+             one reference-stepping EM call on the card against the CPU.
 Then the kernel summary line (times at the train step's shapes, the serve
 path's beside them; `launches` counted on the input phase's epoch,
 `schedule_launches` on the schedule phase's run, `interpret_launches` on
-the interpret phase's run_interpret), the card line as
+the interpret phase's run_interpret, `bf16_train_launches` on the options
+phase's bf16 steps; the epilogue's bf16 times at B = 80 under
+"train_bf16"), the card line as
 nvidia-smi prints it, and last `{"ok": true, "device": {...}}`. Any failed
 check exits non-zero before that line is printed.
 """
@@ -189,6 +205,33 @@ MAP_ATOL_OF_MAX = SERVE_ATOL
 # card's and the CPU's bicubic round differently, so a near-tie argmax may
 # move by one pixel on at most this share of maps
 PEAK_MOVED_SHARE = 0.01
+# the options phase (9): the flagship trained and served with
+# compute_dtype="bfloat16" and the other training options.
+#  * The bf16 first step against the f32 first step from one state and
+#    batch: the loss within 2 % (the JAX package's gate for a bf16 step,
+#    tests/test_precision.py); the gradient's norm ratio and cosine are
+#    reported, not gated (JAX measured a cosine of 0.89-0.91 at resnet18).
+#  * Served bf16 scores against the same weights served in f32: reported,
+#    not gated (whether bf16 keeps log p(x) inside a calibration's
+#    tolerance is what the phase measures).
+#  * Remat against the plain step from one state, cuDNN deterministic: the
+#    BatchNorm running statistics bit-equal; the gradients bit-equal, or
+#    within REMAT_GRAD_RTOL relative norm should cuDNN pick another
+#    algorithm for the recomputed forward.
+#  * Reference stepping on the card against the same call on the CPU: the
+#    priors atol 1e-5; the means within 1e-5 (summation order of the
+#    E-step; measured 7.5e-8 on an H100), except on at most 1e-3 of the
+#    elements, which may lie within 2 lr per round (a near-zero gradient
+#    turns into +-lr under Adam, so a difference in the last ulp of one
+#    can move an element 2 lr); the Adam moments within 1e-4 of their
+#    largest magnitude.
+BF16_LOSS_RTOL = 0.02
+REMAT_GRAD_RTOL = 1e-5
+REF_EM_PRIOR_ATOL = 1e-5
+REF_EM_MEANS_ATOL = 1e-5
+REF_EM_MEANS_BEYOND_SHARE = 1e-3
+REF_EM_MOMENT_RTOL = 1e-4
+OPTION_AUX_LOSSES = ("proxy_nca", "ms", "contrastive", "triplet", "npair")
 # where activations and their gradients are compared between routes
 PROBES = ("features.bn1", "features.layer1", "features.layer2", "features.layer3",
           "features.layer4", "add_on")
@@ -823,7 +866,8 @@ def clone_state(src, cfg):
     dst = create_train_state(cfg, torch.Generator().manual_seed(0), src.gmm.means.device)
     dst.model.load_state_dict(src.model.state_dict())
     with torch.no_grad():
-        dst.proxies.copy_(src.proxies)
+        if src.proxies is not None:
+            dst.proxies.copy_(src.proxies)
         dst.gmm.means.copy_(src.gmm.means)
     dst.gmm = dst.gmm._replace(sigmas=src.gmm.sigmas.clone(), priors=src.gmm.priors.clone(),
                                keep=src.gmm.keep.clone())
@@ -1944,6 +1988,426 @@ def schedule_phase(smi):
         shutil.rmtree(base, ignore_errors=True)
 
 
+# ------------------------------------------------------------------ options
+def bf16_config(cfg):
+    import dataclasses
+
+    return cfg.replace(model=dataclasses.replace(cfg.model, compute_dtype="bfloat16"))
+
+
+def flat_grads(trainer, state):
+    import torch
+
+    return torch.cat([p.grad.reshape(-1).float() for p in trainer.params(state)])
+
+
+def cosine(a, b):
+    return (a @ b / (a.norm() * b.norm())).item()
+
+
+def state_dtypes(state):
+    """Every floating tensor of a train state that the precision policy
+    keeps f32, by name, and its dtype."""
+    out = {f"model.{n}": t.dtype for n, t in state.model.state_dict().items()
+           if t.is_floating_point()}
+    out["memory.feats"] = state.memory.feats.dtype
+    for name in ("means", "sigmas", "priors"):
+        out[f"gmm.{name}"] = getattr(state.gmm, name).dtype
+    for oname in ("opt", "mean_opt"):
+        for i, st in enumerate(getattr(state, oname).state.values()):
+            for key in ("exp_avg", "exp_avg_sq"):
+                out[f"{oname}.{i}.{key}"] = st[key].dtype
+    return out
+
+
+def bf16_epilogue_cases():
+    """The bf16 epilogue at the four ResNet-34 stage shapes of a training
+    step (B = 80, the batch's own statistics): each held to its plain
+    version and timed; the 16 launches of a step summed."""
+    import torch
+
+    gc = torch.Generator(device="cuda").manual_seed(1)
+    total = {"ms": 0.0, "plain_ms": 0.0, "bound_ms": 0.0, "max_abs_err": 0.0}
+    for blocks, hw, ch in R34_STAGES:
+        rec = epilogue_case("train", TRAIN_BATCH, hw, ch, torch.bfloat16, gc)
+        rec["launches_per_forward"] = blocks
+        emit("kernel", kernel="bn_epilogue", path="train_bf16", **rec)
+        total["max_abs_err"] = max(total["max_abs_err"], rec["max_abs_err"])
+        for key in ("ms", "plain_ms", "bound_ms"):
+            total[key] += blocks * rec[key]
+    torch.cuda.empty_cache()
+    return dict(total, bound_by="bytes", at="16 launches, B=80, bf16, batch statistics")
+
+
+def bf16_serve_check():
+    """The flagship served in bf16 beside the same weights in f32."""
+    import numpy as np
+    import torch
+
+    from mgproto_tpu_torch.config import Config
+    from mgproto_tpu_torch.core.mgproto import build_mgproto
+    from mgproto_tpu_torch.engine.eval import Evaluator
+    from mgproto_tpu_torch.serving.calibration import Calibration, calibrate
+    from mgproto_tpu_torch.serving.engine import ServingEngine
+
+    cfg = Config()
+    m = cfg.model
+    rng = np.random.default_rng(0)
+    img = (m.img_size, m.img_size, 3)
+    id_images = rng.normal(size=(16, *img)).astype(np.float32)
+    x = rng.normal(size=(19, *img)).astype(np.float32)
+    out = {}
+    for name, c in (("f32", cfg), ("bf16", bf16_config(cfg))):
+        model, gmm = build_mgproto(c.model, device="cuda", seed=0)
+        ev = Evaluator(model, gmm, c, device="cuda")
+        cal = calibrate(ev, [id_images[:8], id_images[8:]], source="chip_smoke seeded ID images")
+        engine = ServingEngine.from_live(ev, calibration=cal, buckets=(1, 2, 4, 8))
+        engine.warmup()
+        check(not engine.gate.degraded, f"{name} engine degraded with its own calibration")
+        check(cal.compute_dtype == c.model.compute_dtype, f"{name} calibration stamped {cal.compute_dtype}")
+        reset_launch_counts()
+        engine.dispatch_count = 0
+        resps = engine.serve_all(list(x))
+        launches = launch_counts()
+        d = engine.dispatch_count
+        check(all(r.outcome in ("predict", "abstain") for r in resps), f"{name}: not every request served")
+        check(launches["score_pool"] == d and launches["bn_epilogue"] == 16 * d,
+              f"{name} serve: launches {launches} for {d} dispatches")
+        logits = torch.cat([ev(x[i:i + 8]).logits.cpu() for i in range(0, len(x), 8)]).numpy()
+        check(np.isfinite(logits).all(), f"{name}: non-finite served logits")
+        lat = []
+        for _ in range(10):
+            t1 = time.perf_counter()
+            engine._dispatch(x[:8])
+            lat.append((time.perf_counter() - t1) * 1e3)
+        out[name] = dict(ev=ev, cal=cal, logits=logits, px=np.array([r.log_px for r in resps]),
+                         pred=np.array([r.prediction for r in resps]), launches=launches,
+                         dispatches=d, bucket8_median_ms=float(np.median(lat)))
+    a, b = out["bf16"], out["f32"]
+    f32_cal = Calibration.from_dict({**a["cal"].to_dict(), "compute_dtype": "float32"})
+    mismatched = ServingEngine.from_live(a["ev"], calibration=f32_cal, buckets=(8,))
+    check(mismatched.gate.degraded and mismatched.gate.precision_mismatch,
+          "a float32-stamped calibration did not degrade the bf16 engine")
+    rec = {
+        "requests": len(x), "dispatches": a["dispatches"], "launches": a["launches"],
+        "log_px_max_abs_diff_vs_f32": float(np.abs(a["px"] - b["px"]).max()),
+        "logits_max_abs_diff_vs_f32": float(np.abs(a["logits"] - b["logits"]).max()),
+        "log_px_range_f32": [float(b["px"].min()), float(b["px"].max())],
+        "threshold_bf16": a["cal"].threshold_log_px, "threshold_f32": b["cal"].threshold_log_px,
+        "predictions_equal_share": float((a["pred"] == b["pred"]).mean()),
+        "bucket8_dispatch_host_ms": {"bf16": a["bucket8_median_ms"], "f32": b["bucket8_median_ms"]},
+        "f32_calibration_degrades_bf16_engine": True,
+    }
+    del out, mismatched
+    torch.cuda.empty_cache()
+    return rec
+
+
+def bf16_train_check():
+    """Six bf16 steps at batch 80 with mining and EM from a full seeded
+    bank; the first against the f32 first step from the same state."""
+    import dataclasses
+
+    import numpy as np
+    import torch
+
+    from mgproto_tpu_torch.config import Config, DataConfig
+    from mgproto_tpu_torch.engine.train import Trainer
+
+    cfg32 = Config(data=DataConfig(device_augment=False))
+    cfg = bf16_config(cfg32)
+    m = cfg.model
+    trainer = Trainer(cfg, steps_per_epoch=100, device="cuda")
+    check(trainer.precision.mixed and trainer.fused, "the bf16 trainer did not resolve as asked")
+    state = trainer.init_state(seed=0)
+    state.memory = full_bank(m, seed=1)
+    tr32 = Trainer(cfg32, steps_per_epoch=100, device="cuda")
+    st32 = clone_state(state, cfg32)
+    rng = np.random.default_rng(0)
+    batches = [(rng.normal(size=(TRAIN_BATCH, m.img_size, m.img_size, 3)).astype(np.float32),
+                rng.integers(0, m.num_classes, size=TRAIN_BATCH)) for _ in range(TRAIN_STEPS)]
+    st32, met32 = tr32.train_step(st32, *batches[0], use_mine=True, update_gmm=True)
+    g32 = flat_grads(tr32, st32)
+    del st32, tr32
+    # the same bf16 first step on the plain block tails (the epilogue kernel
+    # off), and on the plain tails with the images one bf16 step larger:
+    # how far the gradient moves under a rounding placed elsewhere, and
+    # under one bf16 step of the input (the floor the cosines sit on)
+    routes = {}
+    plain_cfg = cfg.replace(model=dataclasses.replace(m, fused_epilogue=False))
+    tr_plain = Trainer(plain_cfg, steps_per_epoch=100, device="cuda")
+    for name, scale in (("plain_tails", 1.0), ("plain_tails_input_one_step", 1.0 + 2.0 ** -7)):
+        st = clone_state(state, plain_cfg)
+        st, _ = tr_plain.train_step(st, batches[0][0] * np.float32(scale), batches[0][1],
+                                    use_mine=True, update_gmm=True)
+        routes[name] = flat_grads(tr_plain, st)
+        del st
+    del tr_plain
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    per_step = {"score_pool": 1, "bn_epilogue": 16, "score_pool_bwd": 1,
+                "em_estep": cfg.em.num_em_loop}
+    step_s, losses = [], []
+    torch.cuda.synchronize()
+    reset_launch_counts()
+    for i, (images, labels) in enumerate(batches):
+        before = launch_counts()
+        t0 = time.perf_counter()
+        state, met = trainer.train_step(state, images, labels, use_mine=True, update_gmm=True)
+        torch.cuda.synchronize()
+        step_s.append(time.perf_counter() - t0)
+        delta = {k: v - before[k] for k, v in launch_counts().items()}
+        losses.append(met.loss.item())
+        check(np.isfinite(losses[-1]) and not met.nonfinite, f"bf16 step {i}: loss {losses[-1]}")
+        check(delta == per_step, f"bf16 step {i}: launches {delta}, expected {per_step}")
+        if i == 0:
+            g16 = flat_grads(trainer, state)
+            first = met
+    launches = launch_counts()
+    bad = {k: str(v) for k, v in state_dtypes(state).items() if v != torch.float32}
+    check(not bad, f"bf16 training left statistics or masters in half precision: {bad}")
+    check(trainer.last_bank.em is not None
+          and trainer.last_bank.em.log_likelihood.dtype == torch.float32,
+          "the EM statistics of the bf16 step are not f32")
+    loss_rel = abs(first.loss.item() - met32.loss.item()) / abs(met32.loss.item())
+    check(loss_rel <= BF16_LOSS_RTOL, f"bf16 first-step loss {first.loss.item()} vs f32 "
+          f"{met32.loss.item()}: {loss_rel} > {BF16_LOSS_RTOL}")
+    med = float(np.median(step_s[1:]))
+    rec = {
+        "batch": TRAIN_BATCH, "steps": TRAIN_STEPS, "losses": losses, "launches": launches,
+        "step_s": step_s, "step_s_median": med, "img_per_s": TRAIN_BATCH / med,
+        "peak_mem_gb": torch.cuda.max_memory_allocated() / 1e9,
+        "first_step_loss_bf16": first.loss.item(), "first_step_loss_f32": met32.loss.item(),
+        "first_step_loss_rel_diff": loss_rel, "loss_rtol": BF16_LOSS_RTOL,
+        "grad_norm_ratio": (g16.norm() / g32.norm()).item(),
+        "grad_cosine": cosine(g16, g32),
+        "grad_cosine_kernel_vs_plain_tails_bf16": cosine(g16, routes["plain_tails"]),
+        "grad_cosine_plain_tails_vs_input_one_bf16_step": cosine(
+            routes["plain_tails"], routes["plain_tails_input_one_step"]),
+        "grad_cosine_plain_tails_bf16_vs_f32": cosine(routes["plain_tails"], g32),
+        "state_tensors_f32": len(state_dtypes(state)),
+    }
+    del g16, g32, routes
+    it = itertools.cycle(batches[1:])
+    holder = [state]
+
+    def one_step():
+        holder[0], _ = trainer.train_step(holder[0], *next(it), use_mine=True, update_gmm=True)
+
+    prof = device_breakdown(one_step, 3)
+    state = holder[0]
+    rec.update(bf16_eval_and_push(trainer, state, batches[:2], rng))
+    del holder, state, trainer
+    torch.cuda.empty_cache()
+    return rec, prof, launches, TRAIN_STEPS
+
+
+def bf16_eval_and_push(trainer, state, batches, rng):
+    """A test pass and a push of the bf16 state through the schedule's own
+    entry points (engine/evaluate.py, engine/push.py): their launches, a
+    finite accuracy pass, and pushed means that stay f32 and finite."""
+    import numpy as np
+    import torch
+
+    from mgproto_tpu_torch.engine.evaluate import evaluate
+    from mgproto_tpu_torch.engine.push import push_prototypes
+
+    reset_launch_counts()
+    acc, res = evaluate(trainer, state, [(x, y) for x, y in batches], log=lambda *_: None)
+    eval_launches = launch_counts()
+    m = trainer.cfg.model
+    push_batches = [(rng.random((TRAIN_BATCH, m.img_size, m.img_size, 3), dtype=np.float32), y,
+                     np.arange(i * TRAIN_BATCH, (i + 1) * TRAIN_BATCH))
+                    for i, (_, y) in enumerate(batches)]
+    reset_launch_counts()
+    state, pushed = push_prototypes(trainer, state, push_batches)
+    push_launches = launch_counts()
+    torch.cuda.synchronize()
+    n = len(batches)
+    check(eval_launches["score_pool"] == n and eval_launches["bn_epilogue"] == 16 * n,
+          f"bf16 test pass: launches {eval_launches} for {n} batches")
+    check(push_launches["bn_epilogue"] == 16 * n, f"bf16 push: launches {push_launches}")
+    check(np.isfinite(res["cross_entropy"]), f"bf16 test pass: cross entropy {res['cross_entropy']}")
+    means = state.gmm.means.detach()
+    check(means.dtype == torch.float32 and bool(torch.isfinite(means).all())
+          and int(pushed.pushed.sum()) > 0, "bf16 push: means not f32 and finite, or none pushed")
+    return {"eval_accuracy": acc, "eval_cross_entropy": res["cross_entropy"],
+            "eval_launches": eval_launches, "pushed": int(pushed.pushed.sum()),
+            "push_launches": push_launches}
+
+
+def aux_loss_checks():
+    """One flagship step with each of the five other aux losses."""
+    import numpy as np
+    import torch
+
+    from mgproto_tpu_torch.config import Config, DataConfig, LossConfig
+    from mgproto_tpu_torch.engine.train import Trainer
+
+    rng = np.random.default_rng(3)
+    m = Config().model
+    images = rng.normal(size=(TRAIN_BATCH, m.img_size, m.img_size, 3)).astype(np.float32)
+    labels = rng.integers(0, m.num_classes, size=TRAIN_BATCH)
+    out = {}
+    for name in OPTION_AUX_LOSSES:
+        cfg = Config(data=DataConfig(device_augment=False), loss=LossConfig(aux_loss=name))
+        trainer = Trainer(cfg, steps_per_epoch=100, device="cuda")
+        state = trainer.init_state(seed=0)
+        state, met = trainer.train_step(state, images, labels, use_mine=True, update_gmm=False)
+        proxies = state.proxies is not None
+        check(np.isfinite(met.loss.item()) and np.isfinite(met.aux.item()) and not met.nonfinite,
+              f"aux loss {name}: loss {met.loss.item()}, aux {met.aux.item()}")
+        check(proxies == (name == "proxy_nca"), f"aux loss {name}: proxies present = {proxies}")
+        out[name] = {"loss": met.loss.item(), "aux": met.aux.item(), "proxies": proxies}
+        del state, trainer
+    torch.cuda.empty_cache()
+    return out
+
+
+def remat_checks():
+    """remat and remat_stages=("layer3",) against the plain step from one
+    state and batch, cuDNN deterministic."""
+    import dataclasses
+
+    import numpy as np
+    import torch
+
+    from mgproto_tpu_torch.config import Config, DataConfig
+    from mgproto_tpu_torch.engine.train import Trainer
+
+    base = Config(data=DataConfig(device_augment=False))
+    rng = np.random.default_rng(4)
+    m = base.model
+    images = rng.normal(size=(TRAIN_BATCH, m.img_size, m.img_size, 3)).astype(np.float32)
+    labels = rng.integers(0, m.num_classes, size=TRAIN_BATCH)
+    det = (torch.backends.cudnn.deterministic, torch.backends.cudnn.benchmark)
+    torch.backends.cudnn.deterministic, torch.backends.cudnn.benchmark = True, False
+    runs = {}
+    try:
+        for name, kw in (("plain", {}), ("remat", {"remat": True}),
+                         ("remat_stages_layer3", {"remat_stages": ("layer3",)})):
+            cfg = base.replace(model=dataclasses.replace(m, **kw))
+            trainer = Trainer(cfg, steps_per_epoch=100, device="cuda")
+            state = trainer.init_state(seed=0)
+            torch.cuda.synchronize()
+            base_bytes = torch.cuda.memory_allocated()
+            torch.cuda.reset_peak_memory_stats()
+            before = launch_counts()
+            t0 = time.perf_counter()
+            state, met = trainer.train_step(state, images, labels, use_mine=True, update_gmm=False)
+            torch.cuda.synchronize()
+            runs[name] = {
+                "step_s": time.perf_counter() - t0,
+                "peak_step_gb": (torch.cuda.max_memory_allocated() - base_bytes) / 1e9,
+                "epilogue_launches": launch_counts()["bn_epilogue"] - before["bn_epilogue"],
+                "loss": met.loss.item(),
+                "stats": {n: t.clone() for n, t in state.model.state_dict().items()
+                          if "running" in n},
+                "grad": flat_grads(trainer, state),
+            }
+            del state, trainer
+    finally:
+        torch.backends.cudnn.deterministic, torch.backends.cudnn.benchmark = det
+    ref = runs.pop("plain")
+    rec = {"plain": {k: v for k, v in ref.items() if k not in ("stats", "grad")}}
+    for name, run in runs.items():
+        stats_equal = all(torch.equal(run["stats"][k], ref["stats"][k]) for k in ref["stats"])
+        grad_equal = torch.equal(run["grad"], ref["grad"])
+        grad_rel = rel_norm(run["grad"], ref["grad"])
+        check(stats_equal, f"{name}: running statistics differ from the plain step")
+        check(grad_equal or grad_rel <= REMAT_GRAD_RTOL,
+              f"{name}: gradient rel err {grad_rel} > {REMAT_GRAD_RTOL}")
+        check(run["loss"] == ref["loss"], f"{name}: loss {run['loss']} vs {ref['loss']}")
+        rec[name] = {k: v for k, v in run.items() if k not in ("stats", "grad")}
+        rec[name].update(stats_bit_equal=stats_equal, grad_bit_equal=grad_equal,
+                         grad_rel_err=grad_rel)
+    del runs, ref
+    torch.cuda.empty_cache()
+    return rec
+
+
+def reference_em_check():
+    """One reference-stepping EM call on the flagship bank (every class
+    full and updated) on the card, against the same call on the CPU."""
+    import dataclasses
+
+    import torch
+
+    from mgproto_tpu_torch.config import Config
+    from mgproto_tpu_torch.core.em import em_update, make_mean_optimizer
+    from mgproto_tpu_torch.core.mgproto import init_gmm
+
+    cfg = Config()
+    em_cfg = dataclasses.replace(cfg.em, reference_stepping=True)
+    bank = full_bank(cfg.model, seed=5)
+    out = {}
+    for dev in ("cuda", "cpu"):
+        gmm = init_gmm(cfg.model, torch.Generator().manual_seed(0), dev)
+        opt = make_mean_optimizer(gmm.means, em_cfg)
+        memory = type(bank)(*(t.to(dev) for t in bank))
+        if dev == "cuda":
+            torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        gmm, _, aux = em_update(gmm, memory, opt, em_cfg)
+        if dev == "cuda":
+            torch.cuda.synchronize()
+        st = opt.state[gmm.means]
+        out[dev] = {"s": time.perf_counter() - t0, "means": gmm.means.detach().cpu(),
+                    "priors": gmm.priors.cpu(), "exp_avg": st["exp_avg"].cpu(),
+                    "exp_avg_sq": st["exp_avg_sq"].cpu(), "step": int(st["step"]),
+                    "active": aux.num_active, "loss": aux.loss.item(),
+                    "ll": aux.log_likelihood.item()}
+    a, b = out["cuda"], out["cpu"]
+    lr_tol = 2 * em_cfg.num_em_loop * em_cfg.mean_lr
+    errs = {
+        "means_max_abs": (a["means"] - b["means"]).abs().max().item(),
+        "means_beyond_atol_share": ((a["means"] - b["means"]).abs()
+                                    > REF_EM_MEANS_ATOL).float().mean().item(),
+        "priors_max_abs": (a["priors"] - b["priors"]).abs().max().item(),
+        "exp_avg_rel_of_max": ((a["exp_avg"] - b["exp_avg"]).abs().max()
+                               / b["exp_avg"].abs().max()).item(),
+        "exp_avg_sq_rel_of_max": ((a["exp_avg_sq"] - b["exp_avg_sq"]).abs().max()
+                                  / b["exp_avg_sq"].abs().max()).item(),
+        "loss_rel": abs(a["loss"] - b["loss"]) / abs(b["loss"]),
+        "ll_abs": abs(a["ll"] - b["ll"]),
+    }
+    check(a["active"] == b["active"] == cfg.model.num_classes, f"reference EM active {a['active']}")
+    check(a["step"] == b["step"] == cfg.model.num_classes * em_cfg.num_em_loop,
+          f"reference EM Adam steps {a['step']} / {b['step']}")
+    check(errs["priors_max_abs"] <= REF_EM_PRIOR_ATOL, f"reference EM priors: {errs}")
+    check(errs["means_max_abs"] <= lr_tol, f"reference EM means: {errs}")
+    check(errs["means_beyond_atol_share"] <= REF_EM_MEANS_BEYOND_SHARE,
+          f"reference EM means beyond {REF_EM_MEANS_ATOL}: {errs}")
+    check(max(errs["exp_avg_rel_of_max"], errs["exp_avg_sq_rel_of_max"]) <= REF_EM_MOMENT_RTOL,
+          f"reference EM Adam moments: {errs}")
+    return {"classes": a["active"], "adam_steps": a["step"], "card_s": a["s"], "cpu_s": b["s"],
+            **errs, "tolerances": {"priors_atol": REF_EM_PRIOR_ATOL,
+                                   "means_atol": REF_EM_MEANS_ATOL,
+                                   "means_beyond_atol_share": REF_EM_MEANS_BEYOND_SHARE,
+                                   "means_beyond_atol_max": lr_tol,
+                                   "moments_rtol_of_max": REF_EM_MOMENT_RTOL}}
+
+
+def options_phase():
+    """Phase 9; returns the bf16 epilogue's summary, the bf16 steps'
+    launches and their number of steps."""
+    t0 = time.perf_counter()
+    epi = bf16_epilogue_cases()
+    emit("options", part="serve_bf16", **bf16_serve_check())
+    train, prof, launches, steps = bf16_train_check()
+    emit("options", part="train_bf16", **train)
+    if prof is None:
+        emit("profile", path="train_bf16", note="profiler recorded no device events: not measured")
+    else:
+        emit("profile", path="train_bf16", batch=TRAIN_BATCH, steps=3, **prof)
+    emit("options", part="aux_losses", **aux_loss_checks())
+    emit("options", part="remat", cudnn_deterministic=True, grad_rtol=REMAT_GRAD_RTOL,
+         **remat_checks())
+    emit("options", part="reference_stepping", **reference_em_check())
+    emit("options", part="done", seconds=time.perf_counter() - t0)
+    return epi, launches, steps
+
+
 def main() -> int:
     if not os.path.isdir(os.path.join(HERE, "mgproto_tpu_torch")):
         print("chip_smoke: mgproto_tpu_torch/ not found beside this script", file=sys.stderr)
@@ -1978,6 +2442,7 @@ def main() -> int:
     input_launches, input_steps = input_phase()
     schedule_launches, schedule_cfg, push_ckpt = schedule_phase(smi)
     interpret_launches = interpret_phase(smi, schedule_cfg, push_ckpt)
+    epi_bf16, bf16_launches, bf16_steps = options_phase()
     for k in kernels:
         # `launches`: the loader-fed epoch of the input phase (this path's
         # main run); the train phase's and the serve phase's beside them
@@ -1990,10 +2455,17 @@ def main() -> int:
         # the interpret run: the trunk's block tails only (its density is
         # plain torch, as in the JAX package)
         k["interpret_launches"] = interpret_launches[k["name"]]
+        # the options phase's six bf16 steps at batch 80
+        k["bf16_train_launches"] = bf16_launches[k["name"]]
+        k["launches_per_bf16_train_step"] = k["bf16_train_launches"] / bf16_steps
         check(k["launches"] > 0, f"{k['name']} was not launched on the input path")
         check(k["train_launches"] > 0, f"{k['name']} was not launched on the train path")
+        check(k["bf16_train_launches"] > 0, f"{k['name']} was not launched on the bf16 path")
+        if k["name"] == "bn_epilogue":
+            k["train_bf16"] = dict(epi_bf16, launches=bf16_launches["bn_epilogue"])
     print(json.dumps({"kernels": kernels, "input_steps": input_steps, "train_steps": train_steps,
-                      "serve_dispatches": dispatches}), flush=True)
+                      "serve_dispatches": dispatches, "bf16_train_steps": bf16_steps}),
+          flush=True)
     print(smi, flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -1,5 +1,5 @@
 """The interpretability entry point (counterpart of mgproto_tpu/cli/interpret.py,
-without its argparse `main` and without `adopt_checkpoint_train_config`).
+without its argparse `main`).
 
 Reference: eval_consistency.py, eval_stability.py, eval_purity.py. Restores
 a checkpoint, runs the CUB test split once through the gt-class activation
@@ -28,7 +28,11 @@ from mgproto_tpu_torch.engine.interpretability import (
 )
 from mgproto_tpu_torch.engine.train import Trainer
 from mgproto_tpu_torch.numerics import resolve_device
-from mgproto_tpu_torch.utils.checkpoint import latest_checkpoint, restore_checkpoint
+from mgproto_tpu_torch.utils.checkpoint import (
+    adopt_checkpoint_train_config,
+    latest_checkpoint,
+    restore_checkpoint,
+)
 
 METRICS = ("consistency", "stability", "purity", "all")
 
@@ -73,7 +77,9 @@ def run_interpret(
     `purity_top_k` images with boxes of `purity_half_size`, and the patch
     CSV at `export_csv` when it is not empty. `checkpoint`: "auto" takes the
     newest checkpoint in `cfg.model_dir`, else a checkpoint path; the
-    restored state must match `cfg`'s model. `device`: CUDA unless the
+    checkpoint's training settings (compute dtype, aux loss, EM stepping)
+    are adopted into `cfg` first (`adopt_checkpoint_train_config`), and
+    the rest of its model must match `cfg`'s. `device`: CUDA unless the
     caller names another.
 
     Returns the metrics the JAX CLI prints ("consistency", "stability",
@@ -86,6 +92,7 @@ def run_interpret(
     path = latest_checkpoint(cfg.model_dir) if checkpoint == "auto" else checkpoint
     if not path:
         raise FileNotFoundError(f"no checkpoint in {cfg.model_dir}")
+    cfg = adopt_checkpoint_train_config(cfg, path)
     parts = CubParts(cub_root)
     trainer = Trainer(cfg, steps_per_epoch=1, device=dev)
     state = restore_checkpoint(path, trainer.init_state(cfg.seed))

@@ -34,6 +34,7 @@ from mgproto_tpu_torch.data import build_pipelines
 from mgproto_tpu_torch.engine.evaluate import evaluate, evaluate_with_ood
 from mgproto_tpu_torch.engine.push import provenance_dict, push_prototypes, render_prototypes
 from mgproto_tpu_torch.engine.train import Trainer
+from mgproto_tpu_torch.perf.precision import policy_meta
 from mgproto_tpu_torch.utils.checkpoint import (
     apply_retention,
     find_latest_checkpoint,
@@ -109,7 +110,14 @@ def run_training(
             start_epoch = int(meta.get("epoch", -1)) + 1
             log(f"resumed {resume_path} -> epoch {start_epoch}")
 
-        run_meta = {"compute_dtype": cfg.model.compute_dtype, "arch": cfg.model.arch}
+        # what a restore must be built with (utils/checkpoint.py
+        # `adopt_checkpoint_train_config`): the trunk's numerics, the aux
+        # loss (proxies or none) and the EM stepping; beside them the whole
+        # precision policy, what ran in which dtype
+        run_meta = {"compute_dtype": cfg.model.compute_dtype, "arch": cfg.model.arch,
+                    "aux_loss": cfg.loss.aux_loss,
+                    "em_reference_stepping": cfg.em.reference_stepping,
+                    "precision_policy": policy_meta(trainer.precision)}
         img_dir = os.path.join(cfg.model_dir, "img") if render_push else None
         accu = 0.0
         log("start training")

@@ -1,7 +1,8 @@
 """Configuration of the port: a trimmed copy of mgproto_tpu/config.py.
 
-Only the fields the serving forward, the synchronous training step, the
-training input path and the training schedule (cli/train.py) read.
+Only the fields the serving forward, the synchronous training step and its
+options (mixed precision, the six aux losses, remat, reference-exact EM),
+the training input path and the training schedule (cli/train.py) read.
 The field names and defaults are the JAX package's, so one configuration
 describes both packages.
 """
@@ -27,7 +28,10 @@ class ModelConfig:
     mine_T: int = 20
     mem_capacity: int = 800  # per-class memory-bank capacity
     init_sigma: float = 1.0 / math.sqrt(2.0 * math.pi)
-    # only float32 is served and trained by this package (numerics.py)
+    # the trunk's dtype, "float32" or "bfloat16" (perf/precision.py's
+    # PrecisionPolicy, validated there): convs, BatchNorm apply and the
+    # add-on run in it; master parameters, Adam moments, BatchNorm and EM
+    # statistics, the bank, density and log p(x) stay float32
     compute_dtype: str = "float32"
     # density + top-T through the score_pool kernels (ops/fused_scoring.py).
     # None = the kernels on CUDA, the plain version on the CPU.
@@ -35,6 +39,17 @@ class ModelConfig:
     # ResNet block tail through the BN epilogue kernel
     # (ops/fused_epilogue.py). None = the kernel on CUDA, plain on the CPU.
     fused_epilogue: Optional[bool] = None
+    # torch.utils.checkpoint every backbone block (resnet only): the
+    # backward recomputes the block instead of keeping its activations
+    remat: bool = False
+    # remat only the named stages ("layer1".."layer4"); ignored when
+    # `remat` is True
+    remat_stages: Tuple[str, ...] = ()
+
+    def __post_init__(self):
+        from mgproto_tpu_torch.perf.precision import PrecisionPolicy
+
+        PrecisionPolicy(compute_dtype=self.compute_dtype)
 
 
 @dataclasses.dataclass(frozen=True)
@@ -47,6 +62,12 @@ class EMConfig:
     diversity_lambda: float = 1.0
     mean_lr: float = 3e-3  # Adam on the means
     update_interval: int = 1  # EM every N train steps
+    # False: one Adam step per EM round over all classes at once, inactive
+    # classes pinned. True: the reference's stepping, a sequential pass over
+    # the active classes in order, one Adam step per (class, round) on the
+    # whole means tensor, so the other classes drift under the moments
+    # (core/em.py `_reference_em_update`)
+    reference_stepping: bool = False
     # compact dirty-class EM width: -1 = auto (min(C, train batch)), 0 = dense
     max_active_classes: int = -1
     # E-step through the em_estep kernel (ops/em_kernels.py). None = the
@@ -89,12 +110,12 @@ class ScheduleConfig:
 
 @dataclasses.dataclass(frozen=True)
 class LossConfig:
-    """Loss coefficients. The aux loss is Proxy-Anchor (the JAX package's
-    default; its other five aux losses are not ported)."""
+    """Loss coefficients and the aux loss (core/losses.py `AUX_LOSSES`)."""
 
     crs_ent: float = 1.0
     mine: float = 0.2
     aux: float = 0.5
+    aux_loss: str = "proxy_anchor"  # proxy_anchor|proxy_nca|ms|contrastive|triplet|npair
 
 
 @dataclasses.dataclass(frozen=True)

@@ -1,6 +1,5 @@
 """EM over the memory bank: the only trainer of prototype means and priors
-(counterpart of mgproto_tpu/core/em.py, without the reference-stepping and
-class-sharded paths).
+(counterpart of mgproto_tpu/core/em.py, without the class-sharded path).
 
 Per touched class with a FULL queue, `num_em_loop` rounds of
   E-step:  responsibilities under the current means and priors;
@@ -21,6 +20,10 @@ loss and their means pinned exactly at the end (`torch.where`).
     sufficient statistics (the em_estep kernel on CUDA), smoothed here in
     statistics space; the m-step objective is then evaluated from them
     (`_m_step_objective_stats`, the same math as `_m_step_objective`).
+  * REFERENCE STEPPING (`reference_stepping`, `_reference_em_update`): the
+    reference's control flow, a sequential pass over the active classes in
+    order with one Adam step per (class, round) on the WHOLE means tensor,
+    plain E-step. Takes precedence over compaction and the kernel.
 
 The gates are host-side Python: `bank_update` reads the divergence-guard
 flag and the EM gate's counts from the device in one transfer.
@@ -45,6 +48,7 @@ from mgproto_tpu_torch.ops.gaussian import (
     pairwise_sq_dists,
     precompute_diag_gaussian,
 )
+from mgproto_tpu_torch.perf.precision import assert_f32_stats
 
 
 class EMAux(NamedTuple):
@@ -82,6 +86,14 @@ def _diversity(mu: torch.Tensor) -> torch.Tensor:
     k = mu.shape[1]
     off = 1.0 - torch.eye(k, dtype=mu.dtype, device=mu.device)
     return (torch.exp(-pairwise_sq_dists(mu, mu)) * off).sum((-1, -2)) / off.sum()
+
+
+def _class_objective(mu, x, resp, pi_old, sigmas, lam, eps=1e-10):
+    """One class's m-step objective (JAX `_class_objective`): mu/sigmas
+    [K, d], x [N, d], resp [N, K], pi_old [K]."""
+    ll = class_log_prob(x[None], mu[None], sigmas[None])[0] + torch.log(pi_old + eps)
+    weighted_nll = -(resp * ll).sum(-1).mean()
+    return weighted_nll + lam * _diversity(mu[None])[0]
 
 
 def _m_step_objective(means, x, resp, pi_old, sigmas, active, lam, eps=1e-10):
@@ -193,6 +205,46 @@ def _compact_em_update(gmm, memory, mean_opt, cfg, eps, width, fused):
     return gmm._replace(priors=gmm.priors.index_copy(0, idx, pi_slab)), loss, ll_mean
 
 
+def _reference_em_update(gmm, memory, mean_opt, cfg, eps):
+    """Reference-exact stepping (JAX `_reference_em_update`): the active
+    classes in ascending order, each with `num_em_loop` rounds of plain
+    E-step, smoothed responsibilities, ONE Adam step of the mean optimizer
+    on the whole [C, K, d] means tensor (the gradient is zero outside the
+    class's slice, so the other classes drift under the moments and the
+    step count advances once per (class, round), as under the reference's
+    one torch Adam), and the tau-momentum prior update. Returns (gmm, loss,
+    ll): the sum over active classes of their last round's objective, and
+    the mean over them of their last round's E-step log-likelihood. The
+    active classes are read from the device once."""
+    cap = memory.capacity
+    active = _active(memory)
+    classes = torch.nonzero(active).flatten().tolist()
+    means, priors = gmm.means, gmm.priors.clone()
+    losses, lls = [], []
+    for c in classes:
+        xc, sig_c = memory.feats[c], gmm.sigmas[c]
+        pi_old = priors[c]
+        for _ in range(cfg.num_em_loop):
+            ll_c, log_resp = e_step(xc[None], means.detach()[c][None], sig_c[None], pi_old[None])
+            resp = torch.exp(log_resp[0])
+            resp = (resp + cfg.alpha) / (resp + cfg.alpha).sum(-1, keepdim=True)
+            pi_unnorm = resp.sum(0) + eps
+            with torch.enable_grad():
+                loss = _class_objective(means[c], xc, resp, pi_old, sig_c,
+                                        cfg.diversity_lambda, eps)
+                (grad,) = torch.autograd.grad(loss, means)
+            means.grad = grad
+            mean_opt.step()
+            pi_old = momentum_update(pi_old, pi_unnorm / cap, cfg.tau)
+        priors[c] = pi_old
+        losses.append(loss.detach())
+        lls.append(ll_c[0])
+    zero = means.new_zeros(())
+    total = torch.stack(losses).sum() if losses else zero
+    ll_mean = torch.stack(lls).sum() / max(len(lls), 1) if lls else zero
+    return gmm._replace(priors=priors), total, ll_mean
+
+
 def em_update(
     gmm: GMMState, memory: Memory, mean_opt: torch.optim.Adam, cfg: EMConfig,
     eps: float = 1e-10, num_active: Optional[int] = None,
@@ -200,13 +252,18 @@ def em_update(
     """One full EM call. `gmm.means` must be the mean optimizer's parameter:
     it is updated in place (and pinned for inactive classes). `num_active`
     (the count of updated & full classes) is read from the device when not
-    given. Dense when compaction is off (`max_active_classes` <= 0 or >= C)
-    or more than `width` classes are active; compact otherwise."""
+    given. Reference stepping when `cfg.reference_stepping`; otherwise
+    dense when compaction is off (`max_active_classes` <= 0 or >= C) or
+    more than `width` classes are active, compact otherwise."""
+    if num_active is None:
+        num_active = int(_active(memory).sum())
+    if cfg.reference_stepping:
+        gmm, loss, ll = _reference_em_update(gmm, memory, mean_opt, cfg, eps)
+        return gmm, clear_updated(memory), EMAux(
+            loss=loss, num_active=num_active, log_likelihood=ll, compact_fallback=0)
     fused = use_kernel(cfg.fused_estep, memory.feats.device)
     c = memory.num_classes
     width = cfg.max_active_classes
-    if num_active is None:
-        num_active = int(_active(memory).sum())
     fallback = 0
     if 0 < width < c and num_active <= width:
         gmm, loss, ll = _compact_em_update(gmm, memory, mean_opt, cfg, eps, width, fused)
@@ -230,7 +287,12 @@ def bank_update(
     interval phase (`step` is the pre-increment counter) and a non-empty
     bank. The flag and the counts the gates need are read from the device
     in ONE transfer, the step's only host sync; the host-side `finite` is
-    returned for the caller's optimizer gate."""
+    returned for the caller's optimizer gate. The mixture, the bank and the
+    enqueue candidates must be f32 whatever the trunk's dtype
+    (perf/precision.py)."""
+    for t, what in ((gmm.means, "gmm.means"), (gmm.priors, "gmm.priors"),
+                    (memory.feats, "memory bank feats"), (feats, "memory enqueue candidates")):
+        assert_f32_stats(t, what)
     _, _, _, counts = push_plan(memory, classes, valid)
     cap = memory.capacity
     length = torch.clamp_max(memory.length + counts, cap)

@@ -19,6 +19,8 @@ from typing import NamedTuple, Union
 
 import torch
 
+from mgproto_tpu_torch.perf.precision import assert_f32_stats
+
 
 class Memory(NamedTuple):
     """feats [C, cap, d] f32; length/cursor [C] int32; updated [C] bool."""
@@ -65,7 +67,10 @@ def push_plan(mem: Memory, classes: torch.Tensor, valid: torch.Tensor):
 def memory_push(mem: Memory, feats: torch.Tensor, classes: torch.Tensor,
                 valid: torch.Tensor) -> Memory:
     """Enqueue a flat batch of candidates: feats [N, d], classes [N], valid
-    [N] bool. Writes `mem.feats` in place and returns the new Memory."""
+    [N] bool. Writes `mem.feats` in place and returns the new Memory. The
+    bank is a statistics buffer: a half-precision bank is refused
+    (perf/precision.py)."""
+    assert_f32_stats(mem.feats, "memory bank feats")
     if feats.shape[0] == 0:
         return mem
     keep, cls, rank, counts = push_plan(mem, classes, valid)

@@ -3,8 +3,9 @@
 
   * `MGProtoFeatures` (nn.Module): backbone trunk + add-on 1x1 convs +
     auxiliary embedding. Takes images [B, H, W, 3] and returns the proto map
-    [B, H', W', d] and the embedding [B, E], the JAX package's layouts.
-    Inside, the trunk runs NCHW tensors in channels_last memory.
+    [B, H', W', d] and the embedding [B, E], the JAX package's layouts, both
+    f32. Inside, the trunk runs NCHW tensors in channels_last memory, in
+    `ModelConfig.compute_dtype` (perf/precision.py).
   * `GMMState`: prototype means/sigmas/priors + pruning mask.
   * `head_forward`: density -> top-T mining pool -> mine masking ->
     per-class mixture log-likelihoods, plus deduped enqueue candidates.
@@ -21,13 +22,10 @@ import torch
 from torch import nn
 
 from mgproto_tpu_torch.config import ModelConfig
+from mgproto_tpu_torch.models.common import Conv2d
 from mgproto_tpu_torch.models.registry import build_backbone, init_random_weights
-from mgproto_tpu_torch.numerics import (
-    COMPUTE_DTYPE,
-    apply_numerics_policy,
-    resolve_device,
-    use_kernel,
-)
+from mgproto_tpu_torch.numerics import apply_numerics_policy, resolve_device, use_kernel
+from mgproto_tpu_torch.perf.precision import resolve_policy
 from mgproto_tpu_torch.ops.fused_scoring import score_pool
 from mgproto_tpu_torch.ops.gaussian import (
     DEFAULT_SIGMA_EPS,
@@ -92,14 +90,14 @@ class AddOnLayers(nn.Module):
         self.add_on_type = add_on_type
         self.names = []
         if add_on_type == "regular":
-            self.conv0 = nn.Conv2d(in_channels, proto_dim, 1)
-            self.conv1 = nn.Conv2d(proto_dim, proto_dim, 1)
+            self.conv0 = Conv2d(in_channels, proto_dim, 1)
+            self.conv1 = Conv2d(proto_dim, proto_dim, 1)
         elif add_on_type == "bottleneck":
             current_in, i = in_channels, 0
             while True:
                 current_out = max(proto_dim, current_in // 2)
-                self.add_module(f"conv{i}_a", nn.Conv2d(current_in, current_out, 1))
-                self.add_module(f"conv{i}_b", nn.Conv2d(current_out, current_out, 1))
+                self.add_module(f"conv{i}_a", Conv2d(current_in, current_out, 1))
+                self.add_module(f"conv{i}_b", Conv2d(current_out, current_out, 1))
                 self.names.append(i)
                 if current_out <= proto_dim:
                     break
@@ -120,23 +118,30 @@ class AddOnLayers(nn.Module):
 
 class MGProtoFeatures(nn.Module):
     """Backbone + add-on + aux embedding. forward(images [B, H, W, 3]) ->
-    (proto_map [B, H', W', d] float32, embed [B, E] L2-normalized)."""
+    (proto_map [B, H', W', d] float32, embed [B, E] L2-normalized float32).
+
+    Mixed precision (JAX `MGProtoFeatures.__call__`): the images are cast to
+    `cfg.compute_dtype` at the trunk's entry; the trunk and the add-on convs
+    run in it on f32 master weights (models/common.py); the proto map is
+    cast to f32 at the exit, the global average pool is taken in f32 and
+    the embedding Linear stays f32, so everything downstream (density,
+    log p(x), losses, the bank) is f32. `cfg.remat` / `remat_stages`
+    checkpoint the resnet blocks (models/resnet.py)."""
 
     def __init__(self, cfg: ModelConfig, fused_epilogue: bool = False):
         super().__init__()
-        if cfg.compute_dtype != COMPUTE_DTYPE:
-            raise ValueError(
-                f"compute_dtype {cfg.compute_dtype!r}: this package serves float32 only"
-            )
         self.cfg = cfg
-        self.features = build_backbone(cfg.arch, fused_epilogue=fused_epilogue)
+        self.compute_dtype = resolve_policy(cfg).torch_dtype
+        self.features = build_backbone(
+            cfg.arch, fused_epilogue=fused_epilogue, remat=cfg.remat,
+            remat_stages=() if cfg.remat else tuple(cfg.remat_stages))
         c = self.features.out_channels
         self.add_on = AddOnLayers(cfg.proto_dim, cfg.add_on_type, c)
         self.embedding = nn.Linear(c, cfg.sz_embedding)
 
     def forward(self, images: torch.Tensor):
         # [B, H, W, 3] storage read as NCHW: channels_last memory, no copy
-        x = self.features(images.permute(0, 3, 1, 2))
+        x = self.features(images.to(self.compute_dtype).permute(0, 3, 1, 2))
         proto_map = self.add_on(x).permute(0, 2, 3, 1).float()
         embed = l2_normalize(self.embedding(x.float().mean(dim=(2, 3))), dim=-1)
         return proto_map, embed

@@ -2,15 +2,17 @@
 
 The JAX package threads one immutable pytree through a jitted step; here a
 `TrainState` holds the model (parameters and BatchNorm buffers), the
-proxies, the GMM, the memory bank, the three optimizers and the step
-counter, and `engine/train.py` updates it in place.
+proxies (only for a proxy-based aux loss, `losses.PROXY_BASED`; None
+otherwise, as the JAX state has no `proxies` leaf then), the GMM, the memory
+bank, the three optimizers and the step counter, and `engine/train.py`
+updates it in place.
 
 Optimizers: torch's `Adam(weight_decay=wd)` adds the L2 term to the gradient
 before the moments, which is exactly the JAX package's `torch_adam`. Param
 groups follow its `_param_labels`: `features` (the trunk), `add_on`, `aux`
-(the proxies). The embedding Linear is in no group: frozen, while gradients
-flow through it into the trunk. The joint optimizer's learning rates follow
-the staircase schedule of its own update count; the warm optimizer has no
+(the proxies, absent without them). The embedding Linear is in no group:
+frozen, while gradients flow through it into the trunk. The joint
+optimizer's learning rates follow the staircase schedule of its own update count; the warm optimizer has no
 `features` group and constant rates; the mean optimizer is a separate Adam
 on the GMM means.
 """
@@ -18,13 +20,13 @@ on the GMM means.
 from __future__ import annotations
 
 import dataclasses
-from typing import Tuple, Union
+from typing import Optional, Tuple, Union
 
 import torch
 
 from mgproto_tpu_torch.config import Config
 from mgproto_tpu_torch.core.em import make_mean_optimizer
-from mgproto_tpu_torch.core.losses import init_proxies
+from mgproto_tpu_torch.core.losses import AUX_LOSSES, PROXY_BASED, init_proxies
 from mgproto_tpu_torch.core.memory import Memory, init_memory
 from mgproto_tpu_torch.core.mgproto import GMMState, MGProtoFeatures, init_gmm, make_features
 from mgproto_tpu_torch.models.registry import init_random_weights
@@ -38,7 +40,7 @@ ADAM_EPS = 1e-8
 class TrainState:
     step: int  # train-step attempts (a skipped step counts)
     model: MGProtoFeatures
-    proxies: torch.Tensor  # [C, E] leaf: the Proxy-Anchor proxies
+    proxies: Optional[torch.Tensor]  # [C, E] leaf of a proxy-based aux loss, else None
     gmm: GMMState  # gmm.means is the mean optimizer's leaf
     memory: Memory
     opt: torch.optim.Adam  # joint
@@ -56,10 +58,13 @@ def staircase_lr(base_lr: float, count: int, steps_per_epoch: int,
     return base_lr * gamma ** sum(e <= epoch for e in decay_epochs)
 
 
-def param_groups(model: MGProtoFeatures, proxies: torch.Tensor):
-    """{group: [params]} for 'features', 'add_on' and 'aux'."""
-    return {"features": list(model.features.parameters()),
-            "add_on": list(model.add_on.parameters()), "aux": [proxies]}
+def param_groups(model: MGProtoFeatures, proxies: Optional[torch.Tensor]):
+    """{group: [params]} for 'features', 'add_on' and, with proxies, 'aux'."""
+    groups = {"features": list(model.features.parameters()),
+              "add_on": list(model.add_on.parameters())}
+    if proxies is not None:
+        groups["aux"] = [proxies]
+    return groups
 
 
 def make_joint_optimizer(cfg: Config, model, proxies) -> torch.optim.Adam:
@@ -76,9 +81,9 @@ def make_warm_optimizer(cfg: Config, model, proxies) -> torch.optim.Adam:
     """The warm phase: the trunk frozen, constant rates."""
     o = cfg.optim
     groups = param_groups(model, proxies)
+    lrs = {"add_on": o.add_on_lr, "aux": o.aux_proxies_lr}
     return torch.optim.Adam(
-        [{"params": groups["add_on"], "lr": o.add_on_lr},
-         {"params": groups["aux"], "lr": o.aux_proxies_lr}],
+        [{"params": groups[g], "lr": lr} for g, lr in lrs.items() if g in groups],
         betas=ADAM_BETAS, eps=ADAM_EPS, weight_decay=o.weight_decay,
     )
 
@@ -98,16 +103,22 @@ def create_train_state(
     device: Union[str, torch.device, None] = None,
 ) -> TrainState:
     """A fresh state on `device` (CUDA unless the caller passes another):
-    seeded trunk weights, GMM and proxies, all drawn on the CPU from
-    `generator` in that order; an empty bank; fresh optimizers."""
+    seeded trunk weights, GMM and proxies (a proxy-based aux loss only),
+    all drawn on the CPU from `generator` in that order; an empty bank;
+    fresh optimizers. The modules keep f32 parameters whatever the compute
+    dtype (perf/precision.py)."""
     dev = resolve_device(device)
     m = cfg.model
+    if cfg.loss.aux_loss not in AUX_LOSSES:
+        raise ValueError(f"unknown aux_loss {cfg.loss.aux_loss!r}; options: {sorted(AUX_LOSSES)}")
     model = make_features(m, dev)
     init_random_weights(model, generator)
     gmm = init_gmm(m, generator, dev)
-    proxies = init_proxies(generator, m.num_classes, m.sz_embedding)
+    proxies = None
+    if cfg.loss.aux_loss in PROXY_BASED:
+        proxies = init_proxies(generator, m.num_classes, m.sz_embedding)
+        proxies = proxies.to(dev).requires_grad_(True)
     model = model.to(device=dev, memory_format=torch.channels_last).train()
-    proxies = proxies.to(dev).requires_grad_(True)
     return TrainState(
         step=0, model=model, proxies=proxies, gmm=gmm,
         memory=init_memory(m.num_classes, m.mem_capacity, m.proto_dim, dev),

@@ -1,10 +1,12 @@
 """The synchronous train step and the epoch driver (counterpart of the JAX
 package's `Trainer._step` and `Trainer.train_epoch`, mgproto_tpu/engine/train.py).
 
-One step: the forward in train mode (BatchNorm batch statistics), the CE +
-mine + proxy-anchor losses, the backward, the divergence guard, the
-optimizer step, then the bank phase (memory enqueue and gated EM,
-core/em.py `bank_update`). On CUDA, with the config's `fused_*` flags left
+One step: the forward in train mode (BatchNorm batch statistics; the trunk
+in `ModelConfig.compute_dtype`, everything after it in f32, as
+`Trainer.precision` states), the CE + mine + aux losses (`LossConfig.
+aux_loss`), the backward, the divergence guard, the optimizer step, then
+the bank phase (memory enqueue and gated EM, core/em.py `bank_update`;
+`EMConfig.reference_stepping` selects the reference's sequential EM). On CUDA, with the config's `fused_*` flags left
 at None, the path launches the score_pool forward and backward kernels, the
 BN epilogue kernel (16 times at ResNet-34) and the em_estep kernel
 (`num_em_loop` times per EM call).
@@ -48,6 +50,7 @@ from mgproto_tpu_torch.engine.eval import EvalOutput, eval_forward, eval_mode, t
 from mgproto_tpu_torch.models.common import BatchNorm
 from mgproto_tpu_torch.numerics import apply_numerics_policy, resolve_device, use_kernel
 from mgproto_tpu_torch.ops.augment import augment_draws, augment_tail, resolve_device_augment
+from mgproto_tpu_torch.perf.precision import resolve_policy
 
 
 class TrainMetrics(NamedTuple):
@@ -117,6 +120,8 @@ class Trainer:
                  device: Union[str, torch.device, None] = None):
         self.device = resolve_device(device)
         apply_numerics_policy()
+        # what runs in which dtype (perf/precision.py); validates the config
+        self.precision = resolve_policy(cfg)
         self.cfg = cfg
         self.steps_per_epoch = steps_per_epoch
         self.fused = use_kernel(cfg.model.fused_scoring, self.device)
@@ -185,7 +190,7 @@ class Trainer:
         )
         ce = L.cross_entropy(logits[..., 0], labels)
         mine = L.mine_loss(logits, labels) * float(use_mine)
-        aux = L.proxy_anchor(embed, labels, state.proxies)
+        aux = L.aux_loss(self.cfg.loss.aux_loss, embed, labels, state.proxies)
         c = self.cfg.loss
         loss = c.crs_ent * ce + c.mine * mine + c.aux * aux
         acc = (logits[..., 0].argmax(-1) == labels).float().mean()
@@ -195,8 +200,9 @@ class Trainer:
     def params(state: TrainState):
         """Every differentiated leaf: the model's parameters (the frozen
         embedding included, as the JAX guard sums its gradient too) and the
-        proxies."""
-        return list(state.model.parameters()) + [state.proxies]
+        proxies, where the aux loss has them."""
+        proxies = [] if state.proxies is None else [state.proxies]
+        return list(state.model.parameters()) + proxies
 
     def train_step(self, state: TrainState, images, labels, use_mine: bool,
                    update_gmm: bool, warm: bool = False, seeds=None):

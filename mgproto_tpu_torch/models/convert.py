@@ -93,17 +93,27 @@ def _load_adam_state(opt: torch.optim.Adam, param: torch.Tensor, mu: np.ndarray,
 def _load_group_states(opt: torch.optim.Adam, inner_states: Mapping, model,
                        proxies: torch.Tensor, groups: Tuple[str, ...]) -> None:
     """The optax `multi_transform` groups `groups` -> torch Adam state for
-    the parameters they hold (net weights by name, and the proxies)."""
+    the parameters they hold (net weights by name, and the proxies where
+    there are any). A group the JAX state lacks (`aux` without proxies) is
+    skipped. A moment of a parameter `opt` does not train (the embedding of
+    a state trained with the JAX `OptimConfig.train_embedding`, which the
+    port does not carry) is refused."""
     params = dict(model.named_parameters())
+    trained = {id(p) for group in opt.param_groups for p in group["params"]}
     for g in groups:
+        if g not in inner_states:
+            continue
         adam = _adam_of(inner_states[g])
         count = int(np.asarray(adam.count))
         # mu and nu share one tree structure, so their walks pair up
         for (path, mu), (_, nu) in zip(_walk(adam.mu.get("net", {})),
                                        _walk(adam.nu.get("net", {}))):
             name, mu_t = _weight_name(path, mu)
+            if id(params[name]) not in trained:
+                raise ValueError(f"the JAX state trains {name} in its {g!r} group; the port "
+                                 "keeps it frozen (train_embedding is not ported)")
             _load_adam_state(opt, params[name], mu_t, _weight_name(path, nu)[1], count)
-        if hasattr(adam.mu.get("proxies"), "shape"):
+        if proxies is not None and hasattr(adam.mu.get("proxies"), "shape"):
             _load_adam_state(opt, proxies, np.asarray(adam.mu["proxies"]),
                              np.asarray(adam.nu["proxies"]), count)
 
@@ -166,15 +176,22 @@ def from_jax_train_state(
     `step`, and the optimizer state: the joint optimizer's `features`,
     `add_on` and `aux` Adam moments and counts (and its schedule count as
     `joint_updates`), the warm optimizer's `add_on` and `aux`, and the mean
-    optimizer's, each moment laid out as its parameter."""
+    optimizer's, each moment laid out as its parameter. A state without
+    proxies (a pair aux loss) needs a `cfg` whose aux loss has none, and
+    the other way round."""
     new = create_train_state(cfg, torch.Generator().manual_seed(0), device)
+    if ("proxies" in state.params) != (new.proxies is not None):
+        raise ValueError(
+            f"the JAX state {'has' if 'proxies' in state.params else 'has no'} proxies but "
+            f"aux_loss {cfg.loss.aux_loss!r} {'has none' if new.proxies is None else 'has'}")
     dev = new.gmm.means.device
     sd, gmm = from_jax_variables(
         {"params": state.params["net"], "batch_stats": state.batch_stats}, state.gmm
     )
     new.model.load_state_dict(sd, strict=True)
     with torch.no_grad():
-        new.proxies.copy_(torch.from_numpy(np.array(state.params["proxies"], np.float32)))
+        if new.proxies is not None:
+            new.proxies.copy_(torch.from_numpy(np.array(state.params["proxies"], np.float32)))
         new.gmm.means.copy_(gmm.means)
     new.gmm = new.gmm._replace(
         sigmas=gmm.sigmas.to(dev), priors=gmm.priors.to(dev), keep=gmm.keep.to(dev)

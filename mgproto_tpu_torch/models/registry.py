@@ -7,7 +7,7 @@ The resnet family and `tiny` for now; VGG and DenseNet come later.
 from __future__ import annotations
 
 import math
-from typing import Callable, Dict
+from typing import Callable, Dict, Tuple
 
 import torch
 from torch import nn
@@ -43,12 +43,18 @@ RESNETS: Dict[str, Callable[..., resnet.ResNetFeatures]] = {
 }
 
 
-def build_backbone(arch: str, fused_epilogue: bool = False) -> nn.Module:
+def build_backbone(arch: str, fused_epilogue: bool = False, remat: bool = False,
+                   remat_stages: Tuple[str, ...] = ()) -> nn.Module:
+    """The trunk of `arch`. The block options (`fused_epilogue`, `remat`,
+    `remat_stages`) are the resnet family's; `tiny` refuses them."""
     if arch in RESNETS:
-        return RESNETS[arch](fused_epilogue=fused_epilogue)
+        return RESNETS[arch](fused_epilogue=fused_epilogue, remat=remat,
+                             remat_stages=tuple(remat_stages))
     if arch == "tiny":
         if fused_epilogue:
             raise ValueError("fused_epilogue is implemented for resnet blocks only")
+        if remat or remat_stages:
+            raise ValueError(f"remat is implemented for resnet blocks only (got arch={arch!r})")
         return TinyFeatures()
     raise ValueError(f"unknown backbone {arch!r}; options: {sorted(RESNETS) + ['tiny']}")
 

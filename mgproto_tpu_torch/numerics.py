@@ -1,10 +1,13 @@
 """Numerics and device policy of the port.
 
-Everything on the serving path runs in float32. PyTorch's cuDNN convolutions
-default to TF32 on Hopper, which keeps about three decimal digits; OoD
-thresholds ride on the absolute log p(x) scale (mgproto_tpu/ops/gaussian.py
-keeps density math in full f32 for the same reason), so TF32 is switched off
-for matmuls and convolutions alike.
+What runs in which dtype is perf/precision.py's PrecisionPolicy: the trunk
+in `ModelConfig.compute_dtype` (float32 or bfloat16), everything with an
+absolute scale (master parameters, Adam moments, BatchNorm and EM
+statistics, the bank, density and log p(x)) in float32. PyTorch's cuDNN
+convolutions and matmuls default to TF32 on Hopper, which keeps about three
+decimal digits; OoD thresholds ride on the absolute log p(x) scale
+(mgproto_tpu/ops/gaussian.py keeps density math in full f32 for the same
+reason), so TF32 is switched off for the f32 matmuls and convolutions alike.
 """
 
 from __future__ import annotations
@@ -12,9 +15,6 @@ from __future__ import annotations
 from typing import Optional, Union
 
 import torch
-
-COMPUTE_DTYPE = "float32"
-
 
 def apply_numerics_policy() -> None:
     """Full-f32 matmuls and convolutions (process-wide torch flags)."""

@@ -18,6 +18,14 @@ checks the layout on every device and never copies to fix it.
 
 On a CUDA tensor `fused_bn_epilogue` launches the kernel (or raises); on a
 CPU tensor it runs `epilogue_reference`, the plain BatchNorm arithmetic.
+
+Mixed precision (perf/precision.py): under `compute_dtype="bfloat16"` x and
+the shortcut are bf16 and the statistics, scale and bias f32. The kernel
+(`bn_epilogue_bf16`) folds a and b in f32, computes in f32 and rounds once;
+the backward, as in JAX, is the VJP of `epilogue_reference` in bf16, which
+rounds after every op. So do the plain version on the CPU and JAX's
+`epilogue_reference`; flax's unfused BatchNorm (the JAX CPU default) rounds
+its output once, then the add.
 """
 
 from __future__ import annotations

@@ -4,12 +4,16 @@ mgproto_tpu/utils/checkpoint.py, in the port's own format).
 A checkpoint is a directory named `{epoch}{stage}{accuracy:.4f}` (the
 reference's scheme, e.g. `104nopush0.8224`) holding
   * state.pt: one `torch.save` of the model's state_dict (parameters and
-    BatchNorm buffers), the proxies, the GMM, the memory bank, the joint,
-    warm and mean Adam state_dicts, `step` and `joint_updates`;
+    BatchNorm buffers), the proxies (a proxy-based aux loss only), the GMM,
+    the memory bank, the joint, warm and mean Adam state_dicts, `step` and
+    `joint_updates`;
   * mgproto_manifest.json: every tensor's name, shape and dtype, and
     `step` (the JAX package's manifest schema, so its listings read these
     directories too);
-  * mgproto_meta.json: epoch, stage, accuracy and config metadata.
+  * mgproto_meta.json: epoch, stage, accuracy and config metadata: the
+    training settings a restore must be built with (`compute_dtype`,
+    `aux_loss`, `em_reference_stepping`), which
+    `adopt_checkpoint_train_config` carries into a caller's config.
 
 A save writes `<name>.tmp` and renames it into place, so an interrupted save
 never leaves a directory any listing trusts; failed writes are retried.
@@ -25,6 +29,7 @@ The JAX package's orbax and sharded multi-host formats are not ported.
 
 from __future__ import annotations
 
+import dataclasses
 import itertools
 import json
 import os
@@ -71,9 +76,10 @@ def parse_checkpoint_name(name: str) -> Optional[Tuple[int, str, float]]:
 def state_payload(state: TrainState) -> Dict[str, Any]:
     """What state.pt holds: tensors (detached, on their device) and the two
     counters."""
+    proxies = {} if state.proxies is None else {"proxies": state.proxies.detach()}
     return {
         "model": state.model.state_dict(),
-        "proxies": state.proxies.detach(),
+        **proxies,
         "gmm": {k: t.detach() for k, t in state.gmm._asdict().items()},
         "memory": dict(state.memory._asdict()),
         **{name: getattr(state, name).state_dict() for name in _OPTIMIZERS},
@@ -217,7 +223,8 @@ def restore_checkpoint(path: str, target: TrainState) -> TrainState:
     target.model.load_state_dict(payload["model"], strict=True)
     g = payload["gmm"]
     with torch.no_grad():
-        target.proxies.copy_(payload["proxies"])
+        if target.proxies is not None:
+            target.proxies.copy_(payload["proxies"])
         target.gmm.means.copy_(g["means"])
     target.gmm = target.gmm._replace(
         sigmas=g["sigmas"].to(dev), priors=g["priors"].to(dev), keep=g["keep"].to(dev))
@@ -235,6 +242,39 @@ def load_metadata(path: str) -> Optional[dict]:
         return None
     with open(meta) as f:
         return json.load(f)
+
+
+def adopt_checkpoint_train_config(cfg, path: str, log=None):
+    """`cfg` with the training settings a checkpoint's metadata records
+    adopted for a restore (the JAX package's function of the same name):
+
+    - `model.compute_dtype`: evaluating under other numerics shifts the
+      p(x) scale the OoD thresholds ride on;
+    - `loss.aux_loss`: the proxy-based losses carry proxies and their Adam
+      state, so a restore target built with another aux loss has another
+      structure and the restore refuses it;
+    - `em.reference_stepping`: resuming without it would switch the EM
+      math mid-training, and nothing else would catch it.
+
+    A checkpoint whose metadata predates a key keeps `cfg`'s value. `log`
+    (e.g. print) is told of every override."""
+    meta = load_metadata(path) or {}
+    overrides = (
+        ("compute_dtype", "model", "compute_dtype"),
+        ("aux_loss", "loss", "aux_loss"),
+        ("em_reference_stepping", "em", "reference_stepping"),
+    )
+    for key, section, field in overrides:
+        value = meta.get(key)
+        current = getattr(getattr(cfg, section), field)
+        # an empty string or a missing key keeps cfg's value
+        if value is None or value == "" or value == current:
+            continue
+        if log is not None:
+            log(f"note: checkpoint was trained with {section}.{field}={value}; "
+                f"overriding {current}")
+        cfg = cfg.replace(**{section: dataclasses.replace(getattr(cfg, section), **{field: value})})
+    return cfg
 
 
 def save_state_w_condition(ckpt_dir: str, state: TrainState, epoch: int, stage: str,

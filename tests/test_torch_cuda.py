@@ -613,3 +613,98 @@ def test_a_render_on_the_card_matches_the_cpu(tmp_path):
         assert np.array_equal(fc[crop], fp[crop]) and np.array_equal(fc[orig], fp[orig]), j
         assert np.abs(fc[over] - fp[over]).mean() <= 1.0, j
     assert len(moved) <= 1, moved
+
+
+# ResNet-34 without the stem pool at 224 px, batch 80: the block tails' shapes
+# in a training step (H = W, C)
+R34_TRAIN_TAILS = ((112, 64), (56, 128), (28, 256), (14, 512))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("hw,c", R34_TRAIN_TAILS)
+def test_bf16_epilogue_at_the_training_shapes_on_batch_statistics(hw, c):
+    """The bf16 kernel at B = 80 on the batch's own f32 statistics (as the
+    bf16 train step computes them) against the plain version in f32 rounded
+    once to bf16: atol 1e-5 plus one bf16 step (rtol 2^-7); its backward
+    equals autograd through the bf16 plain version (the same recomputed
+    VJP)."""
+    _need_cuda()
+    from mgproto_tpu_torch.models.common import BatchNorm
+
+    g = torch.Generator(device="cuda").manual_seed(hw)
+    x = torch.randn(80, hw, hw, c, generator=g, device="cuda").bfloat16().permute(0, 3, 1, 2)
+    r = torch.randn(80, hw, hw, c, generator=g, device="cuda").bfloat16().permute(0, 3, 1, 2)
+    bn = BatchNorm(c).cuda()
+    with torch.no_grad():
+        bn.weight.uniform_(0.5, 1.5, generator=g)
+        bn.bias.normal_(0.0, 0.1, generator=g)
+    x.requires_grad_(True)
+    before = fe.fused_bn_epilogue.launches
+    mean, var = bn.batch_statistics(x)
+    assert mean.dtype == var.dtype == torch.float32
+    out = fe.fused_bn_epilogue(x, mean, var, bn.weight, bn.bias, r)
+    assert fe.fused_bn_epilogue.launches == before + 1
+    assert out.dtype == torch.bfloat16 and out.is_contiguous(memory_format=torch.channels_last)
+    with torch.no_grad():
+        ref = fe.epilogue_reference(x, mean, var, bn.weight, bn.bias, r, 1e-5,
+                                    torch.float32).bfloat16()
+    torch.testing.assert_close(out.float(), ref.float(), rtol=2.0 ** -7, atol=1e-5)
+    if hw == 14:
+        gout = torch.randn(out.shape, generator=g, device="cuda").bfloat16()
+        (gx,) = torch.autograd.grad(out, x, gout, retain_graph=True)
+        plain = fe.epilogue_reference(x, mean, var, bn.weight, bn.bias, r, 1e-5, torch.bfloat16)
+        (px,) = torch.autograd.grad(plain, x, gout)
+        assert gx.dtype == torch.bfloat16 and torch.equal(gx, px)
+
+
+@pytest.mark.cuda
+def test_a_bf16_train_step_on_the_card_keeps_its_statistics_f32():
+    """resnet18 at 32 px in bf16 on the card: the kernels launch (8 block
+    tails in bf16, score_pool forward and backward), the loss is finite and
+    within 2 % of the same step on the CPU (bf16 rounding on two devices),
+    and the bank, the GMM, the BatchNorm statistics, the master parameters
+    and the Adam moments stay f32. Eval-mode BatchNorm in bf16 on the card
+    equals the CPU's within one bf16 step."""
+    _need_cuda()
+    import dataclasses
+
+    import numpy as np
+
+    from mgproto_tpu_torch.config import DataConfig, tiny_test_config
+    from mgproto_tpu_torch.engine.train import Trainer
+    from mgproto_tpu_torch.models.common import BatchNorm
+
+    base = tiny_test_config(arch="resnet18")
+    cfg = base.replace(model=dataclasses.replace(base.model, compute_dtype="bfloat16"),
+                       data=DataConfig(device_augment=False))
+    rng = np.random.default_rng(0)
+    images = rng.normal(size=(6, 32, 32, 3)).astype(np.float32)
+    labels = np.array([0, 1, 2, 3, 1, 0], np.int32)
+    losses = {}
+    for dev in ("cuda", "cpu"):
+        trainer = Trainer(cfg, 4, device=dev)
+        state = trainer.init_state(0)
+        state.memory = _full_bank(state)
+        before = fe.fused_bn_epilogue.launches
+        state, met = trainer.train_step(state, images, labels, use_mine=True, update_gmm=True)
+        losses[dev] = met.loss.item()
+        assert fe.fused_bn_epilogue.launches - before == (8 if dev == "cuda" else 0)
+        for name, t in state.model.state_dict().items():
+            assert not t.is_floating_point() or t.dtype == torch.float32, name
+        for s in state.opt.state.values():
+            assert s["exp_avg"].dtype == s["exp_avg_sq"].dtype == torch.float32
+        assert state.memory.feats.dtype == torch.float32
+        assert all(t.dtype == torch.float32 for t in state.gmm[:3])
+    assert np.isfinite(losses["cuda"])
+    assert abs(losses["cuda"] - losses["cpu"]) <= 0.02 * abs(losses["cpu"])
+
+    bn = BatchNorm(64).eval()
+    with torch.no_grad():
+        bn.running_var.uniform_(0.5, 1.5)
+        bn.running_mean.normal_(0.0, 0.1)
+    x = torch.randn(4, 64, 7, 7).bfloat16().contiguous(memory_format=torch.channels_last)
+    with torch.no_grad():
+        cpu = bn(x)
+        card = bn.cuda()(x.cuda()).cpu()
+    assert card.dtype == torch.bfloat16
+    torch.testing.assert_close(card.float(), cpu.float(), rtol=2.0 ** -7, atol=1e-30)

@@ -61,7 +61,8 @@ for m in mods:
 spec = importlib.util.spec_from_file_location("chip_smoke", {SMOKE!r})
 importlib.util.module_from_spec(spec)
 spec.loader.exec_module(importlib.util.module_from_spec(spec))
-missing = [m for m in {INPUT_PATH_MODULES + INTERPRET_MODULES!r} if m not in mods]
+missing = [m for m in {INPUT_PATH_MODULES + INTERPRET_MODULES + OPTION_MODULES!r}
+           if m not in mods]
 assert not missing, missing
 print(len(mods))
 """
@@ -85,11 +86,17 @@ INTERPRET_MODULES = (
     "mgproto_tpu_torch.data.cub_parts", "mgproto_tpu_torch.utils.vis",
     "mgproto_tpu_torch.engine.interpretability", "mgproto_tpu_torch.cli.interpret",
 )
-# what a spawn loader worker unpickles, and the CUB part tables: they must
-# import without torch (and without PIL, which only opening an image needs)
+# the precision policy and the modules of the training options
+OPTION_MODULES = ("mgproto_tpu_torch.perf", "mgproto_tpu_torch.perf.precision",
+                  "mgproto_tpu_torch.core.losses", "mgproto_tpu_torch.models.resnet",
+                  "mgproto_tpu_torch.utils.checkpoint")
+# what a spawn loader worker unpickles, the CUB part tables and the precision
+# policy (a Config validates its dtype through it): they must import without
+# torch (and without PIL, which only opening an image needs)
 WORKER_MODULES = ("mgproto_tpu_torch.data.loader", "mgproto_tpu_torch.data.folder",
                   "mgproto_tpu_torch.data.transforms", "mgproto_tpu_torch.native",
-                  "mgproto_tpu_torch.data.cub_parts")
+                  "mgproto_tpu_torch.data.cub_parts", "mgproto_tpu_torch.perf.precision",
+                  "mgproto_tpu_torch.config")
 
 
 def test_worker_modules_import_without_torch_or_pil():
@@ -101,6 +108,8 @@ for m in {WORKER_MODULES!r}:
     importlib.import_module(m)
 from mgproto_tpu_torch.data import Cub2011Eval, DataLoader, ImageFolder, transforms
 transforms.TrainTransform(32, device_augment=True)
+from mgproto_tpu_torch.config import ModelConfig
+ModelConfig(compute_dtype="bfloat16")
 print(sorted(m for m in sys.modules if m.split(".")[0] in ("torch", "PIL") and sys.modules[m]))
 """
     out = subprocess.run(
