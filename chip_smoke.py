@@ -102,12 +102,43 @@ Phases, one JSON line each:
              each of the five other aux losses; remat and remat_stages
              against the plain step (cuDNN deterministic, peak memory);
              one reference-stepping EM call on the card against the CPU.
+ 10. backbones: vgg19 and densenet121 at the flagship's widths (C=200,
+             K=10, d=64, T=20, bank 800, batch 80, 224 px, f32), each trunk
+             from a seeded torchvision-layout .pth written under
+             build/pretrained/ (the DenseNet file with legacy `norm.1`
+             keys) through create_train_state(pretrained=True), held bit
+             for bit to the file; six steps with mining and EM from a full
+             seeded bank (launches per step: score_pool 1, its backward 1,
+             the E-step num_em_loop, the epilogue 0); the first step held
+             to the plain route on the card (loss, EM log-likelihood,
+             priors, and the gradient within 1e-4, or 2x its floor on
+             images x (1 + 1e-7) if larger and that perturbation changes
+             no top-T list); a test batch's log p(x) on both routes; a profile of
+             three steps by kernel family; densenet121 with remat=True
+             against the plain step, cuDNN deterministic, bit for bit, with
+             both peaks;
+ 11. cli:    the command line: (a) `python -m mgproto_tpu_torch.cli.train
+             --arch densenet121` from phase 10's .pth on the input phase's
+             folder, one epoch with the push (rendered) at epoch 0, then the
+             prune; (b) `cli.evaluate` on its prune checkpoint prints the
+             accuracy its last test pass wrote; (c) `cli.interpret` on the
+             interpret phase's tree and checkpoint prints the metrics its
+             run_interpret returned; (d) a real SIGTERM to a resnet18
+             `cli.train`'s process group in its first step, while a spawn
+             worker is still starting in that group: exit 0,
+             PREEMPTED.json, a preempt checkpoint with its batch position,
+             its 8 spawn workers neither replaced nor left behind, and `--resume auto` finishes
+             the run and clears the marker; (e) the preempt and NaN drills
+             through run_training (resnet18, cuDNN deterministic) end bit
+             for bit at the clean run's state, and a budget of 0 rollbacks
+             raises.
 Then the kernel summary line (times at the train step's shapes, the serve
 path's beside them; `launches` counted on the input phase's epoch,
 `schedule_launches` on the schedule phase's run, `interpret_launches` on
 the interpret phase's run_interpret, `bf16_train_launches` on the options
-phase's bf16 steps; the epilogue's bf16 times at B = 80 under
-"train_bf16"), the card line as
+phase's bf16 steps, `backbone_launches` on phase 10's six steps of each
+trunk, `drill_launches` on phase 11's in-process drills; the epilogue's
+bf16 times at B = 80 under "train_bf16"), the card line as
 nvidia-smi prints it, and last `{"ok": true, "device": {...}}`. Any failed
 check exits non-zero before that line is printed.
 """
@@ -183,6 +214,8 @@ INPUT_WORKERS = 8
 OOD_CLASSES, OOD_PER_CLASS = 5, 16
 SCHEDULE_EPOCHS = 2
 SCHEDULE_PRUNE_M = 8
+# the command-line phase's in-process drills train on 2 of the 4 images a class
+DRILL_PER_CLASS = 2
 # pushed means against the features recomputed at their (image, patch) in
 # a batch of another size: the convolutions may pick other algorithms, so
 # SERVE_ATOL, not bit equality
@@ -232,9 +265,11 @@ REF_EM_MEANS_ATOL = 1e-5
 REF_EM_MEANS_BEYOND_SHARE = 1e-3
 REF_EM_MOMENT_RTOL = 1e-4
 OPTION_AUX_LOSSES = ("proxy_nca", "ms", "contrastive", "triplet", "npair")
-# where activations and their gradients are compared between routes
+# where activations and their gradients are compared between routes: the
+# ResNet-34 stages; the VGG and DenseNet trunks' output and the add-on
 PROBES = ("features.bn1", "features.layer1", "features.layer2", "features.layer3",
           "features.layer4", "add_on")
+BACKBONE_PROBES = ("features", "add_on")
 
 
 class SmokeFailure(RuntimeError):
@@ -913,13 +948,13 @@ def reset_launch_counts():
 
 
 class Probe:
-    """The activations at PROBES of one model in its next forward, and their
-    gradients in the backward after it."""
+    """The activations at `names` of one model in its next forward, and
+    their gradients in the backward after it."""
 
-    def __init__(self, model):
+    def __init__(self, model, names=PROBES):
         mods = dict(model.named_modules())
         self.act, self.grad = {}, {}
-        self.handles = [mods[name].register_forward_hook(self._hook(name)) for name in PROBES]
+        self.handles = [mods[name].register_forward_hook(self._hook(name)) for name in names]
 
     def _hook(self, name):
         def fwd(_mod, _inp, out):
@@ -982,8 +1017,8 @@ def route_record(name, run, ref, gmm0, t_levels):
         "em_ll_abs_err": abs(run["ll"] - ref["ll"]),
         "priors_max_abs_err": (run["priors"] - ref["priors"]).abs().max().item(),
         "em_compact_fallback": met.em_compact_fallback,
-        "act_rel_err": {p: rel_norm(probe.act[p], ref["probe"].act[p]) for p in PROBES},
-        "act_grad_rel_err": {p: rel_norm(probe.grad[p], ref["probe"].grad[p]) for p in PROBES},
+        "act_rel_err": {p: rel_norm(probe.act[p], ref["probe"].act[p]) for p in probe.act},
+        "act_grad_rel_err": {p: rel_norm(probe.grad[p], ref["probe"].grad[p]) for p in probe.act},
         "top_t_lists_changed": changed, "top_t_lists": lists,
     }
 
@@ -1663,9 +1698,10 @@ def interpret_phase(smi, cfg, ckpt):
     checkpoint restored through cli/interpret.run_interpret on a mini-CUB,
     then its maps on the kernel route against the plain route, the batched
     device peaks against the scalar host peaks, the CSV against purity.
-    Returns the launch counts of the run_interpret call."""
+    Returns the launch counts of the run_interpret call and what the
+    command-line phase reruns: the tree, the checkpoint, the config and the
+    metrics (the caller removes the tree)."""
     import dataclasses
-    import shutil
 
     import numpy as np
     import torch
@@ -1683,92 +1719,90 @@ def interpret_phase(smi, cfg, ckpt):
 
     base = os.path.dirname(ckpt)
     root = os.path.join(base, "cub")
+    t0 = time.perf_counter()
+    n_images = write_cub_tree(root, cfg.model.num_classes, INTERPRET_PER_CLASS, INPUT_HW,
+                              seed=11)
+    write_s = time.perf_counter() - t0
+    cfg = cfg.replace(data=dataclasses.replace(cfg.data, worker_backend="thread"))
+    csv_path = os.path.join(base, "patches.csv")
+    torch.cuda.synchronize()
+    reset_launch_counts()
+    t0 = time.perf_counter()
+    res = run_interpret(cfg, root, checkpoint=ckpt, metric="all", export_csv=csv_path,
+                        device="cuda")
+    torch.cuda.synchronize()
+    run_s = time.perf_counter() - t0
+    launches = launch_counts()
+    batches = -(-n_images // cfg.data.test_batch_size)
+    check(res["images"] == n_images, f"interpret: {res['images']} images of {n_images}")
+    check(launches["bn_epilogue"] == 16 * batches * 2,
+          f"interpret launches {launches}: bn_epilogue not 16 x {batches} batches x 2 passes")
+    metrics = {m: res[m] for m in ("consistency", "stability", "purity", "purity_std")}
+    check(all(np.isfinite(v) and 0.0 <= v <= 100.0 for v in metrics.values()),
+          f"interpret: a metric outside [0, 100]: {metrics}")
+    k = cfg.model.prototypes_per_class
+    check(res["csv_rows"] == cfg.model.num_classes * k * min(10, INTERPRET_PER_CLASS),
+          f"interpret: {res['csv_rows']} CSV rows")
+    parts = CubParts(root)
+    via_csv = purity_from_csv(csv_path, parts, cfg.model.img_size)
+    check(abs(via_csv[0] - res["purity"]) <= 1e-9 and abs(via_csv[1] - res["purity_std"])
+          <= 1e-9, f"interpret: purity_from_csv {via_csv} vs evaluate_purity "
+                   f"{(res['purity'], res['purity_std'])}")
+
+    # the same checkpoint's maps on the kernel route and the plain route
+    loader = build_eval_loader(cfg, root)
     try:
         t0 = time.perf_counter()
-        n_images = write_cub_tree(root, cfg.model.num_classes, INTERPRET_PER_CLASS, INPUT_HW,
-                                  seed=11)
-        write_s = time.perf_counter() - t0
-        cfg = cfg.replace(data=dataclasses.replace(cfg.data, worker_backend="thread"))
-        csv_path = os.path.join(base, "patches.csv")
-        torch.cuda.synchronize()
-        reset_launch_counts()
-        t0 = time.perf_counter()
-        res = run_interpret(cfg, root, checkpoint=ckpt, metric="all", export_csv=csv_path,
-                            device="cuda")
-        torch.cuda.synchronize()
-        run_s = time.perf_counter() - t0
-        launches = launch_counts()
-        batches = -(-n_images // cfg.data.test_batch_size)
-        check(res["images"] == n_images, f"interpret: {res['images']} images of {n_images}")
-        check(launches["bn_epilogue"] == 16 * batches * 2,
-              f"interpret launches {launches}: bn_epilogue not 16 x {batches} batches x 2 passes")
-        metrics = {m: res[m] for m in ("consistency", "stability", "purity", "purity_std")}
-        check(all(np.isfinite(v) and 0.0 <= v <= 100.0 for v in metrics.values()),
-              f"interpret: a metric outside [0, 100]: {metrics}")
-        k = cfg.model.prototypes_per_class
-        check(res["csv_rows"] == cfg.model.num_classes * k * min(10, INTERPRET_PER_CLASS),
-              f"interpret: {res['csv_rows']} CSV rows")
-        parts = CubParts(root)
-        via_csv = purity_from_csv(csv_path, parts, cfg.model.img_size)
-        check(abs(via_csv[0] - res["purity"]) <= 1e-9 and abs(via_csv[1] - res["purity_std"])
-              <= 1e-9, f"interpret: purity_from_csv {via_csv} vs evaluate_purity "
-                       f"{(res['purity'], res['purity_std'])}")
-
-        # the same checkpoint's maps on the kernel route and the plain route
-        loader = build_eval_loader(cfg, root)
-        try:
-            t0 = time.perf_counter()
-            loaded = list(loader)
-            load_s = time.perf_counter() - t0
-        finally:
-            loader.close()
-        maps = {}
-        for name, fused in (("kernel", None), ("plain", False)):
-            rcfg = cfg.replace(model=dataclasses.replace(cfg.model, fused_epilogue=fused))
-            trainer = Trainer(rcfg, steps_per_epoch=1, device="cuda")
-            state = restore_checkpoint(ckpt, trainer.init_state(rcfg.seed))
-            reset_launch_counts()
-            maps[name] = collect_gt_activations(trainer, state, loaded)[0]
-            check((launch_counts()["bn_epilogue"] > 0) == (fused is None),
-                  f"interpret: the {name} route's epilogue launches {launch_counts()}")
-            del state, trainer
-        scale = maps["plain"].amax(dim=(2, 3), keepdim=True)
-        map_err = float(((maps["kernel"] - maps["plain"]).abs() / scale).max())
-        check(map_err <= MAP_ATOL_OF_MAX,
-              f"interpret maps, kernel vs plain route: {map_err} > {MAP_ATOL_OF_MAX} of the max")
-
-        # batched device peaks against the scalar host peaks, same maps
-        img = cfg.model.img_size
-        t0 = time.perf_counter()
-        on_card = peak_positions(maps["kernel"], img)
-        torch.cuda.synchronize()
-        card_s = time.perf_counter() - t0
-        host_maps = maps["kernel"].cpu().numpy()
-        t0 = time.perf_counter()
-        on_host = np.array([[peak_box(m, img, 0)[::2] for m in row] for row in host_maps])
-        host_s = time.perf_counter() - t0
-        diff = np.abs(on_card - on_host)
-        moved = int(diff.any(-1).sum())
-        check(diff.max() <= 1 and moved <= PEAK_MOVED_SHARE * diff[..., 0].size,
-              f"interpret peaks: {moved} of {diff[..., 0].size} maps moved, by up to {diff.max()}")
-
-        sec = res["seconds"]
-        emit("interpret", card=smi, images=n_images, batch=cfg.data.test_batch_size,
-             reduced=f"CUB's test split cut from 5,794 images (~29 a class) to "
-                     f"{INTERPRET_PER_CLASS} a class, {n_images} in all",
-             **metrics, csv_rows=res["csv_rows"], run_s=run_s, write_tree_s=write_s,
-             clean_pass={"s": sec["clean_pass"], "img_per_s": n_images / sec["clean_pass"]},
-             noisy_pass={"s": sec["noisy_pass"], "img_per_s": n_images / sec["noisy_pass"]},
-             host_post_pass_s={m: sec[m] for m in ("consistency", "stability", "purity", "csv")},
-             launches=launches, bn_epilogue_expected=16 * batches * 2,
-             maps_kernel_vs_plain_of_max=map_err, atol_of_max=MAP_ATOL_OF_MAX,
-             peaks={"maps": int(diff[..., 0].size), "moved_one_px": moved,
-                    "card_s": card_s, "host_scalar_s": host_s},
-             purity_from_csv=list(via_csv), host_load_s=load_s,
-             peak_mem_gb=torch.cuda.max_memory_allocated() / 1e9)
-        return launches
+        loaded = list(loader)
+        load_s = time.perf_counter() - t0
     finally:
-        shutil.rmtree(base, ignore_errors=True)
+        loader.close()
+    maps = {}
+    for name, fused in (("kernel", None), ("plain", False)):
+        rcfg = cfg.replace(model=dataclasses.replace(cfg.model, fused_epilogue=fused))
+        trainer = Trainer(rcfg, steps_per_epoch=1, device="cuda")
+        state = restore_checkpoint(ckpt, trainer.init_state(rcfg.seed))
+        reset_launch_counts()
+        maps[name] = collect_gt_activations(trainer, state, loaded)[0]
+        check((launch_counts()["bn_epilogue"] > 0) == (fused is None),
+              f"interpret: the {name} route's epilogue launches {launch_counts()}")
+        del state, trainer
+    scale = maps["plain"].amax(dim=(2, 3), keepdim=True)
+    map_err = float(((maps["kernel"] - maps["plain"]).abs() / scale).max())
+    check(map_err <= MAP_ATOL_OF_MAX,
+          f"interpret maps, kernel vs plain route: {map_err} > {MAP_ATOL_OF_MAX} of the max")
+
+    # batched device peaks against the scalar host peaks, same maps
+    img = cfg.model.img_size
+    t0 = time.perf_counter()
+    on_card = peak_positions(maps["kernel"], img)
+    torch.cuda.synchronize()
+    card_s = time.perf_counter() - t0
+    host_maps = maps["kernel"].cpu().numpy()
+    t0 = time.perf_counter()
+    on_host = np.array([[peak_box(m, img, 0)[::2] for m in row] for row in host_maps])
+    host_s = time.perf_counter() - t0
+    diff = np.abs(on_card - on_host)
+    moved = int(diff.any(-1).sum())
+    check(diff.max() <= 1 and moved <= PEAK_MOVED_SHARE * diff[..., 0].size,
+          f"interpret peaks: {moved} of {diff[..., 0].size} maps moved, by up to {diff.max()}")
+
+    sec = res["seconds"]
+    emit("interpret", card=smi, images=n_images, batch=cfg.data.test_batch_size,
+         reduced=f"CUB's test split cut from 5,794 images (~29 a class) to "
+                 f"{INTERPRET_PER_CLASS} a class, {n_images} in all",
+         **metrics, csv_rows=res["csv_rows"], run_s=run_s, write_tree_s=write_s,
+         clean_pass={"s": sec["clean_pass"], "img_per_s": n_images / sec["clean_pass"]},
+         noisy_pass={"s": sec["noisy_pass"], "img_per_s": n_images / sec["noisy_pass"]},
+         host_post_pass_s={m: sec[m] for m in ("consistency", "stability", "purity", "csv")},
+         launches=launches, bn_epilogue_expected=16 * batches * 2,
+         maps_kernel_vs_plain_of_max=map_err, atol_of_max=MAP_ATOL_OF_MAX,
+         peaks={"maps": int(diff[..., 0].size), "moved_one_px": moved,
+                "card_s": card_s, "host_scalar_s": host_s},
+         purity_from_csv=list(via_csv), host_load_s=load_s,
+         peak_mem_gb=torch.cuda.max_memory_allocated() / 1e9)
+    return launches, {"cub_root": root, "checkpoint": ckpt, "cfg": cfg,
+                      "metrics": dict(metrics, csv_rows=res["csv_rows"])}
 
 
 def image_library_probe():
@@ -2408,6 +2442,635 @@ def options_phase():
     return epi, launches, steps
 
 
+# ---------------------------------------------------------------- backbones
+def torchvision_state(arch, seed, legacy=False):
+    """A seeded state_dict of `arch`'s trunk in torchvision's layout (the
+    `features.` prefix of VGG and DenseNet files, the classifier head,
+    `num_batches_tracked`); `legacy` names DenseNet's layers `norm.1`,
+    `conv.1`, ... as old torchvision files do."""
+    import torch
+
+    from mgproto_tpu_torch.models.registry import build_backbone, family
+
+    gen = torch.Generator().manual_seed(seed)
+    prefix = "" if family(arch) == "resnet" else "features."
+    out = {}
+    for k, v in build_backbone(arch).state_dict().items():
+        if not v.is_floating_point():
+            out[prefix + k] = v.clone()
+        elif k.endswith("running_var"):
+            out[prefix + k] = 0.5 + torch.rand(v.shape, generator=gen)
+        elif k.endswith(".weight") and v.dim() == 4:  # He-normal, fan_out
+            fan = v.shape[0] * v.shape[2] * v.shape[3]
+            out[prefix + k] = torch.randn(v.shape, generator=gen) * (2.0 / fan) ** 0.5
+        elif k.endswith(".weight"):  # BatchNorm scale around 1
+            out[prefix + k] = 0.5 + torch.rand(v.shape, generator=gen)
+        else:
+            out[prefix + k] = 0.1 * torch.randn(v.shape, generator=gen)
+    head = "fc" if family(arch) == "resnet" else "classifier"
+    out[f"{head}.weight"] = torch.zeros(1000, 8)
+    out[f"{head}.bias"] = torch.zeros(1000)
+    if legacy:
+        for a, b in ((".norm1.", ".norm.1."), (".norm2.", ".norm.2."),
+                     (".conv1.", ".conv.1."), (".conv2.", ".conv.2.")):
+            out = {k.replace(a, b): v for k, v in out.items()}
+    return out
+
+
+def backbone_config(arch, **model_kw):
+    """The flagship's widths on another trunk: C=200, K=10, d=64, T=20, the
+    bank of 800, batch 80, 224 px, f32, the trunk from its local .pth; f32
+    batches of seeded noise (the input phase drives the uint8 wire)."""
+    from mgproto_tpu_torch.config import Config, DataConfig, ModelConfig
+
+    return Config(model=ModelConfig(arch=arch, pretrained=True, **model_kw),
+                  data=DataConfig(device_augment=False))
+
+
+def grad_vector(trainer, state):
+    import torch
+
+    return torch.cat([p.grad.reshape(-1) for p in trainer.params(state)])
+
+
+def conv_gflop(model, img_size):
+    """Forward convolution GFLOP of one image through `model` (2 x MACs,
+    from the shapes each conv sees in a batch-1 eval forward on the card)."""
+    import torch
+
+    total = [0]
+
+    def hook(mod, inp, out):
+        k = mod.kernel_size[0] * mod.kernel_size[1] * mod.in_channels // mod.groups
+        total[0] += 2 * out.numel() * k
+
+    handles = [m.register_forward_hook(hook) for m in model.modules()
+               if isinstance(m, torch.nn.Conv2d)]
+    try:
+        was_training = model.training
+        with torch.no_grad():
+            model.eval()(torch.zeros(1, img_size, img_size, 3, device="cuda"))
+        model.train(was_training)
+    finally:
+        for h in handles:
+            h.remove()
+    return total[0] / 1e9
+
+
+def backbone_train_check(smi, arch, pth):
+    """Phase 10 for one trunk; returns the launch counts of its six steps."""
+    import dataclasses
+
+    import numpy as np
+    import torch
+
+    from mgproto_tpu_torch.engine.train import Trainer
+
+    cfg = backbone_config(arch)
+    m = cfg.model
+    trainer = Trainer(cfg, steps_per_epoch=100, device="cuda")
+    check(trainer.fused, f"{arch}: the trainer did not resolve to the kernels")
+    state = trainer.init_state(seed=0)
+    file_sd = torch.load(pth, map_location="cpu", weights_only=True)
+    prefix = "" if arch.startswith("resnet") else "features."
+    renamed = {k: v for k, v in file_sd.items()}
+    if any(".norm.1." in k for k in renamed):
+        for a, b in ((".norm.1.", ".norm1."), (".norm.2.", ".norm2."),
+                     (".conv.1.", ".conv1."), (".conv.2.", ".conv2.")):
+            renamed = {k.replace(a, b): v for k, v in renamed.items()}
+    trunk = state.model.features.state_dict()
+    bad = [k for k, v in trunk.items()
+           if not k.endswith("num_batches_tracked") and not torch.equal(v.cpu(), renamed[prefix + k])]
+    check(not bad, f"{arch}: the loaded trunk differs from {pth} in {bad[:5]}")
+    state.memory = full_bank(m, seed=1)
+    gmm0 = (state.gmm.means.detach().clone(), state.gmm.sigmas.clone())
+    gflop = conv_gflop(state.model, m.img_size)
+
+    plain_cfg = cfg.replace(model=dataclasses.replace(m, fused_scoring=False),
+                            em=dataclasses.replace(cfg.em, fused_estep=False))
+    plain_trainer = Trainer(plain_cfg, steps_per_epoch=100, device="cuda")
+    plain_state = clone_state(state, plain_cfg)
+    floor_state = clone_state(state, plain_cfg)
+    check(not plain_trainer.fused, f"{arch}: the plain route resolved to the kernels")
+
+    rng = np.random.default_rng(0)
+    c = m.num_classes
+    batches = [(rng.normal(size=(TRAIN_BATCH, m.img_size, m.img_size, 3)).astype(np.float32),
+                rng.integers(0, c, size=TRAIN_BATCH)) for _ in range(TRAIN_STEPS)]
+    want = {"score_pool": 1, "bn_epilogue": 0, "score_pool_bwd": 1,
+            "em_estep": cfg.em.num_em_loop}
+    step_s, losses, first = [], [], None
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    reset_launch_counts()
+    for i, (images, labels) in enumerate(batches):
+        probe = Probe(state.model, BACKBONE_PROBES) if i == 0 else None
+        before = launch_counts()
+        t0 = time.perf_counter()
+        state, met = trainer.train_step(state, images, labels, use_mine=True, update_gmm=True)
+        torch.cuda.synchronize()
+        step_s.append(time.perf_counter() - t0)
+        delta = {k: v - before[k] for k, v in launch_counts().items()}
+        losses.append(met.loss.item())
+        check(np.isfinite(losses[-1]) and not met.nonfinite, f"{arch} step {i}: loss {losses[-1]}")
+        check(delta == want, f"{arch} step {i}: launches {delta}, expected {want}")
+        if i == 0:
+            probe.remove()
+            first = first_step_run(trainer, state, probe, met)
+    launches = launch_counts()
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+
+    images0, labels0 = batches[0]
+
+    def plain_first_step(st, imgs):
+        probe = Probe(st.model, BACKBONE_PROBES)
+        st, rmet = plain_trainer.train_step(st, imgs, labels0, use_mine=True, update_gmm=True)
+        probe.remove()
+        return first_step_run(plain_trainer, st, probe, rmet)
+
+    ref = plain_first_step(plain_state, images0)
+    ref["groups"] = {"all": slice(0, ref["grad"].numel())}
+    rec = route_record("kernel", first, ref, gmm0, m.mine_T)
+    # The floor: the plain route against itself on images x (1 + 1e-7). A
+    # patch that this moves across a top-T boundary moves the gradient by
+    # its whole term, a jump no rounding explains (one ulp of the images
+    # moves 311 of vgg19's 160000 lists and 474 of densenet121's at batch
+    # 80 on an H100), so such a floor says nothing of the kernels. The
+    # trunk is the same code on both routes here (no epilogue): the kernel
+    # route is then held to the scoring bound alone.
+    fr = route_record("floor", plain_first_step(floor_state, images0 * np.float32(1 + 1e-7)),
+                      ref, gmm0, m.mine_T)
+    floor_flips = fr["top_t_lists_changed"]
+    floor = fr["grad_rel_err"] if floor_flips == 0 else 0.0
+    grad_bound = max(TRAIN_SCORING_GRAD_RTOL, TRAIN_GRAD_FLOOR_MULT * floor)
+    pmet, em_ll = ref["met"], ref["ll"]
+    check(rec["loss_abs_err"] <= TRAIN_LOSS_RTOL * abs(pmet.loss.item()),
+          f"{arch} kernel vs plain route: loss differs by {rec['loss_abs_err']}")
+    check(rec["em_ll_abs_err"] <= TRAIN_LL_ATOL,
+          f"{arch} kernel vs plain route: EM log-likelihood differs by {rec['em_ll_abs_err']}")
+    check(rec["priors_max_abs_err"] <= TRAIN_PRIOR_ATOL,
+          f"{arch} kernel vs plain route: priors differ by {rec['priors_max_abs_err']}")
+    check(rec["grad_rel_err"] <= grad_bound,
+          f"{arch} kernel vs plain route: gradient rel err {rec['grad_rel_err']} > {grad_bound}")
+    del plain_state, floor_state, ref, first
+
+    # a test pass on one batch: log p(x) on the kernel route and the plain one
+    eval_images = rng.normal(size=(TRAIN_BATCH, m.img_size, m.img_size, 3)).astype(np.float32)
+    before = launch_counts()
+    lp_kernel = trainer.eval_step(state, eval_images).log_px
+    eval_launches = {k: v - before[k] for k, v in launch_counts().items()}
+    lp_plain = plain_trainer.eval_step(state, eval_images).log_px
+    lp_err = (lp_kernel - lp_plain).abs().max().item()
+    check(bool(torch.isfinite(lp_kernel).all()) and lp_err <= SERVE_ATOL,
+          f"{arch} test pass log p(x), kernel vs plain route: {lp_err} > {SERVE_ATOL}")
+    check(eval_launches["score_pool"] == 1 and eval_launches["bn_epilogue"] == 0,
+          f"{arch} test pass launches {eval_launches}")
+
+    timed = step_s[1:]
+    med = float(np.median(timed))
+    emit("backbone", card=smi, arch=arch, pretrained=os.path.basename(pth), batch=TRAIN_BATCH,
+         img_size=m.img_size, conv_gflop_fwd_per_image=gflop, steps=TRAIN_STEPS, losses=losses,
+         launches=launches, step_s=step_s,
+         step_s_median=med, img_per_s=TRAIN_BATCH / med, peak_mem_gb=peak_gb,
+         first_step={"loss": pmet.loss.item(), "em_ll": em_ll, "grad_floor": floor,
+                     "floor_run": {"grad_rel_err": fr["grad_rel_err"],
+                                   "top_t_lists_changed": floor_flips},
+                     "grad_bound": grad_bound, **{k: rec[k] for k in (
+                         "loss_abs_err", "grad_rel_err", "em_ll_abs_err",
+                         "priors_max_abs_err", "act_rel_err", "act_grad_rel_err",
+                         "top_t_lists_changed", "top_t_lists")}},
+         test_pass={"log_px_kernel_vs_plain_max_abs_err": lp_err, "atol": SERVE_ATOL,
+                    "launches": eval_launches})
+
+    it = itertools.cycle(batches[1:])
+    holder = [state]
+
+    def one_step():
+        holder[0], _ = trainer.train_step(holder[0], *next(it), use_mine=True, update_gmm=True)
+
+    prof = device_breakdown(one_step, 3)
+    if prof is None:
+        emit("profile", path=f"train_{arch}", note="profiler recorded no device events: not measured")
+    else:
+        emit("profile", path=f"train_{arch}", batch=TRAIN_BATCH, steps=3, **prof)
+    return launches
+
+
+def densenet_remat_check(smi, pth):
+    """densenet121 with remat=True against the plain step from one state,
+    cuDNN deterministic: the running statistics and the gradients
+    bit-equal; the peaks of both."""
+    import dataclasses
+
+    import numpy as np
+    import torch
+
+    from mgproto_tpu_torch.engine.train import Trainer
+
+    cfg = backbone_config("densenet121")
+    rng = np.random.default_rng(5)
+    images = rng.normal(size=(TRAIN_BATCH, 224, 224, 3)).astype(np.float32)
+    labels = rng.integers(0, cfg.model.num_classes, size=TRAIN_BATCH)
+    det = (torch.backends.cudnn.deterministic, torch.backends.cudnn.benchmark)
+    torch.backends.cudnn.deterministic, torch.backends.cudnn.benchmark = True, False
+    out = {}
+    try:
+        start = None
+        for name, remat in (("plain", False), ("remat", True)):
+            rcfg = cfg.replace(model=dataclasses.replace(cfg.model, remat=remat))
+            trainer = Trainer(rcfg, steps_per_epoch=100, device="cuda")
+            if start is None:
+                start = trainer.init_state(0)
+                start.memory = full_bank(rcfg.model, seed=1)
+            state = clone_state(start, rcfg)
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+            t0 = time.perf_counter()
+            state, met = trainer.train_step(state, images, labels, use_mine=True,
+                                            update_gmm=True)
+            torch.cuda.synchronize()
+            out[name] = {"s": time.perf_counter() - t0,
+                         "peak_gb": torch.cuda.max_memory_allocated() / 1e9,
+                         "loss": met.loss.item(), "grad": grad_vector(trainer, state).clone(),
+                         "stats": {k: v.clone() for k, v in state.model.state_dict().items()
+                                   if "running" in k}}
+            del state, trainer
+    finally:
+        torch.backends.cudnn.deterministic, torch.backends.cudnn.benchmark = det
+    a, b = out["plain"], out["remat"]
+    stats_equal = all(torch.equal(a["stats"][k], b["stats"][k]) for k in a["stats"])
+    check(stats_equal, "densenet121 remat: the running statistics differ from the plain step's")
+    check(torch.equal(a["grad"], b["grad"]) and a["loss"] == b["loss"],
+          f"densenet121 remat: gradient rel err {rel_norm(b['grad'], a['grad'])}")
+    emit("backbone", card=smi, arch="densenet121", part="remat", cudnn_deterministic=True,
+         bit_equal=True, batch=TRAIN_BATCH, plain={k: a[k] for k in ("s", "peak_gb")},
+         remat={k: b[k] for k in ("s", "peak_gb")})
+
+
+def backbone_phase(smi):
+    """Phase 10; returns {arch: launch counts of its six steps} and the
+    directory of the .pth files (for the command-line phase)."""
+    import torch
+
+    pth_dir = os.path.join(HERE, "build", "pretrained")
+    os.makedirs(pth_dir, exist_ok=True)
+    paths = {"vgg19": os.path.join(pth_dir, "vgg19-dcbb9e9d.pth"),
+             "densenet121": os.path.join(pth_dir, "densenet121-a639ec97.pth")}
+    t0 = time.perf_counter()
+    for i, (arch, path) in enumerate(paths.items()):
+        # the DenseNet file names its layers as old torchvision files do
+        torch.save(torchvision_state(arch, seed=20 + i, legacy=arch == "densenet121"), path)
+    write_s = time.perf_counter() - t0
+    os.environ["MGPROTO_PRETRAINED_DIR"] = pth_dir
+    t0 = time.perf_counter()
+    launches = {arch: backbone_train_check(smi, arch, path) for arch, path in paths.items()}
+    densenet_remat_check(smi, paths["densenet121"])
+    emit("backbone", part="done", write_pth_s=write_s, seconds=time.perf_counter() - t0)
+    return launches, pth_dir
+
+
+# ------------------------------------------------------------ command line
+def cli_flags(root, model_dir, **extra):
+    """Flags of the port's mains: the input phase's folder as the train,
+    push and test set, the flagship's widths, batch 80."""
+    flags = ["--train_dir", root, "--test_dir", root, "--push_dir", root,
+             "--model_dir", model_dir, "--num_workers", str(INPUT_WORKERS)]
+    for k, v in extra.items():
+        flags += [f"--{k}"] + ([] if v is True else [str(v)])
+    return flags
+
+
+def run_main(module, flags, timeout, env=None):
+    """`python -m mgproto_tpu_torch.cli.<module>` from the repository root;
+    returns (exit code, stdout, stderr, seconds)."""
+    t0 = time.perf_counter()
+    r = subprocess.run([sys.executable, "-m", f"mgproto_tpu_torch.cli.{module}", *flags],
+                       cwd=HERE, capture_output=True, text=True, timeout=timeout,
+                       env=dict(os.environ, PYTHONUNBUFFERED="1", **(env or {})))
+    return r.returncode, r.stdout, r.stderr, time.perf_counter() - t0
+
+
+def last_json(text):
+    lines = [ln for ln in text.strip().splitlines() if ln.startswith("{")]
+    check(bool(lines), f"no JSON line in:\n{text[-2000:]}")
+    return json.loads(lines[-1])
+
+
+def children(pid):
+    """PIDs whose parent is `pid`, from /proc."""
+    out = []
+    for d in os.listdir("/proc"):
+        if d.isdigit():
+            try:
+                with open(f"/proc/{d}/stat") as f:
+                    if int(f.read().rsplit(")", 1)[1].split()[1]) == pid:
+                        out.append(int(d))
+            except (OSError, IndexError, ValueError):
+                pass
+    return out
+
+
+def cmdline(pid):
+    try:
+        with open(f"/proc/{pid}/cmdline", "rb") as f:
+            return f.read()
+    except OSError:
+        return b""
+
+
+def process_group(pid):
+    try:
+        return os.getpgid(pid)
+    except OSError:
+        return None
+
+
+def alive(pid):
+    """Whether `pid` runs (a zombie does not)."""
+    try:
+        with open(f"/proc/{pid}/stat") as f:
+            return f.read().rsplit(")", 1)[1].split()[0] != "Z"
+    except OSError:
+        return False
+
+
+def cli_train_check(smi, root, base):
+    """11 (a) and (b): the train main on densenet121 from its .pth, then the
+    evaluate main on its prune checkpoint."""
+    from mgproto_tpu_torch.utils import checkpoint as ck
+
+    run_dir = os.path.join(base, "densenet121")
+    flags = cli_flags(root, run_dir, arch="densenet121", epochs=1, mine_start=0, gmm_start=0,
+                      push_start=0, push_every=1)
+    rc, out, err, train_s = run_main("train", flags, timeout=600)
+    check(rc == 0, f"cli.train exited {rc}:\n{err[-3000:]}")
+    stages = sorted({c[1] for c in ck.list_checkpoints(run_dir)})
+    check(stages == ["nopush", "prune", "push"], f"cli.train stage checkpoints {stages}")
+    log = open(os.path.join(run_dir, "train.log")).read()
+    check("training done" in log and "arch='densenet121'" in log and "pretrained=True" in log,
+          "cli.train: train.log lacks the run")
+    records = [json.loads(ln) for ln in open(os.path.join(run_dir, "metrics.jsonl"))]
+    img_dir = os.path.join(run_dir, "img", "epoch-0")
+    rendered = len(os.listdir(img_dir)) if os.path.isdir(img_dir) else 0
+    check(rendered > 0 and records[-1].get("stage") == "prune", "cli.train: no render or prune")
+
+    rc, eout, eerr, eval_s = run_main("evaluate", cli_flags(root, run_dir, arch="densenet121"),
+                                      timeout=300)
+    check(rc == 0, f"cli.evaluate exited {rc}:\n{eerr[-3000:]}")
+    res = last_json(eout)
+    prune = [c[3] for c in ck.list_checkpoints(run_dir) if c[1] == "prune"][0]
+    check(res["checkpoint"] == prune, f"cli.evaluate read {res['checkpoint']}, not {prune}")
+    check(res["accuracy"] == records[-1]["acc"],
+          f"cli.evaluate accuracy {res['accuracy']} != the run's last test pass "
+          f"{records[-1]['acc']}")
+    emit("cli", card=smi, part="train_evaluate", arch="densenet121", epochs=1, batch=TRAIN_BATCH,
+         train_wall_s=train_s, stages=stages, rendered_jpegs=rendered,
+         train_s=[r["train_s"] for r in records if "train_s" in r],
+         render_s=[r["render_s"] for r in records if "render_s" in r],
+         accuracy=records[-1]["acc"], evaluate_wall_s=eval_s, evaluate_accuracy=res["accuracy"])
+
+
+def cli_interpret_check(smi, interp):
+    """11 (c): the interpret main on the interpret phase's tree and
+    checkpoint prints the metrics its run_interpret returned."""
+    cfg = interp["cfg"]
+    csv = os.path.join(os.path.dirname(interp["checkpoint"]), "cli_patches.csv")
+    flags = ["--cub_root", interp["cub_root"], "--checkpoint", interp["checkpoint"],
+             "--model_dir", os.path.dirname(interp["checkpoint"]), "--export_csv", csv,
+             "--batch_size", str(cfg.data.test_batch_size),
+             "--num_workers", str(cfg.data.num_workers), "--no_pretrained"]
+    rc, out, err, wall_s = run_main("interpret", flags, timeout=300)
+    check(rc == 0, f"cli.interpret exited {rc}:\n{err[-3000:]}")
+    res = last_json(out)
+    want = interp["metrics"]
+    check({k: res[k] for k in want} == want,
+          f"cli.interpret printed {res}, run_interpret returned {want}")
+    emit("cli", card=smi, part="interpret", wall_s=wall_s, **{k: res[k] for k in want})
+
+
+def cli_preempt_check(smi, root, base):
+    """11 (d): a real SIGTERM to the train main's process group in its
+    first step, while its spawn workers start (resnet18, one epoch): the
+    signal is sent once a worker exists that has not yet left the group.
+    Then `--resume auto` (on thread workers, which give the same batches)."""
+    import signal
+    import threading
+
+    from mgproto_tpu_torch.resilience.preemption import read_marker
+    from mgproto_tpu_torch.utils import checkpoint as ck
+
+    run_dir = os.path.join(base, "sigterm")
+    flags = cli_flags(root, run_dir, arch="resnet18", epochs=1, mine_start=0, gmm_start=0,
+                      push_start=100, no_pretrained=True)
+    spawn = ["--worker_backend", "process"]
+    # the main as `-m` runs it, with SIGUSR1 dumping every thread's stack
+    # (sent below should the run not exit)
+    main = ("import faulthandler, runpy, signal, sys; "
+            "faulthandler.register(signal.SIGUSR1, all_threads=True); "
+            "sys.argv[0] = 'mgproto_tpu_torch.cli.train'; "
+            "runpy.run_module('mgproto_tpu_torch.cli.train', run_name='__main__', alter_sys=True)")
+    t0 = time.perf_counter()
+    proc = subprocess.Popen([sys.executable, "-c", main, *flags, *spawn],
+                            cwd=HERE, stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True,
+                            env=dict(os.environ, PYTHONUNBUFFERED="1"), start_new_session=True)
+    workers, starting, lines = set(), [], []
+    done = threading.Event()
+
+    def watch():  # every spawn worker the run has, until it exits
+        while not done.is_set():
+            workers.update(p for p in children(proc.pid) if b"spawn_main" in cmdline(p))
+            time.sleep(0.05)
+
+    watcher = threading.Thread(target=watch, daemon=True)
+    try:
+        # the epoch's gates are logged right before its first step; the
+        # train loader starts its spawn pool for that step's batch
+        for line in proc.stdout:
+            lines.append(line)
+            if line.startswith("update GMM:"):
+                break
+        deadline = time.time() + 120
+        while not starting and time.time() < deadline:
+            starting = [p for p in children(proc.pid)
+                        if b"spawn_main" in cmdline(p) and process_group(p) == proc.pid]
+            time.sleep(0.01)
+        check(starting, "cli.train: no spawn worker was seen in its process group")
+        os.killpg(proc.pid, signal.SIGTERM)  # as a terminal or a scheduler sends it
+        sent_s = time.perf_counter() - t0
+        watcher.start()
+        try:
+            rest, err = proc.communicate(timeout=300)
+        except subprocess.TimeoutExpired:
+            os.kill(proc.pid, signal.SIGUSR1)
+            time.sleep(2)
+            proc.kill()
+            _, err = proc.communicate()
+            done.set()
+            watcher.join()
+            for p in workers:  # in sessions of their own: not the main's to end now
+                if alive(p):
+                    os.kill(p, signal.SIGKILL)
+            raise SmokeFailure(f"the SIGTERM'd cli.train did not exit in 300 s:\n{err[-6000:]}")
+    finally:
+        done.set()
+        if watcher.is_alive():
+            watcher.join()
+        if proc.poll() is None:
+            proc.kill()
+            proc.wait()
+    wall_s = time.perf_counter() - t0
+    check(proc.returncode == 0, f"preempted cli.train exited {proc.returncode}:\n{err[-3000:]}")
+    marker = read_marker(run_dir)
+    ckpts = ck.list_checkpoints(run_dir)
+    check(marker is not None and ckpts and ckpts[-1][1] == "preempt",
+          f"no PREEMPTED.json or preempt checkpoint: {marker}, {ckpts}")
+    meta = ck.load_metadata(ckpts[-1][3])
+    check(meta["reason"] == "signal SIGTERM" and meta["batch_in_epoch"] >= 1
+          and marker["batch_in_epoch"] == meta["batch_in_epoch"],
+          f"preempt metadata {meta}, marker {marker}")
+    deadline = time.time() + 20
+    while any(alive(p) for p in workers) and time.time() < deadline:
+        time.sleep(0.2)
+    orphans = [p for p in workers if alive(p)]
+    for p in orphans:  # this script stops what it started, whatever the check says
+        os.kill(p, signal.SIGKILL)
+    # the signal killed no worker: the pool replaced none
+    check(len(workers) == INPUT_WORKERS and set(starting) <= workers and not orphans,
+          f"spawn workers {sorted(workers)} (signalled while starting: {starting}): "
+          f"{orphans} still alive after the run exited")
+
+    rc, out, err2, resume_s = run_main("train", flags + ["--resume", "auto"], timeout=600)
+    check(rc == 0, f"resumed cli.train exited {rc}:\n{err2[-3000:]}")
+    check(read_marker(run_dir) is None, "the resumed run left PREEMPTED.json")
+    stages = [c[1] for c in ck.list_checkpoints(run_dir)]
+    check(stages[-1] == "prune", f"the resumed run did not finish: {stages}")
+    log = open(os.path.join(run_dir, "train.log")).read()
+    check(f"skipping {meta['batch_in_epoch']} completed batches" in log,
+          "the resumed run did not skip the applied batches")
+    emit("cli", card=smi, part="sigterm", arch="resnet18", signal_sent_s=sent_s,
+         preempted_wall_s=wall_s, batch_in_epoch=meta["batch_in_epoch"],
+         spawn_workers=len(workers), starting_at_signal=len(starting), orphans=len(orphans),
+         resume_wall_s=resume_s, stages=stages)
+
+
+def drill_config(root, model_dir):
+    """The in-process drills: resnet18 at the flagship's widths, 2 epochs
+    without a push on `root` (thread workers), seeded random weights."""
+    import dataclasses
+
+    from mgproto_tpu_torch.config import ModelConfig, ScheduleConfig
+
+    cfg = input_config(root, TRAIN_BATCH, INPUT_WORKERS, model=ModelConfig(arch="resnet18"))
+    return cfg.replace(data=dataclasses.replace(cfg.data, worker_backend="thread"),
+                       schedule=ScheduleConfig(num_train_epochs=2, mine_start=0,
+                                               update_gmm_start=0, push_start=100),
+                       model_dir=model_dir)
+
+
+def cli_drill_check(smi, root, base):
+    """11 (e): the preempt and NaN drills through run_training, cuDNN
+    deterministic, against the clean run bit for bit; a budget of 0
+    rollbacks raises. Every run starts from one checkpoint with a full
+    seeded bank, so EM runs in every step. Returns the launch counts of
+    the drills."""
+    import torch
+
+    from mgproto_tpu_torch.cli.train import run_training
+    from mgproto_tpu_torch.engine.train import Trainer
+    from mgproto_tpu_torch.resilience import chaos
+    from mgproto_tpu_torch.resilience.guard import DivergenceError
+    from mgproto_tpu_torch.utils import checkpoint as ck
+
+    # the input phase's folder cut to 2 images a class (links): 5 steps an epoch
+    half = os.path.join(base, "half")
+    for cls in sorted(os.listdir(root)):
+        os.makedirs(os.path.join(half, cls))
+        for name in sorted(os.listdir(os.path.join(root, cls)))[:DRILL_PER_CLASS]:
+            os.symlink(os.path.join(root, cls, name), os.path.join(half, cls, name))
+    root = half
+    steps = INPUT_CLASSES * DRILL_PER_CLASS // TRAIN_BATCH
+    at = steps + 2  # the third step of epoch 1
+
+    cfg = drill_config(root, base)
+    start = Trainer(cfg, steps_per_epoch=steps, device="cuda").init_state(0)
+    start.memory = full_bank(cfg.model, seed=1)
+    start_path = ck.save_checkpoint(base, start, "start", metadata={"epoch": -1, "stage": "nopush"})
+    del start
+
+    def run(name, resume=start_path, **kw):
+        cfg = drill_config(root, os.path.join(base, name))
+        t0 = time.perf_counter()
+        state, acc = run_training(cfg, resume=resume, device="cuda", render_push=False, **kw)
+        torch.cuda.synchronize()
+        return cfg, state, acc, time.perf_counter() - t0
+
+    det = (torch.backends.cudnn.deterministic, torch.backends.cudnn.benchmark)
+    torch.backends.cudnn.deterministic, torch.backends.cudnn.benchmark = True, False
+    try:
+        torch.cuda.synchronize()
+        reset_launch_counts()
+        _, clean, acc, clean_s = run("clean")
+        cfg, _, _, pre_s = run("preempt", chaos=chaos.ChaosState(chaos.ChaosPlan(
+            preempt_at_step=at)))
+        _, resumed, acc_r, res_s = run("preempt", resume="auto")
+        bad = state_mismatches(resumed, clean)
+        check(not bad and acc_r == acc, f"preempt drill: the resumed state differs in {bad[:5]}")
+        nan = chaos.ChaosState(chaos.ChaosPlan(nan_at_step=at))
+        cfg, rolled, acc_n, nan_s = run("nan", chaos=nan, max_bad_steps=1,
+                                        divergence_check_every=1, max_rollbacks=1)
+        log = open(os.path.join(cfg.model_dir, "train.log")).read()
+        n_rollbacks = log.count(f"; rolling back to {cfg.model_dir}")
+        bad = state_mismatches(rolled, clean)
+        check(nan.injections == {"nan_loss": 1} and n_rollbacks == 1,
+              f"NaN drill: injections {nan.injections}, rollbacks {n_rollbacks}")
+        check(not bad and acc_n == acc, f"NaN drill: the final state differs in {bad[:5]}")
+        try:
+            run("budget", chaos=chaos.ChaosState(chaos.ChaosPlan(nan_at_step=at)),
+                max_bad_steps=1, divergence_check_every=1, max_rollbacks=0)
+            raised = None
+        except DivergenceError as e:
+            raised = e
+        check(raised is not None and raised.epoch == 1, "a budget of 0 rollbacks did not raise")
+        launches = launch_counts()
+    finally:
+        torch.backends.cudnn.deterministic, torch.backends.cudnn.benchmark = det
+    emit("cli", card=smi, part="drills", arch="resnet18", cudnn_deterministic=True,
+         steps_per_epoch=steps, event_step=at, clean_s=clean_s, preempt_s=pre_s,
+         resume_s=res_s, nan_s=nan_s, rollbacks=n_rollbacks, bit_equal=True,
+         budget_0_raised=str(raised), launches=launches)
+    return launches
+
+
+def cli_phase(smi, interp):
+    """Phase 11; returns the launch counts of the in-process drills."""
+    import gc
+    import shutil
+
+    import torch
+
+    # the mains run in processes of their own: hand back what this one holds
+    # in torch's cache (a densenet121 step at batch 80 needs ~60 GB)
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    root = os.path.join(HERE, "build", "input_phase", "train")
+    if not os.path.isdir(root):
+        write_jpeg_tree(root, INPUT_CLASSES, INPUT_PER_CLASS, INPUT_HW)
+    base = os.path.join(HERE, "build", "cli_phase")
+    shutil.rmtree(base, ignore_errors=True)
+    t0 = time.perf_counter()
+    try:
+        cli_train_check(smi, root, base)
+        cli_interpret_check(smi, interp)
+        cli_preempt_check(smi, root, base)
+        launches = cli_drill_check(smi, root, base)
+    finally:
+        shutil.rmtree(base, ignore_errors=True)
+        shutil.rmtree(os.path.dirname(interp["checkpoint"]), ignore_errors=True)
+    emit("cli", part="done", seconds=time.perf_counter() - t0)
+    return launches
+
+
 def main() -> int:
     if not os.path.isdir(os.path.join(HERE, "mgproto_tpu_torch")):
         print("chip_smoke: mgproto_tpu_torch/ not found beside this script", file=sys.stderr)
@@ -2441,8 +3104,10 @@ def main() -> int:
     train_launches, train_steps = train_phase()
     input_launches, input_steps = input_phase()
     schedule_launches, schedule_cfg, push_ckpt = schedule_phase(smi)
-    interpret_launches = interpret_phase(smi, schedule_cfg, push_ckpt)
+    interpret_launches, interp = interpret_phase(smi, schedule_cfg, push_ckpt)
     epi_bf16, bf16_launches, bf16_steps = options_phase()
+    backbone_launches, _ = backbone_phase(smi)
+    drill_launches = cli_phase(smi, interp)
     for k in kernels:
         # `launches`: the loader-fed epoch of the input phase (this path's
         # main run); the train phase's and the serve phase's beside them
@@ -2461,10 +3126,21 @@ def main() -> int:
         check(k["launches"] > 0, f"{k['name']} was not launched on the input path")
         check(k["train_launches"] > 0, f"{k['name']} was not launched on the train path")
         check(k["bf16_train_launches"] > 0, f"{k['name']} was not launched on the bf16 path")
+        # the backbone phase's six steps of each trunk: the epilogue is a
+        # resnet kernel, so it must not launch there
+        k["backbone_launches"] = {arch: counts[k["name"]]
+                                  for arch, counts in backbone_launches.items()}
+        for arch, n in k["backbone_launches"].items():
+            check((n == 0) == (k["name"] == "bn_epilogue"),
+                  f"{k['name']}: {n} launches on the {arch} path")
+        # the command-line phase's in-process drills (resnet18)
+        k["drill_launches"] = drill_launches[k["name"]]
+        check(k["drill_launches"] > 0, f"{k['name']} was not launched in the drills")
         if k["name"] == "bn_epilogue":
             k["train_bf16"] = dict(epi_bf16, launches=bf16_launches["bn_epilogue"])
     print(json.dumps({"kernels": kernels, "input_steps": input_steps, "train_steps": train_steps,
-                      "serve_dispatches": dispatches, "bf16_train_steps": bf16_steps}),
+                      "serve_dispatches": dispatches, "bf16_train_steps": bf16_steps,
+                      "backbone_steps": TRAIN_STEPS}),
           flush=True)
     print(smi, flush=True)
     print(json.dumps({"ok": True, "device": {

@@ -1,0 +1,282 @@
+"""Shared command-line plumbing: dataset presets and argparse -> Config
+(counterpart of mgproto_tpu/cli/common.py).
+
+Every flag of the JAX package's `add_train_args` parses here under the
+same name and default. Each either sets the port's field of the same name,
+or is refused at a value other than its default by `config_from_args`,
+naming the ROADMAP item that will port it (`REFUSED`). `--no-telemetry`
+is accepted: the port writes no telemetry in any case. The port adds
+`--device` (default cuda), its device rule: the entry points run on the
+card unless the caller names another device.
+"""
+
+from __future__ import annotations
+
+import argparse
+import dataclasses
+import os
+from typing import Dict
+
+from mgproto_tpu_torch.config import (
+    Config,
+    DataConfig,
+    EMConfig,
+    LossConfig,
+    ModelConfig,
+    OptimConfig,
+    ScheduleConfig,
+)
+
+# num_classes per dataset and its folder under --data_root
+DATASET_PRESETS: Dict[str, Dict] = {
+    "CUB": {"num_classes": 200, "sub": "cub200_cropped"},
+    "Cars": {"num_classes": 196, "sub": "stanford_cars_cropped"},
+    "Dogs": {"num_classes": 120, "sub": "stanford_dogs"},
+    "Pets": {"num_classes": 37, "sub": "oxford_pets"},
+    "ImageNet": {"num_classes": 1000, "sub": "imagenet"},
+}
+
+# flags the port parses but does not implement: (dest, the value that is
+# accepted, the ROADMAP item that ports the rest). `ckpt_format` accepts
+# "auto" and "replicated", which are the same thing on one process.
+REFUSED = (
+    ("distributed", False, "A8 (multi-GPU)"),
+    ("mesh_data", -1, "A8 (multi-GPU)"),
+    ("mesh_model", 1, "A8 (multi-GPU)"),
+    ("barrier_timeout_s", 300.0, "A8 (multi-GPU: the multi-host failure agreement)"),
+    ("straggler_threshold", 0.25, "A8 (multi-GPU: straggler detection)"),
+    ("straggler_patience", 5, "A8 (multi-GPU: straggler detection)"),
+    ("ckpt_format", ("auto", "replicated"), "A8 (multi-GPU: sharded checkpoints)"),
+    ("async_bank", (None, False), "A6 item 5 (the async bank pipeline)"),
+    ("auto_tune", False, "A9 (perf/planner.py)"),
+    ("profile_dir", "", "A9 (obs and telemetry)"),
+    ("profile_steps", "", "A9 (obs and telemetry)"),
+    ("profile_on_anomaly", False, "A9 (obs and telemetry)"),
+    ("profile_out", "", "A9 (obs and telemetry)"),
+    ("telemetry_dir", "", "A9 (obs and telemetry)"),
+)
+
+
+class NotPortedError(ValueError):
+    """A flag set to a value the port does not implement yet."""
+
+
+def add_train_args(p: argparse.ArgumentParser) -> None:
+    """The JAX package's training flags (same names, same defaults) and
+    `--device`. The flags of `REFUSED` parse but are refused at another
+    value by `config_from_args`."""
+    # the reference's main.py flags
+    p.add_argument("--dataset", default="CUB", choices=sorted(DATASET_PRESETS))
+    p.add_argument("--arch", default="resnet34")
+    p.add_argument("--aux_loss", default="proxy_anchor",
+                   choices=["proxy_anchor", "proxy_nca", "ms", "contrastive",
+                            "triplet", "npair"])
+    p.add_argument("--aux_emb_sz", type=int, default=32)
+    p.add_argument("--mem_sz", type=int, default=800)
+    p.add_argument("--mine_level", type=int, default=20)
+    # paths (the reference's settings.py, as flags)
+    p.add_argument("--data_root", default="./datasets")
+    p.add_argument("--train_dir", default="")
+    p.add_argument("--test_dir", default="")
+    p.add_argument("--push_dir", default="")
+    p.add_argument("--ood_dir", action="append", default=[],
+                   help="OoD test set root (repeatable)")
+    p.add_argument("--model_dir", default="./saved_models")
+    # shapes and schedule
+    p.add_argument("--img_size", type=int, default=224)
+    p.add_argument("--num_classes", type=int, default=0, help="0 = dataset preset")
+    p.add_argument("--protos_per_class", type=int, default=10)
+    p.add_argument("--proto_dim", type=int, default=64)
+    p.add_argument("--batch_size", type=int, default=80)
+    p.add_argument("--epochs", type=int, default=120)
+    p.add_argument("--warm_epochs", type=int, default=0)
+    p.add_argument("--mine_start", type=int, default=40)
+    p.add_argument("--gmm_start", type=int, default=35)
+    p.add_argument("--push_start", type=int, default=100)
+    p.add_argument("--push_every", type=int, default=10)
+    p.add_argument("--prune_top_m", type=int, default=8)
+    p.add_argument("--prune_renormalize", action="store_true",
+                   help="renormalize the kept priors of a class to sum to 1 "
+                        "after the prune (recompute OoD thresholds after)")
+    p.add_argument("--em_reference_stepping", action="store_true",
+                   help="the reference's EM stepping: one Adam step per "
+                        "(class, round) in class order (core/em.py)")
+    p.add_argument("--no_pretrained", action="store_true",
+                   help="start the trunk from seeded random weights, not "
+                        "from its local .pth (models/pretrained.py)")
+    p.add_argument("--compute_dtype", default="float32", choices=["float32", "bfloat16"],
+                   help="the trunk's dtype (parameters, density and the bank stay f32)")
+    p.add_argument("--fused_scoring", action="store_true", default=None,
+                   help="force the score_pool kernels on (default: on for "
+                        "CUDA, the plain version on the CPU)")
+    p.add_argument("--no_fused_scoring", dest="fused_scoring", action="store_false",
+                   help="force the plain scoring path")
+    p.add_argument("--fused_epilogue", action="store_true", default=None,
+                   help="force the BN epilogue kernel on (resnet trunks only; "
+                        "default: on for CUDA resnets, off elsewhere)")
+    p.add_argument("--no_fused_epilogue", dest="fused_epilogue", action="store_false",
+                   help="force the plain block tail")
+    p.add_argument("--remat", action="store_true",
+                   help="recompute every trunk block in the backward "
+                        "(resnet blocks, dense layers): memory for FLOPs")
+    p.add_argument("--remat_stages", default="",
+                   help="comma-separated stages to recompute ('layer1'.."
+                        "'layer4', 'denseblock1'..'denseblock4'); --remat "
+                        "overrides")
+    p.add_argument("--num_workers", type=int, default=8)
+    p.add_argument("--worker_backend", default="thread", choices=["thread", "process"],
+                   help="train-loader workers: 'process' (a spawn pool) runs "
+                        "the augmentation math past the GIL")
+    p.add_argument("--device_augment", action="store_true", default=None,
+                   help="force the uint8 wire and the augmentation tail on "
+                        "the device (default: on for CUDA, off for the CPU)")
+    p.add_argument("--no_device_augment", dest="device_augment", action="store_false",
+                   help="force the f32 host augmentation")
+    p.add_argument("--prefetch-depth", "--prefetch_depth", dest="prefetch_depth", type=int,
+                   default=2,
+                   help="batches held in flight, so the next copy to the "
+                        "device overlaps the current step")
+    p.add_argument("--em_max_active", type=int, default=-1,
+                   help="compact EM width (core/em.py): -1 auto "
+                        "(min(classes, batch)), 0 dense, >0 that width")
+    p.add_argument("--fused_estep", action="store_true", default=None,
+                   help="force the E-step kernel on (default: on for CUDA)")
+    p.add_argument("--no_fused_estep", dest="fused_estep", action="store_false",
+                   help="force the plain E-step")
+    p.add_argument("--async_bank", action="store_true", default=None,
+                   help="not ported (ROADMAP A6 item 5): refused")
+    p.add_argument("--no_async_bank", dest="async_bank", action="store_false",
+                   help="the synchronous step (what the port runs)")
+    p.add_argument("--auto_tune", action="store_true", help="not ported (A9): refused")
+    p.add_argument("--seed", type=int, default=0)
+    p.add_argument("--device", default="cuda",
+                   help="torch device to run on (default cuda; 'cpu' runs the "
+                        "plain PyTorch path)")
+    # runtime
+    p.add_argument("--distributed", action="store_true", help="not ported (A8): refused")
+    p.add_argument("--mesh_data", type=int, default=-1, help="not ported (A8): -1 only")
+    p.add_argument("--mesh_model", type=int, default=1, help="not ported (A8): 1 only")
+    p.add_argument("--resume", default="",
+                   help="checkpoint path, or 'auto' for the newest checkpoint "
+                        "with a valid manifest in model_dir (a preempted run "
+                        "resumes mid-epoch, bit for bit)")
+    # fault tolerance (resilience/)
+    p.add_argument("--max-bad-steps", "--max_bad_steps", dest="max_bad_steps", type=int,
+                   default=3,
+                   help="consecutive non-finite steps (their updates are "
+                        "skipped) before rolling back to the last good "
+                        "checkpoint (0 disables the rollback)")
+    p.add_argument("--divergence_check_every", type=int, default=8,
+                   help="steps between two polls of the non-finite streak")
+    p.add_argument("--max_rollbacks", type=int, default=2,
+                   help="rollbacks before the run gives up")
+    p.add_argument("--keep_last", type=int, default=0,
+                   help="keep only the newest N checkpoints (and --keep_best "
+                        "by accuracy); 0 keeps everything")
+    p.add_argument("--keep_best", type=int, default=1,
+                   help="the most accurate checkpoints kept beside --keep_last")
+    p.add_argument("--no_preempt_handlers", action="store_true",
+                   help="do not install the SIGTERM/SIGINT handlers (default: "
+                        "installed; the first signal checkpoints and exits 0, "
+                        "a second kills)")
+    p.add_argument("--barrier_timeout_s", type=float, default=300.0,
+                   help="not ported (A8): the default only")
+    p.add_argument("--straggler_threshold", type=float, default=0.25,
+                   help="not ported (A8): the default only")
+    p.add_argument("--straggler_patience", type=int, default=5,
+                   help="not ported (A8): the default only")
+    p.add_argument("--ckpt_format", default="auto", choices=["auto", "sharded", "replicated"],
+                   help="checkpoint format: 'auto' and 'replicated' are the "
+                        "port's single-process format; 'sharded' is not "
+                        "ported (A8)")
+    p.add_argument("--profile_dir", default="", help="not ported (A9): refused")
+    p.add_argument("--profile_steps", default="", help="not ported (A9): refused")
+    p.add_argument("--profile_on_anomaly", action="store_true",
+                   help="not ported (A9): refused")
+    p.add_argument("--profile_out", default="", help="not ported (A9): refused")
+    p.add_argument("--telemetry-dir", "--telemetry_dir", dest="telemetry_dir", default="",
+                   help="not ported (A9): refused")
+    p.add_argument("--no-telemetry", "--no_telemetry", dest="no_telemetry",
+                   action="store_true",
+                   help="accepted: the port writes no telemetry in any case")
+    p.add_argument("--target_accu", type=float, default=0.0,
+                   help="save checkpoints only at or above this test accuracy")
+
+
+def check_ported(args: argparse.Namespace) -> None:
+    """Raise NotPortedError for the first flag of `REFUSED` set to a value
+    the port does not implement."""
+    for dest, accepted, item in REFUSED:
+        value = getattr(args, dest)
+        ok = value in accepted if isinstance(accepted, tuple) else value == accepted
+        if not ok:
+            flag = "--" + dest
+            raise NotPortedError(f"{flag}={value!r} is not ported; ROADMAP {item}")
+
+
+def config_from_args(args: argparse.Namespace) -> Config:
+    """The run's Config from parsed `add_train_args` flags (refusing the
+    flags `check_ported` names)."""
+    check_ported(args)
+    preset = DATASET_PRESETS[args.dataset]
+    num_classes = args.num_classes or preset["num_classes"]
+    root = os.path.join(args.data_root, preset["sub"])
+    # the reference's folders: train_cropped_augmented, train_cropped
+    # (push) and test_cropped
+    train_dir = args.train_dir or os.path.join(root, "train_cropped_augmented")
+    push_dir = args.push_dir or os.path.join(root, "train_cropped")
+    test_dir = args.test_dir or os.path.join(root, "test_cropped")
+    return Config(
+        model=ModelConfig(
+            arch=args.arch,
+            img_size=args.img_size,
+            num_classes=num_classes,
+            prototypes_per_class=args.protos_per_class,
+            proto_dim=args.proto_dim,
+            sz_embedding=args.aux_emb_sz,
+            mine_T=args.mine_level,
+            mem_capacity=args.mem_sz,
+            pretrained=not args.no_pretrained,
+            compute_dtype=args.compute_dtype,
+            fused_scoring=args.fused_scoring,
+            fused_epilogue=args.fused_epilogue,
+            remat=args.remat,
+            remat_stages=tuple(s for s in args.remat_stages.split(",") if s),
+        ),
+        em=EMConfig(
+            reference_stepping=args.em_reference_stepping,
+            max_active_classes=args.em_max_active,
+            fused_estep=args.fused_estep,
+        ),
+        optim=OptimConfig(),
+        schedule=ScheduleConfig(
+            num_train_epochs=args.epochs,
+            num_warm_epochs=args.warm_epochs,
+            mine_start=args.mine_start,
+            update_gmm_start=args.gmm_start,
+            push_start=args.push_start,
+            push_every=args.push_every,
+            prune_top_m=args.prune_top_m,
+            prune_renormalize=args.prune_renormalize,
+        ),
+        loss=LossConfig(aux_loss=args.aux_loss),
+        data=DataConfig(
+            train_dir=train_dir,
+            test_dir=test_dir,
+            train_push_dir=push_dir,
+            ood_dirs=tuple(args.ood_dir),
+            train_batch_size=args.batch_size,
+            test_batch_size=args.batch_size,
+            train_push_batch_size=args.batch_size,
+            num_workers=args.num_workers,
+            worker_backend=args.worker_backend,
+            prefetch_depth=args.prefetch_depth,
+            device_augment=args.device_augment,
+        ),
+        seed=args.seed,
+        model_dir=args.model_dir,
+    )
+
+
+def describe(cfg: Config) -> str:
+    return "\n".join(f"{f.name}: {getattr(cfg, f.name)}" for f in dataclasses.fields(cfg))

@@ -1,5 +1,7 @@
-"""The interpretability entry point (counterpart of mgproto_tpu/cli/interpret.py,
-without its argparse `main`).
+"""The interpretability entry point (counterpart of mgproto_tpu/cli/interpret.py).
+
+    python -m mgproto_tpu_torch.cli.interpret --cub_root CUB_200_2011 \
+        [--metric all] [--checkpoint auto|<path>] [--export_csv p.csv] [--device cuda]
 
 Reference: eval_consistency.py, eval_stability.py, eval_purity.py. Restores
 a checkpoint, runs the CUB test split once through the gt-class activation
@@ -10,12 +12,15 @@ per-prototype patch CSV.
 
 from __future__ import annotations
 
+import argparse
 import contextlib
+import json
 import time
-from typing import Dict, Union
+from typing import Dict, Optional, Union
 
 import torch
 
+from mgproto_tpu_torch.cli.common import add_train_args, config_from_args
 from mgproto_tpu_torch.config import Config
 from mgproto_tpu_torch.data import Cub2011Eval, DataLoader, ood_transform
 from mgproto_tpu_torch.data.cub_parts import CubParts
@@ -95,7 +100,7 @@ def run_interpret(
     cfg = adopt_checkpoint_train_config(cfg, path)
     parts = CubParts(cub_root)
     trainer = Trainer(cfg, steps_per_epoch=1, device=dev)
-    state = restore_checkpoint(path, trainer.init_state(cfg.seed))
+    state = restore_checkpoint(path, trainer.init_state(cfg.seed, for_restore=True))
 
     c = cfg.model.num_classes
     seconds: Dict[str, float] = {}
@@ -132,3 +137,35 @@ def run_interpret(
         loader.close()
     results["seconds"] = seconds
     return results
+
+
+def main(argv: Optional[list] = None) -> None:
+    """Parse the JAX CLI's flags, run `run_interpret`, print its metrics as
+    the JAX CLI prints them (one JSON line: consistency, stability,
+    purity, purity_std, and csv_rows and csv with --export_csv)."""
+    p = argparse.ArgumentParser(
+        description="Prototype interpretability metrics (the reference's eval_*.py)")
+    add_train_args(p)
+    p.add_argument("--metric", default="all", choices=list(METRICS))
+    p.add_argument("--cub_root", required=True,
+                   help="CUB_200_2011 root (images.txt, parts/, images/)")
+    p.add_argument("--checkpoint", default="auto")
+    p.add_argument("--half_size", type=int, default=36,
+                   help="box half-size for consistency/stability (purity uses 16)")
+    p.add_argument("--purity_half_size", type=int, default=16)
+    p.add_argument("--purity_top_k", type=int, default=10)
+    p.add_argument("--export_csv", default="",
+                   help="also write the per-prototype top-K patch CSV")
+    args = p.parse_args(argv)
+    cfg = config_from_args(args)
+    results = run_interpret(
+        cfg, args.cub_root, checkpoint=args.checkpoint, metric=args.metric,
+        half_size=args.half_size, purity_half_size=args.purity_half_size,
+        purity_top_k=args.purity_top_k, export_csv=args.export_csv, device=args.device)
+    print(f"loaded {results['checkpoint']}")
+    keys = ("consistency", "stability", "purity", "purity_std", "csv_rows", "csv")
+    print(json.dumps({k: results[k] for k in keys if k in results}))
+
+
+if __name__ == "__main__":
+    main()

@@ -1,5 +1,5 @@
-"""The training schedule (counterpart of mgproto_tpu/cli/train.py's
-`run_training`, without its argparse `main`).
+"""The training schedule and its command line (counterpart of
+mgproto_tpu/cli/train.py).
 
 Per epoch: the warm/joint phase and the mining and EM gates
 (`Trainer.epoch_flags`), one training epoch, a test pass (with the OoD sets
@@ -13,20 +13,33 @@ stopped: the loaders are deterministic per (seed, epoch, sample), so a
 resumed run trains on the batches the uninterrupted one did. Logs go to
 `train.log` and `metrics.jsonl` under `cfg.model_dir`.
 
-Not ported: the JAX run_training's telemetry, multi-host, chaos drills, rollback
-and preemption, autotuning and the profiler.
+Fault tolerance (resilience/): each epoch runs under an `EpochGuard`.
+`max_bad_steps` consecutive non-finite steps (their updates skipped in the
+step) restore the last good checkpoint in place and replay from it, at
+most `max_rollbacks` times. SIGTERM/SIGINT (handlers installed by `main`)
+or the chaos drill's simulated preemption let the step in flight finish,
+save a `preempt` checkpoint with the position in the epoch, write
+PREEMPTED.json and return; `resume="auto"` then skips the batches already
+applied and continues bit for bit. One process: the JAX driver's
+multi-host agreement, telemetry, autotuning and profiler are not ported
+(`cli/common.py` refuses their flags).
+
+    python -m mgproto_tpu_torch.cli.train --train_dir ... --test_dir ... --push_dir ...
 """
 
 from __future__ import annotations
 
+import argparse
 import contextlib
+import itertools
 import json
 import os
-from typing import Tuple, Union
+from typing import Optional, Tuple, Union
 
 import numpy as np
 import torch
 
+from mgproto_tpu_torch.cli.common import add_train_args, config_from_args, describe
 from mgproto_tpu_torch.config import Config
 from mgproto_tpu_torch.core.mgproto import prune_top_m
 from mgproto_tpu_torch.core.state import TrainState
@@ -35,12 +48,17 @@ from mgproto_tpu_torch.engine.evaluate import evaluate, evaluate_with_ood
 from mgproto_tpu_torch.engine.push import provenance_dict, push_prototypes, render_prototypes
 from mgproto_tpu_torch.engine.train import Trainer
 from mgproto_tpu_torch.perf.precision import policy_meta
+from mgproto_tpu_torch.resilience import chaos as chaos_mod
+from mgproto_tpu_torch.resilience import preemption
+from mgproto_tpu_torch.resilience.guard import DivergenceError, EpochGuard
 from mgproto_tpu_torch.utils.checkpoint import (
+    adopt_checkpoint_train_config,
     apply_retention,
+    checkpoint_name,
     find_latest_checkpoint,
-    latest_checkpoint,
     load_metadata,
     restore_checkpoint,
+    save_checkpoint,
     save_state_w_condition,
 )
 from mgproto_tpu_torch.utils.log import Logger, MetricsWriter, timed_span
@@ -53,11 +71,29 @@ def _labeled(loader):
         yield batch[0], batch[1]
 
 
-def _test(trainer, state, test_loader, ood_loaders, log):
+def _test(trainer, state, test_loader, ood_loaders, log, score_rule="sum"):
     if ood_loaders:
         return evaluate_with_ood(trainer, state, _labeled(test_loader),
-                                 [_labeled(o) for o in ood_loaders], log=log)
+                                 [_labeled(o) for o in ood_loaders], score_rule=score_rule,
+                                 log=log)
     return evaluate(trainer, state, _labeled(test_loader), log=log)
+
+
+def _restore(state, path, log):
+    """`state` restored in place from `path`; returns (state, the epoch to
+    run, the batches of it already applied, that epoch's gates or None)."""
+    meta = load_metadata(path) or {}
+    state = restore_checkpoint(path, state)
+    if meta.get("stage") == "preempt":
+        # a mid-epoch resume: the same epoch, its applied batches skipped
+        # (the loader's order is deterministic), under the gates the epoch
+        # began with (the bank may have filled since)
+        epoch, skip = int(meta.get("epoch", 0)), int(meta.get("batch_in_epoch", 0))
+        log(f"resumed preempted {path} -> epoch {epoch} (skipping {skip} completed batches)")
+        return state, epoch, skip, meta.get("epoch_flags")
+    epoch = int(meta.get("epoch", -1)) + 1
+    log(f"resumed {path} -> epoch {epoch}")
+    return state, epoch, 0, None
 
 
 def run_training(
@@ -66,20 +102,37 @@ def run_training(
     keep_last: int = 0,
     device: Union[str, torch.device, None] = None,
     render_push: bool = True,
+    target_accu: float = 0.0,
+    max_bad_steps: int = 3,
+    divergence_check_every: int = 8,
+    max_rollbacks: int = 2,
+    keep_best: int = 1,
+    chaos: Optional[chaos_mod.ChaosState] = None,
 ) -> Tuple[TrainState, float]:
     """Run the whole schedule of `cfg`; returns (final state, last test
     accuracy).
 
     `resume`: "" starts fresh; "auto" continues from the newest checkpoint
     in `cfg.model_dir` (fresh when there is none); a path continues from
-    that checkpoint. Training restarts at the saved epoch + 1, so a `nopush`
-    save at a push epoch skips that epoch's push, as in the JAX package; a
-    `prune` checkpoint means the run is complete and returns at once.
-    Every stage saves a checkpoint (the accuracy target is 0). `keep_last`
-    > 0 keeps only the newest `keep_last` checkpoints and the most accurate
-    one, after each epoch. `device`: CUDA unless the caller names another.
-    `render_push`: draw 3 JPEGs per pushed prototype at each push epoch (the
-    JAX default); False skips the pictures."""
+    that checkpoint. The checkpoint's training settings are adopted first
+    (`adopt_checkpoint_train_config`). Training restarts at the saved epoch
+    + 1, so a `nopush` save at a push epoch skips that epoch's push, as in
+    the JAX package; a `preempt` checkpoint re-enters its epoch after the
+    batches it applied and clears PREEMPTED.json; a `prune` checkpoint
+    means the run is complete and returns at once. A stage checkpoint is
+    saved when its accuracy reaches `target_accu`. `keep_last` > 0 keeps
+    only the newest `keep_last` checkpoints and the `keep_best` most
+    accurate ones, after each epoch. `device`: CUDA unless the caller names
+    another. `render_push`: draw 3 JPEGs per pushed prototype at each push
+    epoch (the JAX default); False skips the pictures.
+
+    Recovery: `max_bad_steps` consecutive non-finite steps (0 disables),
+    polled every `divergence_check_every` steps, roll the run back to the
+    newest checkpoint, at most `max_rollbacks` times (then the
+    DivergenceError propagates). `chaos` (a `resilience.chaos.ChaosState`)
+    injects the drills; its one-shot events do not fire again in a replay.
+    A preemption (`resilience.preemption.get_handler()`) returns early
+    after the `preempt` save."""
     resume_path = None
     if resume == "auto":
         resume_path = find_latest_checkpoint(cfg.model_dir)
@@ -87,28 +140,38 @@ def run_training(
         resume_path = resume
         if not os.path.exists(resume_path):
             raise FileNotFoundError(resume_path)
+    adoption_notes: list = []
+    if resume_path:
+        # resume under the checkpoint's own training settings
+        cfg = adopt_checkpoint_train_config(cfg, resume_path, log=adoption_notes.append)
 
     os.makedirs(cfg.model_dir, exist_ok=True)
+    handler = preemption.get_handler()
+    handler.reset()
     with contextlib.ExitStack() as stack:  # closes whatever was opened, on every path
         log = Logger(os.path.join(cfg.model_dir, "train.log"))
         stack.callback(log.close)
+        for note in adoption_notes:
+            log(note)
         metrics = MetricsWriter(os.path.join(cfg.model_dir, "metrics.jsonl"))
         stack.callback(metrics.close)
+        log(describe(cfg))
         train_loader, push_loader, test_loader, ood_loaders = build_pipelines(cfg, device=device)
         for loader in (train_loader, push_loader, test_loader, *ood_loaders):
             stack.callback(loader.close)
         trainer = Trainer(cfg, len(train_loader), device=device)
         log(f"device: {trainer.device}  steps/epoch: {trainer.steps_per_epoch}")
-        state = trainer.init_state(cfg.seed)
-        start_epoch = 0
+        # a restore target reads no pretrained trunk
+        state = trainer.init_state(cfg.seed, for_restore=bool(resume_path))
+        start_epoch, skip, flags = 0, 0, None
         if resume_path:
             meta = load_metadata(resume_path) or {}
-            state = restore_checkpoint(resume_path, state)
             if meta.get("stage") == "prune":
+                state = restore_checkpoint(resume_path, state)
                 log(f"run already complete ({resume_path}); nothing to resume")
                 return state, float(meta.get("accuracy", 0.0))
-            start_epoch = int(meta.get("epoch", -1)) + 1
-            log(f"resumed {resume_path} -> epoch {start_epoch}")
+            state, start_epoch, skip, flags = _restore(state, resume_path, log)
+            preemption.clear_marker(cfg.model_dir)
 
         # what a restore must be built with (utils/checkpoint.py
         # `adopt_checkpoint_train_config`): the trunk's numerics, the aux
@@ -120,12 +183,49 @@ def run_training(
                     "precision_policy": policy_meta(trainer.precision)}
         img_dir = os.path.join(cfg.model_dir, "img") if render_push else None
         accu = 0.0
+        rollbacks = 0
         log("start training")
-        for epoch in range(start_epoch, cfg.schedule.num_train_epochs):
-            state, accu = _run_epoch(cfg, trainer, state, epoch, train_loader, test_loader,
-                                     push_loader, ood_loaders, log, metrics, run_meta, img_dir)
+        epoch = start_epoch
+        while epoch < cfg.schedule.num_train_epochs:
+            guard = EpochGuard(max_bad_steps=max_bad_steps, check_every=divergence_check_every,
+                               chaos=chaos, preemption=handler, already_done=skip)
+            if flags is None:
+                flags = trainer.epoch_flags(state, epoch)
+            try:
+                state, accu = _run_epoch(cfg, trainer, state, epoch, train_loader, test_loader,
+                                         push_loader, ood_loaders, log, metrics, run_meta,
+                                         img_dir, target_accu, guard, skip, flags)
+            except DivergenceError as e:
+                rollbacks += 1
+                if rollbacks > max_rollbacks:
+                    log(f"rollback budget exhausted ({max_rollbacks}); giving up")
+                    raise
+                last_good = find_latest_checkpoint(cfg.model_dir)
+                if last_good is None:
+                    raise RuntimeError(f"{e}; no checkpoint to roll back to: adjust the config "
+                                       "(lower lr, check the data) and restart") from e
+                log(f"{e}; rolling back to {last_good} ({rollbacks}/{max_rollbacks})")
+                state, epoch, skip, flags = _restore(state, last_good, log)
+                continue
+            if guard.preempted:
+                # the step in flight finished in train_epoch: save the whole
+                # state with its position in the epoch, unconditionally
+                meta = {**run_meta, "epoch": epoch, "stage": "preempt", "accuracy": accu,
+                        "batch_in_epoch": guard.batches_done, "reason": handler.reason or "",
+                        "epoch_flags": flags}
+                path = save_checkpoint(cfg.model_dir, state,
+                                       checkpoint_name(epoch, "preempt", max(accu, 0.0)),
+                                       metadata=meta)
+                preemption.write_marker(cfg.model_dir, path, reason=handler.reason or "",
+                                        extra={"epoch": epoch,
+                                               "batch_in_epoch": guard.batches_done})
+                log(f"preempted ({handler.reason}); saved {path} at epoch {epoch} batch "
+                    f"{guard.batches_done}; resume with --resume auto")
+                return state, accu
+            skip, flags = 0, None
             if keep_last > 0:
-                apply_retention(cfg.model_dir, keep_last)
+                apply_retention(cfg.model_dir, keep_last, keep_best)
+            epoch += 1
 
         last_epoch = max(cfg.schedule.num_train_epochs - 1, start_epoch)
         top_m = min(cfg.schedule.prune_top_m, cfg.model.prototypes_per_class)
@@ -134,43 +234,46 @@ def run_training(
             accu, test_results = _test(trainer, state, test_loader, ood_loaders, log)
         metrics.write(state.step, {"epoch": last_epoch, "stage": "prune", "test_s": span["s"],
                                    **test_results})
-        save_state_w_condition(cfg.model_dir, state, last_epoch, "prune", accu, 0.0,
+        save_state_w_condition(cfg.model_dir, state, last_epoch, "prune", accu, target_accu,
                                metadata=run_meta)
         log("training done")
         return state, accu
 
 
 def _run_epoch(cfg, trainer, state, epoch, train_loader, test_loader, push_loader,
-               ood_loaders, log, metrics, run_meta, img_dir):
-    """One epoch: train, test, the `nopush` save, and at a push epoch the
-    push, its provenance, the render into `img_dir` (unless None), a test
-    and the `push` save."""
+               ood_loaders, log, metrics, run_meta, img_dir, target_accu, guard, skip, flags):
+    """One epoch: train under the epoch's gates `flags` (the first `skip`
+    batches dropped), test, the `nopush` save, and at a push
+    epoch the push, its provenance, the render into `img_dir` (unless
+    None), a test and the `push` save. A preempted epoch returns after
+    training, with no test pass: the caller saves it."""
     log(f"epoch: \t{epoch}")
-    flags = trainer.epoch_flags(state, epoch)
     log(f"use mining: \t{flags['use_mine']}")
     log(f"update GMM: \t{flags['update_gmm']}")
 
     train_loader.epoch = epoch  # the (seed, epoch) streams of this epoch
+    batches = train_loader if not skip else itertools.islice(iter(train_loader), skip, None)
     with timed_span(log, "train") as train_span:
-        state, last = trainer.train_epoch(state, train_loader, epoch)
+        state, last = trainer.train_epoch(state, batches, epoch, guard=guard, flags=flags)
     if last is not None:
         m = {k: (v.item() if isinstance(v, torch.Tensor) else v)
              for k, v in last._asdict().items()}
         if not np.isfinite(m["loss"]):
-            last_ckpt = latest_checkpoint(cfg.model_dir)
-            hint = (f"resume from {last_ckpt} with resume='auto'" if last_ckpt
-                    else "no checkpoint was saved yet; adjust the config")
-            raise RuntimeError(f"non-finite loss {m['loss']} at epoch {epoch} "
-                               f"(step {state.step}); {hint}")
+            # the guard has not rolled back yet (its streak is below the
+            # limit): the update was skipped in the step
+            log(f"\tnon-finite loss at step {state.step}: update skipped (divergence guard)")
         log("\tloss: {loss:.4f}  ce: {cross_entropy:.4f}  mine: {mine:.4f}  aux: {aux:.4f}"
             "  acc: {accuracy:.4f}  mem: {full_mem_ratio:.3f}".format(**m))
         metrics.write(state.step, {"epoch": epoch, "train_s": train_span["s"],
                                    **{k: float(v) for k, v in m.items()}})
+    if guard.preempted:
+        return state, 0.0
 
     with timed_span(log, "test") as span:
         accu, test_results = _test(trainer, state, test_loader, ood_loaders, log)
     metrics.write(state.step, {"epoch": epoch, "test_s": span["s"], **test_results})
-    save_state_w_condition(cfg.model_dir, state, epoch, "nopush", accu, 0.0, metadata=run_meta)
+    save_state_w_condition(cfg.model_dir, state, epoch, "nopush", accu, target_accu,
+                           metadata=run_meta)
 
     if epoch in cfg.schedule.push_epochs():
         with timed_span(log, "push") as span:
@@ -191,6 +294,42 @@ def _run_epoch(cfg, trainer, state, epoch, train_loader, test_loader, push_loade
         metrics.write(state.step, {"epoch": epoch, "stage": "push", "push_s": span["s"],
                                    **render, "pushed": int(push_result.pushed.sum()),
                                    **test_results})
-        save_state_w_condition(cfg.model_dir, state, epoch, "push", accu, 0.0,
+        save_state_w_condition(cfg.model_dir, state, epoch, "push", accu, target_accu,
                                metadata=run_meta)
     return state, accu
+
+
+CHAOS_ENV_HELP = """\
+chaos drills (environment; all off by default):
+  MGPROTO_CHAOS_NAN_AT_STEP     NaN inputs at this global step
+  MGPROTO_CHAOS_PREEMPT_AT_STEP a simulated SIGTERM at this global step
+the JAX package's other MGPROTO_CHAOS_* knobs, MGPROTO_CHAOS_SEED among
+them, are refused (not ported)
+"""
+
+
+def main(argv: Optional[list] = None) -> None:
+    p = argparse.ArgumentParser(
+        description="Train MGProto on PyTorch (the reference main.py)",
+        epilog=CHAOS_ENV_HELP, formatter_class=argparse.RawDescriptionHelpFormatter)
+    add_train_args(p)
+    args = p.parse_args(argv)
+    cfg = config_from_args(args)
+    plan = chaos_mod.plan_from_env()
+    # graceful preemption: SIGTERM/SIGINT finish the step in flight,
+    # checkpoint, and exit 0
+    if not args.no_preempt_handlers:
+        preemption.install_handlers()
+    run_training(
+        cfg, resume=args.resume, keep_last=args.keep_last, device=args.device,
+        target_accu=args.target_accu, max_bad_steps=args.max_bad_steps,
+        divergence_check_every=args.divergence_check_every,
+        max_rollbacks=args.max_rollbacks, keep_best=args.keep_best,
+        chaos=chaos_mod.ChaosState(plan) if plan else None,
+    )
+    # a preempted run exits 0: the checkpoint and the marker let the next
+    # run resume
+
+
+if __name__ == "__main__":
+    main()

@@ -1,10 +1,10 @@
 """Configuration of the port: a trimmed copy of mgproto_tpu/config.py.
 
 Only the fields the serving forward, the synchronous training step and its
-options (mixed precision, the six aux losses, remat, reference-exact EM),
-the training input path and the training schedule (cli/train.py) read.
-The field names and defaults are the JAX package's, so one configuration
-describes both packages.
+options (mixed precision, the six aux losses, remat, reference-exact EM,
+the pretrained trunk), the training input path, the training schedule and
+the command line (cli/) read. The field names and defaults are the JAX
+package's, so one configuration describes both packages.
 """
 
 from __future__ import annotations
@@ -28,6 +28,9 @@ class ModelConfig:
     mine_T: int = 20
     mem_capacity: int = 800  # per-class memory-bank capacity
     init_sigma: float = 1.0 / math.sqrt(2.0 * math.pi)
+    # start the trunk from a local torchvision-layout .pth
+    # (models/pretrained.py; the JAX CLI's default, --no_pretrained clears it)
+    pretrained: bool = False
     # the trunk's dtype, "float32" or "bfloat16" (perf/precision.py's
     # PrecisionPolicy, validated there): convs, BatchNorm apply and the
     # add-on run in it; master parameters, Adam moments, BatchNorm and EM
@@ -39,11 +42,12 @@ class ModelConfig:
     # ResNet block tail through the BN epilogue kernel
     # (ops/fused_epilogue.py). None = the kernel on CUDA, plain on the CPU.
     fused_epilogue: Optional[bool] = None
-    # torch.utils.checkpoint every backbone block (resnet only): the
-    # backward recomputes the block instead of keeping its activations
+    # torch.utils.checkpoint every backbone block (resnet blocks, dense
+    # layers): the backward recomputes the block instead of keeping its
+    # activations
     remat: bool = False
-    # remat only the named stages ("layer1".."layer4"); ignored when
-    # `remat` is True
+    # remat only the named stages ("layer1".."layer4", "denseblock1"..
+    # "denseblock4"); ignored when `remat` is True
     remat_stages: Tuple[str, ...] = ()
 
     def __post_init__(self):

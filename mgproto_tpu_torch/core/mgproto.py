@@ -23,7 +23,7 @@ from torch import nn
 
 from mgproto_tpu_torch.config import ModelConfig
 from mgproto_tpu_torch.models.common import Conv2d
-from mgproto_tpu_torch.models.registry import build_backbone, init_random_weights
+from mgproto_tpu_torch.models.registry import build_backbone, family, init_random_weights
 from mgproto_tpu_torch.numerics import apply_numerics_policy, resolve_device, use_kernel
 from mgproto_tpu_torch.perf.precision import resolve_policy
 from mgproto_tpu_torch.ops.fused_scoring import score_pool
@@ -126,7 +126,7 @@ class MGProtoFeatures(nn.Module):
     cast to f32 at the exit, the global average pool is taken in f32 and
     the embedding Linear stays f32, so everything downstream (density,
     log p(x), losses, the bank) is f32. `cfg.remat` / `remat_stages`
-    checkpoint the resnet blocks (models/resnet.py)."""
+    checkpoint the resnet blocks or the dense layers (models/registry.py)."""
 
     def __init__(self, cfg: ModelConfig, fused_epilogue: bool = False):
         super().__init__()
@@ -149,11 +149,14 @@ class MGProtoFeatures(nn.Module):
 
 def make_features(cfg: ModelConfig, device: torch.device) -> MGProtoFeatures:
     """MGProtoFeatures (on the CPU) with the block-tail route `cfg`
-    resolves to on `device`."""
-    is_resnet = cfg.arch.startswith("resnet")
-    if cfg.fused_epilogue and not is_resnet:
-        raise ValueError("fused_epilogue is implemented for resnet blocks only")
-    return MGProtoFeatures(cfg, fused_epilogue=is_resnet and use_kernel(cfg.fused_epilogue, device))
+    resolves to on `device`: `fused_epilogue=None` is the kernel on CUDA for
+    a resnet and off for the other families; True on those raises
+    (models/registry.py `build_backbone`)."""
+    if family(cfg.arch) == "resnet":
+        fused = use_kernel(cfg.fused_epilogue, device)
+    else:
+        fused = cfg.fused_epilogue is True
+    return MGProtoFeatures(cfg, fused_epilogue=fused)
 
 
 def build_mgproto(

@@ -29,6 +29,7 @@ from mgproto_tpu_torch.core.em import make_mean_optimizer
 from mgproto_tpu_torch.core.losses import AUX_LOSSES, PROXY_BASED, init_proxies
 from mgproto_tpu_torch.core.memory import Memory, init_memory
 from mgproto_tpu_torch.core.mgproto import GMMState, MGProtoFeatures, init_gmm, make_features
+from mgproto_tpu_torch.models.pretrained import load_pretrained_trunk
 from mgproto_tpu_torch.models.registry import init_random_weights
 from mgproto_tpu_torch.numerics import resolve_device
 
@@ -100,13 +101,18 @@ def set_joint_lrs(cfg: Config, state: TrainState, steps_per_epoch: int) -> None:
 
 def create_train_state(
     cfg: Config, generator: torch.Generator,
-    device: Union[str, torch.device, None] = None,
+    device: Union[str, torch.device, None] = None, for_restore: bool = False,
 ) -> TrainState:
     """A fresh state on `device` (CUDA unless the caller passes another):
     seeded trunk weights, GMM and proxies (a proxy-based aux loss only),
     all drawn on the CPU from `generator` in that order; an empty bank;
     fresh optimizers. The modules keep f32 parameters whatever the compute
-    dtype (perf/precision.py)."""
+    dtype (perf/precision.py).
+
+    With `cfg.model.pretrained` set, the trunk is then loaded from the
+    arch's local `.pth` (models/pretrained.py), after the seeded draws, so
+    the GMM and the proxies equal the non-pretrained state's.
+    `for_restore=True` builds a restore target and reads no file."""
     dev = resolve_device(device)
     m = cfg.model
     if cfg.loss.aux_loss not in AUX_LOSSES:
@@ -118,6 +124,8 @@ def create_train_state(
     if cfg.loss.aux_loss in PROXY_BASED:
         proxies = init_proxies(generator, m.num_classes, m.sz_embedding)
         proxies = proxies.to(dev).requires_grad_(True)
+    if m.pretrained and not for_restore:
+        load_pretrained_trunk(model.features, m.arch)
     model = model.to(device=dev, memory_format=torch.channels_last).train()
     return TrainState(
         step=0, model=model, proxies=proxies, gmm=gmm,

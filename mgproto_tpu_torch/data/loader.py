@@ -60,7 +60,10 @@ shared memory, equal to each other and to the JAX package's loader.
 from __future__ import annotations
 
 import multiprocessing
+import multiprocessing.context
+import os
 import queue
+import signal
 import threading
 import time
 from concurrent.futures import ThreadPoolExecutor
@@ -181,9 +184,38 @@ _WORKER_STATE: dict = {}
 _RESULT_TIMEOUT_S = 120.0
 
 
+# A terminal's Ctrl-C, and a scheduler's SIGTERM to the process group, must
+# reach the main process only, so it can finish its step and save a preempt
+# checkpoint before it ends the pool. A worker leaves the group (a session of
+# its own) in `_proc_worker_init`; from its fork until then these signals stay
+# blocked: spawn children inherit the mask of the thread that starts them
+# (`_ensure_pool`, and the pool's handler thread, which starts replacements).
+_GROUP_SIGNALS = (signal.SIGINT, signal.SIGTERM)
+
+
 def _proc_worker_init(dataset, seed: int) -> None:
+    os.setsid()
+    signal.signal(signal.SIGINT, signal.SIG_IGN)  # drops a pending Ctrl-C too
+    # a SIGTERM that came while blocked was the group's: the pool ends its
+    # workers with SIGKILL (_PoolWorker)
+    signal.sigtimedwait([signal.SIGTERM], 0)
+    signal.pthread_sigmask(signal.SIG_UNBLOCK, _GROUP_SIGNALS)
     _WORKER_STATE["dataset"] = dataset
     _WORKER_STATE["seed"] = seed
+
+
+class _PoolWorker(multiprocessing.context.SpawnProcess):
+    """A pool worker that `terminate` ends with SIGKILL. A worker that has
+    started dies of it as of SIGTERM's default action; one still starting
+    keeps SIGTERM blocked until its initializer (seconds to minutes on a
+    busy host), where SIGKILL does not wait."""
+
+    def terminate(self):
+        self.kill()
+
+
+class _PoolContext(multiprocessing.context.SpawnContext):
+    Process = _PoolWorker
 
 
 def _proc_load_one(args: Tuple[int, int]):
@@ -414,12 +446,22 @@ class DataLoader:
         not per epoch). Pool workers are daemonic: they die with the parent,
         so an unclosed loader cannot outlive the process."""
         if self._pool is None:
-            self._pool = multiprocessing.get_context("spawn").Pool(
-                self.num_workers,
-                initializer=_proc_worker_init,
-                initargs=(self.dataset, self.seed),
-            )
+            old = signal.pthread_sigmask(signal.SIG_BLOCK, _GROUP_SIGNALS)
+            try:
+                self._pool = _PoolContext().Pool(
+                    self.num_workers,
+                    initializer=_proc_worker_init,
+                    initargs=(self.dataset, self.seed),
+                )
+            finally:
+                signal.pthread_sigmask(signal.SIG_SETMASK, old)
         return self._pool
+
+    def _end_pool(self) -> None:
+        if self._pool is not None:
+            self._pool.terminate()
+            self._pool.join()
+            self._pool = None
 
     def _ensure_thread_pool(self) -> ThreadPoolExecutor:
         """The thread executor, persistent across epochs like the process
@@ -434,10 +476,7 @@ class DataLoader:
     def close(self) -> None:
         """Tear down the worker pools (process and/or thread) and the shm
         slab ring. Idempotent."""
-        if self._pool is not None:
-            self._pool.terminate()
-            self._pool.join()
-            self._pool = None
+        self._end_pool()
         if self._thread_pool is not None:
             self._thread_pool.shutdown(wait=True, cancel_futures=True)
             self._thread_pool = None
@@ -453,10 +492,7 @@ class DataLoader:
         with self._pool_lock:
             if self._pool_gen != gen:
                 return
-            if self._pool is not None:
-                self._pool.terminate()
-                self._pool.join()
-                self._pool = None
+            self._end_pool()
             self._pool_gen += 1
             _count(_m.LOADER_WORKER_RESTARTS)
             self._ensure_pool()

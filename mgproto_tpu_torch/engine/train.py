@@ -132,8 +132,11 @@ class Trainer:
         self._copy_stream = (torch.cuda.Stream(self.device) if self.device.type == "cuda"
                              else None)
 
-    def init_state(self, seed: int = 0) -> TrainState:
-        return create_train_state(self.cfg, torch.Generator().manual_seed(int(seed)), self.device)
+    def init_state(self, seed: int = 0, for_restore: bool = False) -> TrainState:
+        """A fresh state from `seed`; `for_restore=True` builds a restore
+        target, which skips the pretrained trunk load."""
+        return create_train_state(self.cfg, torch.Generator().manual_seed(int(seed)), self.device,
+                                  for_restore=for_restore)
 
     def put_batch(self, batch) -> DeviceBatch:
         """(images, labels[, ids][, seeds]) host arrays -> a DeviceBatch.
@@ -230,7 +233,9 @@ class Trainer:
             p.grad = None
         stats = [t for m in model.modules() if isinstance(m, BatchNorm)
                  for t in (m.running_mean, m.running_var)]
-        snapshot = torch.cat([t.reshape(-1) for t in stats])
+        # one copy of every running statistic (none in a trunk without
+        # BatchNorm, e.g. VGG without _bn)
+        snapshot = torch.cat([t.reshape(-1) for t in stats]) if stats else None
 
         loss, (enq, ce, mine, aux, acc) = self._loss(state, images, labels, use_mine)
         loss.backward()
@@ -251,7 +256,7 @@ class Trainer:
                 set_joint_lrs(self.cfg, state, self.steps_per_epoch)
                 state.opt.step()
                 state.joint_updates += 1
-        else:
+        elif stats:
             with torch.no_grad():
                 for t, old in zip(stats, snapshot.split([t.numel() for t in stats])):
                     t.copy_(old.view_as(t))
@@ -286,38 +291,63 @@ class Trainer:
             "update_gmm": (epoch >= s.update_gmm_start) and all_full,
         }
 
-    def train_epoch(self, state: TrainState, batches: Iterable, epoch: int):
+    def train_epoch(self, state: TrainState, batches: Iterable, epoch: int, guard=None,
+                    flags: Optional[Dict[str, bool]] = None):
         """Steps over host batches, (images, labels[, ids][, seeds]) as
         `split_batch` reads them (a `DataLoader`'s batches as they come),
         placed by `put_batch` through `device_prefetch` with
         `DataConfig.prefetch_depth` batches in flight. Returns (state, the
         last step's metrics), except `em_active` and `full_mem_ratio`,
         which are epoch maxima, and `em_compact_fallback`, the epoch sum.
-        Each step's loader wait and interval land in `self.step_log`."""
-        flags = self.epoch_flags(state, epoch)
+        Each step's loader wait and interval land in `self.step_log`.
+
+        `flags`: the epoch's gates (`epoch_flags`); None computes them from
+        `state`, which a mid-epoch resume must not do (the bank may have
+        filled since the epoch began). `guard` (resilience/guard.py
+        `EpochGuard`) wraps the placed batches (the chaos drill) and sees
+        each step's metrics: it may stop the epoch after the step in flight
+        (a preemption), or raise `DivergenceError`. On a stop, the batches
+        already prefetched are dropped once their copies are done."""
+        flags = self.epoch_flags(state, epoch) if flags is None else flags
         last = None
         em_max = fb_sum = 0
         fm_max = None
         self.step_log = []
         prefetched = device_prefetch(iter(batches), self.put_batch,
                                      depth=self.cfg.data.prefetch_depth)
+        placed = prefetched
+        if guard is not None:
+            guard.begin_epoch(epoch, state)
+            placed = guard.wrap_batches(prefetched)
         t_prev = time.perf_counter()
-        while True:
-            t_fetch = time.perf_counter()
-            batch = next(prefetched, None)
-            if batch is None:
-                break
-            wait_s = time.perf_counter() - t_fetch
-            state, last = self.train_step(state, batch, None, **flags)
-            now = time.perf_counter()
-            # the step read the device, so the copy is done: no wait here
-            self.step_log.append(StepRecord(wait_s, now - t_prev, batch.image_bytes,
-                                            batch.h2d_bytes, batch.copy_ms()))
-            t_prev = now
-            em_max = max(em_max, last.em_active)
-            fb_sum += last.em_compact_fallback
-            fm = last.full_mem_ratio
-            fm_max = fm if fm_max is None else torch.maximum(fm_max, fm)
+        try:
+            while True:
+                t_fetch = time.perf_counter()
+                batch = next(placed, None)
+                if batch is None:
+                    break
+                wait_s = time.perf_counter() - t_fetch
+                state, last = self.train_step(state, batch, None, **flags)
+                now = time.perf_counter()
+                # the step read the device, so the copy is done: no wait here
+                self.step_log.append(StepRecord(wait_s, now - t_prev, batch.image_bytes,
+                                                batch.h2d_bytes, batch.copy_ms()))
+                t_prev = now
+                em_max = max(em_max, last.em_active)
+                fb_sum += last.em_compact_fallback
+                fm = last.full_mem_ratio
+                fm_max = fm if fm_max is None else torch.maximum(fm_max, fm)
+                if guard is not None and guard.after_step(last):
+                    break  # preemption: after the finished step
+            if guard is not None:
+                guard.end_epoch()
+        finally:
+            # a stop (preemption, divergence) leaves placed batches in the
+            # prefetch queue: let their copies finish, then free them and
+            # their pinned sources
+            if self._copy_stream is not None:
+                self._copy_stream.synchronize()
+            prefetched.close()
         if last is not None:
             last = last._replace(em_active=em_max, full_mem_ratio=fm_max,
                                  em_compact_fallback=fb_sum)

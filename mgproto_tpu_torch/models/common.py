@@ -14,8 +14,11 @@ input's dtype (flax `_normalize`), in train and in eval mode.
 
 from __future__ import annotations
 
+import contextlib
+
 import torch
 from torch import nn
+from torch.utils.checkpoint import checkpoint
 
 # flax momentum: running = MOMENTUM * running + (1 - MOMENTUM) * batch
 MOMENTUM = 0.9
@@ -33,7 +36,8 @@ class Conv2d(nn.Conv2d):
 
 def conv(in_ch: int, out_ch: int, kernel: int, stride: int = 1,
          padding: int = 0, bias: bool = False) -> Conv2d:
-    """Conv with explicit symmetric padding and no bias (flax `conv`)."""
+    """Conv with explicit symmetric padding, without a bias unless `bias`
+    (flax `conv`'s `use_bias`; the VGG convs have one)."""
     return Conv2d(in_ch, out_ch, kernel, stride=stride, padding=padding, bias=bias)
 
 
@@ -94,3 +98,50 @@ def batch_norm(ch: int) -> BatchNorm:
     """The trunk's BatchNorm: eps 1e-5, flax momentum 0.9, as the JAX
     package sets flax's BatchNorm."""
     return BatchNorm(ch, eps=1e-5)
+
+
+def max_pool(x: torch.Tensor, kernel: int, stride: int, padding: int = 0) -> torch.Tensor:
+    """flax `nn.max_pool` with symmetric padding on NCHW x: the padding is
+    -inf (it never wins a window) and a window that would run past the
+    padded edge is dropped (VALID), as torch's floor mode does."""
+    return nn.functional.max_pool2d(x, kernel, stride, padding)
+
+
+def avg_pool(x: torch.Tensor, kernel: int, stride: int) -> torch.Tensor:
+    """flax `nn.avg_pool` without padding on NCHW x: the window's mean,
+    windows past the edge dropped."""
+    return nn.functional.avg_pool2d(x, kernel, stride)
+
+
+@contextlib.contextmanager
+def stats_frozen(module: nn.Module):
+    """The running statistics of `module`'s BatchNorms untouched in the
+    block (a remat recompute); restored on every exit, early stop
+    included."""
+    bns = [m for m in module.modules() if isinstance(m, BatchNorm)]
+    for m in bns:
+        m.update_stats = False
+    try:
+        yield
+    finally:
+        for m in bns:
+            m.update_stats = True
+
+
+class RematBlock(nn.Module):
+    """A block (a ResNet block, a DenseNet layer) whose `block_forward`
+    runs under `torch.utils.checkpoint` (non-reentrant) when `remat` is set
+    and a gradient is being recorded in train mode: the backward recomputes
+    the block's forward instead of keeping its activations (the JAX
+    package's `nn.remat`). The recompute runs with the block's BatchNorms'
+    `update_stats` off, so the running statistics take one update a step,
+    as flax's do; the state-dict keys are the same with and without remat."""
+
+    remat = False
+
+    def forward(self, x):
+        if not (self.remat and self.training and torch.is_grad_enabled()):
+            return self.block_forward(x)
+        # context_fn: (the first forward's context, the recompute's)
+        return checkpoint(self.block_forward, x, use_reentrant=False,
+                          context_fn=lambda: (contextlib.nullcontext(), stats_frozen(self)))

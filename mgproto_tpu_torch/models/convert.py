@@ -6,7 +6,11 @@ The inverse of mgproto_tpu/models/convert.py (torch -> flax), written anew:
   * BatchNorm params scale/bias + batch_stats mean/var ->
     weight/bias/running_mean/running_var (+ num_batches_tracked = 0);
   * flax module names -> torchvision names: `layer1_0` -> `layer1.0`,
-    `downsample_conv`/`downsample_bn` -> `downsample.0`/`downsample.1`.
+    `downsample_conv`/`downsample_bn` -> `downsample.0`/`downsample.1`,
+    `denseblock1_denselayer2` -> `denseblock1.denselayer2`, and a VGG
+    trunk's `conv{j}`/`bn{j}` -> their index in torchvision's `features`
+    Sequential (models/vgg.py `torch_indices`; only with `arch` naming a
+    VGG, since the tiny trunk and the add-on have `conv{j}` names too).
 Inputs are numpy arrays (`jax.device_get` of the variables), so this module
 needs no JAX. `from_jax_train_state` carries a whole JAX `TrainState`
 across: params (net and proxies), batch stats, GMM, memory bank, step, and
@@ -19,7 +23,7 @@ becomes `joint_updates`.
 from __future__ import annotations
 
 import re
-from typing import Any, Dict, List, Mapping, Tuple, Union
+from typing import Any, Dict, List, Mapping, Optional, Tuple, Union
 
 import numpy as np
 import torch
@@ -28,11 +32,14 @@ from mgproto_tpu_torch.config import Config
 from mgproto_tpu_torch.core.memory import Memory
 from mgproto_tpu_torch.core.mgproto import GMMState
 from mgproto_tpu_torch.core.state import TrainState, create_train_state
+from mgproto_tpu_torch.models import vgg
+from mgproto_tpu_torch.models.registry import family
 
 _RENAMES = (
     (re.compile(r"^layer(\d+)_(\d+)$"), r"layer\1.\2"),
     (re.compile(r"^downsample_conv$"), "downsample.0"),
     (re.compile(r"^downsample_bn$"), "downsample.1"),
+    (re.compile(r"^denseblock(\d+)_denselayer(\d+)$"), r"denseblock\1.denselayer\2"),
 )
 
 
@@ -40,6 +47,21 @@ def _torch_name(part: str) -> str:
     for pat, rep in _RENAMES:
         part = pat.sub(rep, part)
     return part
+
+
+def _vgg_names(arch: Optional[str]) -> Optional[Dict[str, str]]:
+    """{flax `conv{j}`/`bn{j}`: torchvision index} of a VGG trunk's layers;
+    None when `arch` is not a VGG."""
+    if not arch or family(arch) != "vgg":
+        return None
+    return vgg.torch_names(arch)
+
+
+def _module_name(parts: Tuple[str, ...], vgg_names: Optional[Dict[str, str]]) -> str:
+    """A flax module path -> the torch module name."""
+    if vgg_names is not None and len(parts) == 2 and parts[0] == "features":
+        parts = (parts[0], vgg_names[parts[1]])
+    return ".".join(_torch_name(p) for p in parts)
 
 
 def _walk(tree: Mapping, prefix: Tuple[str, ...] = ()):
@@ -91,11 +113,12 @@ def _load_adam_state(opt: torch.optim.Adam, param: torch.Tensor, mu: np.ndarray,
 
 
 def _load_group_states(opt: torch.optim.Adam, inner_states: Mapping, model,
-                       proxies: torch.Tensor, groups: Tuple[str, ...]) -> None:
+                       proxies: torch.Tensor, groups: Tuple[str, ...],
+                       vgg_names: Optional[Dict[str, str]] = None) -> None:
     """The optax `multi_transform` groups `groups` -> torch Adam state for
     the parameters they hold (net weights by name, and the proxies where
-    there are any). A group the JAX state lacks (`aux` without proxies) is
-    skipped. A moment of a parameter `opt` does not train (the embedding of
+    there are any), matched by name, not by position. A group the JAX state
+    lacks (`aux` without proxies) is skipped. A moment of a parameter `opt` does not train (the embedding of
     a state trained with the JAX `OptimConfig.train_embedding`, which the
     port does not carry) is refused."""
     params = dict(model.named_parameters())
@@ -108,21 +131,23 @@ def _load_group_states(opt: torch.optim.Adam, inner_states: Mapping, model,
         # mu and nu share one tree structure, so their walks pair up
         for (path, mu), (_, nu) in zip(_walk(adam.mu.get("net", {})),
                                        _walk(adam.nu.get("net", {}))):
-            name, mu_t = _weight_name(path, mu)
+            name, mu_t = _weight_name(path, mu, vgg_names)
             if id(params[name]) not in trained:
                 raise ValueError(f"the JAX state trains {name} in its {g!r} group; the port "
                                  "keeps it frozen (train_embedding is not ported)")
-            _load_adam_state(opt, params[name], mu_t, _weight_name(path, nu)[1], count)
+            _load_adam_state(opt, params[name], mu_t, _weight_name(path, nu, vgg_names)[1],
+                             count)
         if proxies is not None and hasattr(adam.mu.get("proxies"), "shape"):
             _load_adam_state(opt, proxies, np.asarray(adam.mu["proxies"]),
                              np.asarray(adam.nu["proxies"]), count)
 
 
-def _weight_name(path: Tuple[str, ...], arr: np.ndarray) -> Tuple[str, np.ndarray]:
+def _weight_name(path: Tuple[str, ...], arr: np.ndarray,
+                 vgg_names: Optional[Dict[str, str]] = None) -> Tuple[str, np.ndarray]:
     """A flax parameter path and value -> the torch name and value: conv
     kernels [kh, kw, I, O] -> [O, I, kh, kw], Dense kernels [I, O] -> [O, I],
     BatchNorm scale -> weight."""
-    mod = ".".join(_torch_name(p) for p in path[:-1])
+    mod = _module_name(path[:-1], vgg_names)
     leaf = path[-1]
     if leaf == "kernel":
         if arr.ndim == 4:
@@ -138,22 +163,24 @@ def _weight_name(path: Tuple[str, ...], arr: np.ndarray) -> Tuple[str, np.ndarra
 
 
 def from_jax_variables(
-    variables: Mapping[str, Any], gmm: Any
+    variables: Mapping[str, Any], gmm: Any, arch: Optional[str] = None,
 ) -> Tuple[Dict[str, torch.Tensor], GMMState]:
     """Flax `{params, batch_stats}` of an MGProtoFeatures (top-level
     `features`/`add_on`/`embedding`) plus a GMMState-like object (attributes
     means/sigmas/priors/keep) -> (the port's MGProtoFeatures state_dict,
-    the port's GMMState on the CPU)."""
+    the port's GMMState on the CPU). `arch` is needed for a VGG trunk,
+    whose layer names depend on its cfg."""
+    vgg_names = _vgg_names(arch)
     sd: Dict[str, torch.Tensor] = {}
     for path, arr in _walk(variables["params"]):
-        name, value = _weight_name(path, arr)
+        name, value = _weight_name(path, arr, vgg_names)
         sd[name] = torch.from_numpy(value)
         if path[-1] == "scale":  # BatchNorm
             mod = name.removesuffix(".weight")
             sd[f"{mod}.num_batches_tracked"] = torch.tensor(0, dtype=torch.long)
     stat_names = {"mean": "running_mean", "var": "running_var"}
     for path, arr in _walk(variables.get("batch_stats", {})):
-        mod = ".".join(_torch_name(p) for p in path[:-1])
+        mod = _module_name(path[:-1], vgg_names)
         if path[-1] not in stat_names:
             raise ValueError(f"unexpected flax batch stat {'/'.join(path)}")
         sd[f"{mod}.{stat_names[path[-1]]}"] = torch.from_numpy(np.array(arr))
@@ -179,14 +206,15 @@ def from_jax_train_state(
     optimizer's, each moment laid out as its parameter. A state without
     proxies (a pair aux loss) needs a `cfg` whose aux loss has none, and
     the other way round."""
-    new = create_train_state(cfg, torch.Generator().manual_seed(0), device)
+    new = create_train_state(cfg, torch.Generator().manual_seed(0), device, for_restore=True)
     if ("proxies" in state.params) != (new.proxies is not None):
         raise ValueError(
             f"the JAX state {'has' if 'proxies' in state.params else 'has no'} proxies but "
             f"aux_loss {cfg.loss.aux_loss!r} {'has none' if new.proxies is None else 'has'}")
     dev = new.gmm.means.device
+    arch = cfg.model.arch
     sd, gmm = from_jax_variables(
-        {"params": state.params["net"], "batch_stats": state.batch_stats}, state.gmm
+        {"params": state.params["net"], "batch_stats": state.batch_stats}, state.gmm, arch
     )
     new.model.load_state_dict(sd, strict=True)
     with torch.no_grad():
@@ -205,9 +233,11 @@ def from_jax_train_state(
     )
     new.step = int(np.asarray(state.step))
     joint = state.opt_state.inner_states
-    _load_group_states(new.opt, joint, new.model, new.proxies, ("features", "add_on", "aux"))
+    vgg_names = _vgg_names(arch)
+    _load_group_states(new.opt, joint, new.model, new.proxies, ("features", "add_on", "aux"),
+                       vgg_names)
     _load_group_states(new.warm_opt, state.warm_opt_state.inner_states, new.model, new.proxies,
-                       ("add_on", "aux"))
+                       ("add_on", "aux"), vgg_names)
     (sched,) = _find_states(joint["features"], ("count",))  # the staircase's count
     new.joint_updates = int(np.asarray(sched.count))
     mean_adam = _adam_of(state.proto_opt_state)

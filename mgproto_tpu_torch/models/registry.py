@@ -1,18 +1,19 @@
-"""Backbone registry (counterpart of mgproto_tpu/models/registry.py), the
-tiny test trunk, and seeded random weights.
-
-The resnet family and `tiny` for now; VGG and DenseNet come later.
+"""Backbone registry (counterpart of mgproto_tpu/models/registry.py): the
+18 backbones the JAX package names, the tiny test trunk, the rules that
+tie the block options to a family (the JAX `MGProtoFeatures.setup`), and
+seeded random weights.
 """
 
 from __future__ import annotations
 
+import dataclasses
 import math
 from typing import Callable, Dict, Tuple
 
 import torch
 from torch import nn
 
-from mgproto_tpu_torch.models import resnet
+from mgproto_tpu_torch.models import densenet, resnet, vgg
 from mgproto_tpu_torch.models.common import batch_norm, conv
 
 
@@ -34,29 +35,71 @@ class TinyFeatures(nn.Module):
         return nn.functional.relu(self.conv2(x))
 
 
-RESNETS: Dict[str, Callable[..., resnet.ResNetFeatures]] = {
-    "resnet18": resnet.resnet18,
-    "resnet34": resnet.resnet34,
-    "resnet50": resnet.resnet50,
-    "resnet101": resnet.resnet101,
-    "resnet152": resnet.resnet152,
+@dataclasses.dataclass(frozen=True)
+class BackboneSpec:
+    factory: Callable[..., nn.Module]
+    family: str  # resnet | vgg | densenet | tiny
+
+
+BACKBONES: Dict[str, BackboneSpec] = {
+    "resnet18": BackboneSpec(resnet.resnet18, "resnet"),
+    "resnet34": BackboneSpec(resnet.resnet34, "resnet"),
+    "resnet50": BackboneSpec(resnet.resnet50, "resnet"),
+    "resnet101": BackboneSpec(resnet.resnet101, "resnet"),
+    "resnet152": BackboneSpec(resnet.resnet152, "resnet"),
+    "vgg11": BackboneSpec(vgg.vgg11, "vgg"),
+    "vgg11_bn": BackboneSpec(vgg.vgg11_bn, "vgg"),
+    "vgg13": BackboneSpec(vgg.vgg13, "vgg"),
+    "vgg13_bn": BackboneSpec(vgg.vgg13_bn, "vgg"),
+    "vgg16": BackboneSpec(vgg.vgg16, "vgg"),
+    "vgg16_bn": BackboneSpec(vgg.vgg16_bn, "vgg"),
+    "vgg19": BackboneSpec(vgg.vgg19, "vgg"),
+    "vgg19_bn": BackboneSpec(vgg.vgg19_bn, "vgg"),
+    "densenet121": BackboneSpec(densenet.densenet121, "densenet"),
+    "densenet161": BackboneSpec(densenet.densenet161, "densenet"),
+    "densenet169": BackboneSpec(densenet.densenet169, "densenet"),
+    "densenet201": BackboneSpec(densenet.densenet201, "densenet"),
+    "tiny": BackboneSpec(TinyFeatures, "tiny"),
 }
+
+# the stages `remat_stages` may name, per family
+_REMAT_STAGES = {"resnet": resnet.STAGES, "densenet": densenet.STAGES}
+
+
+def family(arch: str) -> str:
+    """The family of a registered backbone; ValueError for an unknown one."""
+    if arch not in BACKBONES:
+        raise ValueError(f"unknown backbone {arch!r}; options: {sorted(BACKBONES)}")
+    return BACKBONES[arch].family
 
 
 def build_backbone(arch: str, fused_epilogue: bool = False, remat: bool = False,
                    remat_stages: Tuple[str, ...] = ()) -> nn.Module:
-    """The trunk of `arch`. The block options (`fused_epilogue`, `remat`,
-    `remat_stages`) are the resnet family's; `tiny` refuses them."""
-    if arch in RESNETS:
-        return RESNETS[arch](fused_epilogue=fused_epilogue, remat=remat,
-                             remat_stages=tuple(remat_stages))
-    if arch == "tiny":
-        if fused_epilogue:
-            raise ValueError("fused_epilogue is implemented for resnet blocks only")
-        if remat or remat_stages:
-            raise ValueError(f"remat is implemented for resnet blocks only (got arch={arch!r})")
-        return TinyFeatures()
-    raise ValueError(f"unknown backbone {arch!r}; options: {sorted(RESNETS) + ['tiny']}")
+    """The trunk of `arch`. `remat` checkpoints every block (resnet blocks,
+    dense layers); `remat_stages` the blocks of the named stages ("layer1"..
+    "layer4", "denseblock1".."denseblock4"; ignored when `remat` is set).
+    `fused_epilogue` mounts the BN epilogue kernel as the resnet blocks'
+    tail; the other families refuse it. The refusals come in the JAX
+    package's order."""
+    fam = family(arch)
+    if (remat or remat_stages) and fam not in _REMAT_STAGES:
+        raise ValueError(f"remat is implemented for resnet/densenet blocks only (got arch={arch!r})")
+    kw = {}
+    if remat:
+        kw["remat"] = True
+    elif remat_stages:
+        known = _REMAT_STAGES[fam]
+        unknown = set(remat_stages) - set(known)
+        if unknown:
+            raise ValueError(f"unknown remat_stages {sorted(unknown)} for arch {arch!r}; "
+                             f"options: {sorted(known)}")
+        kw["remat_stages"] = tuple(remat_stages)
+    if fam == "resnet":
+        kw["fused_epilogue"] = fused_epilogue
+    elif fused_epilogue:
+        raise ValueError("fused_epilogue=True is implemented for resnet blocks only "
+                         f"(got arch={arch!r}); leave it None/False here")
+    return BACKBONES[arch].factory(**kw)
 
 
 @torch.no_grad()

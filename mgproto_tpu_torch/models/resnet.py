@@ -8,23 +8,17 @@ in BasicBlock, `bn3` in Bottleneck), under the same name and state keys as
 the plain BatchNorm it replaces.
 
 Remat (`remat`, `remat_stages`; the JAX package's `nn.remat` per block):
-a block of a rematted stage runs under `torch.utils.checkpoint` (non-
-reentrant), so its backward recomputes the block's forward instead of
-keeping its activations. The recomputed forward runs with its BatchNorms'
-`update_stats` off, so the running statistics take one update a step, as
-flax's do; the state-dict keys are the same with and without remat.
+every block of a rematted stage is a `models/common.py::RematBlock` with
+`remat` set.
 """
 
 from __future__ import annotations
 
-import contextlib
 from typing import Sequence, Tuple
 
-import torch
 from torch import nn
-from torch.utils.checkpoint import checkpoint
 
-from mgproto_tpu_torch.models.common import BatchNorm, batch_norm, conv
+from mgproto_tpu_torch.models.common import RematBlock, batch_norm, conv
 from mgproto_tpu_torch.ops.fused_epilogue import BNEpilogue
 
 STAGES = ("layer1", "layer2", "layer3", "layer4")
@@ -40,36 +34,7 @@ def _finish(bn, out, identity, fused: bool):
     return nn.functional.relu(bn(out) + identity)
 
 
-@contextlib.contextmanager
-def _stats_frozen(module: nn.Module):
-    """The running statistics of `module`'s BatchNorms untouched in the
-    block (a remat recompute); restored on every exit, early stop
-    included."""
-    bns = [m for m in module.modules() if isinstance(m, BatchNorm)]
-    for m in bns:
-        m.update_stats = False
-    try:
-        yield
-    finally:
-        for m in bns:
-            m.update_stats = True
-
-
-class _Block(nn.Module):
-    """A residual block whose forward runs under checkpointing when
-    `remat` is set and a gradient is being recorded in train mode."""
-
-    remat = False
-
-    def forward(self, x):
-        if not (self.remat and self.training and torch.is_grad_enabled()):
-            return self.block_forward(x)
-        # context_fn: (the first forward's context, the recompute's)
-        return checkpoint(self.block_forward, x, use_reentrant=False,
-                          context_fn=lambda: (contextlib.nullcontext(), _stats_frozen(self)))
-
-
-class BasicBlock(_Block):
+class BasicBlock(RematBlock):
     expansion = 1
 
     def __init__(self, inplanes: int, planes: int, stride: int = 1,
@@ -92,7 +57,7 @@ class BasicBlock(_Block):
         return _finish(self.bn2, out, identity, self.fused_epilogue)
 
 
-class Bottleneck(_Block):
+class Bottleneck(RematBlock):
     expansion = 4
 
     def __init__(self, inplanes: int, planes: int, stride: int = 1,

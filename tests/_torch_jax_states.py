@@ -3,9 +3,12 @@ checkpoint and schedule modules against the JAX package's: a tiny JAX
 trainer (the score_pool and E-step Pallas kernels forced on, so they run in
 interpret mode), a JAX state trained a few steps from a full seeded bank,
 the same state carried into the port, seeded image batches, a seeded JPEG
-tree, and the near-tie allowance for decisions taken on scores."""
+tree, the near-tie allowance for decisions taken on scores, and two small
+DenseNets registered in both packages' registries (`small_densenets`)."""
 
+import contextlib
 import dataclasses
+import functools
 import os
 
 import jax
@@ -17,8 +20,12 @@ from mgproto_tpu.config import EMConfig as JaxEMConfig
 from mgproto_tpu.config import tiny_test_config as jax_tiny_config
 from mgproto_tpu.core import memory as jmem
 from mgproto_tpu.engine.train import Trainer as JaxTrainer
+from mgproto_tpu.models import densenet as jdensenet
+from mgproto_tpu.models import registry as jregistry
 from mgproto_tpu_torch.config import EMConfig, tiny_test_config
 from mgproto_tpu_torch.engine.train import Trainer
+from mgproto_tpu_torch.models import densenet as tdensenet
+from mgproto_tpu_torch.models import registry as tregistry
 from mgproto_tpu_torch.models.convert import from_jax_train_state
 
 B = 6
@@ -100,3 +107,24 @@ def near_pairs(a, b):
 def auroc_allowance(id_scores, ood_scores):
     """An AUROC may differ by one pair's weight per near-tie (id, ood) pair."""
     return near_pairs(id_scores, ood_scores) / max(len(id_scores) * len(ood_scores), 1)
+
+
+# DenseNetFeatures' own width and depth arguments, which both packages take:
+# four blocks of two layers, and two blocks of one
+SMALL_DENSENETS = {
+    "densenet_small": dict(growth_rate=8, block_config=(2, 2, 2, 2), num_init_features=16),
+    "densenet_mini": dict(growth_rate=8, block_config=(1, 1), num_init_features=8),
+}
+
+
+@contextlib.contextmanager
+def small_densenets():
+    """`SMALL_DENSENETS` registered as backbones of the densenet family in
+    both packages' registries, for the duration of the block."""
+    with contextlib.ExitStack() as stack:
+        for registry, module in ((jregistry, jdensenet), (tregistry, tdensenet)):
+            for name, kw in SMALL_DENSENETS.items():
+                registry.BACKBONES[name] = registry.BackboneSpec(
+                    functools.partial(module.DenseNetFeatures, **kw), "densenet")
+                stack.callback(registry.BACKBONES.pop, name)
+        yield

@@ -708,3 +708,79 @@ def test_a_bf16_train_step_on_the_card_keeps_its_statistics_f32():
         card = bn.cuda()(x.cuda()).cpu()
     assert card.dtype == torch.bfloat16
     torch.testing.assert_close(card.float(), cpu.float(), rtol=2.0 ** -7, atol=1e-30)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("arch", ["vgg19", "densenet121"])
+def test_vgg_and_densenet_steps_on_the_card_match_the_plain_route(arch):
+    """One train step of vgg19 / densenet121 at batch 4, 64 px, from one
+    state and a full bank: the kernel route (score_pool forward and
+    backward, the E-step) against the plain route on the card (every
+    kernel off), cuDNN deterministic: the loss relative 1e-5, the priors
+    atol 1e-5; the kernels launched once each (the E-step num_em_loop
+    times), the BN epilogue never (a resnet-only kernel)."""
+    _need_cuda()
+    import dataclasses
+
+    import numpy as np
+
+    from mgproto_tpu_torch.config import DataConfig, EMConfig, tiny_test_config
+    from mgproto_tpu_torch.engine.train import Trainer
+    from mgproto_tpu_torch.ops.fused_scoring import score_pool as sp
+
+    # f32 batches of seeded noise: no augmentation tail
+    base = tiny_test_config(arch=arch, img_size=64).replace(data=DataConfig(device_augment=False))
+    rng = np.random.default_rng(0)
+    images = rng.normal(size=(4, 64, 64, 3)).astype(np.float32)
+    labels = np.array([0, 1, 2, 1], np.int32)
+    det = torch.backends.cudnn.deterministic
+    torch.backends.cudnn.deterministic = True
+    out = {}
+    try:
+        for route, flag in (("kernel", None), ("plain", False)):
+            cfg = base.replace(model=dataclasses.replace(base.model, fused_scoring=flag),
+                               em=EMConfig(fused_estep=flag))
+            trainer = Trainer(cfg, 4, device="cuda")
+            state = trainer.init_state(0)
+            state.memory = _full_bank(state)
+            counters = (sp, score_pool_bwd, em_estep_stats, fe.fused_bn_epilogue)
+            before = [f.launches for f in counters]
+            state, met = trainer.train_step(state, images, labels, use_mine=True,
+                                            update_gmm=True)
+            torch.cuda.synchronize()
+            out[route] = (met.loss.item(), state.gmm.priors.cpu(),
+                          [f.launches - b for f, b in zip(counters, before)])
+    finally:
+        torch.backends.cudnn.deterministic = det
+    loss, priors, launched = out["kernel"]
+    assert launched == [1, 1, cfg.em.num_em_loop, 0]
+    assert out["plain"][2] == [0, 0, 0, 0]
+    assert np.isfinite(loss) and abs(loss - out["plain"][0]) <= 1e-5 * abs(out["plain"][0])
+    torch.testing.assert_close(priors, out["plain"][1], rtol=0, atol=1e-5)
+
+
+@pytest.mark.cuda
+def test_a_pretrained_trunk_loads_on_the_card(tmp_path, monkeypatch):
+    """A seeded torchvision-layout densenet121 .pth (legacy `norm.1` keys)
+    read through MGPROTO_PRETRAINED_DIR into a state on the card: every
+    trunk tensor equals the file's bit for bit."""
+    _need_cuda()
+    import dataclasses
+
+    from mgproto_tpu_torch.config import tiny_test_config
+    from mgproto_tpu_torch.engine.train import Trainer
+    from mgproto_tpu_torch.models.registry import build_backbone
+
+    g = torch.Generator().manual_seed(3)
+    sd = {"features." + k: (torch.randn(v.shape, generator=g) if v.is_floating_point() else v)
+          for k, v in build_backbone("densenet121").state_dict().items()}
+    legacy = {k.replace(".norm1.", ".norm.1."): v for k, v in sd.items()}
+    torch.save(legacy, tmp_path / "densenet121-a639ec97.pth")
+    monkeypatch.setenv("MGPROTO_PRETRAINED_DIR", str(tmp_path))
+    base = tiny_test_config(arch="densenet121")
+    cfg = base.replace(model=dataclasses.replace(base.model, pretrained=True))
+    state = Trainer(cfg, 4, device="cuda").init_state(0)
+    for k, v in state.model.features.state_dict().items():
+        assert v.device.type == "cuda"
+        if not k.endswith("num_batches_tracked"):
+            assert torch.equal(v.cpu(), sd["features." + k]), k

@@ -244,7 +244,7 @@ def test_remat_refuses_unknown_stages_and_non_resnet_trunks():
     # remat wins over the stage list, as in JAX (the list is not read)
     MGProtoFeatures(dataclasses.replace(bad.model, remat=True))
     tiny = tiny_test_config()
-    with pytest.raises(ValueError, match="resnet blocks only"):
+    with pytest.raises(ValueError, match="resnet/densenet blocks only"):
         MGProtoFeatures(dataclasses.replace(tiny.model, remat=True))
     # the JAX package refuses the same two configs
     from mgproto_tpu.core.mgproto import MGProtoFeatures as JaxFeatures
