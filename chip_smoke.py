@@ -127,17 +127,43 @@ Phases, one JSON line each:
              `cli.train`'s process group in its first step, while a spawn
              worker is still starting in that group: exit 0,
              PREEMPTED.json, a preempt checkpoint with its batch position,
-             its 8 spawn workers neither replaced nor left behind, and `--resume auto` finishes
-             the run and clears the marker; (e) the preempt and NaN drills
+             its 2 spawn workers neither replaced nor left behind (a pool of 2
+             starts sooner than the input phase's 8), and `--resume auto`
+             finishes the run and clears the marker; (e) the preempt and NaN drills
              through run_training (resnet18, cuDNN deterministic) end bit
              for bit at the clean run's state, and a budget of 0 rollbacks
              raises.
+ 12. serve plane: the export and serving plane on the schedule's `prune`
+             and `push` checkpoints (copied under build/serve_phase/run/ with
+             the run's push provenance; seeded flagship states when the
+             phase runs alone): (a) `cli.export --calibrate --explain` on the
+             first and `--calibrate` on the second, two processes at once,
+             bytes and wall s; (b) `cli.serve --artifact --images` on 64
+             test images of the input phase's folder with `--stdin` JSONL
+             (two images, three malformed lines) and `--explain`: every id
+             answered once, the malformed rejected typed, each line
+             bit-equal to `ServingEngine.from_live` on the restored
+             checkpoint in this process, the artifact's logits bit-equal to
+             from_live's on the same card and buckets and within 1e-4 of the
+             CPU plain path, its explanations' indices equal and
+             log-densities within 1e-4, no pruned prototype explained;
+             dispatch ms per bucket; (c) the plane in this process, 1 then
+             2 replicas behind the frontend on a loopback port, 64 requests:
+             the launches per dispatch (score_pool 1, epilogue 16, the
+             training kernels 0) and the peak memory of each; (d)
+             `cli.serve --listen --replicas 2` as a process (started beside
+             (b)): 8 client threads of 8 requests (requests/s, p50/p99),
+             /healthz, /readyz, /metrics, a swap to the push artifact
+             (committed) and one to an uncalibrated copy (refused, the old
+             model still answers), then SIGTERM with 16 requests in flight:
+             each answered typed, exit 0.
 Then the kernel summary line (times at the train step's shapes, the serve
 path's beside them; `launches` counted on the input phase's epoch,
 `schedule_launches` on the schedule phase's run, `interpret_launches` on
 the interpret phase's run_interpret, `bf16_train_launches` on the options
 phase's bf16 steps, `backbone_launches` on phase 10's six steps of each
-trunk, `drill_launches` on phase 11's in-process drills; the epilogue's
+trunk, `drill_launches` on phase 11's in-process drills, `serve_plane_launches`
+on phase 12's in-process plane; the epilogue's
 bf16 times at B = 80 under "train_bf16"), the card line as
 nvidia-smi prints it, and last `{"ok": true, "device": {...}}`. Any failed
 check exits non-zero before that line is printed.
@@ -210,6 +236,7 @@ TRAIN_PRIOR_ATOL = 1e-5
 TAIL_ATOL = 1e-5
 INPUT_CLASSES, INPUT_PER_CLASS, INPUT_HW = 200, 4, (375, 500)
 INPUT_WORKERS = 8
+PREEMPT_WORKERS = 2  # the SIGTERM check's spawn pool (11 d): 2 start sooner than 8
 # the schedule phase: a second folder as its OoD set, 2 epochs, top-8 prune
 OOD_CLASSES, OOD_PER_CLASS = 5, 16
 SCHEDULE_EPOCHS = 2
@@ -1882,6 +1909,7 @@ def schedule_phase(smi):
         ckpts = ck.list_checkpoints(cfg.model_dir)
         stages = sorted({c[1] for c in ckpts})
         check(stages == ["nopush", "prune", "push"], f"stage checkpoints {stages}")
+        keep_for_serve_plane(cfg.model_dir, ckpts)
         check(state.step == SCHEDULE_EPOCHS * trainer.steps_per_epoch, f"step {state.step}")
         steps = state.step
         for name in ("score_pool", "bn_epilogue", "score_pool_bwd", "em_estep"):
@@ -2861,7 +2889,7 @@ def cli_preempt_check(smi, root, base):
 
     run_dir = os.path.join(base, "sigterm")
     flags = cli_flags(root, run_dir, arch="resnet18", epochs=1, mine_start=0, gmm_start=0,
-                      push_start=100, no_pretrained=True)
+                      push_start=100, no_pretrained=True, num_workers=PREEMPT_WORKERS)
     spawn = ["--worker_backend", "process"]
     # the main as `-m` runs it, with SIGUSR1 dumping every thread's stack
     # (sent below should the run not exit)
@@ -2935,7 +2963,7 @@ def cli_preempt_check(smi, root, base):
     for p in orphans:  # this script stops what it started, whatever the check says
         os.kill(p, signal.SIGKILL)
     # the signal killed no worker: the pool replaced none
-    check(len(workers) == INPUT_WORKERS and set(starting) <= workers and not orphans,
+    check(len(workers) == PREEMPT_WORKERS and set(starting) <= workers and not orphans,
           f"spawn workers {sorted(workers)} (signalled while starting: {starting}): "
           f"{orphans} still alive after the run exited")
 
@@ -3071,6 +3099,423 @@ def cli_phase(smi, interp):
     return launches
 
 
+# ------------------------------------------------------------- serve plane
+SERVE_PLANE_IMAGES = 64  # the --images batch of the batch face
+SERVE_PLANE_CLIENTS = 8  # client threads against the network face
+SERVE_PLANE_PER_CLIENT = 8  # requests a client sends, one after another
+SERVE_PLANE_INFLIGHT = 16  # requests sent just before the SIGTERM
+SERVE_PLANE_TOP_E = 5
+SERVE_PLANE_DIR = os.path.join(HERE, "build", "serve_phase")
+
+
+def keep_for_serve_plane(model_dir, ckpts):
+    """Copies of the schedule's `prune` and `push` checkpoints and its push
+    provenance under build/serve_phase/run/, for phase 12."""
+    import shutil
+
+    run = os.path.join(SERVE_PLANE_DIR, "run")
+    shutil.rmtree(SERVE_PLANE_DIR, ignore_errors=True)
+    os.makedirs(run)
+    for stage in ("prune", "push"):
+        src = [c[3] for c in ckpts if c[1] == stage][0]
+        shutil.copytree(src, os.path.join(run, os.path.basename(src)))
+    shutil.copy(os.path.join(model_dir, "push_provenance.json"), run)
+
+
+def serve_plane_checkpoints():
+    """(prune, push) checkpoint paths under build/serve_phase/run/: the
+    schedule phase's copies, or (this phase run alone) two seeded flagship
+    states, the first pruned to its top 8 of 10 by seeded priors, with a
+    seeded push provenance."""
+    import torch
+
+    from mgproto_tpu_torch.config import Config
+    from mgproto_tpu_torch.core.mgproto import prune_top_m
+    from mgproto_tpu_torch.engine.train import Trainer
+    from mgproto_tpu_torch.utils import checkpoint as ck
+
+    run = os.path.join(SERVE_PLANE_DIR, "run")
+    found = {c[1]: c[3] for c in ck.list_checkpoints(run)} if os.path.isdir(run) else {}
+    if not {"prune", "push"} <= set(found):
+        os.makedirs(run, exist_ok=True)
+        trainer = Trainer(Config(), steps_per_epoch=1, device="cuda")
+        for seed, stage in ((1, "push"), (2, "prune")):
+            state = trainer.init_state(seed)
+            if stage == "prune":
+                g = torch.Generator().manual_seed(seed)
+                priors = torch.rand(state.gmm.priors.shape, generator=g).cuda()
+                state.gmm = prune_top_m(state.gmm._replace(priors=priors / priors.sum(-1, True)),
+                                        SCHEDULE_PRUNE_M)
+            found[stage] = ck.save_checkpoint(run, state, ck.checkpoint_name(1, stage, 0.0),
+                                              metadata={"epoch": 1, "stage": stage})
+        p = state.gmm.priors.numel()
+        rng = torch.Generator().manual_seed(3)
+        with open(os.path.join(run, "push_provenance.json"), "w") as f:
+            json.dump({"image_id": torch.randint(-1, 800, (p,), generator=rng).tolist(),
+                       "spatial_idx": torch.randint(0, 196, (p,), generator=rng).tolist(),
+                       "log_prob": (-torch.rand(p, generator=rng) * 8).tolist()}, f)
+    return found["prune"], found["push"]
+
+
+def start_main(module, flags, **kw):
+    """`python -m mgproto_tpu_torch.cli.<module>` started, not waited for."""
+    return subprocess.Popen([sys.executable, "-m", f"mgproto_tpu_torch.cli.{module}", *flags],
+                            cwd=HERE, text=True, env=dict(os.environ, PYTHONUNBUFFERED="1"),
+                            **kw)
+
+
+def free_port():
+    import socket
+
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        return s.getsockname()[1]
+
+
+def http_call(port, method, path, body=b"", timeout=120):
+    """(status, body bytes, seconds) of one HTTP/1.1 request."""
+    import http.client
+
+    t0 = time.perf_counter()
+    conn = http.client.HTTPConnection("127.0.0.1", port, timeout=timeout)
+    conn.request(method, path, body=body or None)
+    resp = conn.getresponse()
+    out = resp.status, resp.read()
+    conn.close()
+    return out[0], out[1], time.perf_counter() - t0
+
+
+def strip_uncalibrated(src, dst):
+    """A copy of an artifact without its calibration.json."""
+    import zipfile
+
+    with zipfile.ZipFile(src) as z, zipfile.ZipFile(dst, "w", zipfile.ZIP_DEFLATED) as out:
+        for name in z.namelist():
+            if name != "calibration.json":
+                out.writestr(name, z.read(name))
+
+
+def served_lines(text):
+    lines = [json.loads(ln) for ln in text.strip().splitlines() if ln.startswith("{")]
+    return [ln for ln in lines if "request_id" in ln], lines[-1]
+
+
+def serve_plane_phase(smi):
+    """Phase 12; returns the launch counts of the in-process plane's run."""
+    import asyncio
+    import atexit
+    import concurrent.futures
+    import gc
+    import signal
+    import socket
+    import threading
+
+    import numpy as np
+    import torch
+
+    from mgproto_tpu_torch.data.folder import ImageFolder
+    from mgproto_tpu_torch.data.transforms import test_transform
+    from mgproto_tpu_torch.engine import export
+    from mgproto_tpu_torch.engine.eval import Evaluator
+    from mgproto_tpu_torch.engine.push import load_push_provenance
+    from mgproto_tpu_torch.engine.train import Trainer
+    from mgproto_tpu_torch.serving.batcher import BatcherConfig
+    from mgproto_tpu_torch.serving.engine import ServingEngine
+    from mgproto_tpu_torch.serving.frontend import Frontend
+    from mgproto_tpu_torch.serving.replica import ReplicaSet
+    from mgproto_tpu_torch.utils import checkpoint as ck
+
+    t_phase = time.perf_counter()
+    gc.collect()
+    torch.cuda.empty_cache()  # the mains below are processes of their own
+    root = os.path.join(HERE, "build", "input_phase", "train")
+    if not os.path.isdir(root):
+        write_jpeg_tree(root, INPUT_CLASSES, INPUT_PER_CLASS, INPUT_HW)
+    prune_ckpt, push_ckpt = serve_plane_checkpoints()
+    run = os.path.dirname(prune_ckpt)
+    art = {name: os.path.join(SERVE_PLANE_DIR, f"{name}.mgproto") for name in ("prune", "push")}
+    uncal = os.path.join(SERVE_PLANE_DIR, "uncalibrated.mgproto")
+
+    # 1. the export main on both checkpoints, as two processes at once
+    t0 = time.perf_counter()
+    procs = {name: start_main("export", cli_flags(root, run, no_pretrained=True, checkpoint=ckpt,
+                                                 out=art[name], calibrate=True,
+                                                 **({"explain": True} if name == "prune" else {})),
+                              stdout=subprocess.PIPE, stderr=subprocess.PIPE)
+             for name, ckpt in (("prune", prune_ckpt), ("push", push_ckpt))}
+    exports = {}
+    for name, p in procs.items():
+        out, err = p.communicate(timeout=600)
+        check(p.returncode == 0, f"cli.export ({name}) exited {p.returncode}:\n{err[-3000:]}")
+        exports[name] = last_json(out)
+        check(exports[name]["calibrated"] and exports[name]["bytes"] == os.path.getsize(art[name]),
+              f"cli.export ({name}): {exports[name]}")
+    export_wall_s = time.perf_counter() - t0
+    check(exports["prune"]["explain"], "cli.export --explain wrote no explanation table")
+    strip_uncalibrated(art["prune"], uncal)
+    loaded = export.load_artifact(art["prune"], device="cuda")
+    provenance = load_push_provenance(run)
+    check(provenance is not None and loaded.explain_table["provenance"]["image_id"]
+          == provenance["image_id"], "the run's push provenance is not in the table")
+
+    # 2. the batch face: --images (64 test images of the folder) and --stdin
+    #    (two images as nested lists and three malformed lines), explained;
+    #    the network face's process (4.) starts beside it and warms meanwhile
+    ds = ImageFolder(root, test_transform(224))
+    rng = np.random.default_rng(12)
+    pick = rng.choice(len(ds), SERVE_PLANE_IMAGES + 2, replace=False)
+    imgs = np.stack([ds.load(int(i))[0] for i in pick]).astype(np.float32)
+    npy = os.path.join(SERVE_PLANE_DIR, "images.npy")
+    np.save(npy, imgs[:SERVE_PLANE_IMAGES])
+    stdin = "\n".join([json.dumps({"id": "json0", "image": imgs[-2].tolist()}), "{not json",
+                       json.dumps({"id": "noimage", "pixels": [1]}),
+                       json.dumps({"id": "badshape", "image": [[0.0, 1.0]]}),
+                       json.dumps({"id": "json1", "image": imgs[-1].tolist()})]) + "\n"
+    port = free_port()
+    listen_log = open(os.path.join(SERVE_PLANE_DIR, "listen.err"), "w")
+    listen = start_main("serve", ["--artifact", art["prune"], "--listen", f"127.0.0.1:{port}",
+                                  "--replicas", "2"], stdout=subprocess.PIPE, stderr=listen_log)
+    # a failed check below must not leave it running
+    atexit.register(lambda: listen.poll() is None and listen.kill())
+    t0 = time.perf_counter()
+    # the whole batch is admitted before the first dispatch: the queue holds it
+    queue = str(2 * SERVE_PLANE_IMAGES)
+    p = start_main("serve", ["--artifact", art["prune"], "--images", npy, "--stdin", "--explain",
+                             "--queue_capacity", queue],
+                   stdin=subprocess.PIPE, stdout=subprocess.PIPE, stderr=subprocess.PIPE)
+    out, err = p.communicate(stdin, timeout=600)
+    batch_wall_s = time.perf_counter() - t0
+    check(p.returncode == 0, f"cli.serve (batch) exited {p.returncode}:\n{err[-3000:]}")
+    resps, summary = served_lines(out)
+    ids = [f"images.npy[{i}]" for i in range(SERVE_PLANE_IMAGES)] + [
+        "json0", "stdin[1]", "stdin[2]", "badshape", "json1"]
+    check([r["request_id"] for r in resps] == ids, "the batch face did not answer every id once")
+    bad = {r["request_id"]: (r["outcome"], r["reason"]) for r in resps
+           if r["request_id"] in ("stdin[1]", "stdin[2]", "badshape")}
+    check(bad == {"stdin[1]": ("reject", "bad_dtype"), "stdin[2]": ("reject", "bad_dtype"),
+                  "badshape": ("reject", "bad_shape")}, f"malformed lines not rejected typed: {bad}")
+    served = [r for r in resps if r["outcome"] in ("predict", "abstain")]
+    check(len(served) == SERVE_PLANE_IMAGES + 2 and summary["steady_state_recompiles"] == 0
+          and summary["warmup_compiles"] == 4, f"batch face summary {summary}")
+
+    # the same payloads through from_live on the restored checkpoint, this
+    # process, this card, the same buckets: bit-equal
+    trainer = Trainer(loaded.evaluator.cfg, steps_per_epoch=1, device="cuda")
+    state = ck.restore_checkpoint(prune_ckpt, trainer.init_state(0, for_restore=True))
+    live_ev = Evaluator(state.model, state.gmm, loaded.evaluator.cfg, device="cuda")
+    live = ServingEngine.from_live(live_ev, calibration=loaded.calibration, explain=True,
+                                   explain_top=SERVE_PLANE_TOP_E, provenance=provenance,
+                                   queue_capacity=int(queue))
+    live.warmup()
+    payloads = list(imgs[:SERVE_PLANE_IMAGES]) + [imgs[-2], None, None, [[0.0, 1.0]], imgs[-1]]
+    mine = [r.to_dict() for r in live.serve_all(payloads, request_ids=ids)]
+    keys = ("request_id", "outcome", "reason", "prediction", "log_px", "confidence",
+            "trust_score", "explain")
+    diff = [(r["request_id"], [k for k in keys if r.get(k) != m.get(k)])
+            for r, m in zip(resps, mine) if any(r.get(k) != m.get(k) for k in keys)]
+    check(not diff, f"cli.serve differs from from_live on the same card (id, keys): {diff[:5]}")
+    art_eng = ServingEngine.from_loaded(loaded, explain=True)
+    art_eng.warmup()
+    x = np.stack([imgs[i] for i in range(SERVE_PLANE_IMAGES)] + [imgs[-2], imgs[-1]])
+    card, live_out, cpu = [], [], []
+    for i in range(0, len(x), 8):
+        card.append(art_eng._dispatch(x[i:i + 8]))
+        live_out.append(live._dispatch(x[i:i + 8]))
+    bit_equal = all(np.array_equal(a[0], b[0]) and np.array_equal(a[1], b[1])
+                    and np.array_equal(a[2][0], b[2][0]) for a, b in zip(card, live_out))
+    check(bit_equal, "the artifact's logits differ from from_live's on the same card and bucket")
+    # the plain path on the CPU
+    cpu_art = export.load_artifact(art["prune"], device="cpu")
+    cpu_eng = ServingEngine.from_loaded(cpu_art, explain=True)
+    t0 = time.perf_counter()
+    for i in range(0, len(x), 8):
+        cpu.append(cpu_eng._dispatch(x[i:i + 8]))
+    cpu_s = time.perf_counter() - t0
+    cat = [np.concatenate([c[j] if j < 2 else c[2][j - 2] for c in group])
+           for group in (card, cpu) for j in range(4)]
+    logit_err = float(np.abs(cat[0] - cat[4]).max())
+    px_err = float(np.abs(cat[1] - cat[5]).max())
+    logd_err = float(np.abs(cat[3] - cat[7]).max())
+    gaps = np.abs(np.diff(cat[7], axis=1))
+    clear = (gaps > SERVE_ATOL).all(axis=1)
+    idx_equal = bool((cat[2][clear] == cat[6][clear]).all())
+    check(logit_err <= SERVE_ATOL and px_err <= SERVE_ATOL,
+          f"served scores vs the CPU plain path: logits {logit_err}, log p(x) {px_err}")
+    check(logd_err <= SERVE_ATOL and idx_equal and clear.sum() >= len(x) // 2,
+          f"explanations vs the CPU plain path: logd {logd_err}, idx equal {idx_equal} on "
+          f"{int(clear.sum())} clear rows")
+    priors = loaded.evaluator.gmm.priors.reshape(-1).cpu().numpy()
+    check(bool((priors[cat[2]] > 0).all()), "a pruned prototype was explained")
+    dispatch_ms = {}
+    for b in art_eng.buckets:
+        times = []
+        for _ in range(10):
+            t1 = time.perf_counter()
+            art_eng._dispatch(x[:b])
+            times.append((time.perf_counter() - t1) * 1e3)
+        dispatch_ms[str(b)] = {"median": float(np.median(times)), "min": float(min(times))}
+    del cpu_art, cpu_eng, state, trainer, live
+
+    # 3. the plane in this process: 2 replicas over the loaded artifact
+    #    behind the HTTP frontend on a loopback port; peak memory for 1 and 2
+    bodies = [json.dumps({"id": f"p{i}", "image": imgs[i].tolist()}).encode()
+              for i in range(SERVE_PLANE_IMAGES)]
+    t0 = time.perf_counter()
+    json.loads(bodies[0])
+    decode_one_s = time.perf_counter() - t0
+
+    def plane(replicas):
+        factory = lambda: ServingEngine.from_loaded(loaded)  # noqa: E731
+        rs = ReplicaSet(factory, replicas=replicas, batcher_config=BatcherConfig(max_linger_s=0.005))
+        gc.collect()
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        base = torch.cuda.memory_allocated()
+        rs.start()
+        fe = Frontend(rs, poll_interval_s=0.001)
+        statuses = []
+
+        async def drive():
+            await fe.start()
+            loop = asyncio.get_running_loop()
+            # the clients' own threads: the frontend's pump steps in the
+            # default executor, which blocked clients must not fill
+            with concurrent.futures.ThreadPoolExecutor(SERVE_PLANE_CLIENTS) as pool:
+                results = await asyncio.gather(*[
+                    loop.run_in_executor(pool, http_call, fe.port, "POST", "/v1/predict", b)
+                    for b in bodies])
+            statuses.extend(s for s, _, _ in results)
+            fe.request_stop()
+            await fe.run_until_drained()
+
+        reset_launch_counts()
+        asyncio.run(drive())
+        launches = launch_counts()
+        dispatches = sum(rep.engine.dispatch_count for rep in rs.replicas)
+        return rs, statuses, launches, dispatches, {
+            "peak_gb": torch.cuda.max_memory_allocated() / 1e9,
+            "above_loaded_gb": (torch.cuda.max_memory_allocated() - base) / 1e9}
+
+    _, st1, _, _, mem1 = plane(1)
+    rs2, st2, plane_launches, plane_dispatches, mem2 = plane(2)
+    check(st1 == st2 == [200] * SERVE_PLANE_IMAGES, f"plane statuses {set(st1)} {set(st2)}")
+    check(all(rep.engine.dispatch_count > 0 for rep in rs2.replicas),
+          "a replica of the plane served nothing")
+    check(plane_launches["score_pool"] == plane_dispatches
+          and plane_launches["bn_epilogue"] == 16 * plane_dispatches
+          and plane_launches["score_pool_bwd"] == 0 and plane_launches["em_estep"] == 0,
+          f"plane launches {plane_launches} over {plane_dispatches} dispatches")
+    del rs2
+
+    # 4. the network face as a process: 2 replicas, concurrent clients, the
+    #    probes, a committed and a refused swap, then SIGTERM in flight
+    p = listen
+    try:
+        banner = json.loads(p.stdout.readline() or "{}")
+        check(banner.get("listening") and banner.get("port") == port,
+              f"cli.serve --listen did not come up: {banner}")
+        probes = {path: http_call(port, "GET", path)[:2] for path in ("/healthz", "/readyz",
+                                                                      "/metrics")}
+        check(probes["/healthz"][0] == 200 and probes["/readyz"][0] == 200
+              and len(json.loads(probes["/readyz"][1])["replicas"]) == 2
+              and b"serving_replicas_ready 2" in probes["/metrics"][1], f"probes {probes}")
+        lat, statuses = [], []
+
+        def client(k):
+            for j in range(SERVE_PLANE_PER_CLIENT):
+                s, b, sec = http_call(port, "POST", "/v1/predict",
+                                      bodies[(k * SERVE_PLANE_PER_CLIENT + j) % len(bodies)])
+                statuses.append(s)
+                lat.append(sec)
+
+        t0 = time.perf_counter()
+        threads = [threading.Thread(target=client, args=(k,)) for k in range(SERVE_PLANE_CLIENTS)]
+        for t in threads:
+            t.start()
+        for t in threads:
+            t.join(300)
+        load_s = time.perf_counter() - t0
+        n_req = SERVE_PLANE_CLIENTS * SERVE_PLANE_PER_CLIENT
+        check(statuses == [200] * n_req, f"network face statuses {sorted(set(statuses))}")
+        s, b, swap_s = http_call(port, "POST", "/admin/swap",
+                                 json.dumps({"artifact": art["push"]}).encode())
+        commit = json.loads(b)
+        check(s == 200 and commit["reason"] == "committed" and commit["replicas_swapped"] == 2,
+              f"swap to the push artifact: {s} {commit}")
+        s, b, refuse_s = http_call(port, "POST", "/admin/swap",
+                                   json.dumps({"artifact": uncal}).encode())
+        check(s == 409 and json.loads(b)["reason"] == "uncalibrated",
+              f"swap to an uncalibrated artifact: {s} {b[:300]}")
+        s, b, _ = http_call(port, "POST", "/v1/predict", bodies[0])
+        check(s == 200 and json.loads(b)["outcome"] in ("predict", "abstain"),
+              "the fleet stopped answering after the refused swap")
+        # SIGTERM once every in-flight request's bytes are written
+        sent, answers = threading.Barrier(SERVE_PLANE_INFLIGHT + 1), [None] * SERVE_PLANE_INFLIGHT
+
+        def inflight(i):
+            body = bodies[i]
+            with socket.create_connection(("127.0.0.1", port), timeout=120) as sock:
+                sock.sendall(b"POST /v1/predict HTTP/1.1\r\nHost: t\r\nContent-Length: %d\r\n\r\n"
+                             % len(body) + body)
+                sent.wait(120)
+                chunks = []
+                while True:
+                    c = sock.recv(1 << 16)
+                    if not c:
+                        break
+                    chunks.append(c)
+            raw = b"".join(chunks)
+            head, _, payload = raw.partition(b"\r\n\r\n")
+            answers[i] = (int(head.split()[1]), json.loads(payload))
+
+        threads = [threading.Thread(target=inflight, args=(i,))
+                   for i in range(SERVE_PLANE_INFLIGHT)]
+        for t in threads:
+            t.start()
+        sent.wait(120)
+        p.send_signal(signal.SIGTERM)
+        for t in threads:
+            t.join(120)
+        out = p.stdout.read()
+        rc = p.wait(timeout=120)
+    finally:
+        if p.poll() is None:
+            p.kill()
+        listen_log.close()
+    check(rc == 0, f"cli.serve --listen exited {rc} after SIGTERM")
+    typed = [(s, a.get("outcome"), a.get("reason")) for s, a in answers]
+    check(all((s == 200 and o in ("predict", "abstain")) or (s == 503 and r == "shutdown")
+              for s, o, r in typed), f"in-flight requests at SIGTERM: {typed}")
+    final = json.loads(out.strip().splitlines()[-1])
+    check(final["drained"] and final["steady_state_recompiles"] == 0,
+          f"network face summary {final}")
+    lat_ms = sorted(1e3 * v for v in lat)
+    emit("serve_plane", card=smi,
+         export={name: {"bytes": e["bytes"], "explain": e["explain"]} for name, e in exports.items()},
+         export_wall_s=export_wall_s,
+         batch_face={"requests": len(resps), "served": len(served), "wall_s": batch_wall_s,
+                     "bit_equal_to_from_live": True, "logits_max_abs_err_vs_cpu": logit_err,
+                     "log_px_max_abs_err_vs_cpu": px_err, "explain_logd_max_abs_err_vs_cpu":
+                     logd_err, "explain_idx_equal_rows": int(clear.sum()), "cpu_plain_s": cpu_s,
+                     "tolerance": SERVE_ATOL},
+         dispatch_ms_host=dispatch_ms,
+         plane={"dispatches": plane_dispatches, "launches": plane_launches,
+                "memory_1_replica": mem1, "memory_2_replicas": mem2},
+         network_face={"requests": n_req, "clients": SERVE_PLANE_CLIENTS, "wall_s": load_s,
+                       "requests_per_s": n_req / load_s,
+                       "p50_ms": lat_ms[len(lat_ms) // 2],
+                       "p99_ms": lat_ms[min(len(lat_ms) - 1, int(0.99 * len(lat_ms)))],
+                       "json_body_mb": len(bodies[0]) / 1e6,
+                       "json_decode_ms_here": decode_one_s * 1e3,
+                       "json_decode_server": final.get("json_decode_s"),
+                       "swap_commit_s": swap_s, "swap_refused_s": refuse_s,
+                       "sigterm_answers": {f"{s} {o} {r}": sum(1 for t in typed if t == (s, o, r))
+                                           for s, o, r in set(typed)},
+                       "outcomes": final["outcomes"]},
+         seconds=time.perf_counter() - t_phase)
+    return plane_launches
+
+
 def main() -> int:
     if not os.path.isdir(os.path.join(HERE, "mgproto_tpu_torch")):
         print("chip_smoke: mgproto_tpu_torch/ not found beside this script", file=sys.stderr)
@@ -3108,6 +3553,7 @@ def main() -> int:
     epi_bf16, bf16_launches, bf16_steps = options_phase()
     backbone_launches, _ = backbone_phase(smi)
     drill_launches = cli_phase(smi, interp)
+    serve_plane_launches = serve_plane_phase(smi)
     for k in kernels:
         # `launches`: the loader-fed epoch of the input phase (this path's
         # main run); the train phase's and the serve phase's beside them
@@ -3136,6 +3582,10 @@ def main() -> int:
         # the command-line phase's in-process drills (resnet18)
         k["drill_launches"] = drill_launches[k["name"]]
         check(k["drill_launches"] > 0, f"{k['name']} was not launched in the drills")
+        # phase 12's in-process plane: the serving kernels only
+        k["serve_plane_launches"] = serve_plane_launches[k["name"]]
+        check((k["serve_plane_launches"] > 0) == (k["name"] in ("score_pool", "bn_epilogue")),
+              f"{k['name']}: {k['serve_plane_launches']} launches on the serve plane")
         if k["name"] == "bn_epilogue":
             k["train_bf16"] = dict(epi_bf16, launches=bf16_launches["bn_epilogue"])
     print(json.dumps({"kernels": kernels, "input_steps": input_steps, "train_steps": train_steps,

@@ -57,6 +57,27 @@ REFUSED = (
 )
 
 
+# the serve and export mains' own flags that the port parses but does not
+# implement, refused the same way (cli/serve.py, cli/export.py check them
+# before anything loads)
+SERVE_REFUSED = (
+    ("aot_cache", "", "A7 (the AOT executable cache)"),
+    ("autoscale", "", "A7 (the autoscaler)"),
+    ("autoscale_interval_s", 0.25, "A7 (the autoscaler)"),
+    ("trace_requests", False, "A9 (obs: request tracing)"),
+    ("profile_warmup", "", "A9 (obs: the warmup profile)"),
+    ("online", False, "A9 (online learning)"),
+    ("online_capture_percentile", 25.0, "A9 (online learning)"),
+    ("online_capture_capacity", 64, "A9 (online learning)"),
+    ("online_cadence_s", 1.0, "A9 (online learning)"),
+)
+EXPORT_REFUSED = (
+    ("aot_cache", False, "A7 (the AOT executable cache)"),
+    ("aot_buckets", "1,2,4,8", "A7 (the AOT executable cache)"),
+    ("quantize", "none", "A9 (perf/quant.py: int8 serving)"),
+)
+
+
 class NotPortedError(ValueError):
     """A flag set to a value the port does not implement yet."""
 
@@ -203,10 +224,10 @@ def add_train_args(p: argparse.ArgumentParser) -> None:
                    help="save checkpoints only at or above this test accuracy")
 
 
-def check_ported(args: argparse.Namespace) -> None:
-    """Raise NotPortedError for the first flag of `REFUSED` set to a value
-    the port does not implement."""
-    for dest, accepted, item in REFUSED:
+def check_ported(args: argparse.Namespace, rows=REFUSED) -> None:
+    """Raise NotPortedError for the first flag of `rows` (default `REFUSED`)
+    set to a value the port does not implement."""
+    for dest, accepted, item in rows:
         value = getattr(args, dest)
         ok = value in accepted if isinstance(accepted, tuple) else value == accepted
         if not ok:

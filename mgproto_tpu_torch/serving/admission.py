@@ -4,9 +4,14 @@
   * `AdmissionQueue`: FIFO with a hard capacity and per-request deadlines.
     A full queue first sheds entries already past their deadline, then the
     newcomer; `pop_batch` sheds entries that expired while queued.
+    `drain_all` / `restore` move queued requests between engines (a
+    replica's reroute, a blue/green swap) with their identity, deadline and
+    enqueue time kept.
   * `CircuitBreaker`: closed -> open after `failure_threshold` consecutive
     failures; the open cooldown follows `backoff_delays` (jitter-free);
-    after it a half-open probe admits one batch.
+    after it a half-open probe admits one batch. `open_seconds` accounts
+    the outage time; `tick` lets a supervisor advance open -> half-open on
+    a replica that gets no traffic.
 
 Clocks are injectable so tests drive deadlines and recovery without sleeping.
 """
@@ -102,6 +107,26 @@ class AdmissionQueue:
         self._q.append(req)
         return req, None
 
+    def peek_oldest(self) -> Optional[ServeRequest]:
+        """The request that has waited longest (None when empty)."""
+        return self._q[0] if self._q else None
+
+    def drain_all(self) -> List[ServeRequest]:
+        """Remove and return everything queued, unanswered and unaccounted,
+        for transfer: the caller answers each drained request (typed) or
+        restores it somewhere."""
+        out = list(self._q)
+        self._q.clear()
+        return out
+
+    def restore(self, req: ServeRequest) -> bool:
+        """Re-admit a transferred request with its identity, deadline and
+        original `enqueued_at`. False at capacity: the caller answers it."""
+        if len(self._q) >= self.capacity:
+            return False
+        self._q.append(req)
+        return True
+
     def pop_batch(self, max_size: int) -> List[ServeRequest]:
         """Up to `max_size` still-viable requests, FIFO; expired ones shed."""
         now = self.clock()
@@ -134,14 +159,27 @@ class CircuitBreaker:
         self.consecutive_failures = 0
         self._open_until = 0.0
         self._reopen_count = 0
+        self._state_since = clock()
+        self._open_seconds_total = 0.0
         _m.gauge(_m.BREAKER_STATE).set(_STATE_GAUGE[self.state])
 
     def _transition(self, new_state: str) -> None:
         if new_state == self.state:
             return
+        now = self.clock()
+        if self.state == BREAKER_OPEN:
+            self._open_seconds_total += max(now - self._state_since, 0.0)
+        self._state_since = now
         _m.counter(_m.BREAKER_TRANSITIONS).inc(edge=f"{self.state}->{new_state}")
         self.state = new_state
         _m.gauge(_m.BREAKER_STATE).set(_STATE_GAUGE[new_state])
+
+    def open_seconds(self, now: Optional[float] = None) -> float:
+        """Cumulative seconds spent OPEN, the current open period included."""
+        total = self._open_seconds_total
+        if self.state == BREAKER_OPEN:
+            total += max((self.clock() if now is None else now) - self._state_since, 0.0)
+        return total
 
     def _cooldown(self) -> float:
         return list(backoff_delays(
@@ -158,6 +196,13 @@ class CircuitBreaker:
             self._transition(BREAKER_HALF_OPEN)
             return True
         return self.state == BREAKER_HALF_OPEN
+
+    def tick(self) -> None:
+        """Advance the lazy open -> half-open transition without asking to
+        dispatch: readiness-gated routing starves an open replica of the
+        traffic whose `allow()` would do it."""
+        if self.state == BREAKER_OPEN and self.clock() >= self._open_until:
+            self._transition(BREAKER_HALF_OPEN)
 
     def record_success(self) -> None:
         self.consecutive_failures = 0

@@ -97,6 +97,17 @@ class Calibration:
             compute_dtype=str(compute_dtype),
         )
 
+    def threshold_for(self, percentile: float) -> float:
+        """The log p(x) threshold at any operating point, interpolated from
+        the quantile sketch (exact at the persisted percentiles)."""
+        key = f"{float(percentile):g}"
+        if key in self.thresholds:
+            return self.thresholds[key]
+        if not 0.0 <= percentile <= 100.0:
+            raise CalibrationError(f"percentile must be in [0, 100], got {percentile}")
+        q = np.linspace(0.0, 100.0, len(self.quantile_log_px))
+        return float(np.interp(percentile, q, self.quantile_log_px))
+
     def id_quantile_of(self, log_px: float) -> float:
         """Where a score sits in the ID distribution (0..1)."""
         q = np.linspace(0.0, 1.0, len(self.quantile_log_px))
@@ -154,4 +165,26 @@ def calibrate(evaluator, id_batches: Iterable, percentile: float = DEFAULT_PERCE
         percentile=percentile,
         source=source,
         compute_dtype=evaluator.cfg.model.compute_dtype,
+    )
+
+
+def calibrate_from_config(cfg, trainer, state, percentile: float = DEFAULT_PERCENTILE,
+                          device=None) -> Calibration:
+    """The calibration from the config's held-out ID loader
+    (`cfg.data.test_dir`, through `data.build_pipelines`), scored by
+    `trainer.eval_step` on `state` with the loader's pad rows dropped, its
+    source recorded. The one calibration behind both `cli.export
+    --calibrate` and `cli.serve --calibrate`."""
+    from mgproto_tpu_torch.data import build_pipelines
+    from mgproto_tpu_torch.engine.evaluate import _run_eval
+
+    _, _, test_loader, ood_loaders = build_pipelines(cfg, device=device)
+    try:
+        px, _, _, _, logits = _run_eval(trainer, state, test_loader)
+    finally:
+        for loader in (test_loader, *ood_loaders):
+            loader.close()
+    return Calibration.from_scores(
+        px, logits, fingerprint=gmm_fingerprint(state.gmm), percentile=percentile,
+        source=f"test_dir={cfg.data.test_dir}", compute_dtype=cfg.model.compute_dtype,
     )

@@ -1,18 +1,28 @@
 """ServingEngine: bucketed, trust-gated inference over a frozen model
-(counterpart of mgproto_tpu/serving/engine.py).
+(counterpart of mgproto_tpu/serving/engine.py, single tenant, without the
+AOT cache, chaos injection and online capture).
 
   * Fixed batch-size BUCKETS: a batch is padded to the smallest bucket that
     fits and the padding is sliced off the results; `warmup` runs each
     bucket once before traffic (first-launch costs such as kernel builds and
-    cuDNN algorithm selection are paid there).
+    cuDNN algorithm selection are paid there) and returns one record per
+    bucket. `check_cold_dispatches` counts dispatches at a bucket that was
+    not warmed since its last call: the port's meaning of the JAX summary
+    line's "steady-state recompiles", which must stay 0.
   * Typed responses, never exceptions: payloads are validated host-side
     into typed rejects; device failures are answered as rejects and feed
-    the circuit breaker; overload is shed by the admission queue.
+    the circuit breaker; overload is shed by the admission queue; `drain`
+    answers everything queued with a typed shed.
   * Trust gating: every prediction carries log p(x) and a trust label from
     the calibrated gate; without a valid calibration the engine serves in
     degraded mode, flagged per response.
+  * Explanations (opt-in): with an explanation table the infer function is
+    the explain forward (engine/eval.py `explain_forward`) and every PREDICT
+    response carries its top prototypes (`_ExplainContext.rows`).
 
-`from_live(evaluator)` serves an `engine.eval.Evaluator`.
+`from_live(evaluator)` serves an `engine.eval.Evaluator`;
+`from_artifact(path)` an exported artifact (engine/export.py), refusing one
+without a calibration unless `allow_uncalibrated` (degraded mode).
 """
 
 from __future__ import annotations
@@ -34,12 +44,58 @@ from mgproto_tpu_torch.serving.response import (
     OUTCOME_SHED,
     REASON_CIRCUIT_OPEN,
     REASON_DEVICE_ERROR,
+    REASON_SHUTDOWN,
     ServeResponse,
     record as _record_response,
+    shed_response,
 )
 from mgproto_tpu_torch.serving.validate import ValidationFailure, ValidationSpec, validate_image
 
 DEFAULT_BUCKETS: Tuple[int, ...] = (1, 2, 4, 8)
+DEFAULT_EXPLAIN_TOP = 5
+
+
+class UncalibratedArtifactError(RuntimeError):
+    """The artifact has no calibration and `allow_uncalibrated` is off."""
+
+
+class _ExplainContext:
+    """The static prototype table behind the `explain` response field: per
+    flat prototype index its class, within-class k and prior, and the
+    nearest training patch when the table carries push provenance."""
+
+    def __init__(self, table: Dict[str, Any]):
+        self.k_per_class = int(table["k_per_class"])
+        self.priors = np.asarray(table["priors"], np.float64).ravel()
+        prov = table.get("provenance") or None
+        self._prov = None
+        if prov is not None:
+            self._prov = {
+                "image_id": np.asarray(prov["image_id"], np.int64).ravel(),
+                "spatial_idx": np.asarray(prov["spatial_idx"], np.int64).ravel(),
+                "log_prob": np.asarray(prov["log_prob"], np.float64).ravel(),
+            }
+
+    def rows(self, proto_idx: np.ndarray, proto_logd: np.ndarray) -> List[Dict[str, Any]]:
+        """One response's explanation, most activated first."""
+        out: List[Dict[str, Any]] = []
+        for p, logd in zip(proto_idx, proto_logd):
+            p = int(p)
+            row: Dict[str, Any] = {
+                "prototype": p,
+                "class": p // self.k_per_class,
+                "k": p % self.k_per_class,
+                "prior": float(self.priors[p]),
+                "log_density": float(logd),
+            }
+            if self._prov is not None and self._prov["image_id"][p] >= 0:
+                row["source_patch"] = {
+                    "image_id": int(self._prov["image_id"][p]),
+                    "spatial_idx": int(self._prov["spatial_idx"][p]),
+                    "log_prob": float(self._prov["log_prob"][p]),
+                }
+            out.append(row)
+        return out
 
 
 class ServingEngine:
@@ -53,11 +109,15 @@ class ServingEngine:
         expected_compute_dtype: Optional[str] = None,
         buckets: Sequence[int] = DEFAULT_BUCKETS,
         queue_capacity: int = 64,
+        default_deadline_s: Optional[float] = None,
         breaker: Optional[CircuitBreaker] = None,
         clock: Callable[[], float] = time.monotonic,
+        explain_table: Optional[Dict[str, Any]] = None,
     ):
         """`infer_fn` maps float32 images [b, H, W, 3] to
-        {"logits": [b, C], "log_px": [b]} numpy arrays."""
+        {"logits": [b, C], "log_px": [b]} numpy arrays (and, with an
+        `explain_table`, "proto_idx" / "proto_logd" [b, E]).
+        `default_deadline_s` applies to requests submitted without one."""
         if not buckets:
             raise ValueError("need at least one batch-size bucket")
         self.buckets = tuple(sorted(set(int(b) for b in buckets)))
@@ -68,6 +128,7 @@ class ServingEngine:
         self.num_classes = int(num_classes)
         self.spec = ValidationSpec(img_size=self.img_size)
         self.clock = clock
+        self.default_deadline_s = default_deadline_s
         self.gate = TrustGate(
             calibration,
             expected_fingerprint=expected_fingerprint,
@@ -75,20 +136,38 @@ class ServingEngine:
         )
         self.queue = AdmissionQueue(capacity=queue_capacity, clock=clock)
         self.breaker = breaker if breaker is not None else CircuitBreaker(clock=clock)
+        self._explain = _ExplainContext(explain_table) if explain_table is not None else None
         self.warmup_report: List[Dict[str, Any]] = []
+        self.warmed_up = False
+        # readiness veto during a graceful drain or a blue/green flip: the
+        # engine still answers what it holds but takes no new routing
+        self.draining = False
+        self._warmed: set = set()
+        self._cold = 0  # dispatches at an unwarmed bucket since the last check
         self.dispatch_count = 0  # device dispatches that returned results
         self.last_dispatch_error: Optional[str] = None  # traceback text
         self._request_seq = 0
 
+    # ----------------------------------------------------------- constructors
     @classmethod
     def from_live(cls, evaluator, calibration: Optional[Calibration] = None,
-                  **kw) -> "ServingEngine":
+                  explain: bool = False, explain_top: int = DEFAULT_EXPLAIN_TOP,
+                  provenance: Optional[Dict[str, Any]] = None, **kw) -> "ServingEngine":
         """Serve an Evaluator. The expected fingerprint is the served GMM's,
-        so a calibration measured on another mixture degrades the engine."""
+        so a calibration measured on another mixture degrades the engine.
+        `explain=True` serves the explain forward with the top
+        `explain_top` prototypes; `provenance` is a push-provenance dict
+        (engine/push.py `provenance_dict`) for the source patches."""
+        from mgproto_tpu_torch.engine.export import explain_table, make_explain_fn
 
-        def infer(images: np.ndarray) -> Dict[str, np.ndarray]:
-            out = evaluator(images)
-            return {"logits": out.logits.cpu().numpy(), "log_px": out.log_px.cpu().numpy()}
+        if explain:
+            kw["explain_table"] = explain_table(evaluator.gmm, provenance=provenance,
+                                                top_e=explain_top)
+            infer = make_explain_fn(evaluator, explain_top)
+        else:
+            def infer(images: np.ndarray) -> Dict[str, np.ndarray]:
+                out = evaluator(images)
+                return {"logits": out.logits.cpu().numpy(), "log_px": out.log_px.cpu().numpy()}
 
         return cls(
             infer,
@@ -100,6 +179,56 @@ class ServingEngine:
             **kw,
         )
 
+    @classmethod
+    def from_loaded(cls, artifact, allow_uncalibrated: bool = False, explain: bool = False,
+                    source: str = "artifact", **kw) -> "ServingEngine":
+        """Serve a `engine.export.LoadedArtifact`: engines built this way
+        share its model and GMM (replicas hold no copy of the weights). A
+        static-batch artifact serves its one batch size as the only
+        bucket; `explain=True` needs an artifact exported with --explain."""
+        from mgproto_tpu_torch.engine.export import make_explain_fn
+
+        meta = artifact.meta
+        if artifact.calibration is None and not allow_uncalibrated:
+            raise UncalibratedArtifactError(
+                f"{source} carries no calibration.json; re-export with --calibrate, or pass "
+                "--allow-uncalibrated to serve classification WITHOUT OoD abstention "
+                "(degraded mode)")
+        if artifact.static_batch:
+            kw["buckets"] = (int(artifact.static_batch),)
+        infer = artifact.infer
+        if explain:
+            table = artifact.explain_table
+            if table is None:
+                raise ValueError(f"{source} carries no explanation table; re-export with "
+                                 "--explain to serve explanations from this artifact")
+            kw["explain_table"] = table
+            infer = make_explain_fn(artifact.evaluator,
+                                    int(table.get("top_e", DEFAULT_EXPLAIN_TOP)),
+                                    static_batch=artifact.static_batch)
+        policy = meta.get("precision_policy") or {}
+        return cls(
+            infer,
+            img_size=int(meta["img_size"]),
+            num_classes=int(meta["num_classes"]),
+            calibration=artifact.calibration,
+            expected_fingerprint=meta.get("gmm_fingerprint"),
+            expected_compute_dtype=policy.get("compute_dtype") or meta.get("compute_dtype"),
+            **kw,
+        )
+
+    @classmethod
+    def from_artifact(cls, path: str, allow_uncalibrated: bool = False, explain: bool = False,
+                      device=None, **kw) -> "ServingEngine":
+        """Load the artifact at `path` onto `device` (CUDA unless named) and
+        serve it (`from_loaded`)."""
+        from mgproto_tpu_torch.engine.export import load_artifact
+
+        return cls.from_loaded(load_artifact(path, device=device),
+                               allow_uncalibrated=allow_uncalibrated, explain=explain,
+                               source=path, **kw)
+
+    # ----------------------------------------------------------------- warmup
     def warmup(self) -> List[Dict[str, Any]]:
         """Run every bucket shape once ahead of traffic; returns (and keeps)
         [{bucket, seconds}, ...]."""
@@ -111,7 +240,14 @@ class ServingEngine:
             if np.asarray(out["log_px"]).shape != (b,):
                 raise RuntimeError(f"bucket {b}: infer_fn broke its output contract")
             self.warmup_report.append({"bucket": b, "seconds": time.perf_counter() - t0})
+            self._warmed.add(b)
+        self.warmed_up = True
         return self.warmup_report
+
+    def check_cold_dispatches(self) -> int:
+        """Dispatches at a bucket that was not warmed, since the last call."""
+        n, self._cold = self._cold, 0
+        return n
 
     # ------------------------------------------------------------- admission
     def submit(self, payload: Any, request_id: Optional[str] = None,
@@ -121,6 +257,8 @@ class ServingEngine:
         t0 = self.clock()
         seq = self._request_seq
         self._request_seq += 1
+        if deadline_s is None:
+            deadline_s = self.default_deadline_s
         if deadline_s is not None and deadline_s <= 0:
             _m.counter(_m.SHED).inc(reason="deadline")
             return [self._respond(ServeResponse(
@@ -168,7 +306,7 @@ class ServingEngine:
         if not self.breaker.allow():
             return responses + self._reject_batch(batch, REASON_CIRCUIT_OPEN)
         try:
-            logits, log_px = self._dispatch(np.stack([r.payload for r in batch]))
+            logits, log_px, extras = self._dispatch(np.stack([r.payload for r in batch]))
         except Exception:
             # the serving boundary keeps running: the batch is answered
             # typed, the breaker counts it, the traceback is kept
@@ -177,27 +315,55 @@ class ServingEngine:
             _m.counter(_m.DEVICE_ERRORS).inc()
             return responses + self._reject_batch(batch, REASON_DEVICE_ERROR)
         self.breaker.record_success()
-        responses.extend(self._gated_responses(batch, logits, log_px))
+        responses.extend(self._gated_responses(batch, logits, log_px, extras))
+        return responses
+
+    def drain(self, reason: str = REASON_SHUTDOWN) -> List[ServeResponse]:
+        """Answer everything still queued with a typed shed, without a
+        dispatch (a draining engine may be draining because dispatching
+        stopped working); readiness goes false."""
+        self.draining = True
+        responses = []
+        for req in self.queue.drain_all():
+            _m.counter(_m.SHED).inc(reason=reason)
+            responses.append(self._respond(self._shed_response(req, reason)))
+        for req in self.queue.drain_shed():
+            responses.append(self._respond(self._shed_response(req, "deadline")))
         return responses
 
     def serve_all(self, payloads: Sequence[Any], deadline_s: Optional[float] = None,
-                  request_ids: Optional[Sequence[str]] = None) -> List[ServeResponse]:
+                  request_ids: Optional[Sequence[str]] = None,
+                  should_stop: Optional[Callable[[], bool]] = None) -> List[ServeResponse]:
         """Submit everything, drain to completion, return responses in
-        submission order; every id gets exactly one response."""
+        submission order; every id gets exactly one response. `should_stop`
+        (the preemption flag) makes the exit graceful: queued work is shed
+        typed through `drain()` and the payloads not yet submitted are
+        answered with a typed `shutdown` shed."""
         ids = [request_ids[i] if request_ids is not None else f"req{i}"
                for i in range(len(payloads))]
         order = {rid: i for i, rid in enumerate(ids)}
         responses: List[ServeResponse] = []
-        for rid, payload in zip(ids, payloads):
-            responses.extend(self.submit(payload, request_id=rid, deadline_s=deadline_s))
+        unsubmitted: List[str] = []
+        for i, payload in enumerate(payloads):
+            if should_stop is not None and should_stop():
+                unsubmitted = ids[i:]
+                break
+            responses.extend(self.submit(payload, request_id=ids[i], deadline_s=deadline_s))
         # every pop answers or sheds with an answer, so this terminates
         while len(self.queue):
+            if should_stop is not None and should_stop():
+                responses.extend(self.drain())
+                break
             responses.extend(self.process_pending())
+        responses.extend(shed_response(rid, REASON_SHUTDOWN) for rid in unsubmitted)
         return sorted(responses, key=lambda r: order.get(r.request_id, len(order)))
 
     # ------------------------------------------------------------- internals
-    def _dispatch(self, images: np.ndarray) -> Tuple[np.ndarray, np.ndarray]:
-        """Pad to bucket, run the model, slice the padding off."""
+    def _dispatch(self, images: np.ndarray
+                  ) -> Tuple[np.ndarray, np.ndarray, Optional[Tuple[np.ndarray, np.ndarray]]]:
+        """Pad to bucket, run the model, slice the padding off. The third
+        element is None unless explanations are on: then the rows'
+        (proto_idx, proto_logd)."""
         n = images.shape[0]
         bucket = self._bucket_for(n)
         padded = images
@@ -206,10 +372,16 @@ class ServingEngine:
             padded[:n] = images
         _m.gauge(_m.BATCH_FILL).set(n / bucket)
         _m.histogram(_m.BATCH_FILL_HIST).observe(n / bucket)
+        if bucket not in self._warmed:
+            self._cold += 1
         out = self.infer_fn(padded)
         self.dispatch_count += 1
+        extras = None
+        if self._explain is not None:
+            extras = (np.asarray(out["proto_idx"], np.int64)[:n],
+                      np.asarray(out["proto_logd"], np.float64)[:n])
         return (np.asarray(out["logits"], np.float64)[:n],
-                np.asarray(out["log_px"], np.float64)[:n])
+                np.asarray(out["log_px"], np.float64)[:n], extras)
 
     def _bucket_for(self, n: int) -> int:
         for b in self.buckets:
@@ -218,7 +390,7 @@ class ServingEngine:
         return self.buckets[-1]
 
     def _gated_responses(self, batch: List[ServeRequest], logits: np.ndarray,
-                         log_px: np.ndarray) -> List[ServeResponse]:
+                         log_px: np.ndarray, extras=None) -> List[ServeResponse]:
         preds = np.argmax(logits, axis=-1)
         try:
             labels = self.gate.decide(log_px)
@@ -228,10 +400,17 @@ class ServingEngine:
             labels = [TRUST_UNGATED] * len(batch)
             degraded = True
         out = []
-        for req, pred, row, score, label in zip(batch, preds, logits, log_px, labels):
+        for i, (req, pred, row, score, label) in enumerate(
+                zip(batch, preds, logits, log_px, labels)):
+            outcome = OUTCOME_ABSTAIN if label == TRUST_ABSTAIN else OUTCOME_PREDICT
+            explain_rows = None
+            if self._explain is not None and outcome == OUTCOME_PREDICT:
+                # an abstained request has no served decision to explain
+                explain_rows = self._explain.rows(extras[0][i], extras[1][i])
+                _m.counter(_m.EXPLANATIONS).inc()
             out.append(self._respond(ServeResponse(
                 request_id=req.request_id,
-                outcome=OUTCOME_ABSTAIN if label == TRUST_ABSTAIN else OUTCOME_PREDICT,
+                outcome=outcome,
                 prediction=int(pred),
                 log_px=float(score),
                 trust=label,
@@ -239,6 +418,7 @@ class ServingEngine:
                 confidence=self.gate.confidence(row),
                 degraded=degraded or label == TRUST_UNGATED,
                 latency_s=self.clock() - req.enqueued_at,
+                explain=explain_rows,
             )))
         return out
 

@@ -44,10 +44,12 @@ class TrustGate:
             _m.counter(_m.FINGERPRINT_MISMATCHES).inc()
             self.fingerprint_mismatch = True
             calibration = None
+        # `quant_mismatch` says which of the two a precision mismatch was
+        self.quant_mismatch = bool(calibration is not None and calibration.quant_config)
         if calibration is not None and (
             (expected_compute_dtype and calibration.compute_dtype
              and calibration.compute_dtype != expected_compute_dtype)
-            or calibration.quant_config
+            or self.quant_mismatch
         ):
             _m.counter(_m.PRECISION_MISMATCHES).inc()
             self.precision_mismatch = True
@@ -74,6 +76,13 @@ class TrustGate:
         if self._window:
             _m.gauge(_m.ABSTAIN_RATE).set(sum(self._window) / len(self._window))
         return labels
+
+    @property
+    def abstain_rate(self) -> Optional[float]:
+        """The abstain fraction of the trailing decision window."""
+        if not self._window:
+            return None
+        return sum(self._window) / len(self._window)
 
     def trust_score(self, log_px: float) -> Optional[float]:
         if self.calibration is None or not np.isfinite(log_px):

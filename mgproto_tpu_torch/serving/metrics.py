@@ -2,8 +2,11 @@
 
 A trimmed copy of mgproto_tpu/serving/metrics.py on a registry of its own:
 labeled counters, gauges and histograms held in memory, read back with
-`value()` / `count()`. Metrics resolve through the process-current
+`value()` / `count()` and scraped as Prometheus text (`to_prometheus`,
+the frontend's GET /metrics). Metrics resolve through the process-current
 registry; `set_current_registry` swaps it (tests isolate themselves so).
+`register_serving_metrics` pre-creates the serving family with zero-valued
+unlabeled series, so a scrape shows "nothing happened" explicitly.
 """
 
 from __future__ import annotations
@@ -24,11 +27,53 @@ DEGRADED_REQUESTS = "serving_degraded_requests_total"
 DEVICE_ERRORS = "serving_device_errors_total"
 BATCH_FILL = "serving_batch_fill_ratio"
 BATCH_FILL_HIST = "serving_batch_fill_fraction"
+# the network serving plane: batcher, replica supervisor, swap
+DISPATCHES = "serving_batch_dispatch_total"
+QUEUE_DEPTH = "serving_queue_depth"
+REPLICA_RESTARTS = "serving_replica_restarts_total"
+REPLICAS_READY = "serving_replicas_ready"
+REPLICAS_TOTAL = "serving_replicas_total"
+BREAKER_OPEN_FRACTION = "serving_breaker_open_fraction"
+UPTIME_SECONDS = "serving_uptime_seconds"
+SWAPS = "serving_swap_total"
+SWAP_TRANSFERRED = "serving_swap_transferred_total"
+EXPLANATIONS = "serving_explanations_total"
 # the input pipeline (data/loader.py)
 LOADER_RETRIES = "resilience_retries_total"  # label scope="loader"
 LOADER_SENTINEL_ROWS = "loader_sentinel_rows_total"
 LOADER_WORKER_RESTARTS = "loader_worker_restarts_total"
 LOADER_SHM_SLABS = "loader_shm_slabs_in_use"
+
+COUNTER_HELP = {
+    REQUESTS: "requests by outcome (predict/abstain/reject/shed)",
+    SHED: "requests shed, by reason",
+    BREAKER_TRANSITIONS: "circuit breaker state transitions, by edge",
+    FINGERPRINT_MISMATCHES: "calibrations refused: measured under another GMM",
+    PRECISION_MISMATCHES: "calibrations refused: measured under another compute dtype or quant",
+    DEGRADED_REQUESTS: "requests answered WITHOUT OoD gating (degraded mode)",
+    DEVICE_ERRORS: "inference dispatches that raised a device error",
+    DISPATCHES: "micro-batch dispatches by trigger (bucket_full/deadline/linger/drain)",
+    REPLICA_RESTARTS: "replica drain+restart cycles by detected failure (dead/wedged)",
+    SWAPS: "blue/green hot-swap attempts by result (committed/rejected)",
+    SWAP_TRANSFERRED: "queued requests transferred old->new engine during a hot swap",
+    EXPLANATIONS: "predict outcomes answered with a prototype explanation block",
+}
+
+GAUGE_HELP = {
+    ABSTAIN_RATE: "abstain fraction over the trailing decision window",
+    BREAKER_STATE: "circuit breaker state (0=closed, 0.5=half-open, 1=open)",
+    BATCH_FILL: "occupied fraction of the last padded serving batch",
+    QUEUE_DEPTH: "admission queue depth (per replica, and unlabeled total)",
+    REPLICAS_READY: "replicas currently passing the readiness probe",
+    REPLICAS_TOTAL: "replicas the supervisor is responsible for",
+    BREAKER_OPEN_FRACTION: "fraction of replica-seconds spent with the breaker OPEN",
+    UPTIME_SECONDS: "seconds since the replica supervisor started",
+}
+
+HIST_HELP = {
+    REQUEST_SECONDS: "per-request latency (admission to response), by outcome",
+    BATCH_FILL_HIST: "occupied fraction of each padded serving batch (per dispatch)",
+}
 
 FILL_BUCKETS = (0.125, 0.25, 0.375, 0.5, 0.625, 0.75, 0.875, 1.0)
 TIME_BUCKETS = (0.001, 0.0025, 0.005, 0.01, 0.025, 0.05, 0.1, 0.25, 0.5, 1.0, 2.5, 5.0)
@@ -41,6 +86,8 @@ def _key(labels: Dict[str, object]) -> _Labels:
 
 
 class Counter:
+    kind = "counter"
+
     def __init__(self):
         self._v: Dict[_Labels, float] = {}
         self._lock = threading.Lock()
@@ -55,6 +102,8 @@ class Counter:
 
 
 class Gauge:
+    kind = "gauge"
+
     def __init__(self):
         self._v: Dict[_Labels, float] = {}
 
@@ -66,6 +115,8 @@ class Gauge:
 
 
 class Histogram:
+    kind = "histogram"
+
     def __init__(self, buckets: Sequence[float] = TIME_BUCKETS):
         self.buckets = tuple(buckets)
         self._counts: Dict[_Labels, list] = {}
@@ -82,11 +133,53 @@ class Histogram:
     def count(self, **labels) -> int:
         return sum(self._counts.get(_key(labels), ()))
 
+    def _prometheus(self, name: str) -> list:
+        lines = []
+        with self._lock:
+            series = [(k, list(c), self._sum[k]) for k, c in self._counts.items()]
+        for key, counts, total in sorted(series):
+            cum = 0
+            for bound, n in zip([repr(float(b)) for b in self.buckets] + ["+Inf"], counts):
+                cum += n
+                lines.append(f"{name}_bucket{_prom_labels(key, ('le', bound))} {cum}")
+            lines.append(f"{name}_sum{_prom_labels(key)} {_prom_num(total)}")
+            lines.append(f"{name}_count{_prom_labels(key)} {sum(counts)}")
+        return lines
+
+
+def _prom_num(v: float) -> str:
+    f = float(v)
+    return str(int(f)) if f == int(f) and abs(f) < 1e15 else repr(f)
+
+
+def _prom_labels(key: _Labels, extra: Optional[Tuple[str, str]] = None) -> str:
+    items = list(key) + ([extra] if extra is not None else [])
+    if not items:
+        return ""
+    return "{" + ",".join(f'{k}="{v}"' for k, v in items) + "}"
+
 
 class MetricRegistry:
     def __init__(self):
         self._metrics: Dict[str, object] = {}
         self._lock = threading.Lock()
+
+    def to_prometheus(self) -> str:
+        """Prometheus text exposition format (one scrape's worth)."""
+        lines = []
+        with self._lock:
+            metrics = sorted(self._metrics.items())
+        help_of = {**COUNTER_HELP, **GAUGE_HELP, **HIST_HELP}
+        for name, m in metrics:
+            if name in help_of:
+                lines.append(f"# HELP {name} {help_of[name]}")
+            lines.append(f"# TYPE {name} {m.kind}")
+            if isinstance(m, Histogram):
+                lines.extend(m._prometheus(name))
+            else:
+                for key, val in sorted(dict(m._v).items()):
+                    lines.append(f"{name}{_prom_labels(key)} {_prom_num(val)}")
+        return "\n".join(lines) + "\n"
 
     def _get(self, name: str, factory):
         with self._lock:
@@ -131,3 +224,15 @@ def gauge(name: str) -> Gauge:
 def histogram(name: str) -> Histogram:
     buckets = FILL_BUCKETS if name == BATCH_FILL_HIST else TIME_BUCKETS
     return default_registry().histogram(name, buckets)
+
+
+def register_serving_metrics(registry: MetricRegistry) -> None:
+    """Pre-create the serving family in `registry` with explicit zero-valued
+    unlabeled series (JAX's names; the port has no telemetry session, so
+    `cli/serve.py` registers into the process-current registry)."""
+    for name in COUNTER_HELP:
+        registry.counter(name).inc(0.0)
+    for name in GAUGE_HELP:
+        registry.gauge(name).set(0.0)
+    for name in HIST_HELP:
+        registry.histogram(name, FILL_BUCKETS if name == BATCH_FILL_HIST else TIME_BUCKETS)

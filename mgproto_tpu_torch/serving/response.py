@@ -1,10 +1,20 @@
 """The one typed response every serving request is answered with
-(trimmed copy of mgproto_tpu/serving/response.py)."""
+(counterpart of mgproto_tpu/serving/response.py, single tenant, no request
+tracing).
+
+The network plane (batcher, replica supervisor, swap, HTTP frontend) builds
+and accounts typed responses through this module without importing the
+engine, so a frontend can shed typed while the device stack is down.
+
+`record()` is the ONE metrics account of a response leaving the system
+(requests-by-outcome counter, latency histogram, degraded counter), and
+`shed_response()` the plane's recorded typed shed.
+"""
 
 from __future__ import annotations
 
 import dataclasses
-from typing import Optional
+from typing import Any, Dict, Optional
 
 from mgproto_tpu_torch.serving import metrics as _m
 
@@ -13,8 +23,13 @@ OUTCOME_ABSTAIN = "abstain"
 OUTCOME_REJECT = "reject"
 OUTCOME_SHED = "shed"
 
+# reject/shed reasons minted by the plane (validation reasons come from
+# serving/validate.py, admission reasons from serving/admission.py)
 REASON_CIRCUIT_OPEN = "circuit_open"
 REASON_DEVICE_ERROR = "device_error"
+REASON_SHUTDOWN = "shutdown"  # graceful drain: answered typed, never dropped
+REASON_NO_REPLICA = "no_replica"  # every replica dead/unready: typed shed
+REASON_REPLICA_LOST = "replica_lost"  # rerouted off a dead replica, no room
 
 
 @dataclasses.dataclass(frozen=True)
@@ -29,6 +44,15 @@ class ServeResponse:
     degraded: bool = False
     reason: Optional[str] = None  # reject/shed cause
     latency_s: float = 0.0
+    # the top activated prototypes behind a PREDICT outcome (an engine
+    # serving with explanations); None, and absent from to_dict(), elsewhere
+    explain: Optional[Any] = None
+
+    def to_dict(self) -> Dict[str, Any]:
+        d = dataclasses.asdict(self)
+        if d.get("explain") is None:
+            d.pop("explain", None)
+        return d
 
 
 def record(resp: ServeResponse) -> ServeResponse:
@@ -39,3 +63,11 @@ def record(resp: ServeResponse) -> ServeResponse:
         _m.counter(_m.DEGRADED_REQUESTS).inc()
     return resp
 
+
+def shed_response(request_id: str, reason: str, latency_s: float = 0.0,
+                  degraded: bool = False) -> ServeResponse:
+    """A recorded typed shed: the plane's answer when no engine can serve
+    (a dead replica with no survivors, a graceful shutdown, a lost reroute)."""
+    _m.counter(_m.SHED).inc(reason=reason)
+    return record(ServeResponse(request_id=request_id, outcome=OUTCOME_SHED, reason=reason,
+                                degraded=degraded, latency_s=latency_s))

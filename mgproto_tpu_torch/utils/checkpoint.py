@@ -236,6 +236,24 @@ def restore_checkpoint(path: str, target: TrainState) -> TrainState:
     return target
 
 
+def state_digest(state: TrainState) -> str:
+    """sha256 over every tensor of the state (the `state_payload` tree in
+    its order: each tensor's path, shape, dtype and exact bytes) and the two
+    counters; the port's own counterpart of JAX's `pytree_digest`, so the
+    two packages' digests never equal. Two states with one digest serve and
+    step identically."""
+    import hashlib
+
+    payload = state_payload(state)
+    h = hashlib.sha256(f"mgproto_tpu_torch.TrainState step={payload['step']} "
+                       f"joint_updates={payload['joint_updates']}".encode())
+    for path, t in _tensors(payload):
+        arr = t.detach().cpu().contiguous()
+        h.update(f"{path}{tuple(arr.shape)}{_dtype_name(arr)}".encode())
+        h.update(arr.reshape(-1).view(torch.uint8).numpy().tobytes())
+    return h.hexdigest()
+
+
 def load_metadata(path: str) -> Optional[dict]:
     meta = os.path.join(path, META_FILE)
     if not os.path.exists(meta):

@@ -784,3 +784,72 @@ def test_a_pretrained_trunk_loads_on_the_card(tmp_path, monkeypatch):
         assert v.device.type == "cuda"
         if not k.endswith("num_batches_tracked"):
             assert torch.equal(v.cpu(), sd["features." + k]), k
+
+
+@pytest.mark.cuda
+def test_an_artifact_served_on_the_card_matches_the_cpu(tmp_path):
+    """A resnet18-width artifact (engine/export.py) loaded on the card and
+    on the CPU and served with explanations through `ServingEngine`: on
+    the card one score_pool launch and 8 epilogue launches (resnet18's
+    blocks) a dispatch; logits and log p(x) within 1e-4 of the CPU's plain
+    path; the explanations' prototypes equal where the CPU's peaks are
+    1e-4 apart, their log-densities within 1e-4."""
+    _need_cuda()
+    import dataclasses
+
+    import numpy as np
+
+    from mgproto_tpu_torch.config import tiny_test_config
+    from mgproto_tpu_torch.core.mgproto import build_mgproto
+    from mgproto_tpu_torch.engine import export
+    from mgproto_tpu_torch.serving.calibration import gmm_fingerprint
+    from mgproto_tpu_torch.serving.engine import ServingEngine
+
+    cfg = tiny_test_config(arch="resnet18")
+    cfg = cfg.replace(model=dataclasses.replace(cfg.model, fused_scoring=None,
+                                                fused_epilogue=None))
+    model, gmm = build_mgproto(cfg.model, device="cpu", seed=3)
+    path = str(tmp_path / "r18.mgproto")
+    export.save_artifact(path, model, gmm,
+                         export.artifact_meta(cfg, None, gmm_fingerprint(gmm)),
+                         explain=export.explain_table(gmm, top_e=4))
+    x = list(np.random.default_rng(4).normal(size=(6, 32, 32, 3)).astype(np.float32))
+    out = {}
+    for dev in ("cuda", "cpu"):
+        eng = ServingEngine.from_artifact(path, allow_uncalibrated=True, explain=True,
+                                          device=dev, buckets=(8,))
+        eng.warmup()
+        score_pool.launches = fe.fused_bn_epilogue.launches = 0
+        logits, log_px, (idx, logd) = eng._dispatch(np.stack(x))
+        out[dev] = (logits, log_px, idx, logd,
+                    (score_pool.launches, fe.fused_bn_epilogue.launches))
+    assert out["cuda"][4] == (1, 8) and out["cpu"][4] == (0, 0)
+    assert np.abs(out["cuda"][0] - out["cpu"][0]).max() <= ATOL
+    assert np.abs(out["cuda"][1] - out["cpu"][1]).max() <= ATOL
+    assert np.abs(out["cuda"][3] - out["cpu"][3]).max() <= ATOL
+    gaps = np.diff(out["cpu"][3], axis=1)
+    clear = (np.abs(gaps) > ATOL).all(axis=1)
+    assert clear.any() and (out["cuda"][2][clear] == out["cpu"][2][clear]).all()
+
+
+@pytest.mark.cuda
+def test_the_explanation_peak_from_the_kernel_matches_the_dense_plain_peak():
+    """The served explanation's peak is level 0 of the score_pool kernel's
+    values: against the dense plain density's maximum over patches (the
+    JAX package's `patch_log_densities` peak) at the flagship's widths
+    (B = 8, HW = 196, C·K = 2000, d = 64, T = 20), within 1e-4; the top 5
+    over C·K (`ops/pooling.top_t`) picks the same prototypes where the
+    plain peaks are 1e-4 apart."""
+    _need_cuda()
+    from mgproto_tpu_torch.ops.pooling import top_t
+
+    feat, means, sigmas = _score_inputs(8, 196, 200, 10, 64, seed=9)
+    vals, _ = score_pool(feat, means, sigmas, 20)
+    peak = vals[..., 0]
+    dense = _densities(feat, means.reshape(-1, 64), sigmas.reshape(-1, 64)).amax(-1)
+    assert (peak - dense).abs().max().item() <= ATOL
+    kv, ki = top_t(peak, 5)
+    pv, pi = top_t(dense, 5)
+    assert (kv - pv).abs().max().item() <= ATOL
+    clear = (pv[:, :-1] - pv[:, 1:]).abs().gt(ATOL).all(-1)
+    assert clear.any() and torch.equal(ki[clear], pi[clear])

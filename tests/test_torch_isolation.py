@@ -61,7 +61,7 @@ for m in mods:
 spec = importlib.util.spec_from_file_location("chip_smoke", {SMOKE!r})
 importlib.util.module_from_spec(spec)
 spec.loader.exec_module(importlib.util.module_from_spec(spec))
-missing = [m for m in {INPUT_PATH_MODULES + INTERPRET_MODULES + OPTION_MODULES!r}
+missing = [m for m in {INPUT_PATH_MODULES + INTERPRET_MODULES + OPTION_MODULES + SERVE_MODULES!r}
            if m not in mods]
 assert not missing, missing
 print(len(mods))
@@ -90,6 +90,11 @@ INTERPRET_MODULES = (
 OPTION_MODULES = ("mgproto_tpu_torch.perf", "mgproto_tpu_torch.perf.precision",
                   "mgproto_tpu_torch.core.losses", "mgproto_tpu_torch.models.resnet",
                   "mgproto_tpu_torch.utils.checkpoint")
+# the export and serving plane's modules
+SERVE_MODULES = ("mgproto_tpu_torch.engine.export", "mgproto_tpu_torch.serving.batcher",
+                 "mgproto_tpu_torch.serving.health", "mgproto_tpu_torch.serving.replica",
+                 "mgproto_tpu_torch.serving.swap", "mgproto_tpu_torch.serving.frontend",
+                 "mgproto_tpu_torch.cli.export", "mgproto_tpu_torch.cli.serve")
 # what a spawn loader worker unpickles, the CUB part tables and the precision
 # policy (a Config validates its dtype through it): they must import without
 # torch (and without PIL, which only opening an image needs)
@@ -160,3 +165,32 @@ def test_interpret_entry_point_needs_cuda_or_an_explicit_cpu(tmp_path):
         run_interpret(cfg, str(tmp_path), device="cuda")
     with pytest.raises(FileNotFoundError, match="no checkpoint"):
         run_interpret(cfg, str(tmp_path), device="cpu")
+
+
+def test_serving_entry_points_need_cuda_or_an_explicit_cpu(tmp_path):
+    if torch.cuda.is_available():
+        pytest.skip("a CUDA device is present: the default device is valid")
+    from mgproto_tpu_torch.cli import export as cli_export
+    from mgproto_tpu_torch.cli import serve as cli_serve
+    from mgproto_tpu_torch.engine import export
+    from mgproto_tpu_torch.serving.calibration import gmm_fingerprint
+    from mgproto_tpu_torch.serving.engine import ServingEngine
+    from mgproto_tpu_torch.utils.checkpoint import save_checkpoint
+
+    cfg = tiny_test_config().replace(model_dir=str(tmp_path))
+    model, gmm = build_mgproto(cfg.model, device="cpu", seed=0)
+    path = str(tmp_path / "a.mgproto")
+    export.save_artifact(path, model, gmm, export.artifact_meta(cfg, None, gmm_fingerprint(gmm)))
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        export.load_artifact(path)
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        ServingEngine.from_artifact(path, allow_uncalibrated=True)
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        cli_serve.main(["--artifact", path, "--allow-uncalibrated"])
+    assert export.load_artifact(path, device="cpu").evaluator.device.type == "cpu"
+    save_checkpoint(str(tmp_path), Trainer(cfg, 1, device="cpu").init_state(0), "0nopush0.5000")
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        cli_export.main(["--arch", "tiny", "--img_size", "32", "--num_classes", "4",
+                         "--protos_per_class", "3", "--proto_dim", "8", "--aux_emb_sz", "8",
+                         "--mine_level", "4", "--mem_sz", "16", "--no_pretrained",
+                         "--model_dir", str(tmp_path), "--out", str(tmp_path / "o.mgproto")])
