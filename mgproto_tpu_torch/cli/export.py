@@ -12,7 +12,9 @@ the calibration from the --test_dir loader (serving/calibration.py
 the run's push provenance (`push_provenance.json` in --model_dir) when it
 has one. Prints one JSON line: the artifact, its bytes and its provenance.
 `--aot-cache`, `--aot_buckets` and `--quantize int8` are refused
-(cli/common.py `EXPORT_REFUSED`).
+(cli/common.py `EXPORT_REFUSED`), and `config_from_args` refuses the
+training flags of `REFUSED` (`--ckpt_format sharded` among them), both
+before anything loads.
 """
 
 from __future__ import annotations

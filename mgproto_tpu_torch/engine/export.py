@@ -10,6 +10,8 @@ holding
   weights.pt        the model's state_dict and the GMM (means, sigmas,
                     priors, keep): tensors only, read back with
                     `torch.load(..., weights_only=True)`; no pickled code;
+                    stored, not deflated (float weights barely compress,
+                    and inflating them would slow every load and swap);
   meta.json         the JAX `artifact_meta` keys with `format`
                     "mgproto-torch-artifact-v1", the full model config
                     (`model_config`), `gmm_fingerprint` (the port's own,
@@ -130,7 +132,7 @@ def save_artifact(path: str, model: torch.nn.Module, gmm: GMMState, meta: Dict[s
                 "gmm": {k: v.detach().cpu() for k, v in gmm._asdict().items()}}, buf)
     tmp = path + ".tmp"
     with zipfile.ZipFile(tmp, "w", compression=zipfile.ZIP_DEFLATED) as z:
-        z.writestr(_WEIGHTS, buf.getvalue())
+        z.writestr(_WEIGHTS, buf.getvalue(), compress_type=zipfile.ZIP_STORED)
         z.writestr(_META, json.dumps(meta, indent=2, sort_keys=True))
         if calibration is not None:
             z.writestr(_CALIB, _calib_json(calibration))
@@ -147,7 +149,7 @@ def embed_calibration(path: str, calibration: Union[Calibration, Dict]) -> None:
             zipfile.ZipFile(tmp, "w", compression=zipfile.ZIP_DEFLATED) as dst:
         for name in src.namelist():
             if name != _CALIB:
-                dst.writestr(name, src.read(name))
+                dst.writestr(src.getinfo(name), src.read(name))  # keeps its compression
         dst.writestr(_CALIB, _calib_json(calibration))
     os.replace(tmp, path)
 

@@ -34,16 +34,12 @@ TRIGGER_DRAIN = "drain"
 
 @dataclasses.dataclass(frozen=True)
 class BatcherConfig:
-    """Scheduling knobs. `device_busy_s > 0` models the device as occupied
-    for that long after each dispatch on the injectable clock (a load
-    harness's queueing model); 0 leaves pacing to the synchronous dispatch.
-    `flush()` ignores it."""
+    """Scheduling knobs."""
 
     cost_prior_s: float = 0.002  # dispatch-cost estimate before any sample
     cost_ema_alpha: float = 0.2  # weight of the newest measured dispatch
     slack_safety: float = 1.0  # dispatch when slack <= cost * safety
     max_linger_s: float = 0.02  # deadline-less requests wait at most this
-    device_busy_s: float = 0.0  # per-dispatch device occupancy model (off)
 
 
 class MicroBatcher:
@@ -60,7 +56,6 @@ class MicroBatcher:
         self.pre_dispatch = pre_dispatch
         self.dispatch_cost_s = float(self.config.cost_prior_s)
         self.dispatches = 0
-        self._busy_until = 0.0
 
     def dispatch_due(self) -> Optional[str]:
         """The trigger that makes dispatching now right, or None."""
@@ -68,8 +63,6 @@ class MicroBatcher:
         if len(q) == 0:
             return None
         now = self.clock()
-        if now < self._busy_until:
-            return None
         if len(q) >= self.engine.buckets[-1]:
             return TRIGGER_BUCKET_FULL
         oldest = q.peek_oldest()
@@ -113,8 +106,6 @@ class MicroBatcher:
         if dt > 0:  # a virtual clock that did not move keeps the estimate
             a = self.config.cost_ema_alpha
             self.dispatch_cost_s = (1 - a) * self.dispatch_cost_s + a * dt
-        if self.config.device_busy_s > 0:
-            self._busy_until = self.clock() + self.config.device_busy_s
         return responses
 
     def _observe_depth(self) -> None:

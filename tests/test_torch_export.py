@@ -179,6 +179,14 @@ def test_artifact_is_a_plain_zip_with_meta(tmp_path):
         assert set(z.namelist()) == {"weights.pt", "meta.json"}
         meta = json.loads(z.read("meta.json"))
         torch.load(__import__("io").BytesIO(z.read("weights.pt")), weights_only=True)
+        assert z.getinfo("weights.pt").compress_type == zipfile.ZIP_STORED
+    # a recalibration rewrites the zip and keeps each member's compression
+    texport.embed_calibration(path, {"threshold": 1.0})
+    with zipfile.ZipFile(path) as z:
+        assert set(z.namelist()) == {"weights.pt", "meta.json", "calibration.json"}
+        assert z.getinfo("weights.pt").compress_type == zipfile.ZIP_STORED
+        assert z.getinfo("meta.json").compress_type == zipfile.ZIP_DEFLATED
+        assert json.loads(z.read("meta.json")) == meta
     jmeta = jexport.artifact_meta(_jax()[0].cfg, "ckpt/path", True)
     assert set(jmeta) - {"jax_version"} <= set(meta)
     assert meta["format"] == texport.FORMAT == "mgproto-torch-artifact-v1"

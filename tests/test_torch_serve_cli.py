@@ -37,6 +37,7 @@ import numpy as np
 import pytest
 
 from _torch_jax_states import port_state, write_jpeg_tree
+from test_torch_cli import REFUSED_ARGVS
 from mgproto_tpu.cli import serve as jserve
 from mgproto_tpu.config import DataConfig as JaxDataConfig
 from mgproto_tpu.config import tiny_test_config as jax_tiny_config
@@ -269,6 +270,19 @@ def test_unported_serve_and_export_flags_are_refused(main, dest, tmp_path):
     # the JAX mains take the same flag
     jp = {"serve": jserve, "export": __import__("mgproto_tpu.cli.export", fromlist=["x"])}[main]
     assert f"--{dest}".replace("_", "-") in open(jp.__file__).read().replace("_", "-")
+
+
+@pytest.mark.parametrize("main,dest", [(m, d) for m in ("serve", "export")
+                                         for d in sorted(REFUSED_ARGVS)])
+def test_serve_and_export_refuse_the_unported_training_flags(main, dest, tmp_path):
+    """Both mains parse every training flag; each of `REFUSED` is refused
+    before anything loads, never ignored."""
+    argv, item = REFUSED_ARGVS[dest]
+    fn = tserve.main if main == "serve" else texport.main
+    extra = ["--out", str(tmp_path / "o.mgproto")] if main == "export" else []
+    with pytest.raises(tcommon.NotPortedError, match=f"--{dest}=.*ROADMAP {item}"):
+        fn(["--device", "cpu", "--artifact" if main == "serve" else "--model_dir",
+            str(tmp_path / "none")] + extra + argv)
 
 
 BLOCKER = ("import sys, runpy; sys.modules['jax'] = None; sys.modules['mgproto_tpu'] = None; "
