@@ -2,6 +2,7 @@
 """Drive the PyTorch port (mgproto_tpu_torch) on one NVIDIA GPU.
 
     python3 chip_smoke.py        # from the repository root; needs a CUDA GPU and nvcc
+    python3 chip_smoke.py --repeat-serve N   # the kernel and serve phases in N fresh processes
 
 Phases, one JSON line each (`t_s`: seconds since the script started):
   1. env:    torch/CUDA versions and the card (name, power limit); then a
@@ -3576,6 +3577,37 @@ def serve_plane_phase(smi):
     return plane_launches
 
 
+def serve_once() -> None:
+    """The kernel and serve phases alone; prints `RES ok` or `RES <the serve
+    check's failure and its report>`."""
+    kernel_phase()
+    global profile_phase
+    profile_phase = lambda *a, **k: None  # noqa: E731 (the profile is not under test)
+    try:
+        serve_phase()
+        print("RES ok", flush=True)
+    except SmokeFailure as e:
+        print(f"RES {e}", flush=True)
+
+
+def repeat_serve(n: int) -> int:
+    """`python3 chip_smoke.py --repeat-serve N`: the kernel and serve phases
+    in N fresh processes, one line each (`ok`, or the serve check's failure
+    with its report), then the count of failures. For a check that fails
+    in some processes only (ROADMAP §C, item 3)."""
+    fails = 0
+    for i in range(n):
+        t0 = time.perf_counter()
+        r = subprocess.run([sys.executable, os.path.abspath(__file__), "--serve-once"],
+                           cwd=HERE, capture_output=True, text=True, timeout=600)
+        res = [ln[4:] for ln in r.stdout.splitlines() if ln.startswith("RES ")]
+        res = res[-1] if res else f"exit {r.returncode}: {r.stderr[-1500:]}"
+        fails += res != "ok"
+        print(i, round(time.perf_counter() - t0, 1), res, flush=True)
+    print(f"failures {fails} of {n}", flush=True)
+    return 0
+
+
 def main() -> int:
     if not os.path.isdir(os.path.join(HERE, "mgproto_tpu_torch")):
         print("chip_smoke: mgproto_tpu_torch/ not found beside this script", file=sys.stderr)
@@ -3585,11 +3617,17 @@ def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; this script measures the GPU only", file=sys.stderr)
         return 2
+    if sys.argv[1:2] == ["--repeat-serve"]:
+        return repeat_serve(int(sys.argv[2]) if len(sys.argv) > 2 else 30)
     sys.path.insert(0, HERE)
     from mgproto_tpu_torch.numerics import apply_numerics_policy
     from mgproto_tpu_torch.ops import _build
 
     apply_numerics_policy()
+    if sys.argv[1:2] == ["--serve-once"]:
+        _build.build_all()
+        serve_once()
+        return 0
     smi = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
         capture_output=True, text=True, timeout=60,

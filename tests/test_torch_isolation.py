@@ -20,7 +20,6 @@ from mgproto_tpu_torch.numerics import resolve_device
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 PKG = os.path.join(REPO, "mgproto_tpu_torch")
 SMOKE = os.path.join(REPO, "chip_smoke.py")
-SMOKE_REPEAT = os.path.join(REPO, "chip_smoke_repeat.py")
 FORBIDDEN = ("jax", "jaxlib", "flax", "optax", "orbax", "mgproto_tpu", "cv2", "matplotlib")
 
 
@@ -30,7 +29,6 @@ def _sources():
             if f.endswith(".py"):
                 yield os.path.join(root, f)
     yield SMOKE
-    yield SMOKE_REPEAT
 
 
 def test_no_forbidden_imports_in_package_or_chip_smoke():
