@@ -34,8 +34,10 @@ Phases, one JSON line each (`t_s`: seconds since the script started):
              through ServingEngine; every id answered once, bad payloads
              rejected typed, the kernel launch counts per dispatch checked
              (score_pool 1, epilogue 16), and served scores held against the
-             same weights run through the plain path on the CPU; the same
-             comparison with TF32 switched on must exceed the tolerance;
+             same weights run through the plain path on the CPU (where the
+             two disagree, against the float64 forward, and the CPU's
+             departure is reported); the same comparison with TF32 switched
+             on must exceed the tolerance;
   5. train:  the flagship Trainer at batch 80 from a full seeded bank: six
              steps with mining and EM, then a warm step, with the launches,
              the EM fallback and the pinning of untouched classes checked
@@ -800,13 +802,26 @@ def serve_phase():
     gpu_logits = torch.cat([ev(x[i:i + 8]).logits.cpu() for i in range(0, len(x), 8)]).numpy()
     check(np.isfinite(gpu_logits).all() and gpu_logits.shape == (19, m.num_classes), "bad served logits")
     logit_err = float(np.abs(gpu_logits - ref_logits).max())
+    cpu_departure = None
+    if logit_err > SERVE_ATOL:
+        # In some processes the CPU's float32 forward has departed from the
+        # math by 1.17e-3 while the card's had not (ROADMAP §C item 3). The
+        # float64 forward of the same weights decides: the card is held to
+        # it within SERVE_ATOL, and the CPU's departure is reported.
+        exact = float64_logits(cpu_ev, x)
+        card_exact = float(np.abs(gpu_logits - exact).max())
+        if card_exact > SERVE_ATOL:
+            raise SmokeFailure(f"served logits vs CPU plain path: {logit_err} > {SERVE_ATOL}, "
+                               f"vs its float64 forward {card_exact}; "
+                               + serve_mismatch_report(ev, cpu_ev, x, ref_logits, gpu_logits))
+        cpu_departure = {"card_vs_cpu": logit_err, "card_vs_float64": card_exact,
+                         "cpu_vs_float64": float(np.abs(ref_logits - exact).max())}
+        ref_logits, logit_err = exact, card_exact
+        ref_px = np.logaddexp.reduce(exact, axis=-1)
     px_err = float(np.abs(np.array([r.log_px for r in served]) - ref_px).max())
     srt = np.sort(ref_logits, axis=-1)
     clear = (srt[:, -1] - srt[:, -2]) > 2 * SERVE_ATOL
     pred_ok = bool((np.array([r.prediction for r in served]) == ref_logits.argmax(-1))[clear].all())
-    if logit_err > SERVE_ATOL:
-        raise SmokeFailure(f"served logits vs CPU plain path: {logit_err} > {SERVE_ATOL}; "
-                           + serve_mismatch_report(ev, cpu_ev, x, ref_logits, gpu_logits))
     check(px_err <= SERVE_ATOL, f"served log p(x) vs CPU plain path: {px_err} > {SERVE_ATOL}")
     check(pred_ok, "served predictions differ from the CPU plain path")
 
@@ -839,6 +854,7 @@ def serve_phase():
          outcomes={o: sum(r.outcome == o for r in resps) for o in ("predict", "abstain", "reject")},
          serve_all_s=serve_s, warmup=warm, logits_max_abs_err_vs_cpu=logit_err,
          log_px_max_abs_err_vs_cpu=px_err, tolerance=SERVE_ATOL,
+         cpu_reference_departure=cpu_departure,
          tf32_logits_max_abs_err_vs_cpu=tf32_logit_err,
          tf32_log_px_max_abs_err_vs_cpu=tf32_px_err,
          dispatch_latency_host_ms=latency)
@@ -846,17 +862,41 @@ def serve_phase():
     return launches, dispatches
 
 
+def float64_logits(cpu_ev, images):
+    """Level-0 logits of `cpu_ev`'s model and GMM recomputed in float64 on
+    the CPU (a copy of the model; the plain path throughout): the oracle
+    that says which of two float32 forwards departs from the math."""
+    import copy
+
+    import torch
+
+    from mgproto_tpu_torch.core.mgproto import GMMState, head_forward
+
+    model = copy.deepcopy(cpu_ev.model).double()
+    gmm = GMMState(*(t.double() if t.is_floating_point() else t for t in cpu_ev.gmm))
+    with torch.inference_mode():
+        x = torch.from_numpy(images).double().permute(0, 3, 1, 2)
+        proto_map = model.add_on(model.features(x)).permute(0, 2, 3, 1)
+        logits, _, _ = head_forward(proto_map, gmm, None, cpu_ev.cfg.model.mine_T)
+    return logits[..., 0].numpy()
+
+
 def serve_mismatch_report(ev, cpu_ev, x, ref_logits, gpu_logits):
     """Where a served forward departs from the CPU's (a failed serve check
-    only): each batch's error, the card's forward run again, and the worst
-    batch's error after each trunk stage and at the head's inputs."""
+    only): each batch's error, the card's forward run again, the CPU's
+    forward run again, both held to the float64 forward of the worst batch,
+    and the worst batch's error after each trunk stage and at the head's
+    inputs."""
     import numpy as np
     import torch
 
     batches = [(i, min(i + 8, len(x))) for i in range(0, len(x), 8)]
     again = np.concatenate([ev(x[a:b]).logits.cpu().numpy() for a, b in batches])
+    cpu_again = np.concatenate([cpu_ev(x[a:b]).logits.numpy() for a, b in batches])
     err = np.abs(gpu_logits - ref_logits)
     worst = max(range(len(batches)), key=lambda j: err[slice(*batches[j])].max())
+    wa, wb = batches[worst]
+    exact = float64_logits(cpu_ev, x[wa:wb])
     acts = {}
     names = ("features.layer1", "features.layer2", "features.layer3", "features.layer4",
              "add_on")
@@ -877,6 +917,11 @@ def serve_mismatch_report(ev, cpu_ev, x, ref_logits, gpu_logits):
                   "cpu": float(ref_logits[row, col])},
         "card_again_vs_first": float(np.abs(again - gpu_logits).max()),
         "card_again_vs_cpu": float(np.abs(again - ref_logits).max()),
+        "cpu_again_vs_first": float(np.abs(cpu_again - ref_logits).max()),
+        "worst_batch_vs_float64": {
+            "card": float(np.abs(gpu_logits[wa:wb] - exact).max()),
+            "cpu": float(np.abs(ref_logits[wa:wb] - exact).max()),
+            "cpu_again": float(np.abs(cpu_again[wa:wb] - exact).max())},
         "stages_of_worst_batch": {n: float((v[0] - v[1]).abs().max()) for n, v in acts.items()},
         "cudnn": [torch.backends.cudnn.version(), torch.backends.cudnn.allow_tf32,
                   torch.backends.cudnn.benchmark, torch.backends.cudnn.deterministic]})
