@@ -159,13 +159,44 @@ Phases, one JSON line each (`t_s`: seconds since the script started):
              (committed) and one to an uncalibrated copy (refused, the old
              model still answers), then SIGTERM with 16 requests in flight:
              each answered typed, exit 0.
+ 13. elastic: (a) the async bank pipeline at the flagship (batch 80, a full
+             seeded bank, cuDNN deterministic), 8 steps sync and 8 async
+             from one cloned state in f32 and in bf16: the async run bit-
+             equal to a one-step-stale oracle built from the sync trainer's
+             own functions, its first step's scalars equal to the sync
+             first step's, the flushed bank's lengths equal to the sync
+             run's (its cursors are reported: which patches a step enqueues
+             depends on the means it scored), launches per step equal
+             (1 / 16 / 1 / 3);
+             median step s, a 3-step profile of each mode (idle share) and
+             the ms in which bank-stream kernels ran beside main-stream ones
+             (its chrome trace); then phase 11's rollback and preemption
+             drills on the async pipeline, bit-equal to the clean async run;
+             (b) on phase 12's `push` artifact (exported here when phase 12
+             did not run): a ReplicaSet at 1 replica under Autoscaler(1, 3)
+             on its pump, a burst of 96 requests: up to >= 2 and back to 1,
+             every request answered or shed typed, each scale-up's pump
+             turn timed, peak memory; and `cli.serve --listen --autoscale
+             1:3` (started first) under 8 HTTP clients with GET
+             /admin/autoscale before and after; (c) three tenants (the
+             calibration at the 5th, 25th and 50th percentile) on a
+             2-replica fleet, a fourth mounted mid-load, one image scored
+             equal under each, MGPROTO_CHAOS_TENANT_STORM_AT shedding only
+             the storm tenant's tail, MGPROTO_CHAOS_TENANT_BAD_SWAP=1
+             refusing that tenant's swap while the others serve on, 0 cold
+             dispatches, 1 / 16 / 0 / 0 launches a dispatch; (d)
+             MGPROTO_CHAOS_SERVE_REPLICA_KILL_AT and _DEVICE_ERRORS on a
+             2-replica fleet: every request answered typed, the killed
+             replica restarted.
 Then the kernel summary line (times at the train step's shapes, the serve
 path's beside them; `launches` counted on the input phase's epoch,
 `schedule_launches` on the schedule phase's run, `interpret_launches` on
 the interpret phase's run_interpret, `bf16_train_launches` on the options
 phase's bf16 steps, `backbone_launches` on phase 10's six steps of each
 trunk, `drill_launches` on phase 11's in-process drills, `serve_plane_launches`
-on phase 12's in-process plane; the epilogue's
+on phase 12's in-process plane, `async_launches` on phase 13's async
+steps and their flushes, `async_drill_launches` on its async drills,
+`elastic_serve_launches` on its autoscaled and tenant planes; the epilogue's
 bf16 times at B = 80 under "train_bf16"), the card line as
 nvidia-smi prints it, and last `{"ok": true, "device": {...}}`. Any failed
 check exits non-zero before that line is printed.
@@ -311,7 +342,9 @@ def check(cond, msg):
 
 
 def emit(phase, **kw):
-    print(json.dumps({"phase": phase, **kw, "t_s": time.perf_counter() - T_START}), flush=True)
+    # one write a line: phase 11 emits from two threads at once
+    sys.stdout.write(json.dumps({"phase": phase, **kw, "t_s": time.perf_counter() - T_START}) + "\n")
+    sys.stdout.flush()
 
 
 def event_ms(fn, iters=50, warmup=3):
@@ -942,10 +975,11 @@ def family(name):
     return "memcpy" if "memcpy" in name else "other"
 
 
-def device_breakdown(run, reps):
+def device_breakdown(run, reps, trace=None):
     """Device time by kernel family over `reps` calls of `run`, and the
     device's idle share of that window (torch.profiler GPU activity events,
-    overlapping spans merged). None when the profiler saw no device event."""
+    overlapping spans merged). None when the profiler saw no device event.
+    `trace`: a path the profile's chrome trace is written to."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
@@ -957,6 +991,8 @@ def device_breakdown(run, reps):
             run()
         torch.cuda.synchronize()
         wall_us = (time.perf_counter() - t0) * 1e6
+    if trace is not None:
+        prof.export_chrome_trace(trace)
     spans, by_family, other = [], {}, {}
     for e in prof.events():
         # user annotations (e.g. the optimizer's step range) are drawn on the
@@ -2092,7 +2128,9 @@ def schedule_phase(smi):
         # the run resumed from epoch 0's checkpoint, against the uninterrupted one
         resumed_cfg = cfg.replace(model_dir=os.path.join(base, "resumed"))
         t0 = time.perf_counter()
-        resumed, acc_r = run_training(resumed_cfg, resume=epoch0, device="cuda")
+        # without the render: the uninterrupted run's render is checked above,
+        # and drawing the 800 prototypes again changes no state
+        resumed, acc_r = run_training(resumed_cfg, resume=epoch0, device="cuda", render_push=False)
         torch.cuda.synchronize()
         resume_s = time.perf_counter() - t0
         bad = state_mismatches(resumed, state)
@@ -2905,9 +2943,12 @@ def alive(pid):
         return False
 
 
-def cli_train_check(smi, root, base):
+def cli_train_check(smi, root, base, beside=None):
     """11 (a) and (b): the train main on densenet121 from its .pth, then the
-    evaluate main on its prune checkpoint."""
+    evaluate main on its prune checkpoint, with `beside` (a check of its own,
+    here the interpret main's) run in a thread while the evaluate main runs."""
+    import concurrent.futures
+
     from mgproto_tpu_torch.utils import checkpoint as ck
 
     run_dir = os.path.join(base, "densenet121")
@@ -2925,8 +2966,12 @@ def cli_train_check(smi, root, base):
     rendered = len(os.listdir(img_dir)) if os.path.isdir(img_dir) else 0
     check(rendered > 0 and records[-1].get("stage") == "prune", "cli.train: no render or prune")
 
-    rc, eout, eerr, eval_s = run_main("evaluate", cli_flags(root, run_dir, arch="densenet121"),
-                                      timeout=300)
+    with concurrent.futures.ThreadPoolExecutor(1) as pool:
+        side = pool.submit(beside) if beside is not None else None
+        rc, eout, eerr, eval_s = run_main("evaluate", cli_flags(root, run_dir, arch="densenet121"),
+                                          timeout=300)
+        if side is not None:
+            side.result()  # its check's failure raises here
     check(rc == 0, f"cli.evaluate exited {rc}:\n{eerr[-3000:]}")
     res = last_json(eout)
     prune = [c[3] for c in ck.list_checkpoints(run_dir) if c[1] == "prune"][0]
@@ -3064,26 +3109,35 @@ def cli_preempt_check(smi, root, base):
          resume_wall_s=resume_s, stages=stages)
 
 
-def drill_config(root, model_dir):
+def drill_config(root, model_dir, async_bank=False):
     """The in-process drills: resnet18 at the flagship's widths, 2 epochs
-    without a push on `root` (thread workers), seeded random weights."""
+    without a push on `root` (thread workers), seeded random weights;
+    `async_bank` turns the async bank pipeline on."""
     import dataclasses
 
-    from mgproto_tpu_torch.config import ModelConfig, ScheduleConfig
+    from mgproto_tpu_torch.config import EMConfig, ModelConfig, ScheduleConfig
 
     cfg = input_config(root, TRAIN_BATCH, INPUT_WORKERS, model=ModelConfig(arch="resnet18"))
     return cfg.replace(data=dataclasses.replace(cfg.data, worker_backend="thread"),
                        schedule=ScheduleConfig(num_train_epochs=2, mine_start=0,
                                                update_gmm_start=0, push_start=100),
-                       model_dir=model_dir)
+                       em=EMConfig(async_bank=async_bank), model_dir=model_dir)
 
 
-def cli_drill_check(smi, root, base):
+def cli_drill_check(smi, root, base, async_bank=False):
     """11 (e): the preempt and NaN drills through run_training, cuDNN
     deterministic, against the clean run bit for bit; a budget of 0
     rollbacks raises. Every run starts from one checkpoint with a full
     seeded bank, so EM runs in every step. Returns the launch counts of
-    the drills."""
+    the drills.
+
+    `async_bank=True` (phase 13 (a)) runs them on the async bank pipeline,
+    with the preemption at the last step of epoch 0: a preemption flushes
+    the held bank phase before the save (as in the JAX package), so a run
+    resumed mid-epoch scores prototypes one step fresher than the
+    uninterrupted run, while at an epoch's end that flush is the one the
+    clean run makes too. The rollback replays epoch 1 from its start, as in
+    sync mode. The 0-rollback budget run is phase 11's alone."""
     import torch
 
     from mgproto_tpu_torch.cli.train import run_training
@@ -3100,16 +3154,19 @@ def cli_drill_check(smi, root, base):
             os.symlink(os.path.join(root, cls, name), os.path.join(half, cls, name))
     root = half
     steps = INPUT_CLASSES * DRILL_PER_CLASS // TRAIN_BATCH
-    at = steps + 2  # the third step of epoch 1
+    # sync: the third step of epoch 1; async: the preemption at the last
+    # step of epoch 0, the NaN at the third of epoch 1
+    at = steps + 2
+    preempt_at = steps - 1 if async_bank else at
 
-    cfg = drill_config(root, base)
+    cfg = drill_config(root, base, async_bank)
     start = Trainer(cfg, steps_per_epoch=steps, device="cuda").init_state(0)
     start.memory = full_bank(cfg.model, seed=1)
     start_path = ck.save_checkpoint(base, start, "start", metadata={"epoch": -1, "stage": "nopush"})
     del start
 
     def run(name, resume=start_path, **kw):
-        cfg = drill_config(root, os.path.join(base, name))
+        cfg = drill_config(root, os.path.join(base, name), async_bank)
         t0 = time.perf_counter()
         state, acc = run_training(cfg, resume=resume, device="cuda", render_push=False, **kw)
         torch.cuda.synchronize()
@@ -3122,7 +3179,7 @@ def cli_drill_check(smi, root, base):
         reset_launch_counts()
         _, clean, acc, clean_s = run("clean")
         cfg, _, _, pre_s = run("preempt", chaos=chaos.ChaosState(chaos.ChaosPlan(
-            preempt_at_step=at)))
+            preempt_at_step=preempt_at)))
         _, resumed, acc_r, res_s = run("preempt", resume="auto")
         bad = state_mismatches(resumed, clean)
         check(not bad and acc_r == acc, f"preempt drill: the resumed state differs in {bad[:5]}")
@@ -3135,18 +3192,22 @@ def cli_drill_check(smi, root, base):
         check(nan.injections == {"nan_loss": 1} and n_rollbacks == 1,
               f"NaN drill: injections {nan.injections}, rollbacks {n_rollbacks}")
         check(not bad and acc_n == acc, f"NaN drill: the final state differs in {bad[:5]}")
-        try:
-            run("budget", chaos=chaos.ChaosState(chaos.ChaosPlan(nan_at_step=at)),
-                max_bad_steps=1, divergence_check_every=1, max_rollbacks=0)
-            raised = None
-        except DivergenceError as e:
-            raised = e
-        check(raised is not None and raised.epoch == 1, "a budget of 0 rollbacks did not raise")
+        raised = None
+        if not async_bank:
+            try:
+                run("budget", chaos=chaos.ChaosState(chaos.ChaosPlan(nan_at_step=at)),
+                    max_bad_steps=1, divergence_check_every=1, max_rollbacks=0)
+            except DivergenceError as e:
+                raised = e
+            check(raised is not None and raised.epoch == 1,
+                  "a budget of 0 rollbacks did not raise")
         launches = launch_counts()
     finally:
         torch.backends.cudnn.deterministic, torch.backends.cudnn.benchmark = det
-    emit("cli", card=smi, part="drills", arch="resnet18", cudnn_deterministic=True,
-         steps_per_epoch=steps, event_step=at, clean_s=clean_s, preempt_s=pre_s,
+    emit("cli" if not async_bank else "elastic", card=smi,
+         part="drills" if not async_bank else "async_drills", arch="resnet18",
+         cudnn_deterministic=True, async_bank=async_bank, steps_per_epoch=steps,
+         event_step=at, preempt_step=preempt_at, clean_s=clean_s, preempt_s=pre_s,
          resume_s=res_s, nan_s=nan_s, rollbacks=n_rollbacks, bit_equal=True,
          budget_0_raised=str(raised), launches=launches)
     return launches
@@ -3171,8 +3232,8 @@ def cli_phase(smi, interp):
     shutil.rmtree(base, ignore_errors=True)
     t0 = time.perf_counter()
     try:
-        cli_train_check(smi, root, base)
-        cli_interpret_check(smi, interp)
+        # the interpret main runs beside the evaluate main (two light processes)
+        cli_train_check(smi, root, base, beside=lambda: cli_interpret_check(smi, interp))
         cli_preempt_check(smi, root, base)
         launches = cli_drill_check(smi, root, base)
     finally:
@@ -3622,6 +3683,531 @@ def serve_plane_phase(smi):
     return plane_launches
 
 
+# ----------------------------------------------------------- elastic plane
+ASYNC_STEPS = 8  # steps of each mode and dtype in 13 (a)
+ASYNC_PROFILE_STEPS = 3
+ELASTIC_DIR = os.path.join(HERE, "build", "elastic_phase")
+ELASTIC_BURST = 96  # requests submitted at once against one replica (13 b)
+ELASTIC_MAX_REPLICAS = 3
+ELASTIC_HTTP_CLIENTS = 8
+ELASTIC_HTTP_PER_CLIENT = 2
+TENANT_PERCENTILES = (("t5", 5.0), ("t25", 25.0), ("t50", 50.0))
+TENANT_REQUESTS = 96  # requests of the tenant drill (13 c)
+TENANT_MOUNT_AT, TENANT_STORM_AT, TENANT_SWAP_AT = 24, 48, 64
+# each engine's queue (a tenant's share: 32 / 4 = 8) and the storm's bursts:
+# a burst of 32 puts 16 of the storm tenant's requests on one replica
+TENANT_QUEUE, TENANT_BURST = 32, 32
+CHAOS_REQUESTS = 48  # requests of the serve chaos drill (13 d)
+
+
+def stream_overlap_ms(trace_path, bank_kernel="em_estep"):
+    """From a chrome trace: the kernels' ms on the stream that ran
+    `bank_kernel` (the bank stream), on every other stream, and the ms in
+    which both were busy (unions of the kernel spans, intersected)."""
+    with open(trace_path) as f:
+        events = json.load(f)
+    events = events.get("traceEvents", events) if isinstance(events, dict) else events
+    kernels = [e for e in events if e.get("cat") == "kernel" and "dur" in e]
+    bank_streams = {e["args"].get("stream") for e in kernels if bank_kernel in e["name"]}
+
+    def union(spans):
+        out = []
+        for a, b in sorted(spans):
+            if out and a <= out[-1][1]:
+                out[-1][1] = max(out[-1][1], b)
+            else:
+                out.append([a, b])
+        return out
+
+    bank = union((e["ts"], e["ts"] + e["dur"]) for e in kernels
+                 if e["args"].get("stream") in bank_streams)
+    main = union((e["ts"], e["ts"] + e["dur"]) for e in kernels
+                 if e["args"].get("stream") not in bank_streams)
+    both, i, j = 0.0, 0, 0
+    while i < len(bank) and j < len(main):
+        lo, hi = max(bank[i][0], main[j][0]), min(bank[i][1], main[j][1])
+        both += max(hi - lo, 0.0)
+        if bank[i][1] < main[j][1]:
+            i += 1
+        else:
+            j += 1
+    return {"bank_stream_ms": sum(b - a for a, b in bank) / 1e3,
+            "main_streams_ms": sum(b - a for a, b in main) / 1e3,
+            "overlap_ms": both / 1e3, "bank_streams": sorted(bank_streams, key=str)}
+
+
+def async_bank_check(smi):
+    """13 (a): the flagship at batch 80 from one cloned state with a full
+    seeded bank, ASYNC_STEPS steps sync and async, in f32 and bf16, cuDNN
+    deterministic. Checks: the async run bit-equal to the one-step-stale
+    oracle, its first step's scalars equal the sync first step's, after the
+    flush the bank's lengths equal the sync run's, launches per step (steps
+    2+) equal the sync step's. Reports each mode's median step
+    s (steps 2+), a profile of ASYNC_PROFILE_STEPS steps (idle share) and,
+    from its trace, the ms in which bank-stream kernels ran beside
+    main-stream ones. Returns the async runs' launch counts and steps."""
+    import copy
+    import dataclasses
+
+    import numpy as np
+    import torch
+
+    from mgproto_tpu_torch.config import Config, DataConfig
+    from mgproto_tpu_torch.engine.train import Trainer
+
+    # the oracle the CPU and card tests hold the pipeline to
+    sys.path.insert(0, os.path.join(HERE, "tests"))
+    from _torch_async_oracle import one_step_stale_oracle
+
+    base = Config(data=DataConfig(device_augment=False))
+    m = base.model
+    rng = np.random.default_rng(13)
+    batches = [(rng.normal(size=(TRAIN_BATCH, m.img_size, m.img_size, 3)).astype(np.float32),
+                rng.integers(0, m.num_classes, size=TRAIN_BATCH)) for _ in range(ASYNC_STEPS)]
+    want = {"score_pool": 1, "bn_epilogue": 16, "score_pool_bwd": 1,
+            "em_estep": base.em.num_em_loop}
+    os.makedirs(ELASTIC_DIR, exist_ok=True)
+    async_launches = dict.fromkeys(want, 0)
+    async_steps = 0
+    det = (torch.backends.cudnn.deterministic, torch.backends.cudnn.benchmark)
+    torch.backends.cudnn.deterministic, torch.backends.cudnn.benchmark = True, False
+    try:
+        for dtype in ("float32", "bfloat16"):
+            t_dtype = time.perf_counter()
+            cfg = base.replace(model=dataclasses.replace(m, compute_dtype=dtype))
+            trainers = {mode: Trainer(cfg.replace(em=dataclasses.replace(
+                cfg.em, async_bank=mode == "async")), steps_per_epoch=100, device="cuda")
+                for mode in ("sync", "async")}
+            check(trainers["async"].async_bank and not trainers["sync"].async_bank,
+                  "the async_bank field did not resolve as set")
+            src = trainers["sync"].init_state(seed=0)
+            src.memory = full_bank(m, seed=1)
+            runs = {}
+            for mode, tr in trainers.items():
+                st = copy.deepcopy(src)  # the modes' configs differ in async_bank only
+                torch.cuda.synchronize()
+                reset_launch_counts()
+                step_s, losses, per_step, mets = [], [], [], []
+                for images, labels in batches:
+                    before = launch_counts()
+                    t0 = time.perf_counter()
+                    st, met = tr.train_step(st, images, labels, use_mine=True, update_gmm=True)
+                    torch.cuda.synchronize()
+                    step_s.append(time.perf_counter() - t0)
+                    per_step.append({k: v - before[k] for k, v in launch_counts().items()})
+                    losses.append(met.loss.clone())
+                    mets.append(met)
+                    check(not met.nonfinite and bool(torch.isfinite(met.loss)),
+                          f"{dtype} {mode} step: loss {met.loss.item()}")
+                if mode == "async":
+                    async_steps += ASYNC_STEPS
+                    for k, v in launch_counts().items():
+                        async_launches[k] += v
+                before = launch_counts()
+                st, flushed = tr.flush_bank(st)
+                torch.cuda.synchronize()
+                flush_launches = {k: v - before[k] for k, v in launch_counts().items()}
+                if mode == "async":  # the flushed bank phase is the last step's
+                    for k, v in flush_launches.items():
+                        async_launches[k] += v
+                check((flushed is None) == (mode == "sync"), f"{mode}: flush returned {flushed}")
+                runs[mode] = dict(state=st, step_s=step_s, losses=losses, per_step=per_step,
+                                  mets=mets, flush_launches=flush_launches)
+            sync, asy = runs["sync"], runs["async"]
+            # the first async step is the first sync step's trunk, no bank yet
+            m0s, m0a = sync["mets"][0], asy["mets"][0]
+            for k in ("loss", "cross_entropy", "mine", "aux", "accuracy"):
+                check(torch.equal(getattr(m0a, k), getattr(m0s, k)),
+                      f"{dtype}: the first async step's {k} differs from the sync step's")
+            check((m0a.em_active, m0a.em_compact_fallback) == (0, 0),
+                  f"{dtype}: the fill step reports a bank {m0a.em_active}")
+            # every queue stays full in both modes; the cursors may differ:
+            # a step enqueues its K top-1 patches per sample deduplicated,
+            # and which patches those are depends on the means the trunk
+            # scored, one bank phase apart (the oracle check below holds the
+            # async run's bank bit for bit)
+            check(torch.equal(asy["state"].memory.length, sync["state"].memory.length),
+                  f"{dtype}: the flushed bank's lengths differ from the sync run's")
+            cursor_diff = int((asy["state"].memory.cursor
+                               != sync["state"].memory.cursor).sum())
+            for i in range(1, ASYNC_STEPS):
+                check(asy["per_step"][i] == sync["per_step"][i] == want,
+                      f"{dtype} step {i}: launches async {asy['per_step'][i]}, "
+                      f"sync {sync['per_step'][i]}, expected {want}")
+            check(asy["flush_launches"]["em_estep"] == want["em_estep"],
+                  f"{dtype}: the flush launched {asy['flush_launches']}")
+            # the oracle: the sync trainer's functions on the async schedule
+            ost, olosses = one_step_stale_oracle(trainers["sync"], copy.deepcopy(src), batches)
+            torch.cuda.synchronize()
+            bad = state_mismatches(asy["state"], ost)
+            check(not bad and all(torch.equal(a, b) for a, b in zip(asy["losses"], olosses)),
+                  f"{dtype}: the async run differs from the one-step-stale oracle in {bad[:6]}")
+            del ost
+            profiles = {}
+            for mode, tr in trainers.items():
+                st, it = runs[mode]["state"], iter(batches * 2)
+                cell = {"state": st}
+
+                def step(tr=tr, it=it, cell=cell):
+                    cell["state"], _ = tr.train_step(cell["state"], *next(it), use_mine=True,
+                                                     update_gmm=True)
+
+                trace = os.path.join(ELASTIC_DIR, f"trace_{dtype}_{mode}.json")
+                rec = device_breakdown(step, ASYNC_PROFILE_STEPS, trace=trace)
+                tr.flush_bank(cell["state"])
+                if rec is None:
+                    profiles[mode] = "not measured (no device events)"
+                    continue
+                profiles[mode] = {"device_idle_share": rec["device_idle_share"],
+                                  "device_busy_ms_per_step": rec["device_busy_ms_per_call"],
+                                  "wall_ms_per_step": rec["wall_ms_per_call"],
+                                  "device_ms_per_step": rec["device_ms_per_call"]}
+                if mode == "async":
+                    streams = stream_overlap_ms(trace)
+                    profiles[mode].update(
+                        {f"{k}_per_step": v / ASYNC_PROFILE_STEPS for k, v in streams.items()
+                         if k.endswith("_ms")}, bank_streams=streams["bank_streams"])
+            emit("elastic", card=smi, part="async_bank", dtype=dtype, steps=ASYNC_STEPS,
+                 cudnn_deterministic=True,
+                 median_step_s={k: float(np.median(r["step_s"][1:])) for k, r in runs.items()},
+                 step_s={k: r["step_s"] for k, r in runs.items()},
+                 losses={k: [float(x) for x in r["losses"]] for k, r in runs.items()},
+                 launches_per_step={k: r["per_step"][1] for k, r in runs.items()},
+                 flush_launches=asy["flush_launches"], bit_equal_to_oracle=True,
+                 first_step_equal=True, flushed_lengths_equal=True,
+                 classes_cursor_differs_from_sync=cursor_diff, profile=profiles,
+                 seconds=time.perf_counter() - t_dtype)
+            del runs, trainers, src
+    finally:
+        torch.backends.cudnn.deterministic, torch.backends.cudnn.benchmark = det
+    return async_launches, async_steps
+
+
+def elastic_images(n):
+    """`n` test-transformed images of the input phase's folder (written when
+    this phase runs alone), as f32 [n, 224, 224, 3]."""
+    import numpy as np
+
+    from mgproto_tpu_torch.data.folder import ImageFolder
+    from mgproto_tpu_torch.data.transforms import test_transform
+
+    root = os.path.join(HERE, "build", "input_phase", "train")
+    if not os.path.isdir(root):
+        write_jpeg_tree(root, INPUT_CLASSES, INPUT_PER_CLASS, INPUT_HW)
+    ds = ImageFolder(root, test_transform(224))
+    pick = np.random.default_rng(21).choice(len(ds), n, replace=False)
+    return root, np.stack([ds.load(int(i))[0] for i in pick]).astype(np.float32)
+
+
+def elastic_artifact(root):
+    """Phase 12's `push` artifact, exported here when that phase did not run."""
+    path = os.path.join(SERVE_PLANE_DIR, "push.mgproto")
+    if not os.path.exists(path):
+        from mgproto_tpu_torch.cli import export as cli_export
+
+        _, push_ckpt = serve_plane_checkpoints()
+        cli_export.main(cli_flags(root, os.path.dirname(push_ckpt), no_pretrained=True,
+                                  checkpoint=push_ckpt, out=path, calibrate=True))
+    return path
+
+
+def autoscale_check(smi, loaded, imgs):
+    """13 (b), in process: a ReplicaSet of the artifact starting at one
+    replica, Autoscaler(1, ELASTIC_MAX_REPLICAS) ticking on the pump. A
+    burst of ELASTIC_BURST requests at once must scale up to >= 2, a calm
+    window back to 1, and every request get a prediction or a typed shed.
+    Returns the launch counts and dispatches of the run."""
+    import gc
+
+    import torch
+
+    from mgproto_tpu_torch.serving.autoscale import Autoscaler, AutoscalerConfig
+    from mgproto_tpu_torch.serving.batcher import BatcherConfig
+    from mgproto_tpu_torch.serving.engine import ServingEngine
+    from mgproto_tpu_torch.serving.replica import ReplicaSet
+
+    gc.collect()
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    base_gb = torch.cuda.memory_allocated() / 1e9
+    rs = ReplicaSet(lambda: ServingEngine.from_loaded(loaded), replicas=1,
+                    batcher_config=BatcherConfig(max_linger_s=0.005))
+    rs.start()
+    scaler = Autoscaler(rs, AutoscalerConfig(
+        min_replicas=1, max_replicas=ELASTIC_MAX_REPLICAS, interval_s=0.05,
+        up_cooldown_s=0.1, down_patience=3, down_cooldown_s=0.2))
+    reset_launch_counts()
+    out, ready_s, t0 = [], [], time.perf_counter()
+    ids = [f"b{i}" for i in range(ELASTIC_BURST)]
+    for i, rid in enumerate(ids):
+        out.extend(rs.submit(imgs[i % len(imgs)], request_id=rid))
+    peak_replicas = 1
+    while len({r.request_id for r in out}) < len(ids) or len(rs.replicas) > 1:
+        pending = [r for r in rs.replicas if r.engine is None]
+        t_poll = time.perf_counter()
+        out.extend(rs.poll())
+        ready_s += [time.perf_counter() - t_poll for r in pending if r.engine is not None]
+        d = scaler.tick()
+        if d is not None:
+            out.extend(d.responses)
+        peak_replicas = max(peak_replicas, len(rs.replicas))
+        check(time.perf_counter() - t0 < 120, f"the autoscale drill did not settle: {scaler.status()}")
+    torch.cuda.synchronize()
+    launches = launch_counts()
+    dispatches = sum(r.engine.dispatch_count for r in rs.replicas if r.engine is not None)
+    answered = sorted(r.request_id for r in out)
+    outcomes = {o: sum(r.outcome == o for r in out) for o in ("predict", "abstain", "shed")}
+    ups = [d for d in scaler.decisions if d.direction == "up"]
+    downs = [d for d in scaler.decisions if d.direction == "down"]
+    check(answered == sorted(ids), "the autoscale drill dropped or repeated a request")
+    check(all(r.outcome in ("predict", "abstain") or (r.outcome == "shed" and r.reason)
+              for r in out), "an untyped answer in the autoscale drill")
+    check(ups and peak_replicas >= 2 and downs and len(rs.replicas) == 1,
+          f"autoscale: peak {peak_replicas} replicas, {len(ups)} up, {len(downs)} down")
+    check(rs.steady_recompiles == 0, f"autoscale: {rs.steady_recompiles} cold dispatches")
+    emit("elastic", card=smi, part="autoscale", burst=ELASTIC_BURST, outcomes=outcomes,
+         peak_replicas=peak_replicas, replica_ready_s=ready_s,
+         decisions=[d.to_dict() for d in scaler.decisions], status=scaler.status(),
+         launches=launches, dispatches=dispatches, seconds=time.perf_counter() - t0,
+         memory={"loaded_gb": base_gb, "peak_gb": torch.cuda.max_memory_allocated() / 1e9})
+    return launches, dispatches
+
+
+def tenants_check(smi, loaded, imgs):
+    """13 (c): three tenants (the artifact's calibration at the 5th, 25th
+    and 50th percentile) on one 2-replica fleet; a fourth mounted mid-load;
+    MGPROTO_CHAOS_TENANT_STORM_AT sends the rest of the load to one tenant
+    (which sheds its own tail only); MGPROTO_CHAOS_TENANT_BAD_SWAP=1 strips
+    that tenant's next head swap, which is refused while the others serve
+    on. Checks 0 cold dispatches, 1 / 16 / 0 / 0 launches a dispatch, and
+    one image's scores equal under every tenant. Returns the launches and
+    dispatches."""
+    from mgproto_tpu_torch.resilience import chaos
+    from mgproto_tpu_torch.serving.batcher import BatcherConfig
+    from mgproto_tpu_torch.serving.engine import ServingEngine
+    from mgproto_tpu_torch.serving.replica import ReplicaSet
+    from mgproto_tpu_torch.serving.tenants import TenantDirectory
+
+    cal, fp = loaded.calibration, loaded.meta.get("gmm_fingerprint")
+    d = TenantDirectory()
+    for name, pct in TENANT_PERCENTILES:
+        d.mount(name, cal, percentile=pct, expected_fingerprint=fp)
+    rs = ReplicaSet(lambda: ServingEngine.from_loaded(loaded, tenants=d,
+                                                      queue_capacity=TENANT_QUEUE),
+                    replicas=2, batcher_config=BatcherConfig(max_linger_s=0.005))
+    rs.start()
+    prev = chaos.set_active(chaos.ChaosState(chaos.plan_from_env({
+        "MGPROTO_CHAOS_TENANT_STORM_AT": str(TENANT_STORM_AT),
+        "MGPROTO_CHAOS_TENANT_BAD_SWAP": "1"})))
+    t0 = time.perf_counter()
+    names = [n for n, _ in TENANT_PERCENTILES]
+    out, mount, swaps = [], None, []
+    try:
+        reset_launch_counts()
+        calm = 0  # requests not sent to the storm tenant, which rotate over the tenants
+        for i in range(TENANT_REQUESTS):
+            # from the storm on, three requests in four go to one tenant
+            storm = chaos.get_active().tenant_storm_due(i)
+            if storm and i % 4 != 3:
+                tenant = "t25"
+            else:
+                tenant, calm = names[calm % len(names)], calm + 1
+            out.extend(rs.submit(imgs[0] if i < 4 else imgs[i % len(imgs)],
+                                 request_id=f"t{i}", tenant=tenant))
+            if i == 3:
+                # one image under three tenants, in buckets of 2 on both replicas
+                out.extend(rs.flush())
+            if i == TENANT_MOUNT_AT:
+                mount = d.mount("t4", cal, expected_fingerprint=fp).to_dict()
+                names.append("t4")
+            if i == TENANT_SWAP_AT:
+                swaps = [d.swap("t25", cal, expected_fingerprint=fp, percentile=25.0).to_dict()
+                         for _ in range(2)]
+            if i > 3 and not storm:
+                out.extend(rs.poll())
+            elif storm and i % TENANT_BURST == TENANT_BURST - 1:  # the storm comes in bursts
+                out.extend(rs.flush())
+        out.extend(rs.flush())
+        launches = launch_counts()
+        injections = dict(chaos.get_active().injections)
+    finally:
+        chaos.set_active(prev)
+    dispatches = sum(r.engine.dispatch_count for r in rs.replicas)
+    check(sorted(r.request_id for r in out) == sorted(f"t{i}" for i in range(TENANT_REQUESTS)),
+          "the tenant drill dropped or repeated a request")
+    sheds = {(r.tenant, r.reason) for r in out if r.outcome == "shed"}
+    check(sheds and {t for t, _ in sheds} == {"t25"}, f"tenant sheds {sheds}")
+    check([s["reason"] for s in swaps] == ["uncalibrated", "committed"], f"tenant swaps {swaps}")
+    check(rs.steady_recompiles == 0, f"tenants: {rs.steady_recompiles} cold dispatches")
+    check(launches["score_pool"] == dispatches and launches["bn_epilogue"] == 16 * dispatches
+          and launches["score_pool_bwd"] == 0 and launches["em_estep"] == 0,
+          f"tenant launches {launches} over {dispatches} dispatches")
+    first = [r for r in out if r.request_id in ("t0", "t1", "t2", "t3")]
+    check(len({(r.log_px, r.prediction, r.confidence) for r in first}) == 1
+          and len({r.tenant for r in first}) == 3,
+          f"one image scored differently across tenants: {[r.to_dict() for r in first]}")
+    labels = {}
+    for r in out:
+        if r.outcome in ("predict", "abstain"):
+            labels.setdefault(r.tenant, {}).setdefault(r.outcome, 0)
+            labels[r.tenant][r.outcome] += 1
+    after_swap = [r for r in out if r.tenant != "t25" and r.outcome in ("predict", "abstain")
+                  and int(r.request_id[1:]) > TENANT_SWAP_AT]
+    check(after_swap, "no other tenant served after the refused swap")
+    emit("elastic", card=smi, part="tenants", requests=TENANT_REQUESTS, mount=mount,
+         swaps=swaps, sheds=sorted(map(list, sheds)), outcomes_by_tenant=labels,
+         thresholds={n: d.gate_for(n).threshold for n in names}, launches=launches,
+         dispatches=dispatches, steady_state_recompiles=rs.steady_recompiles,
+         injections=injections, tenant_scores_equal=True,
+         served_after_the_refused_swap=len(after_swap),
+         seconds=time.perf_counter() - t0)
+    return launches, dispatches
+
+
+def serve_chaos_check(smi, loaded, imgs):
+    """13 (d): MGPROTO_CHAOS_SERVE_REPLICA_KILL_AT and _DEVICE_ERRORS on a
+    2-replica fleet of the artifact: every request answered typed, the
+    killed replica detected by its stale heartbeat and restarted."""
+    from mgproto_tpu_torch.resilience import chaos
+    from mgproto_tpu_torch.serving.batcher import BatcherConfig
+    from mgproto_tpu_torch.serving.engine import ServingEngine
+    from mgproto_tpu_torch.serving.replica import ReplicaSet
+
+    rs = ReplicaSet(lambda: ServingEngine.from_loaded(loaded), replicas=2,
+                    heartbeat_timeout_s=0.2, restart_base_delay_s=0.05,
+                    batcher_config=BatcherConfig(max_linger_s=0.005))
+    rs.start()
+    prev = chaos.set_active(chaos.ChaosState(chaos.plan_from_env({
+        "MGPROTO_CHAOS_SERVE_REPLICA_KILL_AT": "10",
+        "MGPROTO_CHAOS_SERVE_DEVICE_ERRORS": "3,4"})))
+    t0 = time.perf_counter()
+    out = []
+    try:
+        for i in range(CHAOS_REQUESTS):
+            out.extend(rs.submit(imgs[i % len(imgs)], request_id=f"c{i}"))
+            out.extend(rs.poll())
+        # until every request is answered and the killed replica is back
+        while (len({r.request_id for r in out}) < CHAOS_REQUESTS
+               or not all(r.responsive() for r in rs.replicas)):
+            out.extend(rs.poll())
+            check(time.perf_counter() - t0 < 60, "the serve chaos drill did not settle")
+        restarted_s = time.perf_counter() - t0
+        out.extend(rs.flush())
+        injections = dict(chaos.get_active().injections)
+    finally:
+        chaos.set_active(prev)
+    from mgproto_tpu_torch.serving import metrics as _m
+
+    check(sorted(r.request_id for r in out) == sorted(f"c{i}" for i in range(CHAOS_REQUESTS)),
+          "the serve chaos drill dropped or repeated a request")
+    check(all(r.outcome in ("predict", "abstain") or r.reason for r in out),
+          "an untyped answer in the serve chaos drill")
+    restarts = _m.counter(_m.REPLICA_RESTARTS).value(reason="dead")
+    check(injections.get("serve_replica_kill") == 1 and injections.get("serve_device_error") == 2
+          and restarts >= 1 and sum(r.restarts for r in rs.replicas) >= 1,
+          f"serve chaos: injections {injections}, restarts {restarts}")
+    emit("elastic", card=smi, part="serve_chaos", requests=CHAOS_REQUESTS,
+         outcomes={f"{o} {r}": sum(1 for x in out if (x.outcome, x.reason) == (o, r))
+                   for o, r in sorted({(x.outcome, x.reason) for x in out}, key=str)},
+         injections=injections, replica_restarts=restarts, settled_s=restarted_s,
+         replicas=[{"name": r.name, "state": r.state, "restarts": r.restarts}
+                   for r in rs.replicas], seconds=time.perf_counter() - t0)
+
+
+def autoscale_http_check(smi, listen, port, bodies):
+    """13 (b), the network face: `cli.serve --listen --autoscale 1:3` under
+    ELASTIC_HTTP_CLIENTS clients; reports GET /admin/autoscale before and
+    after the load, then drains it with SIGTERM."""
+    import signal
+    import threading
+
+    banner = json.loads(listen.stdout.readline() or "{}")
+    check(banner.get("listening") and banner.get("autoscale") == f"1:{ELASTIC_MAX_REPLICAS}",
+          f"cli.serve --autoscale did not come up: {banner}")
+    s0, b0, _ = http_call(port, "GET", "/admin/autoscale")
+    statuses, lat = [], []
+
+    def client(k):
+        for j in range(ELASTIC_HTTP_PER_CLIENT):
+            s, _, sec = http_call(port, "POST", "/v1/predict",
+                                  bodies[(k * ELASTIC_HTTP_PER_CLIENT + j) % len(bodies)])
+            statuses.append(s)
+            lat.append(sec)
+
+    t0 = time.perf_counter()
+    threads = [threading.Thread(target=client, args=(k,)) for k in range(ELASTIC_HTTP_CLIENTS)]
+    for t in threads:
+        t.start()
+    for t in threads:
+        t.join(300)
+    load_s = time.perf_counter() - t0
+    s1, b1, _ = http_call(port, "GET", "/admin/autoscale")
+    listen.send_signal(signal.SIGTERM)
+    out, _ = listen.communicate(timeout=120)
+    n = ELASTIC_HTTP_CLIENTS * ELASTIC_HTTP_PER_CLIENT
+    with open(os.path.join(ELASTIC_DIR, "listen.err")) as f:
+        err = f.read()
+    check(s0 == s1 == 200 and listen.returncode == 0 and statuses == [200] * n,
+          f"the autoscaled network face: {s0} {s1} exit {listen.returncode} "
+          f"statuses {sorted(set(statuses))}: {err[-2000:]}")
+    summary = json.loads(out.strip().splitlines()[-1])
+    emit("elastic", card=smi, part="autoscale_http", clients=ELASTIC_HTTP_CLIENTS, requests=n,
+         load_s=load_s, requests_per_s=n / load_s, p50_ms=sorted(lat)[n // 2] * 1e3,
+         status_before=json.loads(b0), status_after=json.loads(b1),
+         summary_outcomes=summary.get("outcomes"),
+         steady_state_recompiles=summary.get("steady_state_recompiles"))
+
+
+def elastic_phase(smi):
+    """Phase 13; returns ({part: launch counts}, async steps, serve-plane
+    dispatches)."""
+    import atexit
+    import gc
+    import shutil
+
+    import torch
+
+    from mgproto_tpu_torch.engine import export
+
+    t_phase = time.perf_counter()
+    shutil.rmtree(ELASTIC_DIR, ignore_errors=True)
+    os.makedirs(ELASTIC_DIR)
+    root, imgs = elastic_images(32)
+    art = elastic_artifact(root)
+    # the network face starts first: it loads and warms while the rest runs
+    port = free_port()
+    listen_log = open(os.path.join(ELASTIC_DIR, "listen.err"), "w")
+    listen = start_main("serve", ["--artifact", art, "--listen", f"127.0.0.1:{port}",
+                                  "--replicas", "1", "--autoscale", f"1:{ELASTIC_MAX_REPLICAS}",
+                                  "--autoscale_interval_s", "0.1"],
+                        stdout=subprocess.PIPE, stderr=listen_log)
+    atexit.register(lambda: listen.poll() is None and listen.kill())
+    bodies = [b'{"id": "a%d", "image": ' % i + json.dumps(imgs[i].tolist()).encode() + b"}"
+              for i in range(ELASTIC_HTTP_CLIENTS)]
+    split_s = {}
+    async_launches, async_steps = async_bank_check(smi)
+    split_s["async_bank"] = time.perf_counter() - t_phase
+    gc.collect()
+    torch.cuda.empty_cache()
+    base = os.path.join(ELASTIC_DIR, "drills")
+    drill_launches = cli_drill_check(smi, os.path.join(HERE, "build", "input_phase", "train"),
+                                     base, async_bank=True)
+    shutil.rmtree(base, ignore_errors=True)
+    split_s["async_drills"] = time.perf_counter() - t_phase
+    loaded = export.load_artifact(art, device="cuda")
+    serve_launches, serve_dispatches = autoscale_check(smi, loaded, imgs)
+    tenant_launches, tenant_dispatches = tenants_check(smi, loaded, imgs)
+    serve_chaos_check(smi, loaded, imgs)
+    split_s["in_process_plane"] = time.perf_counter() - t_phase
+    autoscale_http_check(smi, listen, port, bodies)
+    split_s["network_face"] = time.perf_counter() - t_phase
+    emit("elastic", card=smi, part="done", split_s=split_s,
+         seconds=time.perf_counter() - t_phase)
+    launches = {"async": async_launches, "async_drills": drill_launches,
+                "autoscale": serve_launches, "tenants": tenant_launches}
+    return launches, async_steps, serve_dispatches + tenant_dispatches
+
+
 def serve_once() -> None:
     """The kernel and serve phases alone; prints `RES ok` or `RES <the serve
     check's failure and its report>`."""
@@ -3638,18 +4224,29 @@ def serve_once() -> None:
 def repeat_serve(n: int) -> int:
     """`python3 chip_smoke.py --repeat-serve N`: the kernel and serve phases
     in N fresh processes, one line each (`ok`, or the serve check's failure
-    with its report), then the count of failures. For a check that fails
-    in some processes only (ROADMAP §C, item 3)."""
-    fails = 0
+    with its report, and the serve line's `cpu_reference_departure`), then
+    the count of failures and of departures with the largest card vs
+    float64 error among them. For a check that fails in some processes
+    only (ROADMAP §C, item 3)."""
+    fails, departures = 0, []
     for i in range(n):
         t0 = time.perf_counter()
         r = subprocess.run([sys.executable, os.path.abspath(__file__), "--serve-once"],
                            cwd=HERE, capture_output=True, text=True, timeout=600)
         res = [ln[4:] for ln in r.stdout.splitlines() if ln.startswith("RES ")]
         res = res[-1] if res else f"exit {r.returncode}: {r.stderr[-1500:]}"
+        serve = [json.loads(ln) for ln in r.stdout.splitlines()
+                 if ln.startswith('{"phase": "serve"')]
+        dep = serve[-1].get("cpu_reference_departure") if serve else None
         fails += res != "ok"
-        print(i, round(time.perf_counter() - t0, 1), res, flush=True)
+        if dep is not None:
+            departures.append(dep)
+        print(i, round(time.perf_counter() - t0, 1), res,
+              json.dumps({"logits_vs_cpu": serve[-1]["logits_max_abs_err_vs_cpu"] if serve
+                          else None, "cpu_reference_departure": dep}), flush=True)
     print(f"failures {fails} of {n}", flush=True)
+    print(f"departures {len(departures)} of {n}; card vs float64 at most "
+          f"{max((d['card_vs_float64'] for d in departures), default=None)}", flush=True)
     return 0
 
 
@@ -3697,6 +4294,7 @@ def main() -> int:
     backbone_launches, _ = backbone_phase(smi)
     drill_launches = cli_phase(smi, interp)
     serve_plane_launches = serve_plane_phase(smi)
+    elastic_launches, async_steps, elastic_dispatches = elastic_phase(smi)
     for k in kernels:
         # `launches`: the loader-fed epoch of the input phase (this path's
         # main run); the train phase's and the serve phase's beside them
@@ -3729,11 +4327,23 @@ def main() -> int:
         k["serve_plane_launches"] = serve_plane_launches[k["name"]]
         check((k["serve_plane_launches"] > 0) == (k["name"] in ("score_pool", "bn_epilogue")),
               f"{k['name']}: {k['serve_plane_launches']} launches on the serve plane")
+        # phase 13: the async bank steps (f32 and bf16, their flushes
+        # included), the async drills, and the autoscaled and tenant planes
+        k["async_launches"] = elastic_launches["async"][k["name"]]
+        k["launches_per_async_step"] = k["async_launches"] / async_steps
+        k["async_drill_launches"] = elastic_launches["async_drills"][k["name"]]
+        check(k["async_launches"] > 0 and k["async_drill_launches"] > 0,
+              f"{k['name']} was not launched on the async bank path")
+        k["elastic_serve_launches"] = (elastic_launches["autoscale"][k["name"]]
+                                       + elastic_launches["tenants"][k["name"]])
+        check((k["elastic_serve_launches"] > 0) == (k["name"] in ("score_pool", "bn_epilogue")),
+              f"{k['name']}: {k['elastic_serve_launches']} launches on the elastic plane")
         if k["name"] == "bn_epilogue":
             k["train_bf16"] = dict(epi_bf16, launches=bf16_launches["bn_epilogue"])
     print(json.dumps({"kernels": kernels, "input_steps": input_steps, "train_steps": train_steps,
                       "serve_dispatches": dispatches, "bf16_train_steps": bf16_steps,
-                      "backbone_steps": TRAIN_STEPS}),
+                      "backbone_steps": TRAIN_STEPS, "async_steps": async_steps,
+                      "elastic_dispatches": elastic_dispatches}),
           flush=True)
     print(smi, flush=True)
     print(json.dumps({"ok": True, "device": {

@@ -47,7 +47,6 @@ REFUSED = (
     ("straggler_threshold", 0.25, "A8 (multi-GPU: straggler detection)"),
     ("straggler_patience", 5, "A8 (multi-GPU: straggler detection)"),
     ("ckpt_format", ("auto", "replicated"), "A8 (multi-GPU: sharded checkpoints)"),
-    ("async_bank", (None, False), "A6 item 5 (the async bank pipeline)"),
     ("auto_tune", False, "A9 (perf/planner.py)"),
     ("profile_dir", "", "A9 (obs and telemetry)"),
     ("profile_steps", "", "A9 (obs and telemetry)"),
@@ -62,8 +61,6 @@ REFUSED = (
 # before anything loads)
 SERVE_REFUSED = (
     ("aot_cache", "", "A7 (the AOT executable cache)"),
-    ("autoscale", "", "A7 (the autoscaler)"),
-    ("autoscale_interval_s", 0.25, "A7 (the autoscaler)"),
     ("trace_requests", False, "A9 (obs: request tracing)"),
     ("profile_warmup", "", "A9 (obs: the warmup profile)"),
     ("online", False, "A9 (online learning)"),
@@ -165,9 +162,11 @@ def add_train_args(p: argparse.ArgumentParser) -> None:
     p.add_argument("--no_fused_estep", dest="fused_estep", action="store_false",
                    help="force the plain E-step")
     p.add_argument("--async_bank", action="store_true", default=None,
-                   help="not ported (ROADMAP A6 item 5): refused")
+                   help="the async bank pipeline: batch N's enqueue and EM run on a "
+                        "second CUDA stream beside batch N+1's trunk, which scores "
+                        "one-step-stale prototypes (default: off)")
     p.add_argument("--no_async_bank", dest="async_bank", action="store_false",
-                   help="the synchronous step (what the port runs)")
+                   help="force the synchronous step")
     p.add_argument("--auto_tune", action="store_true", help="not ported (A9): refused")
     p.add_argument("--seed", type=int, default=0)
     p.add_argument("--device", default="cuda",
@@ -268,6 +267,7 @@ def config_from_args(args: argparse.Namespace) -> Config:
             reference_stepping=args.em_reference_stepping,
             max_active_classes=args.em_max_active,
             fused_estep=args.fused_estep,
+            async_bank=args.async_bank,
         ),
         optim=OptimConfig(),
         schedule=ScheduleConfig(

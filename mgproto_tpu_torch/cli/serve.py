@@ -12,7 +12,11 @@ Two faces over the `serving` package:
     serving; the report prints as its own JSON line).
   * NETWORK (`--listen HOST:PORT`): the asyncio HTTP frontend
     (serving/frontend.py) over `--replicas N` supervised engines:
-    POST /v1/predict, /healthz, /readyz, /metrics, POST /admin/swap.
+    POST /v1/predict, /healthz, /readyz, /metrics, POST /admin/swap,
+    GET /admin/autoscale. `--autoscale MIN:MAX` lets the autoscaler
+    (serving/autoscale.py) grow and shrink the fleet on the frontend's
+    pump every `--autoscale_interval_s`; `--replicas` is then the starting
+    size, clamped into the bounds.
 
 Both drain gracefully: SIGTERM/SIGINT (resilience/preemption.py
 `install_handlers`) stops admission, and every queued or in-flight request
@@ -37,9 +41,14 @@ counts dispatches after warmup at a bucket that was not warmed (first-launch
 work on a request's path), which must be 0. The checkpoint face adds
 `state_digest` (utils/checkpoint.py), the identity of the state it serves.
 
+The serving chaos drills read the environment (resilience/chaos.py
+`plan_from_env`, installed before anything is served): the
+MGPROTO_CHAOS_SERVE_* and MGPROTO_CHAOS_TENANT_{STORM_AT, BAD_SWAP} knobs,
+seeded by MGPROTO_CHAOS_SEED.
+
 Refused (cli/common.py `SERVE_REFUSED`, with their ROADMAP items):
-`--aot-cache`, `--autoscale`, `--autoscale_interval_s`, `--trace_requests`,
-`--profile_warmup` and `--online*`; the training flags of `REFUSED` too.
+`--aot-cache`, `--trace_requests`, `--profile_warmup` and `--online*`; the
+training flags of `REFUSED` too.
 """
 
 from __future__ import annotations
@@ -174,7 +183,7 @@ def make_engine_factory(args) -> Callable:
 
 def _swap_factory(args, path: str) -> Callable:
     """An engine factory for a swap target artifact with the fleet's serve
-    knobs. It loads the artifact at its first call, so an unreadable one
+    knobs, `--percentile` among them. It loads the artifact at its first call, so an unreadable one
     is a typed `stage_failed` refusal, and shares it across the standbys."""
     from mgproto_tpu_torch.engine.export import load_artifact
     from mgproto_tpu_torch.serving.engine import ServingEngine
@@ -183,7 +192,10 @@ def _swap_factory(args, path: str) -> Callable:
 
     def factory():
         if not loaded:
-            loaded.append(load_artifact(path, device=args.device))
+            art = load_artifact(path, device=args.device)
+            # the fleet's operating point holds across a swap, as at start
+            loaded.append(art._replace(
+                calibration=_with_percentile(art.calibration, args.percentile)))
         # a swap target must match the fleet's response contract: an
         # --explain fleet takes only artifacts with an explanation table
         return ServingEngine.from_loaded(loaded[0], allow_uncalibrated=args.allow_uncalibrated,
@@ -300,6 +312,20 @@ def _main_batch_plane(args, handler) -> None:
                **factory.program})
 
 
+def _parse_autoscale(raw: str):
+    """'MIN:MAX' -> (min, max), or None when unset."""
+    if not raw:
+        return None
+    mn, _, mx = raw.partition(":")
+    try:
+        bounds = (int(mn), int(mx))
+    except ValueError:
+        raise SystemExit(f"--autoscale must be MIN:MAX, got {raw!r}") from None
+    if bounds[0] < 1 or bounds[1] < bounds[0]:
+        raise SystemExit(f"--autoscale needs 1 <= MIN <= MAX, got {raw!r}")
+    return bounds
+
+
 def _main_listen(args, handler) -> None:
     import asyncio
 
@@ -308,17 +334,30 @@ def _main_listen(args, handler) -> None:
     host, _, port = args.listen.rpartition(":")
     if not host or not port:
         raise SystemExit(f"--listen must be HOST:PORT, got {args.listen!r}")
+    bounds = _parse_autoscale(args.autoscale)
+    if bounds is not None:
+        # --replicas is the starting size, clamped into the bounds
+        args.replicas = min(max(args.replicas, bounds[0]), bounds[1])
     factory = make_engine_factory(args)
     rs = _build_plane(args, factory)
     compiled = rs.start()
+    autoscaler = None
+    if bounds is not None:
+        from mgproto_tpu_torch.serving.autoscale import Autoscaler, AutoscalerConfig
+
+        autoscaler = Autoscaler(rs, AutoscalerConfig(min_replicas=bounds[0],
+                                                     max_replicas=bounds[1],
+                                                     interval_s=args.autoscale_interval_s))
     frontend = Frontend(rs, host=host, port=int(port), preemption_handler=handler,
                         swap_factory_builder=lambda path: _swap_factory(args, path),
-                        require_calibrated_swap=not args.allow_uncalibrated)
+                        require_calibrated_swap=not args.allow_uncalibrated,
+                        autoscaler=autoscaler)
 
     async def _run():
         await frontend.start()
         print(json.dumps({"listening": True, "host": host, "port": frontend.port,
-                          "replicas": args.replicas, "buckets": _parse_buckets(args.buckets),
+                          "replicas": args.replicas, "autoscale": args.autoscale or None,
+                          "buckets": _parse_buckets(args.buckets),
                           "warmup_compiles": compiled, **factory.program}), flush=True)
         await frontend.run_until_drained()
 
@@ -389,9 +428,11 @@ def main(argv: Optional[list] = None) -> None:
                         "depth is the export's --explain_top)")
     p.add_argument("--aot-cache", "--aot_cache", dest="aot_cache", default="",
                    help="not ported (A7): refused")
-    p.add_argument("--autoscale", default="", help="not ported (A7): refused")
+    p.add_argument("--autoscale", default="",
+                   help="network face: MIN:MAX replicas the autoscaler keeps the fleet "
+                        "within (--replicas is the starting size)")
     p.add_argument("--autoscale_interval_s", type=float, default=0.25,
-                   help="not ported (A7): the default only")
+                   help="the autoscaler's decision cadence")
     p.add_argument("--trace_requests", action="store_true", help="not ported (A9): refused")
     p.add_argument("--profile_warmup", default="", help="not ported (A9): refused")
     p.add_argument("--online", action="store_true", help="not ported (A9): refused")
@@ -405,7 +446,12 @@ def main(argv: Optional[list] = None) -> None:
     check_ported(args)
     check_ported(args, SERVE_REFUSED)
 
+    from mgproto_tpu_torch.resilience import chaos as chaos_mod
     from mgproto_tpu_torch.resilience.preemption import get_handler, install_handlers
+
+    chaos_plan = chaos_mod.plan_from_env()
+    prev_chaos = chaos_mod.set_active(
+        chaos_mod.ChaosState(chaos_plan) if chaos_plan is not None else None)
 
     # graceful drain (both faces): the first SIGTERM/SIGINT sets the flag,
     # the drivers answer or shed everything typed and return
@@ -422,6 +468,7 @@ def main(argv: Optional[list] = None) -> None:
             _main_batch_engine(args, handler)
     finally:
         uninstall()
+        chaos_mod.set_active(prev_chaos)
 
 
 if __name__ == "__main__":

@@ -160,7 +160,8 @@ def run_training(
         for loader in (train_loader, push_loader, test_loader, *ood_loaders):
             stack.callback(loader.close)
         trainer = Trainer(cfg, len(train_loader), device=device)
-        log(f"device: {trainer.device}  steps/epoch: {trainer.steps_per_epoch}")
+        log(f"device: {trainer.device}  steps/epoch: {trainer.steps_per_epoch}  "
+            f"async_bank: {trainer.async_bank}")
         # a restore target reads no pretrained trunk
         state = trainer.init_state(cfg.seed, for_restore=bool(resume_path))
         start_epoch, skip, flags = 0, 0, None
@@ -180,7 +181,9 @@ def run_training(
         run_meta = {"compute_dtype": cfg.model.compute_dtype, "arch": cfg.model.arch,
                     "aux_loss": cfg.loss.aux_loss,
                     "em_reference_stepping": cfg.em.reference_stepping,
-                    "precision_policy": policy_meta(trainer.precision)}
+                    "precision_policy": policy_meta(trainer.precision),
+                    # the async bank pipeline, resolved (one-step-stale EM when on)
+                    "async_bank": trainer.async_bank}
         img_dir = os.path.join(cfg.model_dir, "img") if render_push else None
         accu = 0.0
         rollbacks = 0
@@ -205,6 +208,7 @@ def run_training(
                     raise RuntimeError(f"{e}; no checkpoint to roll back to: adjust the config "
                                        "(lower lr, check the data) and restart") from e
                 log(f"{e}; rolling back to {last_good} ({rollbacks}/{max_rollbacks})")
+                trainer.reset_bank_pipeline()  # the held bank phase belongs to the lost state
                 state, epoch, skip, flags = _restore(state, last_good, log)
                 continue
             if guard.preempted:
@@ -303,8 +307,9 @@ CHAOS_ENV_HELP = """\
 chaos drills (environment; all off by default):
   MGPROTO_CHAOS_NAN_AT_STEP     NaN inputs at this global step
   MGPROTO_CHAOS_PREEMPT_AT_STEP a simulated SIGTERM at this global step
-the JAX package's other MGPROTO_CHAOS_* knobs, MGPROTO_CHAOS_SEED among
-them, are refused (not ported)
+the serving knobs (MGPROTO_CHAOS_SEED, MGPROTO_CHAOS_SERVE_*,
+MGPROTO_CHAOS_TENANT_STORM_AT and _BAD_SWAP) are read by cli.serve; the
+JAX package's other MGPROTO_CHAOS_* knobs are refused (not ported)
 """
 
 

@@ -77,6 +77,12 @@ class EMConfig:
     # E-step through the em_estep kernel (ops/em_kernels.py). None = the
     # kernel on CUDA, the plain version on the CPU.
     fused_estep: Optional[bool] = None
+    # the async bank pipeline (engine/train.py): batch N's bank phase
+    # (enqueue + EM) runs after batch N+1's trunk is dispatched, on a second
+    # CUDA stream, so the trunk scores one-step-stale prototypes. None =
+    # auto, which is off here (the JAX rule turns it on for a TPU only);
+    # True/False force it on every device.
+    async_bank: Optional[bool] = None
 
 
 @dataclasses.dataclass(frozen=True)

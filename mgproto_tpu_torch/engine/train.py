@@ -18,6 +18,24 @@ parameters, the optimizer state, the BatchNorm running statistics (restored
 from a snapshot taken before the forward), the bank and the GMM unchanged;
 `step` counts attempts either way. The state is updated in place.
 
+The async bank pipeline (`EMConfig.async_bank`, the JAX `_async_train_step`):
+batch N's trunk (forward, losses, backward, optimizer) scores a copy of the
+means taken after the newest completed bank phase (one step stale), then
+batch N-1's held bank phase (`bank_update`, the one bank function of both
+modes) is dispatched, on CUDA on a second stream, and batch N's enqueue
+candidates are held for the next step. The trunk's optimizer gate reads its
+own finiteness flag, after the bank's dispatch, so the bank stream runs
+while the trunk's backward does. The bank stream waits on an event recorded
+right after the copy, so the in-place EM writes of the means never race
+the trunk's reads; every tensor the bank reads is marked used by its stream
+(`record_stream`), so the caching allocator does not hand a freed block to
+the main stream while the bank still reads it; and the main stream waits
+for the bank's completion event before the step returns, so the metrics,
+the next copy and everything after the epoch read a finished bank.
+`train_epoch` resets the pipeline at its start and flushes it at its end
+and on a preemption; a `DivergenceError` leaves held work that the next
+reset discards.
+
 Batch intake (the JAX `put_batch`): uint8 images stay uint8 on the wire.
 On CUDA a host batch is staged in pinned memory and copied on a dedicated
 copy stream; the step's stream waits on the copy's event and marks the
@@ -102,6 +120,20 @@ class StepRecord(NamedTuple):
     copy_ms: Optional[float]  # `DeviceBatch.copy_ms`; None on the CPU
 
 
+class _TrunkOut(NamedTuple):
+    """What a trunk pass leaves for the bank phase and the optimizer gate."""
+
+    loss: torch.Tensor
+    enq: tuple  # the enqueue candidates (feats, classes, valid)
+    ce: torch.Tensor
+    mine: torch.Tensor
+    aux: torch.Tensor
+    acc: torch.Tensor
+    finite: torch.Tensor  # device bool: loss and every gradient finite
+    stats: list  # BatchNorm running statistics, updated by the forward
+    snapshot: Optional[torch.Tensor]  # their values before the forward
+
+
 def split_batch(batch):
     """A `DataLoader` batch, (images, labels), (images, labels, ids) or
     (images, labels, ids, seeds) -> (images, labels, seeds or None)."""
@@ -131,6 +163,14 @@ class Trainer:
         self.step_log: List[StepRecord] = []  # the last train_epoch's steps
         self._copy_stream = (torch.cuda.Stream(self.device) if self.device.type == "cuda"
                              else None)
+        # `EMConfig.async_bank` None (auto) is off: the JAX rule turns it on
+        # for a TPU only, and on CUDA a measurement has not decided it yet
+        self.async_bank = bool(cfg.em.async_bank)
+        self._bank_stream = (torch.cuda.Stream(self.device)
+                             if self.async_bank and self.device.type == "cuda" else None)
+        self._held = None  # the held bank phase: (enq, step0, update_gmm, finite)
+        self._snap_ready: Optional[torch.cuda.Event] = None  # main stream, after the copy
+        self._bank_done: Optional[torch.cuda.Event] = None  # bank stream, after its phase
 
     def init_state(self, seed: int = 0, for_restore: bool = False) -> TrainState:
         """A fresh state from `seed`; `for_restore=True` builds a restore
@@ -184,10 +224,11 @@ class Trainer:
         return batch
 
     def _loss(self, state: TrainState, images: torch.Tensor, labels: torch.Tensor,
-              use_mine: float):
-        """The JAX `_loss_fn`: (loss, (enq, ce, mine, aux, accuracy))."""
+              use_mine: float, gmm):
+        """The JAX `_loss_fn` against `gmm`: (loss, (enq, ce, mine, aux,
+        accuracy))."""
         proto_map, embed = state.model(images)
-        gmm = state.gmm._replace(means=state.gmm.means.detach())
+        gmm = gmm._replace(means=gmm.means.detach())
         logits, _, enq = head_forward(
             proto_map, gmm, labels, self.cfg.model.mine_T, fused=self.fused,
         )
@@ -227,6 +268,25 @@ class Trainer:
         if self.device_augment:
             with torch.no_grad():  # inputs, not parameters
                 images = augment_tail(images, batch.draws)
+        if self.async_bank:
+            return self._async_train_step(state, images, labels, use_mine, update_gmm, warm)
+        trunk = self._trunk_step(state, images, labels, use_mine, state.gmm)
+        step0 = state.step
+        state.step += 1  # counts attempts
+        state.gmm, state.memory, bank, ok = bank_update(
+            state.gmm, state.memory, state.mean_opt, self.em_cfg,
+            *trunk.enq, step0, update_gmm, trunk.finite,
+        )
+        self.last_bank = bank
+        self._apply_trunk(state, trunk, ok, warm)
+        mem = state.memory
+        return state, self._metrics(trunk, (mem.length == mem.capacity).float().mean(), bank,
+                                    ok)
+
+    def _trunk_step(self, state: TrainState, images: torch.Tensor, labels: torch.Tensor,
+                    use_mine: bool, gmm) -> _TrunkOut:
+        """Forward in train mode against `gmm`, losses, backward and the
+        finiteness flag (the JAX `_trunk_step` up to its optimizer gate)."""
         model = state.model.train()
         params = self.params(state)
         for p in params:
@@ -237,18 +297,15 @@ class Trainer:
         # BatchNorm, e.g. VGG without _bn)
         snapshot = torch.cat([t.reshape(-1) for t in stats]) if stats else None
 
-        loss, (enq, ce, mine, aux, acc) = self._loss(state, images, labels, use_mine)
+        loss, (enq, ce, mine, aux, acc) = self._loss(state, images, labels, use_mine, gmm)
         loss.backward()
         grad_sums = torch.stack([p.grad.sum() for p in params if p.grad is not None])
         finite = torch.isfinite(loss) & torch.isfinite(grad_sums).all()
+        return _TrunkOut(loss, enq, ce, mine, aux, acc, finite, stats, snapshot)
 
-        step0 = state.step
-        state.step += 1  # counts attempts
-        state.gmm, state.memory, bank, ok = bank_update(
-            state.gmm, state.memory, state.mean_opt, self.em_cfg,
-            *enq, step0, update_gmm, finite,
-        )
-        self.last_bank = bank
+    def _apply_trunk(self, state: TrainState, trunk: _TrunkOut, ok: bool, warm: bool) -> None:
+        """The optimizer step when `ok`, else the BatchNorm statistics put
+        back from the snapshot taken before the forward."""
         if ok:
             if warm:
                 state.warm_opt.step()
@@ -256,18 +313,110 @@ class Trainer:
                 set_joint_lrs(self.cfg, state, self.steps_per_epoch)
                 state.opt.step()
                 state.joint_updates += 1
-        elif stats:
+        elif trunk.stats:
             with torch.no_grad():
-                for t, old in zip(stats, snapshot.split([t.numel() for t in stats])):
+                for t, old in zip(trunk.stats,
+                                  trunk.snapshot.split([t.numel() for t in trunk.stats])):
                     t.copy_(old.view_as(t))
-        mem = state.memory
-        return state, TrainMetrics(
-            loss=loss.detach(), cross_entropy=ce.detach(), mine=mine.detach(),
-            aux=aux.detach(), accuracy=acc,
-            full_mem_ratio=(mem.length == mem.capacity).float().mean(),
+
+    @staticmethod
+    def _metrics(trunk: _TrunkOut, full_mem_ratio: torch.Tensor, bank: BankAux,
+                 ok: bool) -> TrainMetrics:
+        return TrainMetrics(
+            loss=trunk.loss.detach(), cross_entropy=trunk.ce.detach(), mine=trunk.mine.detach(),
+            aux=trunk.aux.detach(), accuracy=trunk.acc, full_mem_ratio=full_mem_ratio,
             em_active=bank.num_active, em_compact_fallback=bank.compact_fallback,
             nonfinite=not ok,
         )
+
+    # ------------------------------------------------- async bank pipeline
+    def _async_train_step(self, state: TrainState, images, labels, use_mine: bool,
+                          update_gmm: bool, warm: bool):
+        """One pipelined step: batch N's trunk against a copy of the means
+        after the newest completed bank phase, then batch N-1's held bank
+        phase, then batch N's candidates held. Metrics mix batch N's trunk
+        scalars with batch N-1's bank scalars (zeros on the fill step)."""
+        gmm = state.gmm._replace(means=state.gmm.means.detach().clone())
+        if self._bank_stream is not None:
+            self._snap_ready = torch.cuda.Event()
+            self._snap_ready.record()
+        trunk = self._trunk_step(state, images, labels, use_mine, gmm)
+        step0 = state.step
+        state.step += 1  # counts attempts
+        flushed = self._dispatch_pending_bank(state)
+        self._held = (trunk.enq, step0, update_gmm, trunk.finite)
+        # the trunk's own gate: on CUDA this waits for batch N's backward on
+        # the main stream only, while the bank stream works
+        ok = bool(trunk.finite)
+        self._apply_trunk(state, trunk, ok, warm)
+        self._join_bank()
+        if flushed is None:
+            bank, fm = BankAux(0, 0, None), torch.zeros((), device=self.device)
+        else:
+            bank, fm = flushed
+        self.last_bank = bank
+        return state, self._metrics(trunk, fm, bank, ok)
+
+    def _dispatch_pending_bank(self, state: TrainState):
+        """Dispatch the held bank phase against `state` (in place): returns
+        (BankAux, full_mem_ratio) or None when nothing is held. On CUDA it
+        runs on the bank stream after the copy of the means; the kernels
+        take the current stream, so the E-step lands there too."""
+        held, self._held = self._held, None
+        if held is None:
+            return None
+        (feats, classes, valid), step0, update_gmm, finite = held
+
+        def bank():
+            state.gmm, state.memory, aux, _ = bank_update(
+                state.gmm, state.memory, state.mean_opt, self.em_cfg,
+                feats, classes, valid, step0, update_gmm, finite,
+            )
+            mem = state.memory
+            return aux, (mem.length == mem.capacity).float().mean()
+
+        stream = self._bank_stream
+        if stream is None:
+            return bank()
+        stream.wait_event(self._snap_ready)
+        for t in (feats, classes, valid, finite, *state.gmm, *state.memory):
+            t.record_stream(stream)
+        with torch.cuda.stream(stream):
+            out = bank()
+            self._bank_done = torch.cuda.Event()
+            self._bank_done.record(stream)
+        return out
+
+    def _join_bank(self) -> None:
+        """Make the current stream wait for the last dispatched bank phase."""
+        if self._bank_done is not None:
+            torch.cuda.current_stream(self.device).wait_event(self._bank_done)
+            self._bank_done = None
+
+    def flush_bank(self, state: TrainState):
+        """Drain the pipeline: dispatch the held bank phase (the last
+        batch's enqueue and EM) and wait for it. Returns (state, (BankAux,
+        full_mem_ratio) or None). Runs before anything reads the bank as
+        current: `train_epoch` calls it at its end and on a preemption. A
+        no-op in sync mode or when nothing is held."""
+        if self._held is None:
+            return state, None
+        if self._bank_stream is not None:
+            self._snap_ready = torch.cuda.Event()
+            self._snap_ready.record()
+        out = self._dispatch_pending_bank(state)
+        self._join_bank()
+        return state, out
+
+    def reset_bank_pipeline(self) -> None:
+        """Discard the held bank phase (at epoch start: after a divergence
+        rollback the held candidates belong to a state that is gone). The
+        current stream waits for the bank stream, so a restore after this
+        never races a bank phase still running."""
+        self._held = None
+        if self._bank_stream is not None:
+            torch.cuda.current_stream(self.device).wait_stream(self._bank_stream)
+        self._bank_done = None
 
     def eval_step(self, state: TrainState, images, labels=None) -> EvalOutput:
         """The eval forward of `state` on one host batch of normalized f32
@@ -298,7 +447,8 @@ class Trainer:
         placed by `put_batch` through `device_prefetch` with
         `DataConfig.prefetch_depth` batches in flight. Returns (state, the
         last step's metrics), except `em_active` and `full_mem_ratio`,
-        which are epoch maxima, and `em_compact_fallback`, the epoch sum.
+        which are epoch maxima, and `em_compact_fallback`, the epoch sum
+        (in async mode the flushed bank phase's scalars fold into them).
         Each step's loader wait and interval land in `self.step_log`.
 
         `flags`: the epoch's gates (`epoch_flags`); None computes them from
@@ -308,6 +458,7 @@ class Trainer:
         each step's metrics: it may stop the epoch after the step in flight
         (a preemption), or raise `DivergenceError`. On a stop, the batches
         already prefetched are dropped once their copies are done."""
+        self.reset_bank_pipeline()
         flags = self.epoch_flags(state, epoch) if flags is None else flags
         last = None
         em_max = fb_sum = 0
@@ -339,6 +490,15 @@ class Trainer:
                 fm_max = fm if fm_max is None else torch.maximum(fm_max, fm)
                 if guard is not None and guard.after_step(last):
                     break  # preemption: after the finished step
+            # async mode: the last batch's bank phase is still held; drain
+            # it so the returned state's bank is current (epoch_flags, the
+            # test pass, checkpoints and the preempt save read it next)
+            state, flushed = self.flush_bank(state)
+            if flushed is not None:
+                aux, fm = flushed
+                em_max = max(em_max, aux.num_active)
+                fb_sum += aux.compact_fallback
+                fm_max = fm if fm_max is None else torch.maximum(fm_max, fm)
             if guard is not None:
                 guard.end_epoch()
         finally:

@@ -15,10 +15,15 @@ input's dtype (flax `_normalize`), in train and in eval mode.
 from __future__ import annotations
 
 import contextlib
+from typing import Any, List, Tuple
 
 import torch
 from torch import nn
 from torch.utils.checkpoint import checkpoint
+
+# a trunk's `conv_info()`: (kernels, strides, paddings) of the convs and
+# pools its forward runs, in order (ops/receptive_field.py reads it)
+ConvInfo = Tuple[List[int], List[int], List[Any]]
 
 # flax momentum: running = MOMENTUM * running + (1 - MOMENTUM) * batch
 MOMENTUM = 0.9

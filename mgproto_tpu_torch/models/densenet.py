@@ -22,7 +22,8 @@ from typing import Sequence, Tuple
 import torch
 from torch import nn
 
-from mgproto_tpu_torch.models.common import RematBlock, avg_pool, batch_norm, conv, max_pool
+from mgproto_tpu_torch.models.common import (ConvInfo, RematBlock, avg_pool, batch_norm, conv,
+                                             max_pool)
 
 STAGES = ("denseblock1", "denseblock2", "denseblock3", "denseblock4")
 
@@ -68,6 +69,7 @@ class DenseNetFeatures(nn.Module):
         if unknown:
             raise ValueError(f"unknown remat_stages {sorted(unknown)}; options: {list(STAGES)}")
         self.stem_pool = stem_pool
+        self.block_config = tuple(block_config)
         self.conv0 = conv(3, num_init_features, 7, 2, 3)
         self.norm0 = batch_norm(num_init_features)
         ch = num_init_features
@@ -85,6 +87,18 @@ class DenseNetFeatures(nn.Module):
         self.norm5 = batch_norm(ch)
         self.num_blocks = len(block_config)
         self.out_channels = ch
+
+    def conv_info(self) -> ConvInfo:
+        """The stem conv, the stem pool when it runs, each dense layer's 1x1
+        and 3x3, and each transition's 1x1 and 2x2 pool."""
+        ks, ss, ps = [7], [2], [3]
+        if self.stem_pool:
+            ks, ss, ps = ks + [3], ss + [2], ps + [1]
+        for bi, num_layers in enumerate(self.block_config):
+            ks, ss, ps = ks + [1, 3] * num_layers, ss + [1, 1] * num_layers, ps + [0, 1] * num_layers
+            if bi != len(self.block_config) - 1:
+                ks, ss, ps = ks + [1, 2], ss + [1, 2], ps + [0, 0]
+        return ks, ss, ps
 
     def forward(self, x):
         x = nn.functional.relu(self.norm0(self.conv0(x)))

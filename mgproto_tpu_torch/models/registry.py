@@ -14,7 +14,7 @@ import torch
 from torch import nn
 
 from mgproto_tpu_torch.models import densenet, resnet, vgg
-from mgproto_tpu_torch.models.common import batch_norm, conv
+from mgproto_tpu_torch.models.common import ConvInfo, batch_norm, conv
 
 
 class TinyFeatures(nn.Module):
@@ -28,6 +28,9 @@ class TinyFeatures(nn.Module):
         self.bn1 = batch_norm(width)
         self.conv2 = conv(width, width, 3, 1, 1)
         self.out_channels = width
+
+    def conv_info(self) -> ConvInfo:
+        return [3, 3, 3], [2, 2, 1], [1, 1, 1]
 
     def forward(self, x):
         x = nn.functional.relu(self.bn0(self.conv0(x)))

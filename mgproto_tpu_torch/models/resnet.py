@@ -18,7 +18,7 @@ from typing import Sequence, Tuple
 
 from torch import nn
 
-from mgproto_tpu_torch.models.common import RematBlock, batch_norm, conv
+from mgproto_tpu_torch.models.common import ConvInfo, RematBlock, batch_norm, conv
 from mgproto_tpu_torch.ops.fused_epilogue import BNEpilogue
 
 STAGES = ("layer1", "layer2", "layer3", "layer4")
@@ -36,6 +36,10 @@ def _finish(bn, out, identity, fused: bool):
 
 class BasicBlock(RematBlock):
     expansion = 1
+
+    @staticmethod
+    def block_conv_info(stride: int) -> ConvInfo:
+        return [3, 3], [stride, 1], [1, 1]
 
     def __init__(self, inplanes: int, planes: int, stride: int = 1,
                  downsample: bool = False, fused_epilogue: bool = False):
@@ -59,6 +63,10 @@ class BasicBlock(RematBlock):
 
 class Bottleneck(RematBlock):
     expansion = 4
+
+    @staticmethod
+    def block_conv_info(stride: int) -> ConvInfo:
+        return [1, 3, 1], [1, stride, 1], [0, 1, 0]
 
     def __init__(self, inplanes: int, planes: int, stride: int = 1,
                  downsample: bool = False, fused_epilogue: bool = False):
@@ -97,6 +105,7 @@ class ResNetFeatures(nn.Module):
         unknown = set(remat_stages) - set(STAGES)
         if unknown:
             raise ValueError(f"unknown remat_stages {sorted(unknown)}; options: {list(STAGES)}")
+        self.block_cls, self.layers = block_cls, tuple(layers)
         self.conv1 = conv(3, 64, 7, 2, 3)
         self.bn1 = batch_norm(64)
         self.maxpool = nn.MaxPool2d(3, 2, 1) if stem_pool else None
@@ -115,6 +124,18 @@ class ResNetFeatures(nn.Module):
                 inplanes = planes * block_cls.expansion
             self.add_module(f"layer{li + 1}", nn.Sequential(*stage))
         self.out_channels = 512 * block_cls.expansion
+
+    def conv_info(self) -> ConvInfo:
+        """The stem conv, the stem pool when it runs, then every block's
+        convs (the downsample 1x1 is a side branch, not in the chain)."""
+        ks, ss, ps = [7], [2], [3]
+        if self.maxpool is not None:
+            ks, ss, ps = ks + [3], ss + [2], ps + [1]
+        for li, blocks in enumerate(self.layers):
+            for bi in range(blocks):
+                k, s, p = self.block_cls.block_conv_info((1 if li == 0 else 2) if bi == 0 else 1)
+                ks, ss, ps = ks + k, ss + s, ps + p
+        return ks, ss, ps
 
     def forward(self, x):
         x = nn.functional.relu(self.bn1(self.conv1(x)))

@@ -73,6 +73,20 @@ class VGGFeatures(nn.Module):
             in_ch, j = int(v), j + 1
         self.out_channels = in_ch
 
+    def conv_info(self) -> common.ConvInfo:
+        """Every 3x3 conv and every 2x2 pool the forward runs (the last
+        pool only with `final_maxpool`)."""
+        ks, ss, ps = [], [], []
+        n = len(self.cfg)
+        for i, v in enumerate(self.cfg):
+            if v == "M":
+                if i == n - 1 and not self.final_maxpool:
+                    continue
+                ks, ss, ps = ks + [2], ss + [2], ps + [0]
+            else:
+                ks, ss, ps = ks + [3], ss + [1], ps + [1]
+        return ks, ss, ps
+
     def forward(self, x):
         n = len(self.cfg)
         layers = iter(self.children())

@@ -1,7 +1,7 @@
-"""Deterministic fault injection for the training drills (the training
-subset of mgproto_tpu/resilience/chaos.py).
+"""Deterministic fault injection for the training and serving drills (the
+training and serving subset of mgproto_tpu/resilience/chaos.py).
 
-Two one-shot events, keyed by the global step: a NaN batch
+Training: two one-shot events, keyed by the global step: a NaN batch
 (`nan_at_step`) and a simulated preemption (`preempt_at_step`).
 `EpochGuard.wrap_batches` applies them to the placed batch of that step:
 the preemption raises the same flag a real SIGTERM sets, and the NaN batch
@@ -12,11 +12,20 @@ state lives in the `ChaosState`, so a rollback that replays the same steps
 does not inject again; that is what lets a drill end bit-equal to the
 clean run.
 
-`plan_from_env` reads MGPROTO_CHAOS_NAN_AT_STEP and
-MGPROTO_CHAOS_PREEMPT_AT_STEP, and refuses every other MGPROTO_CHAOS_*
-knob of the JAX package, naming the ROADMAP item that ports it. That
-includes MGPROTO_CHAOS_SEED: it seeds the JAX package's random events
-(loader and checkpoint faults), and neither event here draws anything.
+Serving: the engine, the replica supervisor, the fleet swap and the tenant
+directory consult the process-active state (`get_active`, `install`):
+malformed or NaN payloads at seeded rates, a deadline storm, listed
+dispatches that raise a simulated device error, a replica killed or wedged
+at an admitted-request index, trust-stripped swap artifacts and tenant
+heads, and a storm redirected at one tenant. Every draw is numpy's
+`default_rng([seed, tag, index])` with the JAX package's tags, so one plan
+hits the same requests in both packages.
+
+`plan_from_env` reads MGPROTO_CHAOS_SEED, MGPROTO_CHAOS_NAN_AT_STEP,
+MGPROTO_CHAOS_PREEMPT_AT_STEP and the MGPROTO_CHAOS_SERVE_* and
+MGPROTO_CHAOS_TENANT_{STORM_AT, BAD_SWAP} knobs, and refuses every other
+MGPROTO_CHAOS_* knob of the JAX package, naming the ROADMAP item that
+ports it.
 """
 
 from __future__ import annotations
@@ -24,23 +33,28 @@ from __future__ import annotations
 import dataclasses
 import os
 import threading
-from typing import Dict, Optional
+from typing import Dict, Optional, Tuple
 
+import numpy as np
 import torch
 
 # the JAX package's knobs the port does not read yet, by the ROADMAP item
 # that ports them
 UNPORTED_KNOBS: Dict[str, str] = {
     **{k: "A9 (resilience: the loader's and the checkpoint's chaos injection)"
-       for k in ("MGPROTO_CHAOS_SEED", "MGPROTO_CHAOS_LOADER_IO_RATE",
-                 "MGPROTO_CHAOS_LOADER_IO_FAILS", "MGPROTO_CHAOS_CKPT_FAILS")},
+       for k in ("MGPROTO_CHAOS_LOADER_IO_RATE", "MGPROTO_CHAOS_LOADER_IO_FAILS",
+                 "MGPROTO_CHAOS_CKPT_FAILS")},
     **{k: "A8 (multi-GPU: the multi-host drills)"
        for k in ("MGPROTO_CHAOS_KILL_HOST_AT", "MGPROTO_CHAOS_WEDGE_HOST_AT",
                  "MGPROTO_CHAOS_SLOW_HOST_MS", "MGPROTO_CHAOS_HOST_INDEX")},
-    "MGPROTO_CHAOS_ONLINE_POISON_RATE": "A9 (online learning)",
+    **{k: "A9 (online learning: the drift monitors)"
+       for k in ("MGPROTO_CHAOS_ONLINE_POISON_RATE", "MGPROTO_CHAOS_TENANT_POISON_RATE")},
 }
-_PORTED = ("MGPROTO_CHAOS_NAN_AT_STEP", "MGPROTO_CHAOS_PREEMPT_AT_STEP")
-_SERVING = ("MGPROTO_CHAOS_SERVE_", "MGPROTO_CHAOS_TENANT_")
+
+
+class ChaosError(IOError):
+    """The injected serving fault (an IOError, as a real device failure's
+    path sees it)."""
 
 
 @dataclasses.dataclass
@@ -51,9 +65,34 @@ class ChaosPlan:
     nan_at_step: Optional[int] = None
     # one-shot: a simulated SIGTERM when the batch of this global step is drawn
     preempt_at_step: Optional[int] = None
+    seed: int = 0  # seeds the serving rates' draws
+    # serving: fractions of requests whose payload becomes malformed / NaN
+    serve_malformed_rate: float = 0.0
+    serve_nan_rate: float = 0.0
+    # serving: dispatch indices that raise a simulated device error, once each
+    serve_device_errors: Tuple[int, ...] = ()
+    # serving: requests [storm_at, storm_at + storm_len) arrive past their deadline
+    serve_storm_at: Optional[int] = None
+    serve_storm_len: int = 0
+    # serving plane, one-shot each: at this admitted-request index the
+    # replica the request would route to dies / wedges
+    serve_replica_kill_at: Optional[int] = None
+    serve_wedge_at: Optional[int] = None
+    # the first N fleet swaps stage a trust-stripped artifact (must fail closed)
+    serve_swap_bad_artifact: int = 0
+    # tenants: from this request index the drill floods one tenant; the
+    # first N tenant head swaps stage a trust-stripped head
+    tenant_storm_at: Optional[int] = None
+    tenant_bad_swap: int = 0
 
     def any_active(self) -> bool:
-        return self.nan_at_step is not None or self.preempt_at_step is not None
+        return (self.nan_at_step is not None or self.preempt_at_step is not None
+                or self.serve_malformed_rate > 0.0 or self.serve_nan_rate > 0.0
+                or bool(self.serve_device_errors)
+                or (self.serve_storm_at is not None and self.serve_storm_len > 0)
+                or self.serve_replica_kill_at is not None or self.serve_wedge_at is not None
+                or self.serve_swap_bad_artifact > 0 or self.tenant_storm_at is not None
+                or self.tenant_bad_swap > 0)
 
 
 class ChaosState:
@@ -65,6 +104,12 @@ class ChaosState:
         self._lock = threading.Lock()
         self._nan_fired = False
         self._preempt_fired = False
+        self._serve_errors_left = set(int(i) for i in plan.serve_device_errors)
+        self._replica_kill_fired = False
+        self._wedge_fired = False
+        self._bad_swaps_left = int(plan.serve_swap_bad_artifact)
+        self._tenant_storm_counted = False
+        self._tenant_bad_swaps_left = int(plan.tenant_bad_swap)
         self.injections: Dict[str, int] = {}
 
     def _count(self, kind: str) -> None:
@@ -100,6 +145,119 @@ class ChaosState:
             self._count("preempt_signal")
         return due
 
+    # ----------------------------------------------------------- serving
+    def serve_corrupt_request(self, index: int, payload):
+        """Request `index`'s payload, malformed (wrong shape: a typed
+        validation reject) or NaN-poisoned (a typed `nonfinite` reject) at
+        the plan's rates; malformed wins where both hit."""
+        p = self.plan
+        if p.serve_malformed_rate <= 0.0 and p.serve_nan_rate <= 0.0:
+            return payload
+        roll = np.random.default_rng([p.seed, 0x5E12, int(index)]).random()
+        if p.serve_malformed_rate > 0.0 and roll < p.serve_malformed_rate:
+            self._count("serve_malformed")
+            return np.zeros((3, 3), np.float32)
+        if p.serve_nan_rate > 0.0 and roll < p.serve_malformed_rate + p.serve_nan_rate:
+            try:
+                shape = np.asarray(payload, np.float32).shape
+            except (ValueError, TypeError):
+                return payload  # already malformed: the validator rejects it
+            self._count("serve_nan")
+            return np.full(shape, np.nan, np.float32)
+        return payload
+
+    def serve_storm_due(self, index: int) -> bool:
+        """True for requests inside the deadline-storm window."""
+        p = self.plan
+        if p.serve_storm_at is None or p.serve_storm_len <= 0:
+            return False
+        due = p.serve_storm_at <= int(index) < p.serve_storm_at + p.serve_storm_len
+        if due:
+            self._count("serve_deadline_storm")
+        return due
+
+    def _one_shot(self, attr: str, at: Optional[int], index: int, kind: str) -> bool:
+        with self._lock:
+            due = at is not None and not getattr(self, attr) and int(index) >= int(at)
+            if due:
+                setattr(self, attr, True)
+        if due:
+            self._count(kind)
+        return due
+
+    def serve_replica_kill_due(self, request_index: int) -> bool:
+        """True once, when the admitted-request index reaches
+        `serve_replica_kill_at`."""
+        return self._one_shot("_replica_kill_fired", self.plan.serve_replica_kill_at,
+                              request_index, "serve_replica_kill")
+
+    def serve_replica_wedge_due(self, request_index: int) -> bool:
+        """True once, when the admitted-request index reaches `serve_wedge_at`."""
+        return self._one_shot("_wedge_fired", self.plan.serve_wedge_at, request_index,
+                              "serve_replica_wedge")
+
+    def _take(self, attr: str, kind: str) -> bool:
+        with self._lock:
+            left = getattr(self, attr)
+            if left <= 0:
+                return False
+            setattr(self, attr, left - 1)
+        self._count(kind)
+        return True
+
+    def serve_swap_bad_artifact_due(self) -> bool:
+        """True for the first `serve_swap_bad_artifact` fleet swaps."""
+        return self._take("_bad_swaps_left", "serve_swap_bad_artifact")
+
+    def tenant_storm_due(self, request_index: int) -> bool:
+        """True for every request from `tenant_storm_at` on (the drill sends
+        them to the storm tenant); counted once."""
+        p = self.plan
+        if p.tenant_storm_at is None or int(request_index) < int(p.tenant_storm_at):
+            return False
+        with self._lock:
+            counted, self._tenant_storm_counted = self._tenant_storm_counted, True
+        if not counted:
+            self._count("tenant_storm")
+        return True
+
+    def tenant_bad_swap_due(self) -> bool:
+        """True for the first `tenant_bad_swap` tenant head swaps."""
+        return self._take("_tenant_bad_swaps_left", "tenant_bad_swap")
+
+    def serve_device_error_due(self, dispatch_index: int) -> bool:
+        """True once per listed dispatch index."""
+        with self._lock:
+            if int(dispatch_index) not in self._serve_errors_left:
+                return False
+            self._serve_errors_left.discard(int(dispatch_index))
+        self._count("serve_device_error")
+        return True
+
+
+_ACTIVE: Optional[ChaosState] = None
+_ACTIVE_LOCK = threading.Lock()
+
+
+def get_active() -> Optional[ChaosState]:
+    """The process-active chaos state of the serving plane (None: no chaos)."""
+    return _ACTIVE
+
+
+def set_active(state: Optional[ChaosState]) -> Optional[ChaosState]:
+    """Install `state` as process-active; returns the previous one."""
+    global _ACTIVE
+    with _ACTIVE_LOCK:
+        prev, _ACTIVE = _ACTIVE, state
+    return prev
+
+
+def install(plan: ChaosPlan) -> ChaosState:
+    """Wrap `plan` in a ChaosState and make it process-active."""
+    state = ChaosState(plan)
+    set_active(state)
+    return state
+
 
 def plan_from_env(environ=None) -> Optional[ChaosPlan]:
     """A plan from the MGPROTO_CHAOS_* knobs; None when none is set (a
@@ -107,27 +265,44 @@ def plan_from_env(environ=None) -> Optional[ChaosPlan]:
     ValueError naming the ROADMAP item that ports it; none is ignored."""
     env = os.environ if environ is None else environ
     for name, raw in sorted(env.items()):
-        if not name.startswith("MGPROTO_CHAOS_") or raw in ("", None) or name in _PORTED:
+        if not name.startswith("MGPROTO_CHAOS_") or raw in ("", None) or name in _READ:
             continue
-        if name in UNPORTED_KNOBS:
-            item = UNPORTED_KNOBS[name]
-        elif name.startswith(_SERVING):
-            item = "A7 (the serving plane's chaos injection)"
-        else:
-            item = "none: the JAX package has no such knob either"
+        item = UNPORTED_KNOBS.get(name, "none: the JAX package has no such knob either")
         raise ValueError(f"{name}={raw!r} is not read by the port; ROADMAP item {item}")
 
-    def _get(name, default):
+    def _get(name, cast, default):
         raw = env.get(name)
         if raw is None or raw == "":
             return default
         try:
-            return int(raw)
+            return cast(raw)
         except ValueError:
-            raise ValueError(f"{name}={raw!r} is not a valid int") from None
+            raise ValueError(f"{name}={raw!r} is not a valid {cast.__name__}") from None
+
+    def _int_list(raw: str) -> Tuple[int, ...]:
+        return tuple(int(v) for v in raw.split(",") if v.strip() != "")
 
     plan = ChaosPlan(
-        nan_at_step=_get("MGPROTO_CHAOS_NAN_AT_STEP", None),
-        preempt_at_step=_get("MGPROTO_CHAOS_PREEMPT_AT_STEP", None),
+        nan_at_step=_get("MGPROTO_CHAOS_NAN_AT_STEP", int, None),
+        preempt_at_step=_get("MGPROTO_CHAOS_PREEMPT_AT_STEP", int, None),
+        seed=_get("MGPROTO_CHAOS_SEED", int, 0),
+        serve_malformed_rate=_get("MGPROTO_CHAOS_SERVE_MALFORMED_RATE", float, 0.0),
+        serve_nan_rate=_get("MGPROTO_CHAOS_SERVE_NAN_RATE", float, 0.0),
+        serve_device_errors=_get("MGPROTO_CHAOS_SERVE_DEVICE_ERRORS", _int_list, ()),
+        serve_storm_at=_get("MGPROTO_CHAOS_SERVE_STORM_AT", int, None),
+        serve_storm_len=_get("MGPROTO_CHAOS_SERVE_STORM_LEN", int, 0),
+        serve_replica_kill_at=_get("MGPROTO_CHAOS_SERVE_REPLICA_KILL_AT", int, None),
+        serve_wedge_at=_get("MGPROTO_CHAOS_SERVE_WEDGE_AT", int, None),
+        serve_swap_bad_artifact=_get("MGPROTO_CHAOS_SERVE_SWAP_BAD_ARTIFACT", int, 0),
+        tenant_storm_at=_get("MGPROTO_CHAOS_TENANT_STORM_AT", int, None),
+        tenant_bad_swap=_get("MGPROTO_CHAOS_TENANT_BAD_SWAP", int, 0),
     )
     return plan if plan.any_active() else None
+
+
+_READ = frozenset(
+    ["MGPROTO_CHAOS_SEED", "MGPROTO_CHAOS_NAN_AT_STEP", "MGPROTO_CHAOS_PREEMPT_AT_STEP",
+     "MGPROTO_CHAOS_TENANT_STORM_AT", "MGPROTO_CHAOS_TENANT_BAD_SWAP"]
+    + [f"MGPROTO_CHAOS_SERVE_{k}" for k in (
+        "MALFORMED_RATE", "NAN_RATE", "DEVICE_ERRORS", "STORM_AT", "STORM_LEN",
+        "REPLICA_KILL_AT", "WEDGE_AT", "SWAP_BAD_ARTIFACT")])

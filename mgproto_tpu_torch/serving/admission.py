@@ -1,5 +1,5 @@
-"""Admission control: bounded queue, deadline shedding, circuit breaker
-(trimmed copy of mgproto_tpu/serving/admission.py, single tenant).
+"""Admission control: bounded queue, deadline shedding, tenant lanes,
+circuit breaker (copy of mgproto_tpu/serving/admission.py).
 
   * `AdmissionQueue`: FIFO with a hard capacity and per-request deadlines.
     A full queue first sheds entries already past their deadline, then the
@@ -7,6 +7,12 @@
     `drain_all` / `restore` move queued requests between engines (a
     replica's reroute, a blue/green swap) with their identity, deadline and
     enqueue time kept.
+  * Tenant lanes: a request may carry a tenant id and that tenant's quota
+    (serving/tenants.py `quota_for`). A tenant at its quota sheds its own
+    tail, its expired entries first, then the newcomer (`tenant_quota`),
+    never another tenant's work; with more than one lane queued,
+    `pop_batch` gives batch slots to the lanes in turn. Without tenants
+    every path is the single-lane FIFO.
   * `CircuitBreaker`: closed -> open after `failure_threshold` consecutive
     failures; the open cooldown follows `backoff_delays` (jitter-free);
     after it a half-open probe admits one batch. `open_seconds` accounts
@@ -23,12 +29,13 @@ import itertools
 import random
 import time
 from collections import deque
-from typing import Any, Callable, Deque, List, Optional, Tuple
+from typing import Any, Callable, Deque, Dict, List, Optional, Tuple
 
 from mgproto_tpu_torch.serving import metrics as _m
 
 SHED_QUEUE_FULL = "queue_full"
 SHED_DEADLINE = "deadline"
+SHED_TENANT_QUOTA = "tenant_quota"  # a tenant's own tail, over its fair share
 
 BREAKER_CLOSED = "closed"
 BREAKER_OPEN = "open"
@@ -56,6 +63,7 @@ class ServeRequest:
     request_id: str
     deadline: Optional[float] = None
     enqueued_at: float = 0.0
+    tenant: Optional[str] = None  # the tenant lane; None = no lane
 
     def expired(self, now: float) -> bool:
         return self.deadline is not None and now > self.deadline
@@ -76,23 +84,51 @@ class AdmissionQueue:
 
     def _shed(self, req: ServeRequest, reason: str) -> None:
         _m.counter(_m.SHED).inc(reason=reason)
+        if req.tenant is not None:
+            _m.counter(_m.TENANT_SHED).inc(tenant=req.tenant, reason=reason)
         self.shed.append(req)
 
+    def tenant_depths(self) -> Dict[str, int]:
+        """Queued entries per tenant lane (requests without a tenant are
+        not listed)."""
+        out: Dict[str, int] = {}
+        for req in self._q:
+            if req.tenant is not None:
+                out[req.tenant] = out.get(req.tenant, 0) + 1
+        return out
+
     def submit(self, payload: Any, request_id: Optional[str] = None,
-               deadline_s: Optional[float] = None
-               ) -> Tuple[ServeRequest, Optional[str]]:
+               deadline_s: Optional[float] = None, tenant: Optional[str] = None,
+               quota: Optional[int] = None) -> Tuple[ServeRequest, Optional[str]]:
         """Admit a request: (request, None), or (request, shed_reason) when
-        it was shed instead (also recorded in `self.shed`)."""
+        it was shed instead (also recorded in `self.shed`). `quota` (with
+        `tenant`) is the tenant's share of this queue: at it the tenant
+        sheds its own expired entries, then the newcomer (`tenant_quota`)."""
         now = self.clock()
         req = ServeRequest(
             payload=payload,
             request_id=request_id or f"r{next(self._ids)}",
             deadline=None if deadline_s is None else now + deadline_s,
             enqueued_at=now,
+            tenant=tenant,
         )
         if req.expired(now):
             self._shed(req, SHED_DEADLINE)
             return req, SHED_DEADLINE
+        if tenant is not None and quota is not None:
+            held = sum(1 for r in self._q if r.tenant == tenant)
+            if held >= quota:
+                keep: Deque[ServeRequest] = deque()
+                for queued in self._q:
+                    if queued.tenant == tenant and queued.expired(now):
+                        self._shed(queued, SHED_DEADLINE)
+                        held -= 1
+                    else:
+                        keep.append(queued)
+                self._q = keep
+                if held >= quota:
+                    self._shed(req, SHED_TENANT_QUOTA)
+                    return req, SHED_TENANT_QUOTA
         if len(self._q) >= self.capacity:
             keep: Deque[ServeRequest] = deque()
             for queued in self._q:
@@ -128,8 +164,12 @@ class AdmissionQueue:
         return True
 
     def pop_batch(self, max_size: int) -> List[ServeRequest]:
-        """Up to `max_size` still-viable requests, FIFO; expired ones shed."""
+        """Up to `max_size` still-viable requests, FIFO; expired ones shed.
+        With more than one tenant lane queued, the slots go to the lanes in
+        turn (`_pop_batch_fair`)."""
         now = self.clock()
+        if len({r.tenant for r in self._q}) > 1:
+            return self._pop_batch_fair(max_size, now)
         out: List[ServeRequest] = []
         while self._q and len(out) < max_size:
             req = self._q.popleft()
@@ -137,6 +177,33 @@ class AdmissionQueue:
                 self._shed(req, SHED_DEADLINE)
                 continue
             out.append(req)
+        return out
+
+    def _pop_batch_fair(self, max_size: int, now: float) -> List[ServeRequest]:
+        """Round-robin over the lanes, ordered by their oldest entry, FIFO
+        within a lane; expired entries shed as on the FIFO path."""
+        lanes: Dict[Any, Deque[ServeRequest]] = {}
+        for req in self._q:
+            lanes.setdefault(req.tenant, deque()).append(req)
+        out: List[ServeRequest] = []
+        removed: List[ServeRequest] = []
+        progressed = True
+        while len(out) < max_size and progressed:
+            progressed = False
+            for lane in lanes.values():
+                if len(out) >= max_size:
+                    break
+                while lane:
+                    req = lane.popleft()
+                    removed.append(req)
+                    if req.expired(now):
+                        self._shed(req, SHED_DEADLINE)
+                        continue
+                    out.append(req)
+                    progressed = True
+                    break
+        gone = {id(r) for r in removed}
+        self._q = deque(r for r in self._q if id(r) not in gone)
         return out
 
     def drain_shed(self) -> List[ServeRequest]:

@@ -56,6 +56,7 @@ class MicroBatcher:
         self.pre_dispatch = pre_dispatch
         self.dispatch_cost_s = float(self.config.cost_prior_s)
         self.dispatches = 0
+        self._tenant_lanes_seen: set = set()  # lanes whose depth gauge was set
 
     def dispatch_due(self) -> Optional[str]:
         """The trigger that makes dispatching now right, or None."""
@@ -114,3 +115,11 @@ class MicroBatcher:
             _m.gauge(_m.QUEUE_DEPTH).set(depth, replica=self.name)
         else:
             _m.gauge(_m.QUEUE_DEPTH).set(depth)
+        if getattr(self.engine, "tenants", None) is not None:
+            # per-tenant lane depths, zeroed for lanes that drained
+            depths = self.engine.queue.tenant_depths()
+            for t in self._tenant_lanes_seen - set(depths):
+                _m.gauge(_m.TENANT_QUEUE_DEPTH).set(0.0, tenant=t)
+            for t, d in depths.items():
+                _m.gauge(_m.TENANT_QUEUE_DEPTH).set(float(d), tenant=t)
+            self._tenant_lanes_seen |= set(depths)

@@ -1,6 +1,6 @@
 """ServingEngine: bucketed, trust-gated inference over a frozen model
-(counterpart of mgproto_tpu/serving/engine.py, single tenant, without the
-AOT cache, chaos injection and online capture).
+(counterpart of mgproto_tpu/serving/engine.py, without the AOT cache and
+online capture).
 
   * Fixed batch-size BUCKETS: a batch is padded to the smallest bucket that
     fits and the padding is sliced off the results; `warmup` runs each
@@ -19,6 +19,14 @@ AOT cache, chaos injection and online capture).
   * Explanations (opt-in): with an explanation table the infer function is
     the explain forward (engine/eval.py `explain_forward`) and every PREDICT
     response carries its top prototypes (`_ExplainContext.rows`).
+  * Tenants (opt-in, `tenants=` a serving/tenants.py TenantDirectory): a
+    request carrying a tenant id gates through that tenant's head and pays
+    its quota; an unmounted tenant is rejected typed. A head builds nothing
+    on the card, so a mount costs no bucket a warmup. With `tenants=None`
+    every response is what the single-tenant engine answers.
+  * Chaos (resilience/chaos.py, the process-active state): malformed and
+    NaN payloads and a deadline storm by request index, simulated device
+    errors by dispatch index.
 
 `from_live(evaluator)` serves an `engine.eval.Evaluator`;
 `from_artifact(path)` an exported artifact (engine/export.py), refusing one
@@ -33,6 +41,7 @@ from typing import Any, Callable, Dict, List, Optional, Sequence, Tuple
 
 import numpy as np
 
+from mgproto_tpu_torch.resilience import chaos as _chaos
 from mgproto_tpu_torch.serving import metrics as _m
 from mgproto_tpu_torch.serving.admission import AdmissionQueue, CircuitBreaker, ServeRequest
 from mgproto_tpu_torch.serving.calibration import Calibration, gmm_fingerprint
@@ -49,6 +58,7 @@ from mgproto_tpu_torch.serving.response import (
     record as _record_response,
     shed_response,
 )
+from mgproto_tpu_torch.serving.tenants import REASON_TENANT_UNMOUNTED
 from mgproto_tpu_torch.serving.validate import ValidationFailure, ValidationSpec, validate_image
 
 DEFAULT_BUCKETS: Tuple[int, ...] = (1, 2, 4, 8)
@@ -113,11 +123,13 @@ class ServingEngine:
         breaker: Optional[CircuitBreaker] = None,
         clock: Callable[[], float] = time.monotonic,
         explain_table: Optional[Dict[str, Any]] = None,
+        tenants: Optional[Any] = None,
     ):
         """`infer_fn` maps float32 images [b, H, W, 3] to
         {"logits": [b, C], "log_px": [b]} numpy arrays (and, with an
         `explain_table`, "proto_idx" / "proto_logd" [b, E]).
-        `default_deadline_s` applies to requests submitted without one."""
+        `default_deadline_s` applies to requests submitted without one.
+        `tenants`: a TenantDirectory (module docstring)."""
         if not buckets:
             raise ValueError("need at least one batch-size bucket")
         self.buckets = tuple(sorted(set(int(b) for b in buckets)))
@@ -134,6 +146,7 @@ class ServingEngine:
             expected_fingerprint=expected_fingerprint,
             expected_compute_dtype=expected_compute_dtype,
         )
+        self.tenants = tenants
         self.queue = AdmissionQueue(capacity=queue_capacity, clock=clock)
         self.breaker = breaker if breaker is not None else CircuitBreaker(clock=clock)
         self._explain = _ExplainContext(explain_table) if explain_table is not None else None
@@ -147,6 +160,7 @@ class ServingEngine:
         self.dispatch_count = 0  # device dispatches that returned results
         self.last_dispatch_error: Optional[str] = None  # traceback text
         self._request_seq = 0
+        self._dispatch_seq = 0
 
     # ----------------------------------------------------------- constructors
     @classmethod
@@ -251,29 +265,50 @@ class ServingEngine:
 
     # ------------------------------------------------------------- admission
     def submit(self, payload: Any, request_id: Optional[str] = None,
-               deadline_s: Optional[float] = None) -> List[ServeResponse]:
+               deadline_s: Optional[float] = None,
+               tenant: Optional[str] = None) -> List[ServeResponse]:
         """Validate + admit one request. Returns the immediate typed
-        responses (a validation reject, shed responses); empty = queued."""
+        responses (a validation reject, shed responses); empty = queued.
+        A `tenant` id gates through that tenant's head and pays its quota;
+        a tenant the directory does not hold is rejected typed."""
         t0 = self.clock()
         seq = self._request_seq
         self._request_seq += 1
+        chaos = _chaos.get_active()
+        if chaos is not None:
+            payload = chaos.serve_corrupt_request(seq, payload)
+            if chaos.serve_storm_due(seq):
+                deadline_s = -1.0  # arrives already past its deadline
         if deadline_s is None:
             deadline_s = self.default_deadline_s
         if deadline_s is not None and deadline_s <= 0:
             _m.counter(_m.SHED).inc(reason="deadline")
+            if tenant is not None:
+                _m.counter(_m.TENANT_SHED).inc(tenant=tenant, reason="deadline")
             return [self._respond(ServeResponse(
                 request_id=request_id or f"v{seq}", outcome=OUTCOME_SHED,
-                reason="deadline", degraded=self.gate.degraded, latency_s=0.0,
+                reason="deadline", degraded=self.gate.degraded, latency_s=0.0, tenant=tenant,
             ))]
+        quota = None
+        if tenant is not None:
+            quota = (self.tenants.quota_for(tenant, self.queue.capacity)
+                     if self.tenants is not None else None)
+            if quota is None:
+                return [self._respond(ServeResponse(
+                    request_id=request_id or f"v{seq}", outcome=OUTCOME_REJECT,
+                    reason=REASON_TENANT_UNMOUNTED, degraded=self.gate.degraded,
+                    latency_s=self.clock() - t0, tenant=tenant,
+                ))]
         try:
             clean = validate_image(payload, self.spec)
         except ValidationFailure as e:
             return [self._respond(ServeResponse(
                 request_id=request_id or f"v{seq}", outcome=OUTCOME_REJECT,
                 reason=e.reason, degraded=self.gate.degraded,
-                latency_s=self.clock() - t0,
+                latency_s=self.clock() - t0, tenant=tenant,
             ))]
-        req, shed_reason = self.queue.submit(clean, request_id=request_id, deadline_s=deadline_s)
+        req, shed_reason = self.queue.submit(clean, request_id=request_id, deadline_s=deadline_s,
+                                             tenant=tenant, quota=quota)
         out = []
         for shed in self.queue.drain_shed():
             reason = shed_reason if shed is req else "deadline"
@@ -284,6 +319,7 @@ class ServingEngine:
         return ServeResponse(
             request_id=req.request_id, outcome=OUTCOME_SHED, reason=reason,
             degraded=self.gate.degraded, latency_s=self.clock() - req.enqueued_at,
+            tenant=req.tenant,
         )
 
     def _reject_batch(self, batch: List[ServeRequest], reason: str) -> List[ServeResponse]:
@@ -326,6 +362,8 @@ class ServingEngine:
         responses = []
         for req in self.queue.drain_all():
             _m.counter(_m.SHED).inc(reason=reason)
+            if req.tenant is not None:
+                _m.counter(_m.TENANT_SHED).inc(tenant=req.tenant, reason=reason)
             responses.append(self._respond(self._shed_response(req, reason)))
         for req in self.queue.drain_shed():
             responses.append(self._respond(self._shed_response(req, "deadline")))
@@ -366,12 +404,17 @@ class ServingEngine:
         (proto_idx, proto_logd)."""
         n = images.shape[0]
         bucket = self._bucket_for(n)
+        seq = self._dispatch_seq
+        self._dispatch_seq += 1
+        chaos = _chaos.get_active()
         padded = images
         if bucket != n:
             padded = np.zeros((bucket, self.img_size, self.img_size, 3), np.float32)
             padded[:n] = images
         _m.gauge(_m.BATCH_FILL).set(n / bucket)
         _m.histogram(_m.BATCH_FILL_HIST).observe(n / bucket)
+        if chaos is not None and chaos.serve_device_error_due(seq):
+            raise _chaos.ChaosError(f"chaos: simulated device failure at dispatch {seq}")
         if bucket not in self._warmed:
             self._cold += 1
         out = self.infer_fn(padded)
@@ -392,13 +435,32 @@ class ServingEngine:
     def _gated_responses(self, batch: List[ServeRequest], logits: np.ndarray,
                          log_px: np.ndarray, extras=None) -> List[ServeResponse]:
         preds = np.argmax(logits, axis=-1)
-        try:
-            labels = self.gate.decide(log_px)
-            degraded = self.gate.degraded
-        except Exception:
-            # a failing gate degrades this batch to ungated classification
-            labels = [TRUST_UNGATED] * len(batch)
-            degraded = True
+        # a request with a tenant gates through that tenant's head; the
+        # batch-level decide below is the single-tenant path
+        gates = [self.gate] * len(batch)
+        if self.tenants is not None:
+            for i, req in enumerate(batch):
+                if req.tenant is not None:
+                    g = self.tenants.gate_for(req.tenant)
+                    if g is not None:
+                        gates[i] = g
+        if any(g is not self.gate for g in gates):
+            labels, degraded_rows = [], []
+            for g, score in zip(gates, log_px):
+                try:
+                    labels.append(g.decide([float(score)])[0])
+                    degraded_rows.append(g.degraded)
+                except Exception:
+                    labels.append(TRUST_UNGATED)
+                    degraded_rows.append(True)
+        else:
+            try:
+                labels = self.gate.decide(log_px)
+                degraded_rows = [self.gate.degraded] * len(batch)
+            except Exception:
+                # a failing gate degrades this batch to ungated classification
+                labels = [TRUST_UNGATED] * len(batch)
+                degraded_rows = [True] * len(batch)
         out = []
         for i, (req, pred, row, score, label) in enumerate(
                 zip(batch, preds, logits, log_px, labels)):
@@ -408,18 +470,23 @@ class ServingEngine:
                 # an abstained request has no served decision to explain
                 explain_rows = self._explain.rows(extras[0][i], extras[1][i])
                 _m.counter(_m.EXPLANATIONS).inc()
-            out.append(self._respond(ServeResponse(
+            gate = gates[i]
+            resp = self._respond(ServeResponse(
                 request_id=req.request_id,
                 outcome=outcome,
                 prediction=int(pred),
                 log_px=float(score),
                 trust=label,
-                trust_score=self.gate.trust_score(float(score)),
-                confidence=self.gate.confidence(row),
-                degraded=degraded or label == TRUST_UNGATED,
+                trust_score=gate.trust_score(float(score)),
+                confidence=gate.confidence(row),
+                degraded=degraded_rows[i] or label == TRUST_UNGATED,
                 latency_s=self.clock() - req.enqueued_at,
                 explain=explain_rows,
-            )))
+                tenant=req.tenant,
+            ))
+            if self.tenants is not None:
+                self.tenants.on_response(req.payload, resp)
+            out.append(resp)
         return out
 
     def _respond(self, resp: ServeResponse) -> ServeResponse:

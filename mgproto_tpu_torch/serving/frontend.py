@@ -1,12 +1,13 @@
 """Asyncio HTTP frontend: the network boundary of the serving plane
-(counterpart of mgproto_tpu/serving/frontend.py, without tenants, request
-tracing and the autoscaler). Stdlib only (asyncio and json).
+(counterpart of mgproto_tpu/serving/frontend.py, without request tracing).
+Stdlib only (asyncio and json).
 
   * the SOCKETS: a minimal HTTP/1.1 server (`asyncio.start_server`), one
     JSON request and response per connection;
   * the PUMP: one task feeds submitted requests into the `ReplicaSet`,
-    turns its `poll()` (micro-batching, supervision) and resolves each
-    request's future when its typed response comes. All ReplicaSet access
+    turns its `poll()` (micro-batching, supervision) and the autoscaler's
+    `tick()` when one is configured, and resolves each request's future
+    when its typed response comes. All ReplicaSet access
     happens on the pump, one step at a time, so the plane needs no locks;
     the step runs in the default executor, so the event loop stays
     responsive while the card works;
@@ -17,8 +18,8 @@ tracing and the autoscaler). Stdlib only (asyncio and json).
 
 Endpoints:
 
-  POST /v1/predict   {"id"?, "image": nested lists, "deadline_ms"?} -> one
-                     ServeResponse JSON; 200 predict/abstain, 400 reject
+  POST /v1/predict   {"id"?, "image": nested lists, "deadline_ms"?,
+                     "tenant"?} -> one ServeResponse JSON; 200 predict/abstain, 400 reject
                      (503 for circuit_open/device_error: retryable), 429
                      shed (503 for shutdown).
   GET  /healthz      liveness: 200 {"alive": true, "draining": ...}.
@@ -27,6 +28,8 @@ Endpoints:
   GET  /metrics      Prometheus text of the process-current registry.
   POST /admin/swap   {"artifact": path} -> blue/green hot swap
                      (serving/swap.py): 200 committed, 409 rejected.
+  GET  /admin/autoscale  the autoscaler's status (serving/autoscale.py);
+                     501 when none is configured.
 
 A client that announces a body and stalls gets 408; a request head beyond
 `max_head_bytes` gets 400. `await asyncio.sleep`/`wait_for` are the only
@@ -79,12 +82,13 @@ class Frontend:
                  io_timeout_s: float = 10.0, max_head_bytes: int = _MAX_HEAD_BYTES,
                  preemption_handler=None,
                  swap_factory_builder: Optional[Callable[[str], Callable]] = None,
-                 require_calibrated_swap: bool = True):
+                 require_calibrated_swap: bool = True, autoscaler=None):
         """`swap_factory_builder(path)` returns an engine factory for the
         artifact at `path`; without it /admin/swap answers 501.
         `require_calibrated_swap=False` (the CLI's --allow-uncalibrated)
         lets an operator who opted into degraded serving promote an
-        uncalibrated artifact."""
+        uncalibrated artifact. `autoscaler` (serving/autoscale.py) ticks on
+        the pump, where all ReplicaSet access happens."""
         self.replicas = replicas
         self.host = host
         self.port = int(port)  # 0 = ephemeral; the real port after start()
@@ -95,9 +99,10 @@ class Frontend:
         self.preemption_handler = preemption_handler
         self.swap_factory_builder = swap_factory_builder
         self.require_calibrated_swap = bool(require_calibrated_swap)
+        self.autoscaler = autoscaler
         self._server: Optional[asyncio.AbstractServer] = None
         self._pump_task: Optional[asyncio.Task] = None
-        self._inbox: Deque[Tuple[Any, str, Optional[float]]] = deque()
+        self._inbox: Deque[Tuple[Any, str, Optional[float], Optional[str]]] = deque()
         self._admin: Deque[Tuple[Callable[[], Any], asyncio.Future]] = deque()
         self._pending: Dict[str, asyncio.Future] = {}
         self._kick: Optional[asyncio.Event] = None
@@ -146,10 +151,14 @@ class Frontend:
             def step():
                 out: List[ServeResponse] = []
                 admin_results = [fn() for fn, _fut in admin]
-                for payload, rid, deadline_s in work:
+                for payload, rid, deadline_s, tenant in work:
                     out.extend(self.replicas.submit(payload, request_id=rid,
-                                                    deadline_s=deadline_s))
+                                                    deadline_s=deadline_s, tenant=tenant))
                 out.extend(self.replicas.poll())
+                if self.autoscaler is not None:
+                    decision = self.autoscaler.tick()
+                    if decision is not None:
+                        out.extend(decision.responses)
                 return out, admin_results
 
             responses, admin_results = await loop.run_in_executor(None, step)
@@ -174,7 +183,8 @@ class Frontend:
         self._admin.clear()
 
         def final():
-            out = [shed_response(rid, REASON_SHUTDOWN) for _payload, rid, _dl in work]
+            out = [shed_response(rid, REASON_SHUTDOWN, tenant=tenant)
+                   for _payload, rid, _dl, tenant in work]
             out.extend(self.replicas.drain(REASON_SHUTDOWN))
             return out
 
@@ -257,6 +267,10 @@ class Frontend:
                     b"text/plain; version=0.0.4")
         if method == "POST" and target == "/admin/swap":
             return await self._swap(raw)
+        if method == "GET" and target == "/admin/autoscale":
+            if self.autoscaler is None:
+                return 501, json.dumps({"error": "autoscaler_not_configured"}).encode(), None
+            return 200, json.dumps(self.autoscaler.status()).encode(), None
         return 404, b'{"error": "not_found"}', None
 
     # ------------------------------------------------------------- handlers
@@ -267,6 +281,9 @@ class Frontend:
             rec = json.loads(raw)
             self.decode_s.append(time.perf_counter() - t0)
             payload = rec["image"]
+            # the tenant id on the wire; absent = the single-tenant path
+            tenant = rec.get("tenant")
+            tenant = str(tenant) if tenant is not None else None
             deadline_ms = rec.get("deadline_ms")
             # parsed inside the guard: a non-numeric deadline is malformed
             deadline_s = float(deadline_ms) / 1000.0 if deadline_ms is not None else None
@@ -281,7 +298,7 @@ class Frontend:
             return http_status_for(resp), json.dumps(resp.to_dict()).encode(), None
         fut: asyncio.Future = loop.create_future()
         self._pending[rid] = fut
-        self._inbox.append((payload, rid, deadline_s))
+        self._inbox.append((payload, rid, deadline_s, tenant))
         self._kick.set()
         try:
             resp = await asyncio.wait_for(fut, timeout=self.request_timeout_s)

@@ -33,7 +33,10 @@ class TrustGate:
         expected_fingerprint: Optional[str] = None,
         window: int = 256,
         expected_compute_dtype: Optional[str] = None,
+        percentile: Optional[float] = None,
     ):
+        """`percentile` gates at another operating point of the
+        calibration (`threshold_for`); None keeps its own."""
         self.fingerprint_mismatch = False
         self.precision_mismatch = False
         if (
@@ -55,7 +58,10 @@ class TrustGate:
             self.precision_mismatch = True
             calibration = None
         self.calibration = calibration
-        self.threshold = calibration.threshold_log_px if calibration is not None else None
+        self.threshold = None
+        if calibration is not None:
+            self.threshold = (calibration.threshold_log_px if percentile is None
+                              else calibration.threshold_for(percentile))
         self._window: Deque[bool] = deque(maxlen=max(int(window), 1))
 
     @property

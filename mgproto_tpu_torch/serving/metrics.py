@@ -2,18 +2,23 @@
 
 A trimmed copy of mgproto_tpu/serving/metrics.py on a registry of its own:
 labeled counters, gauges and histograms held in memory, read back with
-`value()` / `count()` and scraped as Prometheus text (`to_prometheus`,
-the frontend's GET /metrics). Metrics resolve through the process-current
-registry; `set_current_registry` swaps it (tests isolate themselves so).
-`register_serving_metrics` pre-creates the serving family with zero-valued
-unlabeled series, so a scrape shows "nothing happened" explicitly.
+`value()` / `count()`, scraped as Prometheus text (`to_prometheus`, the
+frontend's GET /metrics) and as a nested dict (`snapshot`, which the
+autoscaler diffs between its evaluations; `percentile_from_buckets` reads
+a histogram series of it). The last two are copies of
+mgproto_tpu/telemetry/registry.py's. Metrics resolve through the
+process-current registry; `set_current_registry` swaps it (tests isolate
+themselves so). `register_serving_metrics` pre-creates the serving family
+with zero-valued unlabeled series, so a scrape shows "nothing happened"
+explicitly.
 """
 
 from __future__ import annotations
 
 import bisect
+import math
 import threading
-from typing import Dict, Optional, Sequence, Tuple
+from typing import Any, Dict, Optional, Sequence, Tuple
 
 REQUESTS = "serving_requests_total"
 REQUEST_SECONDS = "serving_request_seconds"
@@ -38,6 +43,19 @@ UPTIME_SECONDS = "serving_uptime_seconds"
 SWAPS = "serving_swap_total"
 SWAP_TRANSFERRED = "serving_swap_transferred_total"
 EXPLANATIONS = "serving_explanations_total"
+# the autoscaler and the tenant plane
+AUTOSCALE_TARGET = "autoscale_replicas_target"
+AUTOSCALE_EVENTS = "autoscale_events_total"
+TENANT_REQUESTS = "tenant_requests_total"
+TENANT_REQUEST_SECONDS = "tenant_request_seconds"
+TENANT_SHED = "tenant_shed_total"
+TENANT_MOUNTS = "tenant_mount_total"
+TENANT_UNMOUNTS = "tenant_unmount_total"
+TENANT_SWAPS = "tenant_swap_total"
+TENANTS_MOUNTED = "tenants_mounted"
+TENANT_QUEUE_DEPTH = "tenant_queue_depth"
+TENANT_HEAD_BYTES = "tenant_head_bytes"
+TENANT_MOUNT_SECONDS = "tenant_mount_seconds"
 # the input pipeline (data/loader.py)
 LOADER_RETRIES = "resilience_retries_total"  # label scope="loader"
 LOADER_SENTINEL_ROWS = "loader_sentinel_rows_total"
@@ -57,6 +75,12 @@ COUNTER_HELP = {
     SWAPS: "blue/green hot-swap attempts by result (committed/rejected)",
     SWAP_TRANSFERRED: "queued requests transferred old->new engine during a hot swap",
     EXPLANATIONS: "predict outcomes answered with a prototype explanation block",
+    AUTOSCALE_EVENTS: "autoscaler scale decisions applied, by direction (up/down)",
+    TENANT_REQUESTS: "requests by tenant and outcome",
+    TENANT_SHED: "requests shed by tenant and reason (tenant_quota = the tenant's own tail)",
+    TENANT_MOUNTS: "tenant heads mounted into the directory",
+    TENANT_UNMOUNTS: "tenant heads unmounted from the directory",
+    TENANT_SWAPS: "tenant-scoped head swap attempts by result (committed/rejected)",
 }
 
 GAUGE_HELP = {
@@ -68,15 +92,24 @@ GAUGE_HELP = {
     REPLICAS_TOTAL: "replicas the supervisor is responsible for",
     BREAKER_OPEN_FRACTION: "fraction of replica-seconds spent with the breaker OPEN",
     UPTIME_SECONDS: "seconds since the replica supervisor started",
+    AUTOSCALE_TARGET: "replica count the autoscaler is steering toward",
+    TENANTS_MOUNTED: "tenant heads currently mounted in the directory",
+    TENANT_QUEUE_DEPTH: "admission-queue entries held per tenant",
+    TENANT_HEAD_BYTES: "resident bytes of a tenant's mounted head",
 }
 
 HIST_HELP = {
     REQUEST_SECONDS: "per-request latency (admission to response), by outcome",
     BATCH_FILL_HIST: "occupied fraction of each padded serving batch (per dispatch)",
+    TENANT_REQUEST_SECONDS: "per-request latency by tenant and outcome",
+    TENANT_MOUNT_SECONDS: "seconds to mount one tenant head",
 }
 
 FILL_BUCKETS = (0.125, 0.25, 0.375, 0.5, 0.625, 0.75, 0.875, 1.0)
-TIME_BUCKETS = (0.001, 0.0025, 0.005, 0.01, 0.025, 0.05, 0.1, 0.25, 0.5, 1.0, 2.5, 5.0)
+# the JAX registry's default time buckets: the autoscaler's window p99 is
+# interpolated within them, so the two packages decide alike
+TIME_BUCKETS = (0.001, 0.0025, 0.005, 0.01, 0.025, 0.05, 0.1, 0.25, 0.5, 1.0, 2.5, 5.0, 10.0,
+                30.0, 60.0, 120.0, 300.0)
 
 _Labels = Tuple[Tuple[str, str], ...]
 
@@ -121,14 +154,28 @@ class Histogram:
         self.buckets = tuple(buckets)
         self._counts: Dict[_Labels, list] = {}
         self._sum: Dict[_Labels, float] = {}
+        self._min: Dict[_Labels, float] = {}
+        self._max: Dict[_Labels, float] = {}
         self._lock = threading.Lock()
 
     def observe(self, value: float, **labels) -> None:
         k = _key(labels)
+        value = float(value)
         with self._lock:
             counts = self._counts.setdefault(k, [0] * (len(self.buckets) + 1))
             counts[bisect.bisect_left(self.buckets, value)] += 1
-            self._sum[k] = self._sum.get(k, 0.0) + float(value)
+            self._sum[k] = self._sum.get(k, 0.0) + value
+            self._min[k] = min(self._min.get(k, math.inf), value)
+            self._max[k] = max(self._max.get(k, -math.inf), value)
+
+    def series(self) -> list:
+        """[(labels, {bounds, bucket_counts, count, sum, min, max})], the
+        snapshot form of every label set."""
+        with self._lock:
+            return [(k, {"bounds": list(self.buckets), "bucket_counts": list(c),
+                         "count": sum(c), "sum": self._sum[k],
+                         "min": self._min[k], "max": self._max[k]})
+                    for k, c in self._counts.items()]
 
     def count(self, **labels) -> int:
         return sum(self._counts.get(_key(labels), ()))
@@ -145,6 +192,36 @@ class Histogram:
             lines.append(f"{name}_sum{_prom_labels(key)} {_prom_num(total)}")
             lines.append(f"{name}_count{_prom_labels(key)} {sum(counts)}")
         return lines
+
+
+def percentile_from_buckets(hist: Dict[str, Any], p: float) -> Optional[float]:
+    """Prometheus-style percentile estimate from a histogram snapshot dict
+    ({'bounds', 'bucket_counts', 'count', 'min', 'max'}): linear
+    interpolation within the bucket holding the target rank, clamped to the
+    observed [min, max]."""
+    count = hist.get("count", 0)
+    if not count:
+        return None
+    if not 0.0 <= p <= 100.0:
+        raise ValueError(f"percentile must be in [0, 100], got {p}")
+    bounds = list(hist["bounds"]) + [math.inf]
+    target = p / 100.0 * count
+    cum = 0
+    for i, n in enumerate(hist["bucket_counts"]):
+        prev_cum = cum
+        cum += n
+        if cum >= target and n > 0:
+            lo = bounds[i - 1] if i > 0 else hist.get("min") or 0.0
+            hi = bounds[i]
+            if math.isinf(hi):
+                hi = hist.get("max") or lo
+            est = lo + (hi - lo) * (target - prev_cum) / n
+            if hist.get("min") is not None:
+                est = max(est, hist["min"])
+            if hist.get("max") is not None:
+                est = min(est, hist["max"])
+            return est
+    return hist.get("max")
 
 
 def _prom_num(v: float) -> str:
@@ -180,6 +257,20 @@ class MetricRegistry:
                 for key, val in sorted(dict(m._v).items()):
                     lines.append(f"{name}{_prom_labels(key)} {_prom_num(val)}")
         return "\n".join(lines) + "\n"
+
+    def snapshot(self) -> Dict[str, Any]:
+        """{name: {"type", "series": [{"labels", "value"} or the histogram
+        fields]}} of every metric (the JAX registry's `snapshot` layout)."""
+        with self._lock:
+            metrics = sorted(self._metrics.items())
+        out: Dict[str, Any] = {}
+        for name, m in metrics:
+            if isinstance(m, Histogram):
+                series = [{"labels": dict(k), **h} for k, h in m.series()]
+            else:
+                series = [{"labels": dict(k), "value": v} for k, v in dict(m._v).items()]
+            out[name] = {"type": m.kind, "series": series}
+        return out
 
     def _get(self, name: str, factory):
         with self._lock:

@@ -1,6 +1,6 @@
 """Replica supervision: N serving engines behind one admission boundary
-(counterpart of mgproto_tpu/serving/replica.py, without its chaos
-injection, flight recorder, request tracing and autoscaler arms).
+(counterpart of mgproto_tpu/serving/replica.py, without its flight
+recorder and request tracing).
 
   * ROUTING: round-robin over replicas whose `HealthProbe.readiness()` is
     true. With none ready the request gets a typed shed (`no_replica`).
@@ -14,6 +14,15 @@ injection, flight recorder, request tracing and autoscaler arms).
   * RESTARTS: a due replica rebuilds its engine from the factory and warms
     every bucket before it rejoins; a failing factory waits the next,
     longer delay.
+  * ELASTICITY (the autoscaler's arms, serving/autoscale.py):
+    `add_replica` appends a due-now backoff entry that the next `poll`
+    builds and warms; `remove_replica` drains a victim with zero dropped
+    requests: its queue moves to the survivors, what finds no room is
+    answered through the victim's own device, and only an unresponsive
+    victim's leftovers shed typed (`replica_lost`).
+  * CHAOS (resilience/chaos.py): MGPROTO_CHAOS_SERVE_REPLICA_KILL_AT and
+    _WEDGE_AT kill or wedge the replica a request would land on, at that
+    admitted-request index; the request reroutes.
 
 Replicas share one card in one process: the factory builds engines over
 the same loaded model (cli/serve.py), so each replica has its own buckets,
@@ -31,6 +40,7 @@ from __future__ import annotations
 import time
 from typing import Callable, List, Optional
 
+from mgproto_tpu_torch.resilience import chaos as _chaos
 from mgproto_tpu_torch.serving import metrics as _m
 from mgproto_tpu_torch.serving.admission import backoff_delays
 from mgproto_tpu_torch.serving.batcher import BatcherConfig, MicroBatcher
@@ -119,18 +129,22 @@ class ReplicaSet:
         self.heartbeat_timeout_s = float(heartbeat_timeout_s)
         self.restart_base_delay_s = float(restart_base_delay_s)
         self.restart_max_delay_s = float(restart_max_delay_s)
-        # late-bound: a hot swap retargets `engine_factory`, and later
-        # restarts build the new model
-        self.replicas: List[Replica] = [
-            Replica(f"r{i}", lambda: self.engine_factory(), clock,
-                    batcher_config=batcher_config, pre_dispatch=pre_dispatch)
-            for i in range(int(replicas))
-        ]
+        self.batcher_config = batcher_config
+        self.pre_dispatch = pre_dispatch
+        self._next_name = int(replicas)  # names stay unique across add/remove
+        self.replicas: List[Replica] = [self._make_replica(f"r{i}")
+                                        for i in range(int(replicas))]
         self._rr = 0  # round-robin cursor
         self._seq = 0  # admitted-request index (default ids)
         self._started_at: Optional[float] = None
         self.steady_recompiles = 0  # see the module docstring
         _m.gauge(_m.REPLICAS_TOTAL).set(float(len(self.replicas)))
+
+    def _make_replica(self, name: str) -> Replica:
+        # late-bound: a hot swap retargets `engine_factory`, and later
+        # restarts build the new model
+        return Replica(name, lambda: self.engine_factory(), self.clock,
+                       batcher_config=self.batcher_config, pre_dispatch=self.pre_dispatch)
 
     def start(self) -> int:
         """Build and warm every replica; returns the buckets warmed."""
@@ -138,6 +152,64 @@ class ReplicaSet:
         warmed = sum(rep.start() for rep in self.replicas)
         self._observe()
         return warmed
+
+    # ---------------------------------------------------------- elasticity
+    def add_replica(self) -> Replica:
+        """Grow the set by one: a due-now backoff entry, so the next `poll`
+        builds and warms it through the restart path, off any request's."""
+        rep = self._make_replica(f"r{self._next_name}")
+        self._next_name += 1
+        rep.restart_at = self.clock()
+        self.replicas.append(rep)
+        _m.gauge(_m.REPLICAS_TOTAL).set(float(len(self.replicas)))
+        self._observe()
+        return rep
+
+    def remove_replica(self, rep: Optional[Replica] = None) -> List[ServeResponse]:
+        """Shrink the set by one with zero dropped requests. The victim
+        (default: a replica without an engine, else the last ready one)
+        stops taking traffic, its queue moves to the responsive survivors
+        with deadlines and enqueue times kept; what they cannot hold is
+        answered through the victim's own device before it leaves, and only
+        an unresponsive victim's leftovers shed typed. Returns every
+        response produced. Refuses to empty the set."""
+        if len(self.replicas) <= 1:
+            raise ValueError("refusing to remove the last replica")
+        if rep is None:
+            idle = [r for r in self.replicas if r.engine is None]
+            if idle:
+                rep = idle[-1]
+            else:
+                ready = self.ready_replicas()
+                rep = ready[-1] if ready else self.replicas[-1]
+        if rep not in self.replicas:
+            raise ValueError(f"{rep.name} is not in this set")
+        out: List[ServeResponse] = []
+        now = self.clock()
+        if rep.engine is not None:
+            rep.engine.draining = True  # readiness false: no new routing
+            stranded = rep.engine.queue.drain_all() + rep.engine.queue.drain_shed()
+            survivors = [s for s in self.replicas if s is not rep and s.responsive()]
+            i = 0
+            for req in stranded:
+                placed = False
+                for _ in range(len(survivors)):
+                    target = survivors[i % len(survivors)]
+                    i += 1
+                    if target.engine.queue.restore(req):
+                        placed = True
+                        break
+                if placed or (rep.responsive() and rep.engine.queue.restore(req)):
+                    continue
+                out.append(shed_response(req.request_id, REASON_REPLICA_LOST,
+                                         latency_s=now - req.enqueued_at))
+            if rep.responsive() and len(rep.engine.queue):
+                out.extend(rep.batcher.flush())
+                self._account(rep)
+        self.replicas.remove(rep)
+        _m.gauge(_m.REPLICAS_TOTAL).set(float(len(self.replicas)))
+        self._observe()
+        return out
 
     # ------------------------------------------------------------ routing
     def ready_replicas(self) -> List[Replica]:
@@ -152,15 +224,29 @@ class ReplicaSet:
         return rep
 
     def submit(self, payload, request_id: Optional[str] = None,
-               deadline_s: Optional[float] = None) -> List[ServeResponse]:
+               deadline_s: Optional[float] = None,
+               tenant: Optional[str] = None) -> List[ServeResponse]:
         """Route one request to a ready replica (`ServingEngine.submit`'s
-        contract: the immediate typed responses; empty means queued)."""
-        rid = request_id or f"g{self._seq}"
+        contract, the tenant id passed through: the immediate typed
+        responses; empty means queued)."""
+        seq = self._seq
         self._seq += 1
+        rid = request_id or f"g{seq}"
         target = self._pick()
+        chaos = _chaos.get_active()
+        if chaos is not None and target is not None:
+            # the replica this request would land on dies or wedges; the
+            # request itself reroutes
+            if chaos.serve_replica_kill_due(seq):
+                target.alive = False
+                target = self._pick()
+            elif chaos.serve_replica_wedge_due(seq):
+                target.wedged = True
+                target = self._pick()
         if target is None:
-            return [shed_response(rid, REASON_NO_REPLICA)]
-        return target.engine.submit(payload, request_id=rid, deadline_s=deadline_s)
+            return [shed_response(rid, REASON_NO_REPLICA, tenant=tenant)]
+        return target.engine.submit(payload, request_id=rid, deadline_s=deadline_s,
+                                    tenant=tenant)
 
     # ------------------------------------------------------------ pumping
     def _account(self, rep: Replica) -> None:

@@ -1,6 +1,5 @@
 """The one typed response every serving request is answered with
-(counterpart of mgproto_tpu/serving/response.py, single tenant, no request
-tracing).
+(counterpart of mgproto_tpu/serving/response.py, without request tracing).
 
 The network plane (batcher, replica supervisor, swap, HTTP frontend) builds
 and accounts typed responses through this module without importing the
@@ -47,11 +46,15 @@ class ServeResponse:
     # the top activated prototypes behind a PREDICT outcome (an engine
     # serving with explanations); None, and absent from to_dict(), elsewhere
     explain: Optional[Any] = None
+    # the tenant lane of the request (serving/tenants.py); None, and absent
+    # from to_dict(), on the single-tenant path
+    tenant: Optional[str] = None
 
     def to_dict(self) -> Dict[str, Any]:
         d = dataclasses.asdict(self)
-        if d.get("explain") is None:
-            d.pop("explain", None)
+        for opt in ("explain", "tenant"):
+            if d.get(opt) is None:
+                d.pop(opt, None)
         return d
 
 
@@ -59,15 +62,23 @@ def record(resp: ServeResponse) -> ServeResponse:
     """The one metrics account of a response leaving the system."""
     _m.counter(_m.REQUESTS).inc(outcome=resp.outcome)
     _m.histogram(_m.REQUEST_SECONDS).observe(max(resp.latency_s, 0.0), outcome=resp.outcome)
+    if resp.tenant is not None:
+        # the per-tenant view rides families of its own, so the fleet's
+        # series are the same with or without tenants
+        _m.counter(_m.TENANT_REQUESTS).inc(tenant=resp.tenant, outcome=resp.outcome)
+        _m.histogram(_m.TENANT_REQUEST_SECONDS).observe(
+            max(resp.latency_s, 0.0), tenant=resp.tenant, outcome=resp.outcome)
     if resp.degraded and resp.outcome == OUTCOME_PREDICT:
         _m.counter(_m.DEGRADED_REQUESTS).inc()
     return resp
 
 
 def shed_response(request_id: str, reason: str, latency_s: float = 0.0,
-                  degraded: bool = False) -> ServeResponse:
+                  degraded: bool = False, tenant: Optional[str] = None) -> ServeResponse:
     """A recorded typed shed: the plane's answer when no engine can serve
     (a dead replica with no survivors, a graceful shutdown, a lost reroute)."""
     _m.counter(_m.SHED).inc(reason=reason)
+    if tenant is not None:
+        _m.counter(_m.TENANT_SHED).inc(tenant=tenant, reason=reason)
     return record(ServeResponse(request_id=request_id, outcome=OUTCOME_SHED, reason=reason,
-                                degraded=degraded, latency_s=latency_s))
+                                degraded=degraded, latency_s=latency_s, tenant=tenant))

@@ -1,5 +1,5 @@
 """Blue/green hot swap: promote a new artifact with zero dropped requests
-(counterpart of mgproto_tpu/serving/swap.py, without its chaos knob).
+(counterpart of mgproto_tpu/serving/swap.py).
 
 A new artifact (any engine factory) is staged into STANDBY engines, warmed,
 and verified against the trust contract before any traffic moves.
@@ -18,6 +18,10 @@ time: the old engine drains (readiness false), its queued requests move to
 the standby's queue with their deadlines and enqueue times, and the replica
 adopts the standby. The set's factory is retargeted, so later restarts
 build the new model.
+
+MGPROTO_CHAOS_SERVE_SWAP_BAD_ARTIFACT strips the trust data of the first N
+staged standbys (an operator pushing an uncalibrated artifact): the swap
+must refuse them.
 """
 
 from __future__ import annotations
@@ -25,6 +29,7 @@ from __future__ import annotations
 import dataclasses
 from typing import Any, Callable, Dict, List, Optional, Tuple
 
+from mgproto_tpu_torch.resilience import chaos as _chaos
 from mgproto_tpu_torch.serving import metrics as _m
 from mgproto_tpu_torch.serving.replica import ReplicaSet
 
@@ -85,6 +90,11 @@ def stage_standby(factory: Callable[[], Any], require_calibrated: bool = True
         return None, REJECT_UNCALIBRATED, str(e)
     except Exception as e:  # unreadable artifact, warmup out of memory, ...
         return None, REJECT_STAGE_FAILED, f"{type(e).__name__}: {e}"
+    chaos = _chaos.get_active()
+    if chaos is not None and chaos.serve_swap_bad_artifact_due():
+        from mgproto_tpu_torch.serving.gate import TrustGate
+
+        engine.gate = TrustGate(None)  # the drill: no trust data
     reason = verify_standby(engine, require_calibrated=require_calibrated)
     if reason is not None:
         return None, reason, ""

@@ -94,6 +94,8 @@ ARGVS = {
               "--mem_sz", "100", "--mine_level", "7"],
     "accepted": ["--no_async_bank", "--ckpt_format", "replicated", "--no-telemetry",
                  "--keep_last", "2", "--target_accu", "0.5"],
+    # refused until the async bank pipeline was ported; now it sets the field
+    "async_bank": ["--async_bank"],
 }
 
 
@@ -122,7 +124,6 @@ REFUSED_ARGVS = {
     "straggler_threshold": (["--straggler_threshold", "0.5"], "A8"),
     "straggler_patience": (["--straggler_patience", "2"], "A8"),
     "ckpt_format": (["--ckpt_format", "sharded"], "A8"),
-    "async_bank": (["--async_bank"], "A6 item 5"),
     "auto_tune": (["--auto_tune"], "A9"),
     "profile_dir": (["--profile_dir", "/p"], "A9"),
     "profile_steps": (["--profile_steps", "3:5"], "A9"),

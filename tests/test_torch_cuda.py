@@ -853,3 +853,58 @@ def test_the_explanation_peak_from_the_kernel_matches_the_dense_plain_peak():
     assert (kv - pv).abs().max().item() <= ATOL
     clear = (pv[:, :-1] - pv[:, 1:]).abs().gt(ATOL).all(-1)
     assert clear.any() and torch.equal(ki[clear], pi[clear])
+
+
+@pytest.mark.cuda
+def test_the_async_bank_on_the_card_is_bit_equal_to_the_one_step_stale_oracle():
+    """The tiny trunk on the card with a full bank, cuDNN deterministic: four
+    async steps (the bank phase on its own stream) and the flush are bit-equal
+    to the one-step-stale schedule run from the synchronous trainer's own
+    functions on one stream, and the kernels of both launch alike."""
+    _need_cuda()
+    import dataclasses
+
+    import numpy as np
+
+    from _torch_async_oracle import one_step_stale_oracle
+    from mgproto_tpu_torch.config import DataConfig, tiny_test_config
+    from mgproto_tpu_torch.engine.train import Trainer
+    from mgproto_tpu_torch.utils.checkpoint import _tensors, state_payload
+
+    base = tiny_test_config().replace(data=DataConfig(device_augment=False))
+    rng = np.random.default_rng(4)
+    batches = [(rng.normal(size=(6, 32, 32, 3)).astype(np.float32),
+                rng.integers(0, 4, size=6).astype(np.int32)) for _ in range(4)]
+    det = (torch.backends.cudnn.deterministic, torch.backends.cudnn.benchmark)
+    torch.backends.cudnn.deterministic, torch.backends.cudnn.benchmark = True, False
+    try:
+        states, launches = {}, {}
+        for mode in ("async", "oracle"):
+            cfg = base.replace(em=dataclasses.replace(base.em, async_bank=mode == "async"))
+            trainer = Trainer(cfg, 4, device="cuda")
+            state = trainer.init_state(0)
+            state.memory = _full_bank(state)
+            before = (score_pool.launches, em_estep_stats.launches)
+            if mode == "async":
+                assert trainer.async_bank and trainer._bank_stream is not None
+                losses = []
+                for images, labels in batches:
+                    state, met = trainer.train_step(state, images, labels, use_mine=True,
+                                                    update_gmm=True)
+                    losses.append(met.loss)
+                state, flushed = trainer.flush_bank(state)
+                assert flushed is not None
+            else:
+                state, losses = one_step_stale_oracle(trainer, state, batches)
+            torch.cuda.synchronize()
+            launches[mode] = (score_pool.launches - before[0],
+                              em_estep_stats.launches - before[1])
+            states[mode] = (dict(_tensors(state_payload(state))), losses, state.step)
+    finally:
+        torch.backends.cudnn.deterministic, torch.backends.cudnn.benchmark = det
+    (ta, la, sa), (to, lo, so) = states["async"], states["oracle"]
+    assert sa == so == 4 and ta.keys() == to.keys()
+    assert [k for k in ta if not torch.equal(ta[k].cpu(), to[k].cpu())] == []
+    assert all(torch.equal(a, b) for a, b in zip(la, lo))
+    assert launches["async"] == launches["oracle"] and launches["async"][1] > 0
+

@@ -25,6 +25,7 @@
     included, raises with its ROADMAP item.
 """
 
+import dataclasses
 import json
 import os
 
@@ -212,7 +213,6 @@ def test_plan_from_env_reads_the_ported_knobs():
 
 
 @pytest.mark.parametrize("knob,item", [
-    ("MGPROTO_CHAOS_SEED", "A9"),
     ("MGPROTO_CHAOS_LOADER_IO_RATE", "A9"),
     ("MGPROTO_CHAOS_LOADER_IO_FAILS", "A9"),
     ("MGPROTO_CHAOS_CKPT_FAILS", "A9"),
@@ -220,13 +220,36 @@ def test_plan_from_env_reads_the_ported_knobs():
     ("MGPROTO_CHAOS_WEDGE_HOST_AT", "A8"),
     ("MGPROTO_CHAOS_SLOW_HOST_MS", "A8"),
     ("MGPROTO_CHAOS_HOST_INDEX", "A8"),
-    ("MGPROTO_CHAOS_SERVE_NAN_RATE", "A7"),
-    ("MGPROTO_CHAOS_TENANT_STORM_AT", "A7"),
     ("MGPROTO_CHAOS_ONLINE_POISON_RATE", "A9"),
+    ("MGPROTO_CHAOS_TENANT_POISON_RATE", "A9"),
 ])
 def test_plan_from_env_refuses_a_knob_it_does_not_read(knob, item):
     with pytest.raises(ValueError, match=f"{knob}=.*ROADMAP item {item}"):
         chaos.plan_from_env({knob: "1", "MGPROTO_CHAOS_NAN_AT_STEP": "2"})
+
+
+@pytest.mark.parametrize("knob,raw", [
+    ("MGPROTO_CHAOS_SEED", "7"),
+    ("MGPROTO_CHAOS_SERVE_MALFORMED_RATE", "0.25"),
+    ("MGPROTO_CHAOS_SERVE_NAN_RATE", "0.5"),
+    ("MGPROTO_CHAOS_SERVE_DEVICE_ERRORS", "1,4"),
+    ("MGPROTO_CHAOS_SERVE_STORM_AT", "3"),
+    ("MGPROTO_CHAOS_SERVE_STORM_LEN", "2"),
+    ("MGPROTO_CHAOS_SERVE_REPLICA_KILL_AT", "5"),
+    ("MGPROTO_CHAOS_SERVE_WEDGE_AT", "6"),
+    ("MGPROTO_CHAOS_SERVE_SWAP_BAD_ARTIFACT", "1"),
+    ("MGPROTO_CHAOS_TENANT_STORM_AT", "8"),
+    ("MGPROTO_CHAOS_TENANT_BAD_SWAP", "2"),
+])
+def test_plan_from_env_reads_the_serving_knobs_as_jax_does(knob, raw):
+    """The serving and tenant knobs (refused before the serving chaos was
+    ported) parse to the JAX package's values, field for field."""
+    from mgproto_tpu.resilience import chaos as jchaos
+
+    env = {knob: raw, "MGPROTO_CHAOS_NAN_AT_STEP": "2"}
+    got, want = chaos.plan_from_env(env), jchaos.plan_from_env(env)
+    for f in dataclasses.fields(got):
+        assert getattr(got, f.name) == getattr(want, f.name), f.name
 
 
 def test_preemption_marker_round_trip(tmp_path):

@@ -210,6 +210,34 @@ def test_replica_plane_swap_face_matches_jax(artifacts, capsys, monkeypatch, tar
     assert tl[-1]["replicas"] == 2 and tl[-1]["replicas_ready"] == 2
 
 
+def test_swap_keeps_the_fleets_percentile(artifacts, capsys, monkeypatch):
+    """`--percentile 50 --replicas 2 --swap`: the trust labels equal the JAX
+    package's line for line, and the green fleet (each standby, every later
+    restart) gates at the 50th percentile, not at the artifact's own."""
+    import argparse
+
+    from mgproto_tpu_torch.engine.export import load_artifact
+
+    a = artifacts
+    jl, tl = _run_both(
+        capsys, monkeypatch, a,
+        ["--artifact", a["port"], "--images", a["npy"], "--replicas", "2", "--swap", a["port"],
+         "--percentile", "50"],
+        ["--artifact", a["jax"], "--images", a["npy"], "--replicas", "2", "--swap", a["jax"],
+         "--percentile", "50"])
+    _compare(jl, tl)
+    assert [ln["reason"] for ln in tl if ln.get("swap")] == ["committed"]
+    assert [r["trust"] for r in tl if "trust" in r] == [r["trust"] for r in jl if "trust" in r]
+    args = argparse.Namespace(device="cpu", percentile=50.0, allow_uncalibrated=False,
+                              explain=False, buckets="1,2,4,8", queue_capacity=64,
+                              deadline_ms=0.0)
+    cal = load_artifact(a["port"], device="cpu").calibration
+    assert cal.percentile != 50.0
+    factory = tserve._swap_factory(args, a["port"])
+    for _ in range(2):  # a standby, then a restart from the retargeted factory
+        assert factory().gate.threshold == cal.threshold_for(50.0) != cal.threshold_log_px
+
+
 def test_checkpoint_face_serves_what_the_artifact_serves(artifacts, capsys):
     a = artifacts
     tserve.main(["--device", "cpu", "--artifact", a["port"], "--images", a["npy"]])
@@ -237,8 +265,6 @@ def test_the_artifact_face_refuses_a_jax_artifact_and_an_uncalibrated_one(artifa
 
 SERVE_ARGVS = {
     "aot_cache": (["--aot-cache", "auto"], "A7"),
-    "autoscale": (["--autoscale", "1:4"], "A7"),
-    "autoscale_interval_s": (["--autoscale_interval_s", "1"], "A7"),
     "trace_requests": (["--trace_requests"], "A9"),
     "profile_warmup": (["--profile_warmup", "/p"], "A9"),
     "online": (["--online"], "A9"),
@@ -306,6 +332,42 @@ def _request(port, method, path, body=None, timeout=60):
     out = resp.status, resp.read()
     conn.close()
     return out
+
+
+@pytest.mark.parametrize("flags,replicas", [(["--autoscale", "1:3"], 1),
+                                           (["--autoscale", "2:3", "--autoscale_interval_s",
+                                             "0.05"], 2)])
+def test_network_face_autoscales(artifacts, flags, replicas):
+    """`--autoscale MIN:MAX` and `--autoscale_interval_s` (refused before
+    the autoscaler was ported): the banner names the bounds, `--replicas 1`
+    starts clamped into them, GET /admin/autoscale reports the
+    autoscaler's status, requests are served, SIGTERM drains, exit 0."""
+    a = artifacts
+    proc = subprocess.Popen(
+        [sys.executable, "-m", "mgproto_tpu_torch.cli.serve", "--device", "cpu", "--artifact",
+         a["port"], "--listen", "127.0.0.1:0", "--replicas", "1"] + flags,
+        cwd=REPO, stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)
+    try:
+        import select
+
+        assert select.select([proc.stdout], [], [], 120)[0], "no banner within 120 s"
+        banner = json.loads(proc.stdout.readline())
+        port = banner["port"]
+        assert banner["autoscale"] == flags[1] and banner["replicas"] == replicas
+        s, body = _request(port, "GET", "/admin/autoscale")
+        status = json.loads(body)
+        assert s == 200 and (status["min_replicas"], status["max_replicas"]) == \
+            tuple(int(v) for v in flags[1].split(":"))
+        assert status["replicas"] == replicas
+        s, body = _request(port, "POST", "/v1/predict", {"id": "p0", "image": a["x"][0].tolist()})
+        assert s == 200 and json.loads(body)["request_id"] == "p0"
+        proc.send_signal(signal.SIGTERM)
+        out, err = proc.communicate(timeout=60)
+    finally:
+        if proc.poll() is None:
+            proc.kill()
+    assert proc.returncode == 0, err
+    assert json.loads(out.strip().splitlines()[-1])["outcomes"] == {"predict": 1}
 
 
 def test_network_face_swaps_and_drains_typed_on_sigterm(artifacts):

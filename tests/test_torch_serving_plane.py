@@ -874,10 +874,13 @@ def test_metric_names_equal_the_jax_package():
 
 
 def test_the_port_refuses_the_serving_chaos_knobs():
-    for knob in ("MGPROTO_CHAOS_SERVE_REPLICA_KILL_AT", "MGPROTO_CHAOS_SERVE_WEDGE_AT",
-                 "MGPROTO_CHAOS_SERVE_SWAP_BAD_ARTIFACT"):
-        with pytest.raises(ValueError, match=knob):
-            tchaos.plan_from_env({knob: "1"})
+    """The plane's chaos knobs are read now (they were refused before the
+    serving chaos was ported): each parses to the JAX package's value."""
+    for knob, field in (("MGPROTO_CHAOS_SERVE_REPLICA_KILL_AT", "serve_replica_kill_at"),
+                        ("MGPROTO_CHAOS_SERVE_WEDGE_AT", "serve_wedge_at"),
+                        ("MGPROTO_CHAOS_SERVE_SWAP_BAD_ARTIFACT", "serve_swap_bad_artifact")):
+        got = getattr(tchaos.plan_from_env({knob: "1"}), field)
+        assert got == getattr(jchaos.plan_from_env({knob: "1"}), field) == 1, knob
 
 
 # ------------------------------------------------------------------- lint
