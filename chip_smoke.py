@@ -23,7 +23,8 @@ Phases, one JSON line each (`t_s`: seconds since the script started):
              A = 200 classes of N = 800 rows, K = 10, d = 64 and over a
              compact slab of 80 of them (bitwise across two launches, and
              equal to the same classes in the A = 200 call), and on that
-             slab with sigmas in 0.3-0.5. Each is timed
+             slab with sigmas in 0.3-0.5, and over a slab of 16 (the
+             online consolidation's width). Each is timed
              beside its bound, the plain version and (score_pool) the
              unfused torch.matmul + torch.topk, as device time (CUDA events
              around calls queued behind a spin kernel); inputs larger than a
@@ -130,7 +131,7 @@ Phases, one JSON line each (`t_s`: seconds since the script started):
              `cli.train`'s process group in its first step, while a spawn
              worker is still starting in that group: exit 0,
              PREEMPTED.json, a preempt checkpoint with its batch position,
-             its 8 spawn workers neither replaced nor left behind, and `--resume auto` finishes
+             its 2 spawn workers neither replaced nor left behind, and `--resume auto` finishes
              the run and clears the marker; (e) the preempt and NaN drills
              through run_training (resnet18, cuDNN deterministic) end bit
              for bit at the clean run's state, and a budget of 0 rollbacks
@@ -188,6 +189,40 @@ Phases, one JSON line each (`t_s`: seconds since the script started):
              MGPROTO_CHAOS_SERVE_REPLICA_KILL_AT and _DEVICE_ERRORS on a
              2-replica fleet: every request answered typed, the killed
              replica restarted.
+ 14. online (its three processes, (b)'s and (c)'s, start first,
+             together, and the in-process checks that time nothing run
+             beside them; (a) and (b)'s timed consolidation run after they
+             exit): (a) the start of a serving process split into its parts
+             (`start_split`: import, CUDA context, kernel library load,
+             artifact read, model build, warmup) in two fresh `cli.serve
+             --artifact --images` processes of phase 12's `push` artifact,
+             the second building no kernel; (b) `cli.serve --checkpoint
+             --calibrate --online --online_capture_percentile 10` on 64 of
+             the input phase's images as a process, calibrated on the first
+             image of each class (captured > 0, at least
+             one consolidation, samples = captured), and in process the
+             same 64 samples consolidated at width 16 on the card and on the
+             CPU plain path from that checkpoint, batch by batch: a sample
+             whose top-1 patch list differs must be a near tie in the CPU's
+             densities (margin <= 2e-4), at most 2 such samples, and their
+             classes are set apart; in every other class means within 1e-4,
+             priors within 1e-5, bank lengths equal and bank rows within
+             1e-4; in a class set apart means and priors within what its
+             differing rows can move in the EM rounds run; launches a
+             batch (score_pool 1, epilogue 16, its backward 0, the E-step
+             num_em_loop), `steady_recompiles` 0, served logits bit-equal
+             across the consolidation, and a Republisher commit through
+             hot_swap on 2 replicas answering as from_live on the
+             candidate; ms a batch and peak GB above the loaded model; (c)
+             `cli.online drill --device cuda` with each drift kind as
+             processes under MGPROTO_CHAOS_ONLINE_POISON_RATE=0.05: the
+             gates' verdicts equal the same drill's on the CPU, the gates
+             that hold by construction pass, the poison counted and none of
+             it captured by the shift drill, the new class in slot 4 without
+             a cold dispatch or a build; (d) three tenants with drift
+             monitors and capture reservoirs on the artifact, the storm
+             tenant's lane poisoned by MGPROTO_CHAOS_TENANT_POISON_RATE: only
+             its monitor breaches.
 Then the kernel summary line (times at the train step's shapes, the serve
 path's beside them; `launches` counted on the input phase's epoch,
 `schedule_launches` on the schedule phase's run, `interpret_launches` on
@@ -196,7 +231,8 @@ phase's bf16 steps, `backbone_launches` on phase 10's six steps of each
 trunk, `drill_launches` on phase 11's in-process drills, `serve_plane_launches`
 on phase 12's in-process plane, `async_launches` on phase 13's async
 steps and their flushes, `async_drill_launches` on its async drills,
-`elastic_serve_launches` on its autoscaled and tenant planes; the epilogue's
+`elastic_serve_launches` on its autoscaled and tenant planes,
+`online_launches` on phase 14's consolidation on the card; the epilogue's
 bf16 times at B = 80 under "train_bf16"), the card line as
 nvidia-smi prints it, and last `{"ok": true, "device": {...}}`. Any failed
 check exits non-zero before that line is printed.
@@ -241,6 +277,7 @@ ESTEP_RTOL = 1e-5
 ESTEP_LL_ATOL = 1e-4
 TRAIN_BATCH = 80
 TRAIN_STEPS = 6  # then one warm step
+ONLINE_WIDTH = 16  # the online consolidation batch (phase 14) and its E-step case
 # Routes of the first train step from one state, on the card, against the
 # plain route (every kernel off). All share the cuDNN convolutions.
 #  * Loss relative 1e-5; EM log-likelihood atol 1e-3 (|ll| ~ 50); priors
@@ -270,6 +307,9 @@ TRAIN_PRIOR_ATOL = 1e-5
 TAIL_ATOL = 1e-5
 INPUT_CLASSES, INPUT_PER_CLASS, INPUT_HW = 200, 4, (375, 500)
 INPUT_WORKERS = 8
+# spawn workers of the SIGTERM'd train main: eight importing torch at once
+# took 10-74 s to start, the run's wall; two exercise the same path
+SIGTERM_WORKERS = 2
 # the schedule phase: a second folder as its OoD set, 2 epochs, top-8 prune
 OOD_CLASSES, OOD_PER_CLASS = 5, 16
 SCHEDULE_EPOCHS = 2
@@ -472,7 +512,7 @@ def kernel_phase():
     sigmas = torch.full((c, k, d), 1.0 / (2 * torch.pi) ** 0.5).cuda()
     cases = []
     for b, hw, path in ((8, 196, "serve"), (8, 784, "serve"), (TRAIN_BATCH, 196, "train"),
-                        (1, 196, "serve")):
+                        (1, 196, "serve"), (ONLINE_WIDTH, 196, "online")):
         feat = torch.nn.functional.normalize(torch.randn(b, hw, d, generator=g), dim=-1).cuda()
         rec, _ = score_pool_case(f"{path}_b{b}_hw{hw}", feat, means, sigmas, t)
         cases.append(rec)
@@ -495,15 +535,17 @@ def kernel_phase():
     check(bool((idx[..., 0] < 49).all()), "ties: top-1 is not the first occurrence")
     cases.append(rec)
     emit("kernel", kernel="score_pool", path="serve", **rec)
-    serve_sp, train_sp = cases[0], cases[2]
+    serve_sp, train_sp, online_sp = cases[0], cases[2], cases[4]
 
     # the 16 launches of a forward: serve (B = 8, running statistics, f32 and
-    # bf16) and train step (B = 80, the batch's statistics, f32)
+    # bf16), train step (B = 80, the batch's statistics, f32) and the online
+    # consolidation batch (B = 16, running statistics, f32)
     epi = {path: {"ms": 0.0, "plain_ms": 0.0, "bound_ms": 0.0, "max_abs_err": 0.0}
-           for path in ("serve", "train")}
+           for path in ("serve", "train", "online")}
     gc = torch.Generator(device="cuda").manual_seed(0)
     for path, b, dtype in (("serve", 8, torch.float32), ("serve", 8, torch.bfloat16),
-                           ("train", TRAIN_BATCH, torch.float32)):
+                           ("train", TRAIN_BATCH, torch.float32),
+                           ("online", ONLINE_WIDTH, torch.float32)):
         for blocks, hw, ch in R34_STAGES:
             rec = epilogue_case(path, b, hw, ch, dtype, gc)
             rec["launches_per_forward"] = blocks
@@ -534,6 +576,7 @@ def kernel_phase():
             "bound_ms": train_sp["bound_ms"], "bound_by": train_sp["bound_by"],
             "library_ms": train_sp["library_ms"], "at": "B=80, HW=196, P=2000, T=20",
             "serve": dict(serve(serve_sp), at="B=8, HW=196"),
+            "online": dict(serve(online_sp), at=f"B={ONLINE_WIDTH}, HW=196"),
         },
         {
             "name": "bn_epilogue", "route": "cuda",
@@ -545,6 +588,8 @@ def kernel_phase():
             "bound_ms": epi["train"]["bound_ms"], "bound_by": "bytes", "library_ms": None,
             "at": "the 16 launches of a forward, B=80, f32, batch statistics",
             "serve": dict(serve(epi["serve"], False), at="16 launches, B=8, f32"),
+            "online": dict(serve(epi["online"], False),
+                           at=f"16 launches, B={ONLINE_WIDTH}, f32"),
         },
         {
             "name": "score_pool_bwd", "route": "cuda",
@@ -564,6 +609,8 @@ def kernel_phase():
             "bound_ms": est[0]["bound_ms"], "bound_by": est[0]["bound_by"],
             "library_ms": None, "at": "A=80 (the compact width), N=800, K=10",
             "dense": dict(serve(est[1], False), at="A=200 (the dense fallback)"),
+            "online": dict(serve(est[3], False),
+                           at=f"A={ONLINE_WIDTH} (the online consolidation width)"),
         },
     ]
 
@@ -770,7 +817,15 @@ def em_estep_cases(g):
     compact["slab_independent"] = True
     sharp_sig = (0.3 + 0.2 * torch.rand(TRAIN_BATCH, k, d, generator=g)).cuda()
     sharp, _ = em_estep_case("A=80, sigma 0.3-0.5", slab[0], slab[1], sharp_sig, slab[3], timed=False)
-    return compact, dense, sharp
+    # the online plane's width: a consolidation batch of 16 samples dirties
+    # at most 16 classes (online/consolidate.py)
+    idx16 = idx[:ONLINE_WIDTH]
+    online, online_out = em_estep_case(f"A={ONLINE_WIDTH}",
+                                       *[t[idx16].contiguous() for t in (x, means, sigmas, priors)])
+    check(all(torch.equal(f[idx16], s) for f, s in zip(dense_out, online_out)),
+          f"em_estep: classes of the A={ONLINE_WIDTH} slab differ from the A=200 call's")
+    online["slab_independent"] = True
+    return compact, dense, sharp, online
 
 
 # -------------------------------------------------------------------- serve
@@ -2882,9 +2937,8 @@ def backbone_phase(smi):
 def cli_flags(root, model_dir, **extra):
     """Flags of the port's mains: the input phase's folder as the train,
     push and test set, the flagship's widths, batch 80."""
-    flags = ["--train_dir", root, "--test_dir", root, "--push_dir", root,
-             "--model_dir", model_dir, "--num_workers", str(INPUT_WORKERS)]
-    for k, v in extra.items():
+    flags = ["--train_dir", root, "--test_dir", root, "--push_dir", root, "--model_dir", model_dir]
+    for k, v in {"num_workers": INPUT_WORKERS, **extra}.items():
         flags += [f"--{k}"] + ([] if v is True else [str(v)])
     return flags
 
@@ -3016,9 +3070,11 @@ def cli_preempt_check(smi, root, base):
     from mgproto_tpu_torch.utils import checkpoint as ck
 
     run_dir = os.path.join(base, "sigterm")
-    flags = cli_flags(root, run_dir, arch="resnet18", epochs=1, mine_start=0, gmm_start=0,
-                      push_start=100, no_pretrained=True)
-    spawn = ["--worker_backend", "process"]
+    run = dict(arch="resnet18", epochs=1, mine_start=0, gmm_start=0, push_start=100,
+               no_pretrained=True)
+    flags = cli_flags(root, run_dir, **run)
+    spawn = cli_flags(root, run_dir, **run, num_workers=SIGTERM_WORKERS,
+                      worker_backend="process")
     # the main as `-m` runs it, with SIGUSR1 dumping every thread's stack
     # (sent below should the run not exit)
     main = ("import faulthandler, runpy, signal, sys; "
@@ -3026,7 +3082,7 @@ def cli_preempt_check(smi, root, base):
             "sys.argv[0] = 'mgproto_tpu_torch.cli.train'; "
             "runpy.run_module('mgproto_tpu_torch.cli.train', run_name='__main__', alter_sys=True)")
     t0 = time.perf_counter()
-    proc = subprocess.Popen([sys.executable, "-c", main, *flags, *spawn],
+    proc = subprocess.Popen([sys.executable, "-c", main, *spawn],
                             cwd=HERE, stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True,
                             env=dict(os.environ, PYTHONUNBUFFERED="1"), start_new_session=True)
     workers, starting, lines = set(), [], []
@@ -3091,7 +3147,7 @@ def cli_preempt_check(smi, root, base):
     for p in orphans:  # this script stops what it started, whatever the check says
         os.kill(p, signal.SIGKILL)
     # the signal killed no worker: the pool replaced none
-    check(len(workers) == INPUT_WORKERS and set(starting) <= workers and not orphans,
+    check(len(workers) == SIGTERM_WORKERS and set(starting) <= workers and not orphans,
           f"spawn workers {sorted(workers)} (signalled while starting: {starting}): "
           f"{orphans} still alive after the run exited")
 
@@ -3303,11 +3359,12 @@ def serve_plane_checkpoints():
     return found["prune"], found["push"]
 
 
-def start_main(module, flags, **kw):
-    """`python -m mgproto_tpu_torch.cli.<module>` started, not waited for."""
+def start_main(module, flags, env=None, **kw):
+    """`python -m mgproto_tpu_torch.cli.<module>` started, not waited for;
+    `env` adds to this process's environment."""
     return subprocess.Popen([sys.executable, "-m", f"mgproto_tpu_torch.cli.{module}", *flags],
-                            cwd=HERE, text=True, env=dict(os.environ, PYTHONUNBUFFERED="1"),
-                            **kw)
+                            cwd=HERE, text=True,
+                            env=dict(os.environ, PYTHONUNBUFFERED="1", **(env or {})), **kw)
 
 
 def free_port():
@@ -3885,7 +3942,8 @@ def async_bank_check(smi):
 
 def elastic_images(n):
     """`n` test-transformed images of the input phase's folder (written when
-    this phase runs alone), as f32 [n, 224, 224, 3]."""
+    this phase runs alone), as f32 [n, 224, 224, 3], and their folder
+    labels: (root, images, labels)."""
     import numpy as np
 
     from mgproto_tpu_torch.data.folder import ImageFolder
@@ -3896,7 +3954,9 @@ def elastic_images(n):
         write_jpeg_tree(root, INPUT_CLASSES, INPUT_PER_CLASS, INPUT_HW)
     ds = ImageFolder(root, test_transform(224))
     pick = np.random.default_rng(21).choice(len(ds), n, replace=False)
-    return root, np.stack([ds.load(int(i))[0] for i in pick]).astype(np.float32)
+    rows = [ds.load(int(i)) for i in pick]
+    return (root, np.stack([r[0] for r in rows]).astype(np.float32),
+            np.asarray([r[1] for r in rows], np.int64))
 
 
 def elastic_artifact(root):
@@ -4172,7 +4232,7 @@ def elastic_phase(smi):
     t_phase = time.perf_counter()
     shutil.rmtree(ELASTIC_DIR, ignore_errors=True)
     os.makedirs(ELASTIC_DIR)
-    root, imgs = elastic_images(32)
+    root, imgs, _ = elastic_images(32)
     art = elastic_artifact(root)
     # the network face starts first: it loads and warms while the rest runs
     port = free_port()
@@ -4206,6 +4266,529 @@ def elastic_phase(smi):
     launches = {"async": async_launches, "async_drills": drill_launches,
                 "autoscale": serve_launches, "tenants": tenant_launches}
     return launches, async_steps, serve_dispatches + tenant_dispatches
+
+
+ONLINE_DIR = os.path.join(HERE, "build", "online_phase")
+ONLINE_IMAGES = 64  # the --images batch of (a) and (b), from the input phase's folder
+ONLINE_PERCENTILE = 10.0  # the capture gate of (b)
+ONLINE_MEANS_ATOL = 1e-4  # consolidation on the card vs the CPU plain path
+ONLINE_PRIORS_ATOL = 1e-5
+ONLINE_BANK_ATOL = 1e-4
+# a sample whose top-1 patch differs between the card and the CPU must be a
+# near tie in the CPU's own densities: its top-1 margin within twice the
+# serve check's tolerance (the `clear` rule of serve_phase); and near ties
+# are rare (0 or 1 of 64 samples on the card so far)
+ONLINE_TIE_MARGIN = 2 * SERVE_ATOL
+ONLINE_MAX_TIES = 2
+ONLINE_TENANT_REQUESTS = 48  # requests a tenant in (d)
+ONLINE_TENANT_DRIFT = 0.5  # px divergence threshold of the tenants' monitors, in IQRs
+ONLINE_DRILL_POISON = 0.05  # MGPROTO_CHAOS_ONLINE_POISON_RATE of (c)'s drills
+# drift-drill gates whose verdict depends on the seeded data and weights (the
+# JAX package's own drill fails each on some seed); phase 14 holds them to
+# the CPU plain path's verdicts on the same seeded state
+DATA_GATES = ("drill.accuracy_dipped_under_drift", "drill.accuracy_recovered_after_republish",
+              "drill.poison_never_capture_eligible")
+
+
+def online_calibration_dir(root):
+    """A class folder of the input phase's first image of each class
+    (symlinks) under ONLINE_DIR: (b)'s process calibrates on it, 200
+    decodes instead of 800, beside the drills."""
+    calib = os.path.join(ONLINE_DIR, "calib")
+    if not os.path.isdir(calib):
+        for cls in sorted(os.listdir(root)):
+            first = sorted(os.listdir(os.path.join(root, cls)))[0]
+            os.makedirs(os.path.join(calib, cls))
+            os.symlink(os.path.join(root, cls, first), os.path.join(calib, cls, first))
+    return calib
+
+
+def start_split_check(smi, art, npy):
+    """14 (a): two fresh `cli.serve --artifact --images` processes, the
+    second after the first; each one's `start_split` and wall seconds.
+    The second builds no kernel library (the directory's files unchanged)."""
+    from mgproto_tpu_torch.ops import _build
+
+    runs = []
+    for i in range(2):
+        before = sorted(os.listdir(_build.BUILD_DIR))
+        code, out, err, wall = run_main("serve", ["--artifact", art, "--images", npy], 300)
+        check(code == 0, f"start split process {i}: exit {code}\n{err[-3000:]}")
+        summary = last_json(out)
+        check(summary.get("summary") and summary["outcomes"].get("predict", 0) > 0,
+              f"start split process {i}: {summary}")
+        split = summary["start_split"]
+        built = sorted(set(os.listdir(_build.BUILD_DIR)) - set(before))
+        runs.append({"wall_s": wall, "start_split": split, "parts_s": sum(split.values()),
+                     "outside_parts_s": wall - sum(split.values()), "new_build_files": built})
+    check(not runs[1]["new_build_files"], f"the second process built {runs[1]['new_build_files']}")
+    check(set(runs[0]["start_split"]) >= {"import", "cuda_context", "kernel_load", "artifact_read",
+                                          "model_build", "warmup"},
+          f"start split parts {sorted(runs[0]['start_split'])}")
+    emit("online", card=smi, part="start_split", runs=runs)
+    return runs
+
+
+def consolidation_vs_cpu(trainer, state, ckpt, samples):
+    """The same samples consolidated batch by batch (ONLINE_WIDTH each) from
+    the `ckpt` state on the card (`trainer`, `state`) and on the CPU plain
+    path. After each batch the two enqueues are compared: a sample whose
+    top-1 patch list (per prototype of its class) differs enqueues other
+    rows, so its class is set apart; it must be a near tie in the CPU's own
+    densities (margin <= ONLINE_TIE_MARGIN where the lists differ), and at
+    most ONLINE_MAX_TIES samples may differ. Returns (card consolidator, CPU
+    consolidator, the classes set apart, the CPU margins of the samples
+    whose lists differ, CPU seconds a batch)."""
+    import torch
+
+    from mgproto_tpu_torch.config import Config
+    from mgproto_tpu_torch.engine.train import Trainer
+    from mgproto_tpu_torch.online.consolidate import Consolidator, ConsolidatorConfig
+    from mgproto_tpu_torch.utils.checkpoint import restore_checkpoint
+
+    ctrainer = Trainer(Config(), steps_per_epoch=1, device="cpu")
+    cstate = restore_checkpoint(ckpt, ctrainer.init_state(0, for_restore=True))
+    cfg = ConsolidatorConfig(batch_width=ONLINE_WIDTH)
+    card, cpu = Consolidator(trainer, state, config=cfg), Consolidator(ctrainer, cstate, config=cfg)
+    apart, margins, cpu_s = set(), [], 0.0
+    for i in range(0, len(samples), ONLINE_WIDTH):
+        chunk = samples[i:i + ONLINE_WIDTH]
+        card.ingest(chunk)
+        t0 = time.perf_counter()
+        cpu.ingest(chunk)
+        cpu_s += time.perf_counter() - t0
+        (gtop, _, gvalid), (ctop, cmargin, cvalid) = card.last_enqueue, cpu.last_enqueue
+        k = gtop.shape[1]
+        # the valid masks are the dedup of each sample's top-1 list: they
+        # differ only in a sample whose list does
+        protos = (gtop.cpu() != ctop)[:len(chunk)]  # [n, K]
+        vrows = (gvalid.cpu() != cvalid).reshape(-1, k)[:len(chunk)].any(-1)
+        check(not (vrows & ~protos.any(-1)).any(),
+              "enqueue valid masks differ in a sample whose top-1 list agrees")
+        for j in torch.nonzero(protos.any(-1)).flatten().tolist():
+            margin = cmargin[j][protos[j]].max().item()
+            margins.append(margin)
+            apart.add(chunk[j].class_id)
+            check(margin <= ONLINE_TIE_MARGIN,
+                  f"sample {i + j}: the card's top-1 patch differs from the CPU's where the CPU's "
+                  f"top-1 margin is {margin} > {ONLINE_TIE_MARGIN} (not a near tie)")
+    check(len(margins) <= ONLINE_MAX_TIES,
+          f"{len(margins)} samples' top-1 lists differ card vs CPU (at most {ONLINE_MAX_TIES})")
+    return card, cpu, apart, margins, cpu_s / max(cpu.batches, 1)
+
+
+def online_vs_cpu_check(ckpt, imgs, labels):
+    """14 (b), the part that times nothing (run beside the phase's
+    processes): the samples, the serving state's engine and its answers
+    before any consolidation; the same samples consolidated on the card and
+    on the CPU plain path from the same state (`consolidation_vs_cpu`);
+    served logits bit-equal after that consolidation; a Republisher commit
+    through hot_swap on 2 replicas whose answers equal from_live on the
+    candidate. Returns what `online_consolidation_check` reads."""
+    import copy
+
+    import numpy as np
+    import torch
+
+    from mgproto_tpu_torch.config import Config
+    from mgproto_tpu_torch.engine.eval import Evaluator
+    from mgproto_tpu_torch.engine.train import Trainer
+    from mgproto_tpu_torch.online.capture import CapturedSample
+    from mgproto_tpu_torch.online.drift import DriftReport
+    from mgproto_tpu_torch.online.republish import Republisher
+    from mgproto_tpu_torch.serving.batcher import BatcherConfig
+    from mgproto_tpu_torch.serving.calibration import calibrate
+    from mgproto_tpu_torch.serving.engine import ServingEngine
+    from mgproto_tpu_torch.serving.replica import ReplicaSet
+    from mgproto_tpu_torch.utils.checkpoint import restore_checkpoint
+
+    trainer = Trainer(Config(), steps_per_epoch=1, device="cuda")
+    state = restore_checkpoint(ckpt, trainer.init_state(0, for_restore=True))
+    serving_ev = Evaluator(state.model, state.gmm, trainer.cfg, device="cuda")
+    eng = ServingEngine.from_live(serving_ev, buckets=(8,))
+    eng.warmup()
+    before = eng.infer_fn(imgs[:8])
+    samples = [CapturedSample(img, int(c), None, f"o{i}", True)
+               for i, (img, c) in enumerate(zip(imgs, labels))]
+
+    def served_unmoved(what):
+        after = eng.infer_fn(imgs[:8])
+        check(all(np.array_equal(before[k], after[k]) for k in ("logits", "log_px")),
+              f"served logits moved with the candidate ({what})")
+
+    # the same samples on the card and on the CPU plain path, batch by batch
+    card, cpu, apart, margins, cpu_s = consolidation_vs_cpu(trainer, state, ckpt, samples)
+    served_unmoved("the card-vs-CPU consolidation")
+    batches = card.batches
+    same = torch.ones(trainer.cfg.model.num_classes, dtype=torch.bool)
+    same[sorted(apart)] = False
+    means_d = (card.gmm.means.detach().cpu() - cpu.gmm.means.detach()).abs().amax((1, 2))
+    priors_d = (card.gmm.priors.cpu() - cpu.gmm.priors).abs().amax(-1)
+    len_d = card.memory.length.cpu() != cpu.memory.length
+    row_err = (card.memory.feats.cpu() - cpu.memory.feats).abs().amax(-1)  # [C, cap]
+    means_err, priors_err = means_d[same].max().item(), priors_d[same].max().item()
+    bad_rows = int((row_err > ONLINE_BANK_ATOL).sum())
+    check(means_err <= ONLINE_MEANS_ATOL, f"consolidated means: card vs CPU {means_err}")
+    check(priors_err <= ONLINE_PRIORS_ATOL, f"consolidated priors: card vs CPU {priors_err}")
+    check(not len_d[same].any(), f"bank lengths differ in classes "
+          f"{torch.nonzero(len_d & same).flatten().tolist()} whose enqueues agree")
+    check(not (row_err[same] > ONLINE_BANK_ATOL).any(),
+          f"bank rows differ beyond {ONLINE_BANK_ATOL} in classes whose enqueues agree")
+    # a class set apart holds up to K other bank rows a near tie: its
+    # means and priors are still held, to what those rows can move in the
+    # EM rounds run (an Adam step moves a mean coordinate by about mean_lr;
+    # a round moves a prior by (1 - tau) times the change of its
+    # responsibility sum over the bank's capacity)
+    em, k = trainer.cfg.em, trainer.cfg.model.prototypes_per_class
+    rounds = em.num_em_loop * batches
+    apart_means_atol = 2 * em.mean_lr * rounds
+    apart_priors_atol = 2 * (1 - em.tau) * rounds * k * len(margins) / card.memory.feats.shape[1]
+    apart_means = means_d[~same].max().item() if apart else None
+    apart_priors = priors_d[~same].max().item() if apart else None
+    if apart:
+        check(apart_means <= apart_means_atol,
+              f"means of the classes set apart: card vs CPU {apart_means} > {apart_means_atol}")
+        check(apart_priors <= apart_priors_atol,
+              f"priors of the classes set apart: card vs CPU {apart_priors} > {apart_priors_atol}")
+    compare = {"samples_whose_top1_lists_differ": len(margins),
+               "cpu_top1_margins_where_lists_differ": margins,
+               "classes_set_apart": len(apart),
+               "bank_rows_differ": bad_rows,
+               "bank_lengths_differ": int(len_d.sum()),
+               "means_max_abs_err_vs_cpu": means_err,
+               "priors_max_abs_err_vs_cpu": priors_err,
+               "means_max_abs_err_set_apart": apart_means,
+               "priors_max_abs_err_set_apart": apart_priors,
+               "set_apart_atol": {"means": apart_means_atol, "priors": apart_priors_atol},
+               "cpu_ms_per_batch": 1e3 * cpu_s}
+    del cpu
+
+    # the Republisher through hot_swap on 2 replicas, from the card's candidate
+    calib = calibrate(serving_ev, [imgs[i:i + 8] for i in range(0, len(imgs), 8)])
+    rs = ReplicaSet(lambda: ServingEngine.from_live(serving_ev, calibration=calib,
+                                                    buckets=(1, 8)),
+                    replicas=2, batcher_config=BatcherConfig(max_linger_s=0.0))
+    rs.start()
+    pending = {}
+
+    def recalibrate():
+        cand = card.candidate_state(state)
+        ev = Evaluator(copy.deepcopy(cand.model), cand.gmm, trainer.cfg, device="cuda")
+        pending["ev"] = ev
+        return calibrate(ev, [imgs[i:i + 8] for i in range(0, len(imgs), 8)])
+
+    def factory_for(calibration):
+        return lambda: ServingEngine.from_live(pending["ev"], calibration=calibration,
+                                               buckets=(1, 8))
+
+    commits = []
+    rep = Republisher(rs, recalibrate, factory_for, min_interval_s=0.0, on_commit=commits.append)
+    breach = DriftReport(t=0.0, px_divergence=1.0, mean_shift_max=0.0, cov_shift_max=0.0,
+                         class_shifts={}, breached=True, signals=("px",))
+    rep.maybe_republish(breach)
+    rec = rep.maybe_republish(breach)
+    check(rec is not None and rec.result == "committed", f"republish {rec and rec.to_dict()}")
+    check(pending["ev"].model is not state.model, "the candidate engine shares the model")
+    want_r = ServingEngine.from_live(pending["ev"], calibration=commits[0],
+                                     buckets=(1, 8)).serve_all(list(imgs[:8]))
+    got = []
+    for i, row in enumerate(imgs[:8]):
+        got.extend(rs.submit(row, request_id=f"req{i}"))
+    got.extend(rs.flush())
+    got.sort(key=lambda r: r.request_id)
+    check([(r.prediction, r.log_px, r.trust) for r in got]
+          == [(r.prediction, r.log_px, r.trust) for r in want_r],
+          "the republished fleet answers differently from from_live on the candidate")
+    served_unmoved("the republish")
+    return {"trainer": trainer, "state": state, "samples": samples,
+            "served_unmoved": served_unmoved, "vs_cpu": compare,
+            "republish": rec.to_dict()["result"]}
+
+
+def online_consolidation_check(smi, ctx):
+    """14 (b), timed, with no other process on the card: the samples
+    ingested by a fresh Consolidator of the serving state (the card-vs-CPU
+    comparison paid the process's first launches at this width); ms a
+    batch; peak GB above what the process held; launches a batch;
+    `steady_recompiles` 0, and still 0 after a second ingest; served
+    logits bit-equal. Returns the launch counts of the timed ingest."""
+    import gc
+
+    import torch
+
+    from mgproto_tpu_torch.online.consolidate import Consolidator, ConsolidatorConfig
+
+    trainer, state, samples = ctx["trainer"], ctx["state"], ctx["samples"]
+    cfg = ConsolidatorConfig(batch_width=ONLINE_WIDTH)
+    gc.collect()
+    torch.cuda.synchronize()
+    base_gb = torch.cuda.memory_allocated() / 1e9
+    torch.cuda.reset_peak_memory_stats()
+    cons = Consolidator(trainer, state, config=cfg)
+    reset_launch_counts()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    report = cons.ingest(samples)
+    torch.cuda.synchronize()
+    ingest_s = time.perf_counter() - t0
+    launches = launch_counts()
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9 - base_gb
+    ctx["served_unmoved"]("the timed consolidation")
+    batches = report.batches
+    want = {"score_pool": batches, "bn_epilogue": 16 * batches, "score_pool_bwd": 0,
+            "em_estep": trainer.cfg.em.num_em_loop * batches}
+    check(launches == want, f"consolidation launches {launches}, want {want}")
+    check(cons.steady_recompiles() == 0, f"steady_recompiles {cons.steady_recompiles()}")
+    # a second ingest at the same width: no new shape, no build
+    cons.ingest(samples[:ONLINE_WIDTH // 2])
+    check(cons.steady_recompiles() == 0, "a second ingest changed shape or built a kernel")
+    emit("online", card=smi, part="full_width", width=ONLINE_WIDTH, samples=len(samples),
+         batches=batches, launches=launches, ms_per_batch=1e3 * ingest_s / batches,
+         peak_gb_above_model=peak_gb, em_active_max=report.em_active_max,
+         compact_fallbacks=report.compact_fallbacks, steady_recompiles=cons.steady_recompiles(),
+         vs_cpu=ctx["vs_cpu"], served_bit_equal_across_consolidation=True,
+         republish=ctx["republish"], republished_answers_equal_from_live=True)
+    return launches
+
+
+def online_serve_process_check(smi, started):
+    """14 (b): the --online checkpoint face's process, read: captured > 0,
+    consolidation runs >= 1, samples equal to captured."""
+    code, wall = started.wait(timeout=600)
+    with open(started.out) as f:
+        text = f.read()
+    check(code == 0, f"cli.serve --online: exit {code}\n{text[-3000:]}")
+    summary = last_json(text)
+    online = summary.get("online") or {}
+    cap, cons = online.get("capture", {}), online.get("consolidation", {})
+    check(cap.get("accepted", 0) > 0, f"--online captured nothing: {online}")
+    check(cons.get("runs", 0) >= 1 and cons.get("samples") == cap.get("accepted"),
+          f"--online consolidation {cons} vs capture {cap}")
+    emit("online", card=smi, part="serve_online_process", online=online,
+         outcomes=summary["outcomes"], steady_state_recompiles=summary["steady_state_recompiles"],
+         start_split=summary.get("start_split"), wall_s=wall)
+
+
+def online_drill_check(smi, drills, serve):
+    """14 (c) and (d)'s online poison: `cli.online drill --device cuda` with
+    each drift kind, as processes under MGPROTO_CHAOS_ONLINE_POISON_RATE;
+    each record's gate verdicts equal the same drill's on the CPU plain path
+    in this process (the seeded state is the same); the gates that hold by
+    construction pass (detection via p(x) before the correction, a committed
+    republish, zero drops, zero cold dispatches and steady recompiles); the
+    poisoned requests are counted, and the shift drill captures none (the
+    new-class drill's count is the CPU's, reported); the new class claims
+    slot 4."""
+    from mgproto_tpu_torch.online.drill import run_drill
+
+    # the CPU references while the processes run, then (b)'s process
+    cpus = {kind: run_drill(drift_kind=kind, device="cpu", poison_rate=ONLINE_DRILL_POISON)
+            for kind in drills}
+    online_serve_process_check(smi, serve)
+    out = {}
+    for kind, started in drills.items():
+        code, wall = started.wait(timeout=600)
+        path, cpu = started.out, cpus[kind]
+        check(os.path.exists(path), f"drill {kind}: exit {code}, no record")
+        with open(path) as f:
+            rec = json.loads(f.read())
+        verdicts = {r["key"]: r["ok"] for r in rec["gates"]["rows"]}
+        check(verdicts == {r["key"]: r["ok"] for r in cpu["gates"]["rows"]},
+              f"drill {kind}: card gates {verdicts} vs CPU {cpu['gates']['rows']}")
+        check(code == (0 if rec["gates"]["ok"] else 1), f"drill {kind}: exit {code}")
+        # the gates the data decide (the dip, the recovery, the poison the
+        # gate lets through) are held to the CPU's verdicts above; these hold
+        # by construction
+        structural = {k: v for k, v in verdicts.items() if k not in DATA_GATES}
+        check(all(structural.values()), f"drill {kind}: {structural}")
+        o = rec["online"]
+        check(o["poison"]["injected"] > 0
+              and (kind != "shift" or o["poison"]["capture_eligible"] == 0),
+              f"drill {kind}: poison {o['poison']}")
+        if kind == "new_class":
+            check(o["new_class_slot"] == 4 and o["labeled_feedback"] > 0,
+                  f"new class slot {o['new_class_slot']}")
+        out[kind] = {"wall_s": wall, "exit": code, "gates": verdicts,
+                     "republish_by_result": o["republish_by_result"],
+                     "first_breach_t": (o["detection"]["first_breach"] or {}).get("t"),
+                     "first_commit_t": o["detection"]["first_commit_t"],
+                     "cpu_first_breach_t": (cpu["online"]["detection"]["first_breach"]
+                                            or {}).get("t"),
+                     "served_accuracy": [w["served_accuracy"] for w in o["accuracy_windows"]],
+                     "cpu_served_accuracy": [w["served_accuracy"]
+                                             for w in cpu["online"]["accuracy_windows"]],
+                     "consolidation": o["consolidation"], "poison": o["poison"],
+                     "cpu_poison": cpu["online"]["poison"],
+                     "steady_state_recompiles": rec["steady_state_recompiles"],
+                     "new_class_slot": o["new_class_slot"]}
+    emit("online", card=smi, part="drift_drill", drills=out)
+
+
+def online_tenants_poison_check(smi, loaded, imgs):
+    """14 (d): three tenants with per-tenant drift monitors and capture
+    reservoirs on a 2-replica fleet of the artifact, with
+    MGPROTO_CHAOS_TENANT_POISON_RATE junk in the storm tenant's lane: only
+    that tenant's monitor breaches (the poison the storm tenant's reservoir
+    staged is reported: the seeded flagship's p(x) does not separate it)."""
+    import numpy as np
+
+    from mgproto_tpu_torch.online.capture import CaptureConfig
+    from mgproto_tpu_torch.online.drift import DriftConfig
+    from mgproto_tpu_torch.resilience import chaos
+    from mgproto_tpu_torch.serving.batcher import BatcherConfig
+    from mgproto_tpu_torch.serving.engine import ServingEngine
+    from mgproto_tpu_torch.serving.replica import ReplicaSet
+    from mgproto_tpu_torch.serving.tenants import TenantDirectory
+
+    cal, fp = loaded.calibration, loaded.meta.get("gmm_fingerprint")
+    c = int(loaded.meta["num_classes"])
+    t0 = time.perf_counter()
+    d = TenantDirectory()
+    drift_cfg = DriftConfig(px_window=ONLINE_TENANT_REQUESTS, min_px_samples=24,
+                            eval_interval_s=0.0, px_divergence_threshold=ONLINE_TENANT_DRIFT,
+                            mean_shift_threshold=0.0)
+    cap_cfg = CaptureConfig(percentile=ONLINE_PERCENTILE, capacity_per_class=64)
+    names = ("t0", "t1", "t2")
+    for name in names:
+        d.mount(name, cal, expected_fingerprint=fp, drift_config=drift_cfg,
+                capture_config=cap_cfg, num_classes=c)
+    rs = ReplicaSet(lambda: ServingEngine.from_loaded(loaded, tenants=d, queue_capacity=256),
+                    replicas=2, batcher_config=BatcherConfig(max_linger_s=0.005))
+    rs.start()
+    prev = chaos.set_active(chaos.ChaosState(chaos.plan_from_env({
+        "MGPROTO_CHAOS_TENANT_POISON_RATE": "0.5", "MGPROTO_CHAOS_SEED": "3"})))
+    poisoned, out, seq = set(), [], 0
+    try:
+        for i in range(len(names) * ONLINE_TENANT_REQUESTS):
+            tenant = names[i % len(names)]
+            x = imgs[i % len(imgs)]
+            if tenant == "t0":
+                if chaos.get_active().tenant_poison_due(seq):
+                    x = (x * 6.0 - 3.0).astype(np.float32)
+                    poisoned.add(f"q{i}")
+                seq += 1
+            out.extend(rs.submit(x, request_id=f"q{i}", tenant=tenant))
+            if i % 8 == 7:
+                out.extend(rs.poll())
+        out.extend(rs.flush())
+        tenant_injections = dict(chaos.get_active().injections)
+    finally:
+        chaos.set_active(prev)
+    check(len({r.request_id for r in out}) == len(names) * ONLINE_TENANT_REQUESTS,
+          "the tenant poison drill dropped a request")
+    breaches = {n: d.head_for(n).drift.breaches for n in names}
+    check(breaches["t0"] > 0 and breaches["t1"] == 0 and breaches["t2"] == 0,
+          f"tenant drift breaches {breaches}")
+    divergence = {n: d.head_for(n).drift.last_report.px_divergence for n in names}
+    emit("online", card=smi, part="tenants_poison", breaches=breaches,
+         px_divergence=divergence, tenant_poison_injected=tenant_injections.get("tenant_poison"),
+         storm_poison_staged=sum(d.head_for("t0").capture.was_captured(r) for r in poisoned),
+         captures={n: d.head_for(n).capture.stats()["accepted"] for n in names},
+         steady_state_recompiles=rs.steady_recompiles, seconds=time.perf_counter() - t0)
+
+
+class Started:
+    """A process started now; a thread records when it ends (so a check
+    that reads it later still gets its own wall seconds)."""
+
+    def __init__(self, proc, out=None):
+        import threading
+
+        self.proc, self.out, self.t0, self.t1 = proc, out, time.perf_counter(), None
+
+        def watch():
+            proc.wait()
+            self.t1 = time.perf_counter()
+
+        threading.Thread(target=watch, daemon=True).start()
+
+    def wait(self, timeout):
+        code = self.proc.wait(timeout=timeout)
+        while self.t1 is None:
+            time.sleep(0.01)
+        return code, self.t1 - self.t0
+
+
+def online_background():
+    """Phase 14's processes, started together: (b)'s `cli.serve --online` on
+    the checkpoint of phase 12's `push` artifact and (c)'s two drills."""
+    import numpy as np
+
+    root, imgs, labels = elastic_images(ONLINE_IMAGES)
+    npy = os.path.join(ONLINE_DIR, "x.npy")
+    np.save(npy, imgs)
+    art = elastic_artifact(root)
+    _, push_ckpt = serve_plane_checkpoints()
+    serve_out = os.path.join(ONLINE_DIR, "serve_online.out")
+    serve = Started(start_main(
+        "serve", cli_flags(online_calibration_dir(root), os.path.dirname(push_ckpt),
+                           no_pretrained=True, checkpoint=push_ckpt, calibrate=True, online=True,
+                           online_capture_percentile=ONLINE_PERCENTILE, images=npy,
+                           num_workers=2),
+        stdout=open(serve_out, "w"), stderr=subprocess.STDOUT), serve_out)
+    drills = {}
+    for kind in ("shift", "new_class"):
+        path = os.path.join(ONLINE_DIR, f"drill_{kind}.json")
+        drills[kind] = Started(start_main(
+            "online", ["drill", "--device", "cuda", "--drift-kind", kind, "--out", path],
+            stdout=subprocess.DEVNULL, stderr=subprocess.DEVNULL,
+            env={"MGPROTO_CHAOS_ONLINE_POISON_RATE": str(ONLINE_DRILL_POISON)}), path)
+    import atexit
+
+    procs = [serve.proc] + [d.proc for d in drills.values()]
+    atexit.register(lambda: [p.kill() for p in procs if p.poll() is None])
+    return {"root": root, "imgs": imgs, "labels": labels, "npy": npy, "art": art,
+            "push_ckpt": push_ckpt, "serve": serve, "drills": drills}
+
+
+def reset_online_dir():
+    import shutil
+
+    shutil.rmtree(ONLINE_DIR, ignore_errors=True)
+    os.makedirs(ONLINE_DIR)
+
+
+def online_phase(smi):
+    """Phase 14; returns the launch counts of (b)'s timed consolidation on
+    the card. Its three processes ((b)'s `cli.serve --online`, (c)'s
+    drills) start first, together; the in-process checks that time nothing
+    run beside them ((b)'s card-vs-CPU comparison and republish, (d), the
+    drills' CPU references); then, with no other process on the card, the
+    start split (a) and (b)'s timed consolidation."""
+    import gc
+
+    import torch
+
+    from mgproto_tpu_torch.engine import export
+
+    t_phase = time.perf_counter()
+    split_s = {}
+    reset_online_dir()
+    st = online_background()
+    procs = [st["serve"].proc] + [d.proc for d in st["drills"].values()]
+    deterministic = torch.backends.cudnn.deterministic
+    torch.backends.cudnn.deterministic = True
+    try:
+        ctx = online_vs_cpu_check(st["push_ckpt"], st["imgs"], st["labels"])
+        split_s["vs_cpu_and_republish"] = time.perf_counter() - t_phase
+        online_tenants_poison_check(smi, export.load_artifact(st["art"], device="cuda"),
+                                    st["imgs"])
+        split_s["tenants_poison"] = time.perf_counter() - t_phase
+        online_drill_check(smi, st["drills"], st["serve"])
+        split_s["processes"] = time.perf_counter() - t_phase
+        gc.collect()
+        torch.cuda.empty_cache()
+        start_split_check(smi, st["art"], st["npy"])
+        split_s["start_split"] = time.perf_counter() - t_phase
+        launches = online_consolidation_check(smi, ctx)
+        split_s["timed_consolidation"] = time.perf_counter() - t_phase
+    finally:
+        torch.backends.cudnn.deterministic = deterministic
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+    emit("online", card=smi, part="done", split_s=split_s, seconds=time.perf_counter() - t_phase)
+    return launches
 
 
 def serve_once() -> None:
@@ -4295,6 +4878,7 @@ def main() -> int:
     drill_launches = cli_phase(smi, interp)
     serve_plane_launches = serve_plane_phase(smi)
     elastic_launches, async_steps, elastic_dispatches = elastic_phase(smi)
+    online_launches = online_phase(smi)
     for k in kernels:
         # `launches`: the loader-fed epoch of the input phase (this path's
         # main run); the train phase's and the serve phase's beside them
@@ -4338,6 +4922,11 @@ def main() -> int:
                                        + elastic_launches["tenants"][k["name"]])
         check((k["elastic_serve_launches"] > 0) == (k["name"] in ("score_pool", "bn_epilogue")),
               f"{k['name']}: {k['elastic_serve_launches']} launches on the elastic plane")
+        # phase 14: the consolidation of 64 captured samples on the card
+        # (4 batches of 16): the eval trunk, the enqueue's score_pool and EM
+        k["online_launches"] = online_launches[k["name"]]
+        check((k["online_launches"] > 0) == (k["name"] != "score_pool_bwd"),
+              f"{k['name']}: {k['online_launches']} launches on the online path")
         if k["name"] == "bn_epilogue":
             k["train_bf16"] = dict(epi_bf16, launches=bf16_launches["bn_epilogue"])
     print(json.dumps({"kernels": kernels, "input_steps": input_steps, "train_steps": train_steps,

@@ -63,10 +63,6 @@ SERVE_REFUSED = (
     ("aot_cache", "", "A7 (the AOT executable cache)"),
     ("trace_requests", False, "A9 (obs: request tracing)"),
     ("profile_warmup", "", "A9 (obs: the warmup profile)"),
-    ("online", False, "A9 (online learning)"),
-    ("online_capture_percentile", 25.0, "A9 (online learning)"),
-    ("online_capture_capacity", 64, "A9 (online learning)"),
-    ("online_cadence_s", 1.0, "A9 (online learning)"),
 )
 EXPORT_REFUSED = (
     ("aot_cache", False, "A7 (the AOT executable cache)"),

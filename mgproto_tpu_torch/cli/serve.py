@@ -41,34 +41,103 @@ counts dispatches after warmup at a bucket that was not warmed (first-launch
 work on a request's path), which must be 0. The checkpoint face adds
 `state_digest` (utils/checkpoint.py), the identity of the state it serves.
 
+Online learning (`--online`, the batch faces of the checkpoint face with
+`--calibrate`): the trusted-capture tap (online/capture.py, gated at the
+calibration's `--online_capture_percentile`, `--online_capture_capacity`
+a class) stages high-p(x) predictions, and a Consolidator (online/
+consolidate.py) over the restored state ticks on the pump every
+`--online_cadence_s` and once more after the batch drains; the summary
+line's `online` block reports both. Refused on `--artifact` (an artifact
+holds no bank to consolidate into) and with `--listen` (the network face's
+pump does not tick the cadence), as in the JAX package.
+
+`start_split` on the summary line splits the process's start into its
+parts, in seconds from `time.perf_counter` marks: `import` (this module,
+torch and the port's serving modules), `cuda_context`, `kernel_load` (the
+kernel libraries: built by the first process, loaded from
+build/torch_kernels/ after), `artifact_read` and `model_build` (the
+artifact face; the checkpoint face has `state_build` and `checkpoint_read`),
+and `warmup` (every bucket once, cuDNN's algorithm choice included).
+
 The serving chaos drills read the environment (resilience/chaos.py
 `plan_from_env`, installed before anything is served): the
-MGPROTO_CHAOS_SERVE_* and MGPROTO_CHAOS_TENANT_{STORM_AT, BAD_SWAP} knobs,
-seeded by MGPROTO_CHAOS_SEED.
+MGPROTO_CHAOS_SERVE_* and MGPROTO_CHAOS_TENANT_* knobs, seeded by
+MGPROTO_CHAOS_SEED.
 
 Refused (cli/common.py `SERVE_REFUSED`, with their ROADMAP items):
-`--aot-cache`, `--trace_requests`, `--profile_warmup` and `--online*`; the
-training flags of `REFUSED` too.
+`--aot-cache`, `--trace_requests` and `--profile_warmup`; the training
+flags of `REFUSED` too.
 """
 
 from __future__ import annotations
 
-import argparse
-import json
-import os
-import sys
 import time
-from typing import Callable, List, Optional, Tuple
 
-import numpy as np
+_T_START = time.perf_counter()  # the start split's first mark; None after the first main
 
-from mgproto_tpu_torch.cli.common import (
+import argparse  # noqa: E402
+import json  # noqa: E402
+import os  # noqa: E402
+import sys  # noqa: E402
+from typing import Callable, Dict, List, Optional, Tuple  # noqa: E402
+
+import numpy as np  # noqa: E402
+
+from mgproto_tpu_torch.cli.common import (  # noqa: E402
     SERVE_REFUSED,
     add_train_args,
     check_ported,
     config_from_args,
 )
-from mgproto_tpu_torch.serving import metrics as _m
+from mgproto_tpu_torch.serving import metrics as _m  # noqa: E402
+
+
+class StartSplit:
+    """Seconds of a process's start by part, from `time.perf_counter`
+    marks: each `mark(part)` closes the interval since the previous one."""
+
+    def __init__(self, t0: float):
+        self._last = t0
+        self.parts: Dict[str, float] = {}
+
+    def mark(self, part: str) -> None:
+        now = time.perf_counter()
+        self.parts[part] = self.parts.get(part, 0.0) + now - self._last
+        self._last = now
+
+
+# the kernels a served forward launches (the resnet trunk's epilogue and
+# the head's scoring), and the E-step that --online's consolidation adds
+SERVE_KERNELS = ("score_pool", "bn_epilogue")
+ONLINE_KERNELS = SERVE_KERNELS + ("em_estep",)
+
+
+def _start_device(args, split: StartSplit) -> None:
+    """Import torch and the port's serving modules, then (on CUDA) create
+    the context and load the libraries of the kernels this face launches
+    (the missing ones built first, one nvcc each, all at once), each a mark
+    of `split`."""
+    import torch
+
+    import mgproto_tpu_torch.engine.export  # noqa: F401
+    import mgproto_tpu_torch.serving.engine  # noqa: F401
+    from mgproto_tpu_torch.numerics import resolve_device
+
+    split.mark("import")
+    dev = resolve_device(args.device)
+    if dev.type != "cuda":
+        return
+    torch.cuda.init()
+    torch.zeros(1, device=dev)
+    torch.cuda.synchronize()
+    split.mark("cuda_context")
+    from mgproto_tpu_torch.ops import _build
+
+    names = ONLINE_KERNELS if args.online else SERVE_KERNELS
+    _build.build_all(names)
+    for name in names:
+        _build.load(name)
+    split.mark("kernel_load")
 
 
 def _parse_buckets(raw: str):
@@ -121,16 +190,19 @@ def _with_percentile(calibration, percentile: Optional[float]):
                                threshold_log_px=calibration.threshold_for(percentile))
 
 
-def make_engine_factory(args) -> Callable:
+def make_engine_factory(args, split: Optional[StartSplit] = None) -> Callable:
     """An engine factory for the replica supervisor: each call builds an
     independent engine (buckets, queue, breaker) over state loaded exactly
-    once here: the artifact, or the restored checkpoint and its calibration."""
+    once here: the artifact, or the restored checkpoint and its calibration.
+    The checkpoint face's factory carries `live_context` (trainer, state,
+    calibration) for --online. `split` gets the load's marks."""
     from mgproto_tpu_torch.serving.engine import ServingEngine
 
+    split = split or StartSplit(time.perf_counter())
     if args.artifact:
         from mgproto_tpu_torch.engine.export import load_artifact
 
-        art = load_artifact(args.artifact, device=args.device)
+        art = load_artifact(args.artifact, device=args.device, split=split.mark)
         art = art._replace(calibration=_with_percentile(art.calibration, args.percentile))
 
         def factory():
@@ -158,12 +230,16 @@ def make_engine_factory(args) -> Callable:
         raise FileNotFoundError(f"no checkpoint found in {cfg.model_dir}")
     cfg = adopt_checkpoint_train_config(cfg, path, log=print)
     trainer = Trainer(cfg, steps_per_epoch=1, device=args.device)
-    state = restore_checkpoint(path, trainer.init_state(cfg.seed, for_restore=True))
+    target = trainer.init_state(cfg.seed, for_restore=True)
+    split.mark("state_build")
+    state = restore_checkpoint(path, target)
+    split.mark("checkpoint_read")
     calib = None
     if args.calibrate:
         calib = calibrate_from_config(
             cfg, trainer, state, device=args.device,
             percentile=5.0 if args.percentile is None else args.percentile)
+        split.mark("calibrate")
     elif not args.allow_uncalibrated:
         raise SystemExit("live serving without calibration: pass --calibrate (derives "
                          "thresholds from --test_dir) or --allow-uncalibrated (degraded "
@@ -178,6 +254,7 @@ def make_engine_factory(args) -> Callable:
                                        **_engine_kw(args))
 
     factory.program = {"state_digest": digest}
+    factory.live_context = (trainer, state, calib)
     return factory
 
 
@@ -204,20 +281,75 @@ def _swap_factory(args, path: str) -> Callable:
     return factory
 
 
+# ----------------------------------------------------------------- online
+def _setup_online(args, factory):
+    """--online on a batch face: the capture tap installed and a
+    Consolidator over the factory's live context (its own copy of the
+    mixture, bank and mean-optimizer moments). Returns (capture,
+    consolidator), or (None, None) with --online off. The artifact face
+    has no live context and is refused, as is a face without a
+    calibration (the capture gate is a calibrated percentile)."""
+    if not args.online:
+        return None, None
+    ctx = getattr(factory, "live_context", None)
+    if ctx is None:
+        raise SystemExit("--online needs the live checkpoint face (--checkpoint + "
+                         "--calibrate): an exported artifact carries no trainer or memory "
+                         "bank to consolidate into")
+    trainer, state, calib = ctx
+    if calib is None:
+        raise SystemExit("--online needs a calibration (--calibrate): the capture gate is a "
+                         "calibrated p(x) percentile")
+    from mgproto_tpu_torch.online import capture as capture_mod
+    from mgproto_tpu_torch.online.capture import CaptureConfig, TrustedCapture
+    from mgproto_tpu_torch.online.consolidate import Consolidator, ConsolidatorConfig
+    from mgproto_tpu_torch.online.metrics import register_online_metrics
+
+    register_online_metrics(_m.default_registry())
+    capture = TrustedCapture(calib, trainer.cfg.model.num_classes, CaptureConfig(
+        percentile=args.online_capture_percentile,
+        capacity_per_class=args.online_capture_capacity))
+    capture_mod.install(capture)
+    cons = Consolidator(trainer, state, capture,
+                        ConsolidatorConfig(cadence_s=args.online_cadence_s))
+    return capture, cons
+
+
+def _online_summary(capture, cons, forced=False):
+    """The summary line's online block (None with --online off). A batch
+    face consolidates once more after the pump drains (`forced`)."""
+    if capture is None:
+        return None
+    if forced and cons is not None and capture.staged_count():
+        cons.ingest(capture.drain())
+    block = {"capture": capture.stats()}
+    if cons is not None:
+        block["consolidation"] = {
+            "runs": cons.runs,
+            "samples": cons.samples_consolidated,
+            "em_active_max": max((r.em_active_max for r in cons.reports), default=0),
+        }
+    return block
+
+
 # ------------------------------------------------------------- batch faces
-def drive_batch_engine(engine, payloads, ids, handler) -> List:
+def drive_batch_engine(engine, payloads, ids, handler, on_pump=None) -> List:
     """The single-engine batch driver: `serve_all` with the preemption flag
-    as its graceful stop."""
+    as its graceful stop; `on_pump` runs between pump iterations (the
+    --online cadence tick)."""
     return engine.serve_all(payloads, request_ids=ids,
-                            should_stop=handler.requested if handler is not None else None)
+                            should_stop=handler.requested if handler is not None else None,
+                            on_pump=on_pump)
 
 
 def drive_batch_plane(replica_set, payloads, ids, handler, swap_at: Optional[int] = None,
                       swap_factory: Optional[Callable] = None,
-                      require_calibrated: bool = True) -> Tuple[List, List]:
+                      require_calibrated: bool = True,
+                      on_pump: Optional[Callable] = None) -> Tuple[List, List]:
     """The replica-plane batch driver: (responses in id order, swap
     reports). The swap fires before request `swap_at` is submitted; on the
-    preemption flag the plane drains typed and the rest is shed typed."""
+    preemption flag the plane drains typed and the rest is shed typed.
+    `on_pump` runs after each supervisor poll (the --online cadence tick)."""
     from mgproto_tpu_torch.serving.response import REASON_SHUTDOWN, shed_response
     from mgproto_tpu_torch.serving.swap import hot_swap
 
@@ -233,6 +365,8 @@ def drive_batch_plane(replica_set, payloads, ids, handler, swap_at: Optional[int
                                     require_calibrated=require_calibrated))
         responses.extend(replica_set.submit(payload, request_id=rid))
         responses.extend(replica_set.poll())
+        if on_pump is not None:
+            on_pump()
     if handler is not None and handler.requested():
         responses.extend(replica_set.drain())
     else:
@@ -264,19 +398,31 @@ def _summary_line(responses, compiled, steady, gate, readiness, extra=None):
     print(json.dumps(line), flush=True)
 
 
-def _main_batch_engine(args, handler) -> None:
+def _main_batch_engine(args, handler, split: StartSplit) -> None:
+    from mgproto_tpu_torch.online import capture as capture_mod
     from mgproto_tpu_torch.serving.health import HealthProbe
 
-    factory = make_engine_factory(args)
-    engine = factory()
-    compiled = len(engine.warmup())
-    payloads, ids = _load_payloads(args)
-    responses = drive_batch_engine(engine, payloads, ids, handler)
-    for r in responses:
-        print(json.dumps(r.to_dict()))
-    _summary_line(responses, compiled, engine.check_cold_dispatches(), engine.gate,
-                  HealthProbe(engine).readiness(),
-                  extra={"drained": handler.requested(), **factory.program})
+    factory = make_engine_factory(args, split)
+    capture, cons = _setup_online(args, factory)
+    try:
+        engine = factory()
+        compiled = len(engine.warmup())
+        split.mark("warmup")
+        payloads, ids = _load_payloads(args)
+        responses = drive_batch_engine(engine, payloads, ids, handler,
+                                       on_pump=cons.tick if cons is not None else None)
+        online = _online_summary(capture, cons, forced=True)
+        for r in responses:
+            print(json.dumps(r.to_dict()))
+        extra = {"drained": handler.requested(), **factory.program,
+                 "start_split": split.parts}
+        if online is not None:
+            extra["online"] = online
+        _summary_line(responses, compiled, engine.check_cold_dispatches(), engine.gate,
+                      HealthProbe(engine).readiness(), extra=extra)
+    finally:
+        if capture is not None:
+            capture_mod.uninstall()
 
 
 def _build_plane(args, factory):
@@ -288,28 +434,40 @@ def _build_plane(args, factory):
                       batcher_config=BatcherConfig(max_linger_s=args.linger_ms / 1000.0))
 
 
-def _main_batch_plane(args, handler) -> None:
-    factory = make_engine_factory(args)
-    rs = _build_plane(args, factory)
-    compiled = rs.start()
-    payloads, ids = _load_payloads(args)
-    swap_at = len(payloads) // 2 if args.swap else None
-    responses, reports = drive_batch_plane(
-        rs, payloads, ids, handler, swap_at=swap_at,
-        swap_factory=_swap_factory(args, args.swap) if args.swap else None,
-        require_calibrated=not args.allow_uncalibrated)
-    for r in responses:
-        print(json.dumps(r.to_dict()))
-    for rep in reports:
-        print(json.dumps({"swap": True, **rep.to_dict()}))
-    first = next((r for r in rs.replicas if r.engine is not None), None)
-    _summary_line(
-        responses, compiled, rs.steady_recompiles,
-        first.engine.gate if first else None,
-        first.probe.readiness() if first and first.probe else None,
-        extra={"replicas": len(rs.replicas), "replicas_ready": len(rs.ready_replicas()),
-               "swaps": [rep.to_dict() for rep in reports], "drained": handler.requested(),
-               **factory.program})
+def _main_batch_plane(args, handler, split: StartSplit) -> None:
+    from mgproto_tpu_torch.online import capture as capture_mod
+
+    factory = make_engine_factory(args, split)
+    capture, cons = _setup_online(args, factory)
+    try:
+        rs = _build_plane(args, factory)
+        compiled = rs.start()
+        split.mark("warmup")
+        payloads, ids = _load_payloads(args)
+        swap_at = len(payloads) // 2 if args.swap else None
+        responses, reports = drive_batch_plane(
+            rs, payloads, ids, handler, swap_at=swap_at,
+            swap_factory=_swap_factory(args, args.swap) if args.swap else None,
+            require_calibrated=not args.allow_uncalibrated,
+            on_pump=cons.tick if cons is not None else None)
+        online = _online_summary(capture, cons, forced=True)
+        for r in responses:
+            print(json.dumps(r.to_dict()))
+        for rep in reports:
+            print(json.dumps({"swap": True, **rep.to_dict()}))
+        first = next((r for r in rs.replicas if r.engine is not None), None)
+        extra = {"replicas": len(rs.replicas), "replicas_ready": len(rs.ready_replicas()),
+                 "swaps": [rep.to_dict() for rep in reports], "drained": handler.requested(),
+                 **factory.program, "start_split": split.parts}
+        if online is not None:
+            extra["online"] = online
+        _summary_line(
+            responses, compiled, rs.steady_recompiles,
+            first.engine.gate if first else None,
+            first.probe.readiness() if first and first.probe else None, extra=extra)
+    finally:
+        if capture is not None:
+            capture_mod.uninstall()
 
 
 def _parse_autoscale(raw: str):
@@ -326,7 +484,7 @@ def _parse_autoscale(raw: str):
     return bounds
 
 
-def _main_listen(args, handler) -> None:
+def _main_listen(args, handler, split: StartSplit) -> None:
     import asyncio
 
     from mgproto_tpu_torch.serving.frontend import Frontend
@@ -338,9 +496,10 @@ def _main_listen(args, handler) -> None:
     if bounds is not None:
         # --replicas is the starting size, clamped into the bounds
         args.replicas = min(max(args.replicas, bounds[0]), bounds[1])
-    factory = make_engine_factory(args)
+    factory = make_engine_factory(args, split)
     rs = _build_plane(args, factory)
     compiled = rs.start()
+    split.mark("warmup")
     autoscaler = None
     if bounds is not None:
         from mgproto_tpu_torch.serving.autoscale import Autoscaler, AutoscalerConfig
@@ -358,7 +517,8 @@ def _main_listen(args, handler) -> None:
         print(json.dumps({"listening": True, "host": host, "port": frontend.port,
                           "replicas": args.replicas, "autoscale": args.autoscale or None,
                           "buckets": _parse_buckets(args.buckets),
-                          "warmup_compiles": compiled, **factory.program}), flush=True)
+                          "warmup_compiles": compiled, **factory.program,
+                          "start_split": split.parts}), flush=True)
         await frontend.run_until_drained()
 
     started = time.monotonic()
@@ -435,16 +595,31 @@ def main(argv: Optional[list] = None) -> None:
                    help="the autoscaler's decision cadence")
     p.add_argument("--trace_requests", action="store_true", help="not ported (A9): refused")
     p.add_argument("--profile_warmup", default="", help="not ported (A9): refused")
-    p.add_argument("--online", action="store_true", help="not ported (A9): refused")
+    p.add_argument("--online", action="store_true",
+                   help="stage trusted high-p(x) predictions (calibrated capture gate) and "
+                        "consolidate them into the memory banks via compact EM after the "
+                        "batch drains; live-checkpoint batch faces only (online/capture.py, "
+                        "online/consolidate.py)")
     p.add_argument("--online_capture_percentile", type=float, default=25.0,
-                   help="not ported (A9): the default only")
+                   help="calibration percentile a prediction's log p(x) must clear to be "
+                        "captured")
     p.add_argument("--online_capture_capacity", type=int, default=64,
-                   help="not ported (A9): the default only")
+                   help="per-class staging reservoir bound")
     p.add_argument("--online_cadence_s", type=float, default=1.0,
-                   help="not ported (A9): the default only")
+                   help="consolidation cadence (poll-driven on the pump; never sleeps)")
     args = p.parse_args(argv)
     check_ported(args)
     check_ported(args, SERVE_REFUSED)
+    if args.online and args.listen:
+        raise SystemExit("--online is wired into the batch faces (and the drift drill: "
+                         "python -m mgproto_tpu_torch.cli.online drill); the network face's "
+                         "pump does not tick the consolidation cadence yet")
+    global _T_START
+    # a process's first main counts from this module's import; another
+    # call in the same process from its own start
+    split = StartSplit(_T_START if _T_START is not None else time.perf_counter())
+    _T_START = None
+    _start_device(args, split)
 
     from mgproto_tpu_torch.resilience import chaos as chaos_mod
     from mgproto_tpu_torch.resilience.preemption import get_handler, install_handlers
@@ -461,11 +636,11 @@ def main(argv: Optional[list] = None) -> None:
     _m.register_serving_metrics(_m.default_registry())
     try:
         if args.listen:
-            _main_listen(args, handler)
+            _main_listen(args, handler, split)
         elif args.replicas > 1 or args.swap:
-            _main_batch_plane(args, handler)
+            _main_batch_plane(args, handler, split)
         else:
-            _main_batch_engine(args, handler)
+            _main_batch_engine(args, handler, split)
     finally:
         uninstall()
         chaos_mod.set_active(prev_chaos)

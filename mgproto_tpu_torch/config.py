@@ -49,6 +49,11 @@ class ModelConfig:
     # remat only the named stages ("layer1".."layer4", "denseblock1"..
     # "denseblock4"); ignored when `remat` is True
     remat_stages: Tuple[str, ...] = ()
+    # online class addition (online/classes.py `apply_class_bucket`): the
+    # class axis is built at num_classes rounded up to a multiple of this;
+    # padded slots carry zero priors until a new class claims one. <= 1:
+    # no padding
+    class_bucket: int = 0
 
     def __post_init__(self):
         from mgproto_tpu_torch.perf.precision import PrecisionPolicy

@@ -223,21 +223,29 @@ def check_batch(static_batch: Optional[int], n: int) -> None:
                          f"got a batch of {n}")
 
 
-def load_artifact(path: str, device: Union[str, torch.device, None] = None) -> LoadedArtifact:
+def load_artifact(path: str, device: Union[str, torch.device, None] = None,
+                  split: Optional[Callable[[str], None]] = None) -> LoadedArtifact:
     """Rebuild the artifact's model and GMM on `device` (CUDA unless the
-    caller names another; raises without a card)."""
+    caller names another; raises without a card). `split(part)`, when
+    given, is called after the read ("artifact_read") and after the model
+    is built and its weights copied ("model_build")."""
     meta = read_meta(path)
-    mcfg = model_config_of(meta)
-    model, _ = build_mgproto(mcfg, device=device)
     with zipfile.ZipFile(path) as z:
         payload = torch.load(io.BytesIO(z.read(_WEIGHTS)), map_location="cpu", weights_only=True)
+    calibration, table = load_calibration(path), load_explain_table(path)
+    if split is not None:
+        split("artifact_read")
+    mcfg = model_config_of(meta)
+    model, _ = build_mgproto(mcfg, device=device)
     model.load_state_dict(payload["model"], strict=True)
     gmm = GMMState(**payload["gmm"])
     if gmm_fingerprint(gmm) != meta.get("gmm_fingerprint"):
         raise ArtifactFormatError(f"{path}: weights.pt's GMM does not match meta.json's "
                                   "gmm_fingerprint")
     ev = Evaluator(model, gmm, Config(model=mcfg), device=device)
-    return LoadedArtifact(ev, meta, load_calibration(path), load_explain_table(path))
+    if split is not None:
+        split("model_build")
+    return LoadedArtifact(ev, meta, calibration, table)
 
 
 def make_explain_fn(evaluator: Evaluator, top_e: int = 5,

@@ -60,6 +60,9 @@ NVCC_FLAGS = (
 
 _lock = threading.Lock()
 _libs: Dict[str, ctypes.CDLL] = {}
+# nvcc processes this process has started (the online plane's
+# `steady_recompiles` reads it: a build after warmup is a cold path)
+builds = 0
 
 
 class KernelBuildError(RuntimeError):
@@ -92,6 +95,7 @@ def build_all(names: Iterable[str] = tuple(SOURCES)) -> Dict[str, str]:
     per source, all in parallel. Returns name -> library path. The ptxas
     report (registers, shared memory, spills) of each build is kept beside
     its library as `<lib>.log`."""
+    global builds
     os.makedirs(BUILD_DIR, exist_ok=True)
     out: Dict[str, str] = {}
     procs = []
@@ -102,6 +106,7 @@ def build_all(names: Iterable[str] = tuple(SOURCES)) -> Dict[str, str]:
             continue
         tmp = f"{target}.{os.getpid()}.tmp"
         cmd = [_nvcc(), *NVCC_FLAGS, "-o", tmp, os.path.join(CSRC, SOURCES[name])]
+        builds += 1
         procs.append((name, target, tmp, subprocess.Popen(
             cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True
         )))

@@ -17,13 +17,17 @@ directory consult the process-active state (`get_active`, `install`):
 malformed or NaN payloads at seeded rates, a deadline storm, listed
 dispatches that raise a simulated device error, a replica killed or wedged
 at an admitted-request index, trust-stripped swap artifacts and tenant
-heads, and a storm redirected at one tenant. Every draw is numpy's
+heads, and a storm redirected at one tenant. The online drills draw which
+requests become poison (low-p(x) mislabeled junk the capture gate must
+refuse; off-manifold junk in the storm tenant's lane that only its drift
+monitor may see). Every draw is numpy's
 `default_rng([seed, tag, index])` with the JAX package's tags, so one plan
 hits the same requests in both packages.
 
 `plan_from_env` reads MGPROTO_CHAOS_SEED, MGPROTO_CHAOS_NAN_AT_STEP,
-MGPROTO_CHAOS_PREEMPT_AT_STEP and the MGPROTO_CHAOS_SERVE_* and
-MGPROTO_CHAOS_TENANT_{STORM_AT, BAD_SWAP} knobs, and refuses every other
+MGPROTO_CHAOS_PREEMPT_AT_STEP, the MGPROTO_CHAOS_SERVE_* and
+MGPROTO_CHAOS_TENANT_{STORM_AT, BAD_SWAP, POISON_RATE} knobs and
+MGPROTO_CHAOS_ONLINE_POISON_RATE, and refuses every other
 MGPROTO_CHAOS_* knob of the JAX package, naming the ROADMAP item that
 ports it.
 """
@@ -47,8 +51,6 @@ UNPORTED_KNOBS: Dict[str, str] = {
     **{k: "A8 (multi-GPU: the multi-host drills)"
        for k in ("MGPROTO_CHAOS_KILL_HOST_AT", "MGPROTO_CHAOS_WEDGE_HOST_AT",
                  "MGPROTO_CHAOS_SLOW_HOST_MS", "MGPROTO_CHAOS_HOST_INDEX")},
-    **{k: "A9 (online learning: the drift monitors)"
-       for k in ("MGPROTO_CHAOS_ONLINE_POISON_RATE", "MGPROTO_CHAOS_TENANT_POISON_RATE")},
 }
 
 
@@ -84,6 +86,11 @@ class ChaosPlan:
     # first N tenant head swaps stage a trust-stripped head
     tenant_storm_at: Optional[int] = None
     tenant_bad_swap: int = 0
+    # online drills: fractions of requests replaced by low-p(x) mislabeled
+    # junk (the capture gate must refuse every one), and of the storm
+    # tenant's requests replaced by off-manifold junk
+    online_poison_rate: float = 0.0
+    tenant_poison_rate: float = 0.0
 
     def any_active(self) -> bool:
         return (self.nan_at_step is not None or self.preempt_at_step is not None
@@ -92,7 +99,8 @@ class ChaosPlan:
                 or (self.serve_storm_at is not None and self.serve_storm_len > 0)
                 or self.serve_replica_kill_at is not None or self.serve_wedge_at is not None
                 or self.serve_swap_bad_artifact > 0 or self.tenant_storm_at is not None
-                or self.tenant_bad_swap > 0)
+                or self.tenant_bad_swap > 0 or self.online_poison_rate > 0.0
+                or self.tenant_poison_rate > 0.0)
 
 
 class ChaosState:
@@ -225,6 +233,26 @@ class ChaosState:
         """True for the first `tenant_bad_swap` tenant head swaps."""
         return self._take("_tenant_bad_swaps_left", "tenant_bad_swap")
 
+    def _rate_due(self, rate: float, tag: int, index: int, kind: str) -> bool:
+        if rate <= 0.0:
+            return False
+        hit = bool(np.random.default_rng([self.plan.seed, tag, int(index)]).random() < rate)
+        if hit:
+            self._count(kind)
+        return hit
+
+    def online_poison_due(self, request_index: int) -> bool:
+        """Whether request `request_index` becomes low-p(x) mislabeled junk
+        (the drill substitutes it; this decides and counts)."""
+        return self._rate_due(self.plan.online_poison_rate, 0x0150, request_index,
+                              "online_poison")
+
+    def tenant_poison_due(self, request_index: int) -> bool:
+        """Whether the storm tenant's request `request_index` (counted over
+        that tenant's requests) becomes off-manifold junk."""
+        return self._rate_due(self.plan.tenant_poison_rate, 0x7EA7, request_index,
+                              "tenant_poison")
+
     def serve_device_error_due(self, dispatch_index: int) -> bool:
         """True once per listed dispatch index."""
         with self._lock:
@@ -296,13 +324,16 @@ def plan_from_env(environ=None) -> Optional[ChaosPlan]:
         serve_swap_bad_artifact=_get("MGPROTO_CHAOS_SERVE_SWAP_BAD_ARTIFACT", int, 0),
         tenant_storm_at=_get("MGPROTO_CHAOS_TENANT_STORM_AT", int, None),
         tenant_bad_swap=_get("MGPROTO_CHAOS_TENANT_BAD_SWAP", int, 0),
+        online_poison_rate=_get("MGPROTO_CHAOS_ONLINE_POISON_RATE", float, 0.0),
+        tenant_poison_rate=_get("MGPROTO_CHAOS_TENANT_POISON_RATE", float, 0.0),
     )
     return plan if plan.any_active() else None
 
 
 _READ = frozenset(
     ["MGPROTO_CHAOS_SEED", "MGPROTO_CHAOS_NAN_AT_STEP", "MGPROTO_CHAOS_PREEMPT_AT_STEP",
-     "MGPROTO_CHAOS_TENANT_STORM_AT", "MGPROTO_CHAOS_TENANT_BAD_SWAP"]
+     "MGPROTO_CHAOS_TENANT_STORM_AT", "MGPROTO_CHAOS_TENANT_BAD_SWAP",
+     "MGPROTO_CHAOS_TENANT_POISON_RATE", "MGPROTO_CHAOS_ONLINE_POISON_RATE"]
     + [f"MGPROTO_CHAOS_SERVE_{k}" for k in (
         "MALFORMED_RATE", "NAN_RATE", "DEVICE_ERRORS", "STORM_AT", "STORM_LEN",
         "REPLICA_KILL_AT", "WEDGE_AT", "SWAP_BAD_ARTIFACT")])

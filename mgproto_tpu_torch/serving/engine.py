@@ -1,6 +1,5 @@
 """ServingEngine: bucketed, trust-gated inference over a frozen model
-(counterpart of mgproto_tpu/serving/engine.py, without the AOT cache and
-online capture).
+(counterpart of mgproto_tpu/serving/engine.py, without the AOT cache).
 
   * Fixed batch-size BUCKETS: a batch is padded to the smallest bucket that
     fits and the padding is sliced off the results; `warmup` runs each
@@ -24,6 +23,10 @@ online capture).
     its quota; an unmounted tenant is rejected typed. A head builds nothing
     on the card, so a mount costs no bucket a warmup. With `tenants=None`
     every response is what the single-tenant engine answers.
+  * Online capture (online/capture.py): after `record()`, each gated
+    response goes to the process-active capture tap, which stages trusted
+    high-p(x) predictions for consolidation. Off, the tap costs one
+    module-global None-check a batch.
   * Chaos (resilience/chaos.py, the process-active state): malformed and
     NaN payloads and a deadline storm by request index, simulated device
     errors by dispatch index.
@@ -41,6 +44,7 @@ from typing import Any, Callable, Dict, List, Optional, Sequence, Tuple
 
 import numpy as np
 
+from mgproto_tpu_torch.online import capture as _capture
 from mgproto_tpu_torch.resilience import chaos as _chaos
 from mgproto_tpu_torch.serving import metrics as _m
 from mgproto_tpu_torch.serving.admission import AdmissionQueue, CircuitBreaker, ServeRequest
@@ -371,12 +375,14 @@ class ServingEngine:
 
     def serve_all(self, payloads: Sequence[Any], deadline_s: Optional[float] = None,
                   request_ids: Optional[Sequence[str]] = None,
-                  should_stop: Optional[Callable[[], bool]] = None) -> List[ServeResponse]:
+                  should_stop: Optional[Callable[[], bool]] = None,
+                  on_pump: Optional[Callable[[], None]] = None) -> List[ServeResponse]:
         """Submit everything, drain to completion, return responses in
         submission order; every id gets exactly one response. `should_stop`
         (the preemption flag) makes the exit graceful: queued work is shed
         typed through `drain()` and the payloads not yet submitted are
-        answered with a typed `shutdown` shed."""
+        answered with a typed `shutdown` shed. `on_pump` runs between pump
+        iterations (the --online consolidation tick)."""
         ids = [request_ids[i] if request_ids is not None else f"req{i}"
                for i in range(len(payloads))]
         order = {rid: i for i, rid in enumerate(ids)}
@@ -387,12 +393,16 @@ class ServingEngine:
                 unsubmitted = ids[i:]
                 break
             responses.extend(self.submit(payload, request_id=ids[i], deadline_s=deadline_s))
+            if on_pump is not None:
+                on_pump()
         # every pop answers or sheds with an answer, so this terminates
         while len(self.queue):
             if should_stop is not None and should_stop():
                 responses.extend(self.drain())
                 break
             responses.extend(self.process_pending())
+            if on_pump is not None:
+                on_pump()
         responses.extend(shed_response(rid, REASON_SHUTDOWN) for rid in unsubmitted)
         return sorted(responses, key=lambda r: order.get(r.request_id, len(order)))
 
@@ -461,6 +471,8 @@ class ServingEngine:
                 # a failing gate degrades this batch to ungated classification
                 labels = [TRUST_UNGATED] * len(batch)
                 degraded_rows = [True] * len(batch)
+        # the online capture tap: off, one module-global None-check a batch
+        tap = _capture.get_active()
         out = []
         for i, (req, pred, row, score, label) in enumerate(
                 zip(batch, preds, logits, log_px, labels)):
@@ -484,6 +496,9 @@ class ServingEngine:
                 explain=explain_rows,
                 tenant=req.tenant,
             ))
+            if tap is not None:
+                # stage a trusted high-p(x) prediction (never raises)
+                tap.on_response(req.payload, resp)
             if self.tenants is not None:
                 self.tenants.on_response(req.payload, resp)
             out.append(resp)

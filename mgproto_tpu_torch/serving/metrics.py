@@ -61,6 +61,20 @@ LOADER_RETRIES = "resilience_retries_total"  # label scope="loader"
 LOADER_SENTINEL_ROWS = "loader_sentinel_rows_total"
 LOADER_WORKER_RESTARTS = "loader_worker_restarts_total"
 LOADER_SHM_SLABS = "loader_shm_slabs_in_use"
+# the online plane (online/metrics.py registers them)
+CAPTURED = "online_capture_total"
+CAPTURE_EVICTED = "online_capture_evicted_total"
+STAGED = "online_staged_samples"
+CONSOLIDATIONS = "online_consolidation_total"
+CONSOLIDATED_SAMPLES = "online_consolidated_samples_total"
+CLASS_ADDITIONS = "online_class_additions_total"
+ACTIVE_CLASSES = "online_active_classes"
+REPUBLISH = "online_republish_total"
+DRIFT_PX_DIVERGENCE = "drift_px_divergence"
+DRIFT_CLASS_SHIFT = "drift_class_mean_shift"  # labeled class=<c>
+DRIFT_SHIFT_MAX = "drift_class_mean_shift_max"
+DRIFT_COV_SHIFT_MAX = "drift_class_cov_shift_max"
+DRIFT_BREACHES = "drift_breach_total"  # labeled signal= px | bank
 
 COUNTER_HELP = {
     REQUESTS: "requests by outcome (predict/abstain/reject/shed)",
@@ -96,6 +110,37 @@ GAUGE_HELP = {
     TENANTS_MOUNTED: "tenant heads currently mounted in the directory",
     TENANT_QUEUE_DEPTH: "admission-queue entries held per tenant",
     TENANT_HEAD_BYTES: "resident bytes of a tenant's mounted head",
+}
+
+# the online family's help strings (the JAX package's online/metrics.py);
+# pre-created only by `online.metrics.register_online_metrics`
+ONLINE_COUNTER_HELP = {
+    CAPTURED: "capture-tap decisions by outcome "
+              "(accepted/gate_rejected/outcome_skipped/class_unknown/labeled)",
+    CAPTURE_EVICTED:
+        "staged samples displaced by reservoir eviction (full class queue)",
+    CONSOLIDATIONS: "background consolidation cadence firings by result",
+    CONSOLIDATED_SAMPLES:
+        "captured samples drained into the memory banks by consolidation",
+    CLASS_ADDITIONS: "classes added online into padded class-bucket slots",
+    REPUBLISH: "drift-triggered republish attempts by result "
+               "(committed/rejected — rejection is the TrustGate failing "
+               "closed)",
+    DRIFT_BREACHES: "drift threshold breaches by signal (px/bank)",
+}
+
+ONLINE_GAUGE_HELP = {
+    STAGED: "samples currently staged across all per-class capture queues",
+    ACTIVE_CLASSES: "classes registered in the online class directory",
+    DRIFT_PX_DIVERGENCE:
+        "mean |serving-quantile - calibration-quantile| of log p(x), "
+        "normalized by the calibration sketch's IQR",
+    DRIFT_CLASS_SHIFT:
+        "L2 shift of a class's bank mean vs the calibration-time baseline "
+        "(labeled class=<c>)",
+    DRIFT_SHIFT_MAX: "max per-class bank mean shift",
+    DRIFT_COV_SHIFT_MAX:
+        "max per-class mean absolute shift of the bank's diagonal variance",
 }
 
 HIST_HELP = {
@@ -246,7 +291,8 @@ class MetricRegistry:
         lines = []
         with self._lock:
             metrics = sorted(self._metrics.items())
-        help_of = {**COUNTER_HELP, **GAUGE_HELP, **HIST_HELP}
+        help_of = {**COUNTER_HELP, **GAUGE_HELP, **HIST_HELP, **ONLINE_COUNTER_HELP,
+                   **ONLINE_GAUGE_HELP}
         for name, m in metrics:
             if name in help_of:
                 lines.append(f"# HELP {name} {help_of[name]}")

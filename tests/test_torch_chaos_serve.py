@@ -188,11 +188,27 @@ def test_serve_main_installs_the_environments_plan_and_removes_it(monkeypatch):
     one raises there) and leaves no plan active after it returns."""
     from mgproto_tpu_torch.cli import serve as tserve
 
-    monkeypatch.setenv("MGPROTO_CHAOS_TENANT_POISON_RATE", "0.5")
-    with pytest.raises(ValueError, match="TENANT_POISON_RATE.*A9"):
+    monkeypatch.setenv("MGPROTO_CHAOS_CKPT_FAILS", "1")
+    with pytest.raises(ValueError, match="CKPT_FAILS.*A9"):
         tserve.main(["--device", "cpu", "--artifact", "/nonexistent.mgproto"])
-    monkeypatch.delenv("MGPROTO_CHAOS_TENANT_POISON_RATE")
+    monkeypatch.delenv("MGPROTO_CHAOS_CKPT_FAILS")
     monkeypatch.setenv("MGPROTO_CHAOS_SERVE_DEVICE_ERRORS", "0")
     with pytest.raises(Exception):
         tserve.main(["--device", "cpu", "--artifact", "/nonexistent.mgproto"])
+    assert tchaos.get_active() is None
+
+
+def test_serve_main_installs_the_poison_knobs(monkeypatch):
+    """MGPROTO_CHAOS_TENANT_POISON_RATE and _ONLINE_POISON_RATE (refused
+    before the online plane was ported) reach the plan cli.serve installs,
+    and leave with it."""
+    from mgproto_tpu_torch.cli import serve as tserve
+
+    seen = []
+    monkeypatch.setattr(tserve, "_main_batch_engine",
+                        lambda args, handler, split: seen.append(tchaos.get_active().plan))
+    monkeypatch.setenv("MGPROTO_CHAOS_TENANT_POISON_RATE", "0.5")
+    monkeypatch.setenv("MGPROTO_CHAOS_ONLINE_POISON_RATE", "0.25")
+    tserve.main(["--device", "cpu", "--artifact", "/nonexistent.mgproto"])
+    assert (seen[0].tenant_poison_rate, seen[0].online_poison_rate) == (0.5, 0.25)
     assert tchaos.get_active() is None

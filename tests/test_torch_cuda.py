@@ -908,3 +908,36 @@ def test_the_async_bank_on_the_card_is_bit_equal_to_the_one_step_stale_oracle():
     assert all(torch.equal(a, b) for a, b in zip(la, lo))
     assert launches["async"] == launches["oracle"] and launches["async"][1] > 0
 
+
+
+@pytest.mark.cuda
+def test_the_online_drill_on_the_card_matches_the_cpu():
+    """The drift drill (the tiny model padded to 8 classes, short phases) on
+    the card and on the CPU from the same seeded state: the same gate
+    verdicts and served-accuracy windows; a consolidation batch launches the
+    score_pool kernel once and the E-step num_em_loop times, and after the
+    first batch nothing takes a new shape or builds a kernel."""
+    _need_cuda()
+    import numpy as np
+
+    from mgproto_tpu_torch.engine.train import Trainer
+    from mgproto_tpu_torch.online.capture import CapturedSample
+    from mgproto_tpu_torch.online.consolidate import Consolidator, ConsolidatorConfig
+    from mgproto_tpu_torch.online.drill import drill_config, run_drill
+
+    kw = dict(phases="0.5x40,1x40", drift_at=30, accuracy_window=20, poison_rate=0.05)
+    card, cpu = run_drill(device="cuda", **kw), run_drill(device="cpu", **kw)
+    assert [(r["key"], r["ok"]) for r in card["gates"]["rows"]] == \
+        [(r["key"], r["ok"]) for r in cpu["gates"]["rows"]]
+    assert card["online"]["accuracy_windows"] == cpu["online"]["accuracy_windows"]
+    assert card["online"]["consolidation"]["steady_recompiles"] == 0
+    cfg = drill_config(8)
+    trainer = Trainer(cfg, steps_per_epoch=1, device="cuda")
+    cons = Consolidator(trainer, trainer.init_state(0), config=ConsolidatorConfig(batch_width=8))
+    x = np.random.default_rng(0).normal(size=(8, 32, 32, 3)).astype(np.float32)
+    samples = [CapturedSample(img, i % 4, None, f"s{i}", True) for i, img in enumerate(x)]
+    cons.ingest(samples)
+    sp0, em0 = score_pool.launches, em_estep_stats.launches
+    cons.ingest(samples)
+    assert (score_pool.launches - sp0, em_estep_stats.launches - em0) == (1, cfg.em.num_em_loop)
+    assert cons.steady_recompiles() == 0

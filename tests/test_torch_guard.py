@@ -220,8 +220,6 @@ def test_plan_from_env_reads_the_ported_knobs():
     ("MGPROTO_CHAOS_WEDGE_HOST_AT", "A8"),
     ("MGPROTO_CHAOS_SLOW_HOST_MS", "A8"),
     ("MGPROTO_CHAOS_HOST_INDEX", "A8"),
-    ("MGPROTO_CHAOS_ONLINE_POISON_RATE", "A9"),
-    ("MGPROTO_CHAOS_TENANT_POISON_RATE", "A9"),
 ])
 def test_plan_from_env_refuses_a_knob_it_does_not_read(knob, item):
     with pytest.raises(ValueError, match=f"{knob}=.*ROADMAP item {item}"):
@@ -240,9 +238,11 @@ def test_plan_from_env_refuses_a_knob_it_does_not_read(knob, item):
     ("MGPROTO_CHAOS_SERVE_SWAP_BAD_ARTIFACT", "1"),
     ("MGPROTO_CHAOS_TENANT_STORM_AT", "8"),
     ("MGPROTO_CHAOS_TENANT_BAD_SWAP", "2"),
+    ("MGPROTO_CHAOS_ONLINE_POISON_RATE", "0.25"),
+    ("MGPROTO_CHAOS_TENANT_POISON_RATE", "0.5"),
 ])
 def test_plan_from_env_reads_the_serving_knobs_as_jax_does(knob, raw):
-    """The serving and tenant knobs (refused before the serving chaos was
+    """The serving, tenant and online knobs (refused before each was
     ported) parse to the JAX package's values, field for field."""
     from mgproto_tpu.resilience import chaos as jchaos
 
@@ -274,3 +274,22 @@ def test_install_handlers_sets_the_flag_on_the_first_signal():
         assert h.requested() and h.reason == "signal SIGUSR1"
     finally:
         uninstall()
+
+
+@pytest.mark.parametrize("knob,due", [("MGPROTO_CHAOS_ONLINE_POISON_RATE", "online_poison_due"),
+                                      ("MGPROTO_CHAOS_TENANT_POISON_RATE", "tenant_poison_due")])
+def test_the_poison_knobs_draw_the_requests_jax_draws(knob, due):
+    """Each poison knob hits the same request indices as the JAX package's
+    (numpy's default_rng([seed, tag, index])), at roughly its rate, and
+    counts every hit."""
+    from mgproto_tpu.resilience import chaos as jchaos
+
+    env = {knob: "0.25", "MGPROTO_CHAOS_SEED": "3"}
+    got = chaos.ChaosState(chaos.plan_from_env(env))
+    want = jchaos.ChaosState(jchaos.plan_from_env(env))
+    hits = [getattr(got, due)(i) for i in range(400)]
+    assert hits == [getattr(want, due)(i) for i in range(400)]
+    assert 40 <= sum(hits) <= 160
+    assert got.injections[due.removesuffix("_due")] == sum(hits)
+    off = chaos.ChaosState(chaos.ChaosPlan(seed=3))
+    assert not any(getattr(off, due)(i) for i in range(50))

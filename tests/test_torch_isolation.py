@@ -61,7 +61,8 @@ for m in mods:
 spec = importlib.util.spec_from_file_location("chip_smoke", {SMOKE!r})
 importlib.util.module_from_spec(spec)
 spec.loader.exec_module(importlib.util.module_from_spec(spec))
-missing = [m for m in {INPUT_PATH_MODULES + INTERPRET_MODULES + OPTION_MODULES + SERVE_MODULES!r}
+missing = [m for m in {INPUT_PATH_MODULES + INTERPRET_MODULES + OPTION_MODULES + SERVE_MODULES
+                       + ONLINE_MODULES!r}
            if m not in mods]
 assert not missing, missing
 print(len(mods))
@@ -95,6 +96,19 @@ SERVE_MODULES = ("mgproto_tpu_torch.engine.export", "mgproto_tpu_torch.serving.b
                  "mgproto_tpu_torch.serving.health", "mgproto_tpu_torch.serving.replica",
                  "mgproto_tpu_torch.serving.swap", "mgproto_tpu_torch.serving.frontend",
                  "mgproto_tpu_torch.cli.export", "mgproto_tpu_torch.cli.serve")
+# the online plane and the flight recorder (obs/)
+ONLINE_MODULES = ("mgproto_tpu_torch.online", "mgproto_tpu_torch.online.capture",
+                  "mgproto_tpu_torch.online.classes", "mgproto_tpu_torch.online.consolidate",
+                  "mgproto_tpu_torch.online.drift", "mgproto_tpu_torch.online.drill",
+                  "mgproto_tpu_torch.online.metrics", "mgproto_tpu_torch.online.republish",
+                  "mgproto_tpu_torch.obs", "mgproto_tpu_torch.obs.flightrec",
+                  "mgproto_tpu_torch.cli.online")
+# the online modules a serving host without the model stack imports: the
+# engine's capture tap, the drift monitor, the republisher, the recorder
+TORCHLESS_ONLINE_MODULES = ("mgproto_tpu_torch.online.capture", "mgproto_tpu_torch.online.drift",
+                            "mgproto_tpu_torch.online.metrics",
+                            "mgproto_tpu_torch.online.republish",
+                            "mgproto_tpu_torch.obs.flightrec")
 # what a spawn loader worker unpickles, the CUB part tables and the precision
 # policy (a Config validates its dtype through it): they must import without
 # torch (and without PIL, which only opening an image needs)
@@ -102,6 +116,21 @@ WORKER_MODULES = ("mgproto_tpu_torch.data.loader", "mgproto_tpu_torch.data.folde
                   "mgproto_tpu_torch.data.transforms", "mgproto_tpu_torch.native",
                   "mgproto_tpu_torch.data.cub_parts", "mgproto_tpu_torch.perf.precision",
                   "mgproto_tpu_torch.config")
+
+
+def test_the_online_taps_import_without_torch():
+    code = f"""
+import importlib, sys
+for name in ("torch",) + {FORBIDDEN!r}:
+    sys.modules[name] = None
+for m in {TORCHLESS_ONLINE_MODULES!r}:
+    importlib.import_module(m)
+print(sorted(m for m in sys.modules if m.split(".")[0] == "torch" and sys.modules[m]))
+"""
+    out = subprocess.run([sys.executable, "-c", code], cwd=REPO, capture_output=True, text=True,
+                         timeout=120)
+    assert out.returncode == 0, out.stderr
+    assert out.stdout.strip() == "[]"
 
 
 def test_worker_modules_import_without_torch_or_pil():

@@ -142,7 +142,8 @@ def _compare(jl, tl, explain=False):
     assert len(jl) == len(tl)
     for j, t in zip(jl, tl):
         if j.get("summary"):
-            assert set(t) == set(j)
+            # the port's summary adds its process start split
+            assert set(t) == set(j) | {"start_split"}
             assert {k: t[k] for k in ("requests", "outcomes", "degraded", "warmup_compiles",
                                       "steady_state_recompiles")} == \
                 {k: j[k] for k in ("requests", "outcomes", "degraded", "warmup_compiles",
@@ -263,14 +264,89 @@ def test_the_artifact_face_refuses_a_jax_artifact_and_an_uncalibrated_one(artifa
         tserve.main(["--device", "cpu", "--artifact", artifacts["uncal"]])
 
 
+@pytest.fixture(scope="module")
+def online_ckpts(artifacts, tmp_path_factory):
+    """A JAX checkpoint of the JAX state beside the port's checkpoint of it,
+    and an npy of the folder's own images (in distribution, so the capture
+    gate passes some)."""
+    from mgproto_tpu.utils.checkpoint import save_checkpoint as jsave
+    from mgproto_tpu_torch.data.folder import ImageFolder
+    from mgproto_tpu_torch.data.transforms import test_transform
+
+    root = tmp_path_factory.mktemp("serve_online")
+    jrun = str(root / "jrun")
+    jckpt = jsave(jrun, _states()[1], "2prune0.5000", metadata={"epoch": 2, "stage": "prune"})
+    ds = ImageFolder(artifacts["imgs"], test_transform(IMG))
+    npy = str(root / "folder.npy")
+    np.save(npy, np.stack([ds.load(i)[0] for i in range(len(ds))]).astype(np.float32))
+    return dict(jckpt=jckpt, jrun=jrun, npy=npy)
+
+
+@pytest.mark.parametrize("flags", [
+    [],
+    ["--online_capture_percentile", "10"],
+    ["--online_capture_capacity", "1"],
+    ["--online_cadence_s", "0"],
+], ids=["online", "capture_percentile", "capture_capacity", "cadence_s"])
+def test_online_on_the_checkpoint_face_matches_jax(artifacts, online_ckpts, capsys, monkeypatch,
+                                                    flags):
+    """`--online` with each of its knobs on the checkpoint face with
+    --calibrate, both packages on the same state and images: the responses
+    as `_compare` holds them, and the summary's online block (the capture's
+    decisions, the consolidation's runs and samples) equal; the tap is
+    uninstalled after. The cadence is an hour but in its own case (0: a
+    tick every pump turn), so no tick depends on how fast the machine is."""
+    from mgproto_tpu_torch.online import capture as tcapture
+
+    a, o = artifacts, online_ckpts
+    common = TINY[2:] + ["--train_dir", a["imgs"], "--test_dir", a["imgs"], "--push_dir",
+                         a["imgs"], "--calibrate", "--online", "--online_cadence_s", "3600",
+                         "--images", o["npy"]] + flags
+    jl, tl = _run_both(capsys, monkeypatch, a,
+                       common + ["--arch", "tiny", "--model_dir", a["run"], "--checkpoint",
+                                 a["ckpt"]],
+                       common + ["--model_dir", o["jrun"], "--checkpoint", o["jckpt"]])
+    _compare(jl[:-1], tl[:-1])
+    assert set(tl[-1]) == set(jl[-1]) | {"start_split", "state_digest"}
+    jo, to = jl[-1]["online"], tl[-1]["online"]
+    assert set(to) == set(jo) and to["consolidation"] == jo["consolidation"]
+    jcap, tcap = jo["capture"], to["capture"]
+    assert abs(tcap.pop("threshold_log_px") - jcap.pop("threshold_log_px")) <= ATOL
+    assert tcap == jcap
+    samples = to["consolidation"]["samples"]
+    assert 0 < samples <= tcap["accepted"]
+    if "--online_capture_capacity" in flags:  # a full queue drops or displaces
+        assert samples < tcap["accepted"]
+    else:
+        assert samples == tcap["accepted"]
+    assert tcapture.get_active() is None
+
+
+def test_online_is_refused_on_the_artifact_face_and_with_listen(artifacts):
+    """As in the JAX package: the artifact face has no bank to consolidate
+    into, and the network face does not tick the cadence."""
+    import argparse
+
+    a = artifacts
+    with pytest.raises(SystemExit, match="live checkpoint face"):
+        tserve.main(["--device", "cpu", "--artifact", a["port"], "--images", a["npy"],
+                     "--online"])
+    for main in (tserve.main, jserve.main):
+        with pytest.raises(SystemExit):
+            main(["--online", "--listen", "127.0.0.1:0", "--allow-uncalibrated",
+                  "--artifact", "x.mgproto"])
+    with pytest.raises(SystemExit, match="needs a calibration"):
+        fac = lambda: None  # noqa: E731
+        fac.live_context = (None, None, None)
+        tserve._setup_online(argparse.Namespace(online=True), fac)
+    with pytest.raises(SystemExit):
+        jserve._setup_online(argparse.Namespace(online=True), lambda: None, None)
+
+
 SERVE_ARGVS = {
     "aot_cache": (["--aot-cache", "auto"], "A7"),
     "trace_requests": (["--trace_requests"], "A9"),
     "profile_warmup": (["--profile_warmup", "/p"], "A9"),
-    "online": (["--online"], "A9"),
-    "online_capture_percentile": (["--online_capture_percentile", "10"], "A9"),
-    "online_capture_capacity": (["--online_capture_capacity", "8"], "A9"),
-    "online_cadence_s": (["--online_cadence_s", "2"], "A9"),
 }
 EXPORT_ARGVS = {
     "aot_cache": (["--aot-cache"], "A7"),

@@ -13,14 +13,15 @@ and one fake clock. Each returns a trace (responses' ids, outcomes,
 reasons, trust labels and tenants in order; counters; swap and mount
 reports without the fingerprint's hex, which is each package's own sha256
 of its own calibration JSON): the traces must be equal, exactly. The
-port's own contract beside it: a head's online state (drift, capture,
-class slots) is refused, not ignored; with `tenants=None` a response has
-no "tenant" key.
+port's own contract beside it: with `tenants=None` a response has no
+"tenant" key. A head's online state (a drift monitor, a capture reservoir,
+class slots) runs on both packages with equal traces.
 """
 
 import asyncio
 import dataclasses
 import json
+import types
 
 import numpy as np
 import pytest
@@ -33,6 +34,7 @@ from mgproto_tpu_torch.serving import metrics as tmetrics
 from test_torch_autoscale import MODS
 from test_torch_serving_plane import (
     FINGERPRINT,
+    IMG,
     PKGS,
     FakeClock,
     _http,
@@ -336,15 +338,111 @@ def test_the_tenant_field_rides_the_wire_as_in_jax():
     assert traces["torch"][1][1]["reason"] == "tenant_unmounted"
 
 
-@pytest.mark.parametrize("kw", [{"drift_config": object()}, {"capture_config": object()},
-                                {"class_names": ("x",)}])
-def test_online_head_state_is_refused_not_ignored(kw):
-    from mgproto_tpu_torch.cli.common import NotPortedError
+class _Resp:
+    """A served response as the taps read it."""
 
-    d = MODS["torch"].tenants.TenantDirectory()
-    with pytest.raises(NotPortedError, match="A9"):
-        d.mount("t", _calib(MODS["torch"]), **kw)
-    assert d.tenants() == []
+    def __init__(self, rid, log_px, tenant, prediction=1, outcome="predict", trust="in_dist"):
+        self.request_id, self.log_px, self.tenant = rid, log_px, tenant
+        self.prediction, self.outcome, self.trust, self.degraded = prediction, outcome, trust, False
+
+
+def _online(P):
+    root = P.name
+    return types.SimpleNamespace(**{n: __import__(f"{root}.online.{n}", fromlist=[n])
+                                    for n in ("capture", "classes", "drift")})
+
+
+def _online_metric(P, name, **labels):
+    if P.name == "mgproto_tpu":
+        from mgproto_tpu.telemetry.registry import default_registry
+
+        return default_registry().counter(name).value(**labels)
+    return tmetrics.counter(name).value(**labels)
+
+
+def sc_head_drift_monitor(P):
+    """drift_config: the tenant's served scores feed its own monitor, which
+    breaches on that tenant's shifted scores only; a swap rebases it."""
+    O = _online(P)
+    clock = FakeClock()
+    d = P.tenants.TenantDirectory(clock=clock)
+    cfg = O.drift.DriftConfig(px_window=64, min_px_samples=16, eval_interval_s=0.5,
+                              px_divergence_threshold=0.6, mean_shift_threshold=0.0)
+    for t in ("calm", "storm"):
+        d.mount(t, _calib(P), drift_config=cfg)
+    rng = np.random.RandomState(0)
+    for i, s in enumerate(rng.randn(48)):
+        clock.advance(0.05)
+        d.on_response(None, _Resp(f"c{i}", float(s - 2.0), "calm"))
+        d.on_response(None, _Resp(f"s{i}", float(s - 5.0), "storm"))
+    calm, storm = d.head_for("calm").drift, d.head_for("storm").drift
+    trace = [calm.breaches, storm.breaches, storm.first_breach.to_dict()["signals"],
+             round(storm.last_report.px_divergence, 6),
+             _online_metric(P, "drift_breach_total", signal="px", tenant="storm"),
+             _online_metric(P, "drift_breach_total", signal="px", tenant="calm")]
+    assert calm.breaches == 0 and storm.breaches > 0
+    d.swap("storm", _calib(P, seed=4))
+    trace += [storm.first_breach, len(storm._scores)]
+    return trace
+
+
+def sc_head_capture_reservoir(P):
+    """capture_config: the tenant's trusted high-p(x) responses stage in its
+    own reservoir (tenant-labeled counters); a swap retargets its gate."""
+    O = _online(P)
+    d = P.tenants.TenantDirectory(clock=FakeClock())
+    cap = O.capture.CaptureConfig(percentile=25.0, capacity_per_class=2, seed=0)
+    d.mount("a", _calib(P), capture_config=cap, num_classes=4)
+    d.mount("b", _calib(P))
+    with pytest.raises(ValueError, match="num_classes"):
+        d.mount("c", _calib(P), capture_config=cap)
+    head = d.head_for("a").capture
+    t0 = head.threshold
+    for i, s in enumerate(np.linspace(-4.0, 2.0, 12)):
+        payload = np.full((IMG, IMG, 3), i, np.float32)
+        d.on_response(payload, _Resp(f"a{i}", float(s), "a", prediction=i % 4))
+        d.on_response(payload, _Resp(f"b{i}", float(s), "b", prediction=i % 4))
+    d.on_response(None, _Resp("x", 9.0, "a", outcome="abstain", trust="abstain"))
+    trace = [head.stats(), head.was_captured("a11"), head.was_captured("a0"),
+             [(s.class_id, s.request_id) for s in head.drain()],
+             _online_metric(P, "online_capture_total", outcome="accepted", tenant="a"),
+             _online_metric(P, "online_capture_total", outcome="gate_rejected", tenant="a"),
+             _online_metric(P, "online_capture_total", outcome="outcome_skipped", tenant="a"),
+             d.head_for("b").capture]
+    d.swap("a", _calib(P, seed=4))
+    assert head.threshold != t0
+    return trace + [round(head.threshold, 9)]
+
+
+def sc_head_class_slots(P):
+    """class_names: a mount claims padded class slots through the class
+    directory (an existing name reuses its slot; slots stay claimed after an
+    unmount); without a class directory the names are refused."""
+    O = _online(P)
+    cd = O.classes.ClassDirectory(4, 8)
+    d = P.tenants.TenantDirectory(clock=FakeClock(), class_directory=cd)
+    r1 = d.mount("a", _calib(P), class_names=("x", "y")).to_dict()
+    r2 = d.mount("b", _calib(P), class_names=("y", "z")).to_dict()
+    d.unmount("a")
+    trace = [r1["class_slots"], r2["class_slots"], cd.active_classes, cd.free_slots,
+             cd.slot_of("x"), d.head_for("b").class_slots]
+    with pytest.raises(ValueError, match="class-bucket"):
+        P.tenants.TenantDirectory().mount("c", _calib(P), class_names=("w",))
+    return trace
+
+
+@pytest.mark.parametrize("scenario", [sc_head_drift_monitor, sc_head_capture_reservoir,
+                                      sc_head_class_slots],
+                         ids=["drift_config", "capture_config", "class_names"])
+def test_online_head_state_mounts_as_in_jax(scenario):
+    """A head's online state (drift monitor, capture reservoir, class slots)
+    on both packages: the traces must be equal."""
+    traces = {}
+    for name in PKGS:
+        jax_set_registry(JaxMetricRegistry())
+        tmetrics.set_current_registry(None)
+        traces[name] = scenario(MODS[name])
+    assert traces["torch"] == traces["jax"]
 
 
 def test_a_jax_calibration_mounts_degraded_and_its_swap_is_refused():
