@@ -223,6 +223,29 @@ Phases, one JSON line each (`t_s`: seconds since the script started):
              monitors and capture reservoirs on the artifact, the storm
              tenant's lane poisoned by MGPROTO_CHAOS_TENANT_POISON_RATE: only
              its monitor breaches.
+ 15. trust  ((a)'s process starts first; (b) and (c), which time nothing,
+             run beside it): (a) `cli.trust matrix --artifact <phase 12's
+             push artifact> --device cuda --max_samples 64` with the input
+             phase's folder as the ID set and the schedule phase's OoD folder
+             (run through `chip_smoke.py --trust-child`, which calls
+             `cli.trust.main` and prints the process's launch counts and
+             dispatches): 22 cells of 64 requests, each with submitted =
+             returned = n, 0 cold dispatches, not degraded, the exit code
+             equal to `cli.telemetry check --trust` on the written report,
+             launches 1 / 16 / 0 / 0 a dispatch (warmup included); the
+             matrix's seconds, then ms per corruption chunk (B = 8, 224 px)
+             of each kind at severity 5; (b) the ID cell's first chunk and
+             each kind's severity-5 first chunk corrupted and served on the
+             card and on the CPU plain path from the same artifact: images
+             within 1e-6, log p(x) within 1e-4 (or the card within it of the
+             float64 forward where the CPU departs), outcomes equal but near
+             the threshold; (c) `matrix --synthetic` at the reduced size on
+             the card and on the CPU from the same seeded state: the same
+             verdicts, outcome counts equal but near the threshold, scores
+             within 1e-4; on the card run itself, each bootstrap batch
+             launches score_pool 1, the epilogue 0 and the E-step
+             num_em_loop, and the run exactly its bootstrap, calibration,
+             warmup and matrix forwards' score_pool and nothing else.
 Then the kernel summary line (times at the train step's shapes, the serve
 path's beside them; `launches` counted on the input phase's epoch,
 `schedule_launches` on the schedule phase's run, `interpret_launches` on
@@ -232,7 +255,8 @@ trunk, `drill_launches` on phase 11's in-process drills, `serve_plane_launches`
 on phase 12's in-process plane, `async_launches` on phase 13's async
 steps and their flushes, `async_drill_launches` on its async drills,
 `elastic_serve_launches` on its autoscaled and tenant planes,
-`online_launches` on phase 14's consolidation on the card; the epilogue's
+`online_launches` on phase 14's consolidation on the card, `trust_launches`
+on phase 15's full-width matrix process; the epilogue's
 bf16 times at B = 80 under "train_bf16"), the card line as
 nvidia-smi prints it, and last `{"ok": true, "device": {...}}`. Any failed
 check exits non-zero before that line is printed.
@@ -240,6 +264,7 @@ check exits non-zero before that line is printed.
 
 from __future__ import annotations
 
+import contextlib
 import itertools
 import json
 import os
@@ -4791,6 +4816,311 @@ def online_phase(smi):
     return launches
 
 
+TRUST_DIR = os.path.join(HERE, "build", "trust_phase")
+TRUST_MAX_SAMPLES = 64  # requests a cell of (a)'s full-width matrix
+TRUST_CORRUPT_ATOL = 1e-6  # the ladder on the card vs the CPU (tests/test_torch_corrupt.py)
+TRUST_TIE_MARGIN = 2 * SERVE_ATOL  # an outcome may differ only this near the threshold
+TRUST_DRILL = dict(seed=0, per_class=8, bootstrap_epochs=12,
+                   config_overrides={"monotone_tol": 0.30})  # (c): tests' reduced size
+TRUST_DRILL_SCORE_ATOL = 1e-4
+
+
+@contextlib.contextmanager
+def instances_of(cls):
+    """The instances of `cls` made inside the block, in a list."""
+    made = []
+    init = cls.__init__
+
+    def record(self, *a, **kw):
+        init(self, *a, **kw)
+        made.append(self)
+
+    cls.__init__ = record
+    try:
+        yield made
+    finally:
+        cls.__init__ = init
+
+
+def trust_child(argv):
+    """`python3 chip_smoke.py --trust-child matrix ...`: `cli.trust.main`
+    on that argv, as `python -m mgproto_tpu_torch.cli.trust` runs it, then
+    one JSON line of what the process saw: its launch counts, its engines'
+    dispatches (warmup included) and the seconds of `main`."""
+    from mgproto_tpu_torch.cli import trust as cli_trust
+    from mgproto_tpu_torch.serving.engine import ServingEngine
+
+    with instances_of(ServingEngine) as engines:
+        t0 = time.perf_counter()
+        code = cli_trust.main(argv)
+        seconds = time.perf_counter() - t0
+    print(json.dumps({"trust_child": {
+        "launches": launch_counts(), "seconds": seconds,
+        "dispatches": sum(e.dispatch_count for e in engines),
+        "warmup_dispatches": sum(len(e.warmup_report) for e in engines)}}), flush=True)
+    return code
+
+
+def trust_trees():
+    """(the input phase's folder, the schedule phase's OoD folder), written
+    when those phases did not run."""
+    root = os.path.join(HERE, "build", "input_phase", "train")
+    if not os.path.isdir(root):
+        write_jpeg_tree(root, INPUT_CLASSES, INPUT_PER_CLASS, INPUT_HW)
+    ood = os.path.join(HERE, "build", "schedule_phase", "ood")
+    if not os.path.isdir(ood):
+        write_jpeg_tree(ood, OOD_CLASSES, OOD_PER_CLASS, INPUT_HW, seed=7)
+    return root, ood
+
+
+def trust_vs_cpu_check(art, root):
+    """15 (b), times nothing: the ID cell's first chunk and each kind's
+    severity-5 first chunk (the matrix's chunks: 8 images of the input
+    folder, 224 px), corrupted and served on the card and on the CPU plain
+    path from the same artifact. Corrupted images within
+    TRUST_CORRUPT_ATOL; served log p(x) within SERVE_ATOL, or where the CPU
+    departs, the card's within it of the float64 forward; outcomes equal
+    but where the CPU's score lies within TRUST_TIE_MARGIN of the
+    threshold."""
+    import argparse
+
+    import numpy as np
+
+    from mgproto_tpu_torch.cli import trust as cli_trust
+    from mgproto_tpu_torch.cli.common import add_train_args, config_from_args
+    from mgproto_tpu_torch.engine import export
+    from mgproto_tpu_torch.ops.corrupt import CORRUPTION_KINDS
+    from mgproto_tpu_torch.serving.engine import ServingEngine
+    from mgproto_tpu_torch.trust.matrix import corrupt_chunks
+
+    p = argparse.ArgumentParser()
+    add_train_args(p)
+    cfg = config_from_args(p.parse_args(["--train_dir", root, "--push_dir", root, "--test_dir",
+                                         root, "--num_workers", "0"]))
+    images, _, _ = cli_trust._matrix_sets(cfg, 8, "cpu")
+    card_art, cpu_art = (export.load_artifact(art, device=d) for d in ("cuda", "cpu"))
+    card_eng, cpu_eng = (ServingEngine.from_loaded(a) for a in (card_art, cpu_art))
+    card_eng.warmup()
+    card_eng.check_cold_dispatches()
+    thr = cpu_eng.gate.threshold
+    cells = {"id": (images, images)}
+    corrupt_err = {}
+    for kind in CORRUPTION_KINDS:
+        card = corrupt_chunks(images, kind, 5, 0, 8, "cuda")
+        cpu = corrupt_chunks(images, kind, 5, 0, 8, "cpu")
+        corrupt_err[kind] = float(np.abs(card - cpu).max())
+        cells[f"{kind}:5"] = (card, cpu)
+    out = {"corrupt_max_abs_err": corrupt_err, "cells": {}}
+    for name, (card_x, cpu_x) in cells.items():
+        ids = [f"{name}:{i}" for i in range(len(card_x))]
+        card_r = card_eng.serve_all(list(card_x), request_ids=ids)
+        cpu_r = cpu_eng.serve_all(list(cpu_x), request_ids=ids)
+        card_px = np.array([r.log_px for r in card_r])
+        cpu_px = np.array([r.log_px for r in cpu_r])
+        err = float(np.abs(card_px - cpu_px).max())
+        departure = None
+        if err > SERVE_ATOL:
+            exact = np.logaddexp.reduce(float64_logits(cpu_art.evaluator, cpu_x), axis=-1)
+            card_exact = float(np.abs(card_px - exact).max())
+            check(card_exact <= SERVE_ATOL,
+                  f"trust {name}: served log p(x) vs CPU {err}, vs float64 {card_exact}")
+            departure = {"card_vs_cpu": err, "card_vs_float64": card_exact,
+                         "cpu_vs_float64": float(np.abs(cpu_px - exact).max())}
+        differ = [i for i, (a, b) in enumerate(zip(card_r, cpu_r)) if a.outcome != b.outcome]
+        near = [i for i in differ if abs(cpu_px[i] - thr) <= TRUST_TIE_MARGIN]
+        check(differ == near, f"trust {name}: outcomes differ away from the threshold at "
+                              f"{[(i, cpu_px[i], thr) for i in differ if i not in near]}")
+        out["cells"][name] = {"log_px_max_abs_err": err, "cpu_reference_departure": departure,
+                              "outcomes_differ_near_threshold": len(near),
+                              "outcomes": [r.outcome for r in card_r]}
+    check(max(corrupt_err.values()) <= TRUST_CORRUPT_ATOL,
+          f"trust: corruption on the card vs the CPU {corrupt_err} > {TRUST_CORRUPT_ATOL}")
+    check(card_eng.check_cold_dispatches() == 0, "trust (b): a cold dispatch")
+    return out
+
+
+def trust_drill_check():
+    """15 (c), times nothing: `matrix --synthetic` at the reduced size on the
+    card and on the CPU in this process, from the same seeded state: the
+    gates' verdicts equal, outcome counts equal but where the CPU's score
+    is a near tie with the threshold, scores within
+    TRUST_DRILL_SCORE_ATOL. The card run's own launches, read around it
+    and around each of its bootstrap batches: every bootstrap batch
+    launches score_pool 1, the epilogue 0 (the tiny trunk has no residual
+    tail) and the E-step num_em_loop, and the run as a whole exactly its
+    bootstrap batches, calibration batches, warmup and matrix dispatches
+    (one score_pool each) and nothing else."""
+    import math
+
+    import numpy as np
+
+    from mgproto_tpu_torch.cli.trust import run_synthetic_matrix, synthetic_config
+    from mgproto_tpu_torch.online.consolidate import Consolidator
+    from mgproto_tpu_torch.serving.engine import ServingEngine
+
+    batch_launches = []
+    consolidate = Consolidator._consolidate
+
+    def counted(self, *a, **kw):
+        before = launch_counts()
+        out = consolidate(self, *a, **kw)
+        batch_launches.append({k: v - before[k] for k, v in launch_counts().items()})
+        return out
+
+    Consolidator._consolidate = counted
+    try:
+        with instances_of(ServingEngine) as engines:
+            reset_launch_counts()
+            card = run_synthetic_matrix(device="cuda", **TRUST_DRILL)
+            drill_launches = launch_counts()
+    finally:
+        Consolidator._consolidate = consolidate
+    cpu = run_synthetic_matrix(device="cpu", **TRUST_DRILL)
+    verdicts = [(r["key"], r["ok"]) for r in card["gates"]["rows"]]
+    check(verdicts == [(r["key"], r["ok"]) for r in cpu["gates"]["rows"]],
+          f"trust drill: card verdicts {verdicts} vs CPU {cpu['gates']['rows']}")
+    check(card["steady_state_recompiles"] == 0 and not card["degraded"],
+          f"trust drill: recompiles {card['steady_state_recompiles']}")
+    thr = cpu["config"]["threshold_log_px"]
+    score_err, ties = 0.0, 0
+
+    def cells(r):
+        return [r["id"]] + r["pairs"] + [c for k in sorted(r["ladder"]) for c in r["ladder"][k]]
+
+    for a, b in zip(cells(card), cells(cpu)):
+        if a["outcomes"] != b["outcomes"]:
+            ties += 1
+            check(any(abs(s - thr) <= TRUST_TIE_MARGIN for s in b["scores"]),
+                  f"trust drill: outcomes {a['outcomes']} vs CPU {b['outcomes']} with no near tie")
+        else:
+            score_err = max(score_err, float(np.abs(np.subtract(a["scores"], b["scores"])).max()))
+    check(score_err <= TRUST_DRILL_SCORE_ATOL, f"trust drill: scores differ by {score_err}")
+
+    # what the card run must have launched: each bootstrap ingest of
+    # bootstrap_per_class (8) images is one width-8 batch; the calibration
+    # two batches a class; warmup one dispatch a bucket; the matrix one
+    # dispatch a bucket-8 chunk of each cell
+    drill = card["synthetic_drill"]
+    num_em_loop = synthetic_config(drill["classes"]).em.num_em_loop
+    bootstrap = drill["bootstrap_epochs"] * drill["classes"]
+    calibration = 2 * drill["classes"]
+    check(len(engines) == 1, f"trust drill: {len(engines)} engines")
+    engine = engines[0]
+    warmup = len(engine.warmup_report)
+    matrix = sum(math.ceil(c["n"] / engine.buckets[-1]) for c in cells(card))
+    one_batch = {"score_pool": 1, "bn_epilogue": 0, "score_pool_bwd": 0, "em_estep": num_em_loop}
+    check(len(batch_launches) == bootstrap and all(b == one_batch for b in batch_launches),
+          f"trust drill: {len(batch_launches)} bootstrap batches (want {bootstrap}), launches "
+          f"{[b for b in batch_launches if b != one_batch][:3]} where {one_batch}")
+    check(warmup == len(engine.buckets) and engine.dispatch_count == matrix,
+          f"trust drill: {warmup} warmup and {engine.dispatch_count} matrix dispatches, "
+          f"want {len(engine.buckets)} and {matrix}")
+    want = {"score_pool": bootstrap + calibration + warmup + matrix, "bn_epilogue": 0,
+            "score_pool_bwd": 0, "em_estep": bootstrap * num_em_loop}
+    check(drill_launches == want, f"trust drill launches {drill_launches}, want {want}")
+    return {"verdicts": dict(verdicts), "gates_ok": card["gates"]["ok"],
+            "outcome_cells_differ_near_threshold": ties, "score_max_abs_err": score_err,
+            "drill_launches": drill_launches,
+            "drill_counts": {"bootstrap_batches": bootstrap, "calibration_batches": calibration,
+                             "warmup_dispatches": warmup, "matrix_dispatches": matrix},
+            "bootstrap_batch_launches": batch_launches[-1],
+            "pairs_auroc": {p["pair"]: p["auroc"] for p in card["pairs"]}}
+
+
+def corruption_chunk_ms():
+    """ms per corruption chunk (B = 8, 224 px) of each kind at severity 5 on
+    the card, the seeds already there (device time, `device_ms`)."""
+    import numpy as np
+    import torch
+
+    from mgproto_tpu_torch.ops.corrupt import CORRUPTION_KINDS, make_corrupt_fn, per_sample_seeds
+
+    x = torch.from_numpy(np.random.default_rng(5).normal(size=(8, 224, 224, 3))
+                         .astype(np.float32)).cuda()
+    seeds = torch.from_numpy(per_sample_seeds(0, 8).astype(np.int64)).cuda()
+    out = {}
+    for kind in CORRUPTION_KINDS:
+        fn = make_corrupt_fn(kind, 5)
+        # noise launches ~150 kernels a chunk: few calls, or the launch queue
+        # fills behind the spin
+        out[kind] = device_ms(lambda: fn(x, seeds), iters=3)
+    return out
+
+
+def trust_phase(smi):
+    """Phase 15; returns the launch counts of (a)'s full-width matrix
+    process and its dispatches. (a)'s process starts first; (b) and (c),
+    which time nothing, run beside it; the corruption chunks are timed
+    after it exits."""
+    import shutil
+
+    t_phase = time.perf_counter()
+    split_s = {}
+    shutil.rmtree(TRUST_DIR, ignore_errors=True)
+    os.makedirs(TRUST_DIR)
+    root, ood = trust_trees()
+    art = elastic_artifact(root)
+    report_path = os.path.join(TRUST_DIR, "trust_report.json")
+    log = os.path.join(TRUST_DIR, "matrix.out")
+    matrix = Started(subprocess.Popen(
+        [sys.executable, os.path.abspath(__file__), "--trust-child", "matrix", "--artifact", art,
+         "--device", "cuda", "--max_samples", str(TRUST_MAX_SAMPLES), "--train_dir", root,
+         "--push_dir", root, "--test_dir", root, "--ood_dir", ood, "--out", report_path],
+        cwd=HERE, text=True, env=dict(os.environ, PYTHONUNBUFFERED="1"),
+        stdout=open(log, "w"), stderr=subprocess.STDOUT), log)
+    try:
+        vs_cpu = trust_vs_cpu_check(art, root)
+        split_s["vs_cpu"] = time.perf_counter() - t_phase
+        drill = trust_drill_check()
+        split_s["drill"] = time.perf_counter() - t_phase
+        code, wall = matrix.wait(timeout=600)
+        split_s["matrix_process"] = time.perf_counter() - t_phase
+    finally:
+        if matrix.proc.poll() is None:
+            matrix.proc.kill()
+    with open(log) as f:
+        text = f.read()
+    check(os.path.exists(report_path), f"trust matrix: exit {code}, no report\n{text[-3000:]}")
+    child = [json.loads(ln)["trust_child"] for ln in text.splitlines()
+             if ln.startswith('{"trust_child"')]
+    check(bool(child), f"trust matrix: exit {code}\n{text[-3000:]}")
+    child = child[-1]
+    summary = last_json("\n".join(ln for ln in text.splitlines() if ln.startswith('{"report"')))
+    with open(report_path) as f:
+        report = json.load(f)
+    ccode, cout, _, _ = run_main("telemetry", ["check", "--trust", report_path], 120)
+    check(code == ccode == (0 if report["gates"]["ok"] else 1),
+          f"trust matrix exit {code}, check --trust exit {ccode}, gates ok "
+          f"{report['gates']['ok']}\n{cout[-2000:]}")
+    cells = [("id", report["id"])] + [(f"ood:{p['pair']}", p) for p in report["pairs"]]
+    cells += [(f"{k}:{c['severity']}", c) for k in sorted(report["ladder"])
+              for c in report["ladder"][k]]
+    check(len(cells) == 22 and all(c["submitted"] == c["returned"] == c["n"] == TRUST_MAX_SAMPLES
+                                   for _, c in cells),
+          f"trust matrix cells {[(n, c['n'], c['submitted'], c['returned']) for n, c in cells]}")
+    check(report["steady_state_recompiles"] == 0 and report["degraded"] is False,
+          f"trust matrix: recompiles {report['steady_state_recompiles']}, degraded "
+          f"{report['degraded']}")
+    dispatches = child["dispatches"] + child["warmup_dispatches"]
+    want = {"score_pool": 1, "bn_epilogue": 16, "score_pool_bwd": 0, "em_estep": 0}
+    check(child["dispatches"] == 22 * TRUST_MAX_SAMPLES // 8
+          and child["launches"] == {k: v * dispatches for k, v in want.items()},
+          f"trust matrix: launches {child['launches']} over {dispatches} dispatches")
+    chunk_ms = corruption_chunk_ms()
+    split_s["chunk_ms"] = time.perf_counter() - t_phase
+    emit("trust", card=smi, exit=code, check_exit=ccode, matrix_wall_s=wall,
+         matrix_main_s=child["seconds"], dispatches=child["dispatches"],
+         warmup_dispatches=child["warmup_dispatches"], launches=child["launches"],
+         launches_per_dispatch={k: v / dispatches for k, v in child["launches"].items()},
+         corruption_chunk_ms_severity5=chunk_ms, summary=summary,
+         gates_failed=[r["key"] for r in report["gates"]["rows"] if not r["ok"]],
+         cells={n: {"outcomes": c["outcomes"], "answered": c["answered"],
+                    "correct_answered": c["correct_answered"]} for n, c in cells},
+         px_divergence=report["id"]["px_divergence"], vs_cpu=vs_cpu, drill=drill,
+         split_s=split_s, seconds=time.perf_counter() - t_phase)
+    return child["launches"], dispatches
+
+
 def serve_once() -> None:
     """The kernel and serve phases alone; prints `RES ok` or `RES <the serve
     check's failure and its report>`."""
@@ -4853,6 +5183,8 @@ def main() -> int:
         _build.build_all()
         serve_once()
         return 0
+    if sys.argv[1:2] == ["--trust-child"]:
+        return trust_child(sys.argv[2:])
     smi = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
         capture_output=True, text=True, timeout=60,
@@ -4879,6 +5211,7 @@ def main() -> int:
     serve_plane_launches = serve_plane_phase(smi)
     elastic_launches, async_steps, elastic_dispatches = elastic_phase(smi)
     online_launches = online_phase(smi)
+    trust_launches, trust_dispatches = trust_phase(smi)
     for k in kernels:
         # `launches`: the loader-fed epoch of the input phase (this path's
         # main run); the train phase's and the serve phase's beside them
@@ -4927,12 +5260,18 @@ def main() -> int:
         k["online_launches"] = online_launches[k["name"]]
         check((k["online_launches"] > 0) == (k["name"] != "score_pool_bwd"),
               f"{k['name']}: {k['online_launches']} launches on the online path")
+        # phase 15: the full-width trust matrix process (warmup included)
+        k["trust_launches"] = trust_launches[k["name"]]
+        k["trust_launches_per_dispatch"] = k["trust_launches"] / trust_dispatches
+        check((k["trust_launches"] > 0) == (k["name"] in ("score_pool", "bn_epilogue")),
+              f"{k['name']}: {k['trust_launches']} launches on the trust matrix")
         if k["name"] == "bn_epilogue":
             k["train_bf16"] = dict(epi_bf16, launches=bf16_launches["bn_epilogue"])
     print(json.dumps({"kernels": kernels, "input_steps": input_steps, "train_steps": train_steps,
                       "serve_dispatches": dispatches, "bf16_train_steps": bf16_steps,
                       "backbone_steps": TRAIN_STEPS, "async_steps": async_steps,
-                      "elastic_dispatches": elastic_dispatches}),
+                      "elastic_dispatches": elastic_dispatches,
+                      "trust_dispatches": trust_dispatches}),
           flush=True)
     print(smi, flush=True)
     print(json.dumps({"ok": True, "device": {

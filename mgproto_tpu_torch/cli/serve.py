@@ -106,12 +106,6 @@ class StartSplit:
         self._last = now
 
 
-# the kernels a served forward launches (the resnet trunk's epilogue and
-# the head's scoring), and the E-step that --online's consolidation adds
-SERVE_KERNELS = ("score_pool", "bn_epilogue")
-ONLINE_KERNELS = SERVE_KERNELS + ("em_estep",)
-
-
 def _start_device(args, split: StartSplit) -> None:
     """Import torch and the port's serving modules, then (on CUDA) create
     the context and load the libraries of the kernels this face launches
@@ -133,7 +127,7 @@ def _start_device(args, split: StartSplit) -> None:
     split.mark("cuda_context")
     from mgproto_tpu_torch.ops import _build
 
-    names = ONLINE_KERNELS if args.online else SERVE_KERNELS
+    names = _build.ONLINE_KERNELS if args.online else _build.SERVE_KERNELS
     _build.build_all(names)
     for name in names:
         _build.load(name)
@@ -304,8 +298,10 @@ def _setup_online(args, factory):
     from mgproto_tpu_torch.online.capture import CaptureConfig, TrustedCapture
     from mgproto_tpu_torch.online.consolidate import Consolidator, ConsolidatorConfig
     from mgproto_tpu_torch.online.metrics import register_online_metrics
+    from mgproto_tpu_torch.trust.metrics import register_trust_metrics
 
     register_online_metrics(_m.default_registry())
+    register_trust_metrics(_m.default_registry())
     capture = TrustedCapture(calib, trainer.cfg.model.num_classes, CaptureConfig(
         percentile=args.online_capture_percentile,
         capacity_per_class=args.online_capture_capacity))

@@ -463,6 +463,7 @@ def run_storm(
     from mgproto_tpu_torch.serving.batcher import BatcherConfig
     from mgproto_tpu_torch.serving.engine import ServingEngine
     from mgproto_tpu_torch.serving.replica import ReplicaSet
+    from mgproto_tpu_torch.trust.metrics import register_trust_metrics
 
     online_mode = online or drift_at is not None
     tenant_mode = tenants is not None
@@ -500,6 +501,7 @@ def run_storm(
     sm.register_serving_metrics(registry)
     if online_mode or tenant_mode:
         register_online_metrics(registry)
+        register_trust_metrics(registry)
     plan = chaos_mod.ChaosPlan(
         seed=seed,
         online_poison_rate=poison_rate if online_mode else 0.0,

@@ -30,6 +30,14 @@ SOURCES = {
     "em_estep": "em_estep.cu",
 }
 
+# the kernels each CLI face launches on the card: a served resnet forward
+# (the trunk's epilogue and the head's scoring), --online's consolidation
+# (the E-step besides), and the synthetic trust drill (the tiny trunk has no
+# residual tail; its bootstrap consolidation runs the E-step)
+SERVE_KERNELS = ("score_pool", "bn_epilogue")
+ONLINE_KERNELS = SERVE_KERNELS + ("em_estep",)
+SYNTHETIC_KERNELS = ("score_pool", "em_estep")
+
 _PTR, _INT, _I64 = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
 # The C interface of each library: function -> (argument types, return
 # type). Declared once, when the library is loaded; every launcher returns

@@ -128,12 +128,15 @@ class ServingEngine:
         clock: Callable[[], float] = time.monotonic,
         explain_table: Optional[Dict[str, Any]] = None,
         tenants: Optional[Any] = None,
+        device: Optional[Any] = None,
     ):
         """`infer_fn` maps float32 images [b, H, W, 3] to
         {"logits": [b, C], "log_px": [b]} numpy arrays (and, with an
         `explain_table`, "proto_idx" / "proto_logd" [b, E]).
         `default_deadline_s` applies to requests submitted without one.
-        `tenants`: a TenantDirectory (module docstring)."""
+        `tenants`: a TenantDirectory (module docstring). `device`: the
+        torch device `infer_fn` runs on (None when unknown), where the trust
+        matrix corrupts its chunks."""
         if not buckets:
             raise ValueError("need at least one batch-size bucket")
         self.buckets = tuple(sorted(set(int(b) for b in buckets)))
@@ -151,6 +154,7 @@ class ServingEngine:
             expected_compute_dtype=expected_compute_dtype,
         )
         self.tenants = tenants
+        self.device = device
         self.queue = AdmissionQueue(capacity=queue_capacity, clock=clock)
         self.breaker = breaker if breaker is not None else CircuitBreaker(clock=clock)
         self._explain = _ExplainContext(explain_table) if explain_table is not None else None
@@ -194,6 +198,7 @@ class ServingEngine:
             calibration=calibration,
             expected_fingerprint=gmm_fingerprint(evaluator.gmm),
             expected_compute_dtype=evaluator.cfg.model.compute_dtype,
+            device=evaluator.device,
             **kw,
         )
 
@@ -232,6 +237,7 @@ class ServingEngine:
             calibration=artifact.calibration,
             expected_fingerprint=meta.get("gmm_fingerprint"),
             expected_compute_dtype=policy.get("compute_dtype") or meta.get("compute_dtype"),
+            device=artifact.evaluator.device,
             **kw,
         )
 

@@ -75,6 +75,16 @@ DRIFT_CLASS_SHIFT = "drift_class_mean_shift"  # labeled class=<c>
 DRIFT_SHIFT_MAX = "drift_class_mean_shift_max"
 DRIFT_COV_SHIFT_MAX = "drift_class_cov_shift_max"
 DRIFT_BREACHES = "drift_breach_total"  # labeled signal= px | bank
+# the trust plane (trust/metrics.py registers them)
+MATRIX_CELLS = "trust_matrix_cells_total"  # labeled kind= (ood|<corruption>)
+PAIR_AUROC = "trust_pair_auroc"  # labeled pair=<ood set>
+TRUST_ABSTENTION_RATE = "trust_abstention_rate"  # labeled cell=<kind:severity>
+ANSWERED_ACCURACY = "trust_answered_accuracy"  # labeled cell=
+PX_DIVERGENCE = "trust_px_divergence"  # served-vs-calibration sketch drift
+VERDICTS = "trust_verdict_total"  # labeled result= pass | fail
+INTERP_CONSISTENCY = "trust_interp_consistency"
+INTERP_STABILITY = "trust_interp_stability"
+INTERP_PURITY = "trust_interp_purity"
 
 COUNTER_HELP = {
     REQUESTS: "requests by outcome (predict/abstain/reject/shed)",
@@ -141,6 +151,40 @@ ONLINE_GAUGE_HELP = {
     DRIFT_SHIFT_MAX: "max per-class bank mean shift",
     DRIFT_COV_SHIFT_MAX:
         "max per-class mean absolute shift of the bank's diagonal variance",
+}
+
+# the trust family's help strings (the JAX package's trust/metrics.py);
+# pre-created only by `trust.metrics.register_trust_metrics`
+TRUST_COUNTER_HELP = {
+    MATRIX_CELLS:
+        "robustness-matrix cells evaluated through the serving path, by "
+        "kind (ood pair or corruption family)",
+    VERDICTS:
+        "trust verdicts derived by the matrix run, by result (pass/fail) "
+        "— the same derivations `mgproto-telemetry check --trust` re-runs "
+        "from the committed report's raw numbers",
+}
+
+TRUST_GAUGE_HELP = {
+    PAIR_AUROC:
+        "per ID x OoD pair AUROC of served log p(x) (labeled pair=), "
+        "measured through the CALIBRATED serving path, not a bespoke loop",
+    TRUST_ABSTENTION_RATE:
+        "abstain fraction of a matrix cell's typed responses (labeled "
+        "cell=<kind:severity>; clean ID is cell=id:0)",
+    ANSWERED_ACCURACY:
+        "accuracy over PREDICT outcomes only of a matrix cell (labeled "
+        "cell=) — the risk half of the risk-coverage curve",
+    PX_DIVERGENCE:
+        "mean |served-quantile - calibration-quantile| of clean-ID "
+        "log p(x), in calibration-IQR units (the serving-path counterpart "
+        "of drift_px_divergence)",
+    INTERP_CONSISTENCY:
+        "prototype consistency (%) from the sharded evaluator",
+    INTERP_STABILITY:
+        "prototype stability (%) from the sharded evaluator",
+    INTERP_PURITY:
+        "prototype purity mean (%) from the sharded evaluator",
 }
 
 HIST_HELP = {
@@ -292,7 +336,7 @@ class MetricRegistry:
         with self._lock:
             metrics = sorted(self._metrics.items())
         help_of = {**COUNTER_HELP, **GAUGE_HELP, **HIST_HELP, **ONLINE_COUNTER_HELP,
-                   **ONLINE_GAUGE_HELP}
+                   **ONLINE_GAUGE_HELP, **TRUST_COUNTER_HELP, **TRUST_GAUGE_HELP}
         for name, m in metrics:
             if name in help_of:
                 lines.append(f"# HELP {name} {help_of[name]}")

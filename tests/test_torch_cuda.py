@@ -941,3 +941,70 @@ def test_the_online_drill_on_the_card_matches_the_cpu():
     cons.ingest(samples)
     assert (score_pool.launches - sp0, em_estep_stats.launches - em0) == (1, cfg.em.num_em_loop)
     assert cons.steady_recompiles() == 0
+
+
+# the corruption ladder on the card against its CPU plain run (the same
+# torch ops on both; the tolerance the CPU tests hold the port to against
+# JAX, tests/test_torch_corrupt.py)
+CORRUPT_ATOL = 1e-6
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kind", ["noise", "blur", "contrast", "pixelate"])
+def test_each_corruption_family_on_the_card_matches_the_cpu(kind):
+    _need_cuda()
+    import numpy as np
+
+    from mgproto_tpu_torch.ops.corrupt import SEVERITIES, corrupt_numpy
+
+    x = np.random.default_rng(1).normal(size=(8, 224, 224, 3)).astype(np.float32)
+    for severity in SEVERITIES:
+        card = corrupt_numpy(x, kind, severity, seed=4, device="cuda")
+        cpu = corrupt_numpy(x, kind, severity, seed=4, device="cpu")
+        assert np.abs(card - cpu).max() <= CORRUPT_ATOL, (kind, severity)
+
+
+@pytest.mark.cuda
+def test_the_noise_bits_on_the_card_equal_the_host_threefry():
+    _need_cuda()
+    import numpy as np
+
+    from mgproto_tpu_torch.ops import prng
+    from mgproto_tpu_torch.ops.corrupt import _KEY_TAG, per_sample_seeds
+
+    seeds = per_sample_seeds(9, 4, offset=2**32 - 2)  # wraps past 2^32
+    keys = np.stack([np.full_like(seeds, _KEY_TAG), seeds], axis=-1)
+    bits = prng.normal_bits_torch(torch.from_numpy(keys.astype(np.int64)).cuda(), (224, 224, 3))
+    n = 224 * 224 * 3
+    for row, key in zip(bits.cpu().numpy(), keys):
+        hi, lo = prng.threefry2x32(key, np.uint32(0), np.arange(n, dtype=np.uint32))
+        np.testing.assert_array_equal(row.astype(np.uint32), hi ^ lo)
+    normals = prng.normal_torch(torch.from_numpy(keys.astype(np.int64)).cuda(), (224, 224, 3))
+    want = np.stack([prng.normal(k, (224, 224, 3)) for k in keys])
+    assert np.abs(normals.cpu().numpy() - want).max() <= prng.NORMAL_ATOL
+
+
+@pytest.mark.cuda
+def test_the_trust_drill_on_the_card_matches_the_cpu():
+    """The hermetic trust drill at the reduced size on the card and on the
+    CPU from the same seeded state: the same gate verdicts, outcome counts
+    equal but where the CPU's score is a near tie with the threshold, and
+    scores within 1e-4; no cold dispatch."""
+    _need_cuda()
+    from mgproto_tpu_torch.cli.trust import run_synthetic_matrix
+
+    kw = dict(seed=0, per_class=8, bootstrap_epochs=12, config_overrides={"monotone_tol": 0.30})
+    cpu = run_synthetic_matrix(device="cpu", **kw)
+    card = run_synthetic_matrix(device="cuda", **kw)
+    assert [(r["key"], r["ok"]) for r in card["gates"]["rows"]] == \
+        [(r["key"], r["ok"]) for r in cpu["gates"]["rows"]]
+    assert card["steady_state_recompiles"] == 0
+    thr = cpu["config"]["threshold_log_px"]
+    cells = lambda r: [r["id"]] + r["pairs"] + [c for k in sorted(r["ladder"])  # noqa: E731
+                                                for c in r["ladder"][k]]
+    for a, b in zip(cells(card), cells(cpu)):
+        if a["outcomes"] != b["outcomes"]:
+            assert any(abs(s - thr) <= 2e-4 for s in b["scores"]), (a["outcomes"], b["outcomes"])
+        elif len(a["scores"]) == len(b["scores"]):
+            assert max((abs(x - y) for x, y in zip(a["scores"], b["scores"])), default=0) <= 1e-4
+

@@ -62,7 +62,7 @@ spec = importlib.util.spec_from_file_location("chip_smoke", {SMOKE!r})
 importlib.util.module_from_spec(spec)
 spec.loader.exec_module(importlib.util.module_from_spec(spec))
 missing = [m for m in {INPUT_PATH_MODULES + INTERPRET_MODULES + OPTION_MODULES + SERVE_MODULES
-                       + ONLINE_MODULES!r}
+                       + ONLINE_MODULES + TRUST_MODULES!r}
            if m not in mods]
 assert not missing, missing
 print(len(mods))
@@ -103,6 +103,13 @@ ONLINE_MODULES = ("mgproto_tpu_torch.online", "mgproto_tpu_torch.online.capture"
                   "mgproto_tpu_torch.online.metrics", "mgproto_tpu_torch.online.republish",
                   "mgproto_tpu_torch.obs", "mgproto_tpu_torch.obs.flightrec",
                   "mgproto_tpu_torch.cli.online")
+TRUST_MODULES = ("mgproto_tpu_torch.ops.corrupt", "mgproto_tpu_torch.trust",
+                 "mgproto_tpu_torch.trust.auroc", "mgproto_tpu_torch.trust.matrix",
+                 "mgproto_tpu_torch.trust.metrics", "mgproto_tpu_torch.cli.trust",
+                 "mgproto_tpu_torch.cli.telemetry")
+# the trust check re-derives a report's verdicts on a host without torch
+TORCHLESS_TRUST_MODULES = ("mgproto_tpu_torch.trust.auroc", "mgproto_tpu_torch.trust.metrics",
+                           "mgproto_tpu_torch.cli.telemetry")
 # the online modules a serving host without the model stack imports: the
 # engine's capture tap, the drift monitor, the republisher, the recorder
 TORCHLESS_ONLINE_MODULES = ("mgproto_tpu_torch.online.capture", "mgproto_tpu_torch.online.drift",
@@ -131,6 +138,25 @@ print(sorted(m for m in sys.modules if m.split(".")[0] == "torch" and sys.module
                          timeout=120)
     assert out.returncode == 0, out.stderr
     assert out.stdout.strip() == "[]"
+
+
+def test_the_trust_check_runs_without_torch():
+    baseline = os.path.join(REPO, "evidence", "trust_baseline.json")
+    code = f"""
+import contextlib, importlib, io, sys
+for name in ("torch",) + {FORBIDDEN!r}:
+    sys.modules[name] = None
+for m in {TORCHLESS_TRUST_MODULES!r}:
+    importlib.import_module(m)
+from mgproto_tpu_torch.cli.telemetry import check_main
+with contextlib.redirect_stdout(io.StringIO()):
+    code = check_main(["--trust", {baseline!r}])
+print(code, sorted(m for m in sys.modules if m.split(".")[0] == "torch" and sys.modules[m]))
+"""
+    out = subprocess.run([sys.executable, "-c", code], cwd=REPO, capture_output=True, text=True,
+                         timeout=120)
+    assert out.returncode == 0, out.stderr
+    assert out.stdout.strip() == "0 []"
 
 
 def test_worker_modules_import_without_torch_or_pil():
