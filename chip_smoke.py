@@ -3,6 +3,7 @@
 
     python3 chip_smoke.py        # from the repository root; needs a CUDA GPU and nvcc
     python3 chip_smoke.py --repeat-serve N   # the kernel and serve phases in N fresh processes
+    python3 chip_smoke.py --dist-probe       # the collectives two processes can run on the card
 
 Phases, one JSON line each (`t_s`: seconds since the script started):
   1. env:    torch/CUDA versions and the card (name, power limit); then a
@@ -123,8 +124,9 @@ Phases, one JSON line each (`t_s`: seconds since the script started):
              both peaks;
  11. cli:    the command line: (a) `python -m mgproto_tpu_torch.cli.train
              --arch densenet121` from phase 10's .pth on the input phase's
-             folder, one epoch with the push (rendered) at epoch 0, then the
-             prune; (b) `cli.evaluate` on its prune checkpoint prints the
+             folder, with the schedule phase's OoD folder as its test and
+             push set, one epoch with the push (rendered) at epoch 0, then
+             the prune; (b) `cli.evaluate` on its prune checkpoint prints the
              accuracy its last test pass wrote; (c) `cli.interpret` on the
              interpret phase's tree and checkpoint prints the metrics its
              run_interpret returned; (d) a real SIGTERM to a resnet18
@@ -246,6 +248,26 @@ Phases, one JSON line each (`t_s`: seconds since the script started):
              launches score_pool 1, the epilogue 0 and the E-step
              num_em_loop, and the run exactly its bootstrap, calibration,
              warmup and matrix forwards' score_pool and nothing else.
+ 16. distributed: (a) two ranks on the one card (`python3 chip_smoke.py
+             --dist-child`, gloo named explicitly: NCCL refuses one card
+             twice), the flagship at batch 80 (40 a rank) from a seeded state
+             with a full seeded bank, at mesh (2, 1) and (1, 2): three steps
+             with mining and EM, each rank's launches a step exact (score_pool
+             1 on its class slab, its backward 1, the epilogue 16, the E-step
+             3 on its slab), the ranks' parameters and BatchNorm statistics
+             bit-equal, and the steps held to the one-process Trainer's on
+             the card: losses within 1e-5 relative or twice what images x
+             (1 + 1e-7) move them, accuracy within one sample, em_active
+             equal, the bank's lengths equal, the means, the first step's
+             gradient and the parameters' update within twice that
+             perturbation's floor; then two more steps with the collectives
+             timed apart (per-rank step s, collective and compute ms); (b)
+             `cli.train --distributed` at world size 1 under NCCL (the
+             launcher's environment set) for one epoch on the input phase's
+             folder, the OoD folder as test and push set: it trains, tests,
+             pushes (rendered), prunes and saves, and `cli.evaluate
+             --distributed` and `cli.evaluate` print the run's last test
+             accuracy from its prune checkpoint.
 Then the kernel summary line (times at the train step's shapes, the serve
 path's beside them; `launches` counted on the input phase's epoch,
 `schedule_launches` on the schedule phase's run, `interpret_launches` on
@@ -256,7 +278,8 @@ on phase 12's in-process plane, `async_launches` on phase 13's async
 steps and their flushes, `async_drill_launches` on its async drills,
 `elastic_serve_launches` on its autoscaled and tenant planes,
 `online_launches` on phase 14's consolidation on the card, `trust_launches`
-on phase 15's full-width matrix process; the epilogue's
+on phase 15's full-width matrix process, `distributed_launches` on
+phase 16 (a)'s ranks, both meshes; the epilogue's
 bf16 times at B = 80 under "train_bf16"), the card line as
 nvidia-smi prints it, and last `{"ok": true, "device": {...}}`. Any failed
 check exits non-zero before that line is printed.
@@ -3031,8 +3054,11 @@ def cli_train_check(smi, root, base, beside=None):
     from mgproto_tpu_torch.utils import checkpoint as ck
 
     run_dir = os.path.join(base, "densenet121")
+    # the schedule phase's OoD folder (5 x 16) as the test and push set: the
+    # schedule phase already renders the whole folder's push
+    ood = trust_trees()[1]
     flags = cli_flags(root, run_dir, arch="densenet121", epochs=1, mine_start=0, gmm_start=0,
-                      push_start=0, push_every=1)
+                      push_start=0, push_every=1, test_dir=ood, push_dir=ood)
     rc, out, err, train_s = run_main("train", flags, timeout=600)
     check(rc == 0, f"cli.train exited {rc}:\n{err[-3000:]}")
     stages = sorted({c[1] for c in ck.list_checkpoints(run_dir)})
@@ -3047,8 +3073,8 @@ def cli_train_check(smi, root, base, beside=None):
 
     with concurrent.futures.ThreadPoolExecutor(1) as pool:
         side = pool.submit(beside) if beside is not None else None
-        rc, eout, eerr, eval_s = run_main("evaluate", cli_flags(root, run_dir, arch="densenet121"),
-                                          timeout=300)
+        rc, eout, eerr, eval_s = run_main("evaluate", cli_flags(root, run_dir, arch="densenet121",
+                                                                test_dir=ood), timeout=300)
         if side is not None:
             side.result()  # its check's failure raises here
     check(rc == 0, f"cli.evaluate exited {rc}:\n{eerr[-3000:]}")
@@ -5121,6 +5147,469 @@ def trust_phase(smi):
     return child["launches"], dispatches
 
 
+# ------------------------------------------------------------ distributed
+DIST_DIR = os.path.join(HERE, "build", "dist_phase")
+DIST_RANKS = 2
+DIST_STEPS = 3  # the steps held to the one-process trainer
+DIST_TIMED_STEPS = 2  # then these, with the collectives timed apart
+DIST_MESHES = ((2, 1), (1, 2))
+DIST_BACKEND = "gloo"  # two ranks on one card: NCCL refuses a card twice
+DIST_ACC_ATOL = 1.0 / TRAIN_BATCH  # one sample's argmax may flip at a near tie
+DIST_CHILD_TIMEOUT_S = 300
+
+
+def dist_batches():
+    """The phase's global batches of 80: seeded noise images, labels."""
+    import numpy as np
+
+    rng = np.random.default_rng(16)
+    return [(rng.normal(size=(TRAIN_BATCH, 224, 224, 3)).astype(np.float32),
+             rng.integers(0, 200, size=TRAIN_BATCH)) for _ in range(DIST_STEPS + DIST_TIMED_STEPS)]
+
+
+def dist_config(batch):
+    from mgproto_tpu_torch.config import Config, DataConfig
+
+    return Config(data=DataConfig(device_augment=False, train_batch_size=batch))
+
+
+def params_vector(trainer, state):
+    import torch
+
+    return torch.cat([p.detach().reshape(-1) for p in trainer.params(state)])
+
+
+def dist_child(argv):
+    """`python3 chip_smoke.py --dist-child SPEC RANK`: one rank of 16 (a)
+    on the card (`cuda:0`, shared with the other rank), with the backend
+    SPEC names, for each mesh of SPEC in turn: restores the seeded start
+    onto the mesh, runs DIST_STEPS steps on its rows of the phase's global
+    batches (each step's launches counted), then DIST_TIMED_STEPS with the
+    collectives timed apart, and writes what the parent holds to the
+    one-process run under SPEC's out/mesh{d}x{m}/."""
+    import hashlib
+
+    import numpy as np
+    import torch
+
+    from mgproto_tpu_torch.parallel import collectives
+    from mgproto_tpu_torch.parallel.mesh import initialize_distributed, make_mesh
+    from mgproto_tpu_torch.parallel.sharding import put_batch
+    from mgproto_tpu_torch.parallel.trainer import ShardedTrainer
+
+    with open(argv[0]) as f:
+        spec = json.load(f)
+    rank = int(argv[1])
+    torch.cuda.set_device(0)
+    initialize_distributed(backend=spec["backend"], init_method=spec["init"], rank=rank,
+                           world_size=DIST_RANKS, device="cuda:0", timeout_s=DIST_CHILD_TIMEOUT_S)
+    batches = dist_batches()
+    for shape in spec["meshes"]:
+        out_dir = os.path.join(spec["out"], f"mesh{shape[0]}x{shape[1]}")
+        mesh = make_mesh(*shape, timeout_s=DIST_CHILD_TIMEOUT_S)
+        cfg = dist_config(TRAIN_BATCH // DIST_RANKS)
+        trainer = ShardedTrainer(cfg, steps_per_epoch=100, mesh=mesh, device="cuda:0")
+        state = trainer.restore(spec["ckpt"])
+        out = {"rank": rank, "mesh": shape, "class_slab": trainer.class_slab(),
+               "em_width": trainer.em_cfg.max_active_classes, "fused": trainer.fused,
+               "steps": [], "timed": []}
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        reset_launch_counts()
+        for i in range(DIST_STEPS):
+            x, y = put_batch(batches[i], mesh)
+            before = launch_counts()
+            t0 = time.perf_counter()
+            state, met = trainer.train_step(state, x, y, use_mine=True, update_gmm=True)
+            torch.cuda.synchronize()
+            out["steps"].append({
+                "s": time.perf_counter() - t0, "loss": met.loss.item(),
+                "accuracy": met.accuracy.item(), "em_active": met.em_active,
+                "em_compact_fallback": met.em_compact_fallback, "nonfinite": met.nonfinite,
+                "launches": {k: v - before[k] for k, v in launch_counts().items()}})
+            if i == 0 and rank == 0:
+                grad = torch.cat([p.grad.reshape(-1) for p in trainer.params(state)])
+                np.save(os.path.join(out_dir, "grad1.npy"), grad.cpu().numpy())
+        out["launches"] = launch_counts()
+        full = trainer.full_state(state)
+        params = params_vector(trainer, state)
+        buffers = torch.cat([b.float().reshape(-1) for b in state.model.buffers()])
+        out["params_sha256"] = hashlib.sha256(
+            torch.cat([params, buffers]).cpu().numpy().tobytes()).hexdigest()
+        if rank == 0:
+            np.savez(os.path.join(out_dir, "state.npz"), params=params.cpu().numpy(),
+                     means=full.gmm.means.detach().cpu().numpy(),
+                     priors=full.gmm.priors.cpu().numpy(),
+                     length=full.memory.length.cpu().numpy(),
+                     cursor=full.memory.cursor.cpu().numpy())
+        collectives.stats.timing = True
+        for i in range(DIST_STEPS, DIST_STEPS + DIST_TIMED_STEPS):
+            x, y = put_batch(batches[i], mesh)
+            collectives.stats.reset()
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            state, _ = trainer.train_step(state, x, y, use_mine=True, update_gmm=True)
+            torch.cuda.synchronize()
+            step_s = time.perf_counter() - t0
+            out["timed"].append({"s": step_s, "collective_s": collectives.stats.seconds,
+                                 "compute_s": step_s - collectives.stats.seconds,
+                                 "collectives": collectives.stats.calls,
+                                 "collective_bytes": collectives.stats.bytes})
+        collectives.stats.timing = False
+        out["peak_mem_gb"] = torch.cuda.max_memory_allocated() / 1e9
+        with open(os.path.join(out_dir, f"rank{rank}.json"), "w") as f:
+            json.dump(out, f)
+        del trainer, state, full, params, buffers
+        torch.cuda.empty_cache()
+    torch.distributed.destroy_process_group()
+    return 0
+
+
+def dist_probe_ops(rank, world, dev):
+    """Each collective once on `dev` tensors (ms, or the error it raised),
+    then an all-reduce of a ResNet-34 gradient's 87 MB twice."""
+    import torch
+    import torch.distributed as dist
+
+    res = {}
+
+    def run(name, fn):
+        try:
+            t0 = time.perf_counter()
+            fn()
+            torch.cuda.synchronize()
+            res[name] = round((time.perf_counter() - t0) * 1e3, 3)
+        except Exception as e:  # noqa: BLE001 - a probe reports what each call raised
+            res[name] = repr(e)[:200]
+
+    x = torch.arange(4.0, device=dev) + rank
+    big = torch.ones(21_800_000, device=dev)
+    run("all_reduce", lambda: dist.all_reduce(x))
+    run("all_gather", lambda: dist.all_gather([torch.empty(4, device=dev)
+                                               for _ in range(world)], x))
+    run("reduce_scatter", lambda: dist.reduce_scatter(
+        torch.empty(4, device=dev), [torch.ones(4, device=dev) for _ in range(world)]))
+    run("broadcast", lambda: dist.broadcast(x, 0))
+    run("barrier", dist.barrier)
+    run("new_group_all_reduce", lambda: dist.all_reduce(x, group=dist.new_group(
+        list(range(world)))))
+    run("all_reduce_87MB", lambda: dist.all_reduce(big))
+    run("all_reduce_87MB_again", lambda: dist.all_reduce(big))
+    return res
+
+
+def dist_probe_rank(rank, world, port, backend, queue):
+    import datetime
+
+    import torch
+    import torch.distributed as dist
+
+    torch.cuda.set_device(0)
+    out = {"rank": rank}
+    try:
+        dist.init_process_group(backend, init_method=f"tcp://localhost:{port}", rank=rank,
+                                world_size=world, timeout=datetime.timedelta(seconds=60))
+        out["ms"] = dist_probe_ops(rank, world, torch.device("cuda", 0))
+        dist.destroy_process_group()
+    except Exception as e:  # noqa: BLE001 - a probe reports the refusal
+        out["error"] = repr(e)[:300]
+    queue.put(out)
+
+
+def dist_probe() -> int:
+    """`python3 chip_smoke.py --dist-probe`: which collectives two processes
+    can run on the one card, each backend named: the card's compute mode,
+    then gloo with 2 ranks, NCCL with 1, NCCL with 2 on cuda:0 (each rank's
+    ms a call, or what it raised). Phase 16 is built on what this finds; it
+    never switches a backend itself."""
+    import multiprocessing as mp
+    import queue as queue_mod
+
+    print(subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit,compute_mode",
+                          "--format=csv,noheader"], capture_output=True, text=True,
+                         timeout=60).stdout.strip(), flush=True)
+    ctx = mp.get_context("spawn")
+    for backend, world in (("gloo", 2), ("nccl", 1), ("nccl", 2)):
+        q = ctx.Queue()
+        port = free_port()
+        procs = [ctx.Process(target=dist_probe_rank, args=(r, world, port, backend, q))
+                 for r in range(world)]
+        for p in procs:
+            p.start()
+        results, t0 = [], time.perf_counter()
+        while len(results) < world and time.perf_counter() - t0 < 150:
+            try:
+                results.append(q.get(timeout=5))
+            except queue_mod.Empty:
+                pass
+        for p in procs:
+            p.join(10)
+            if p.is_alive():
+                p.kill()
+                p.join()
+                results.append({"killed": p.pid})
+        print(json.dumps({"probe": backend, "world": world, "ranks": results}), flush=True)
+    return 0
+
+
+def dist_reference(ckpt, batches, scale=1.0):
+    """The one-process Trainer's DIST_STEPS steps from the start checkpoint
+    on the global batches (images times `scale`): per-step records, the
+    first step's gradient, the final parameters and the gathered bank."""
+    import numpy as np
+    import torch
+
+    from mgproto_tpu_torch.engine.train import Trainer
+    from mgproto_tpu_torch.utils.checkpoint import restore_checkpoint
+
+    tr = Trainer(dist_config(TRAIN_BATCH), steps_per_epoch=100, device="cuda")
+    st = restore_checkpoint(ckpt, tr.init_state(0, for_restore=True))
+    theta0 = params_vector(tr, st).clone()
+    steps, grad1 = [], None
+    for i in range(DIST_STEPS):
+        x, y = batches[i]
+        st, met = tr.train_step(st, x * np.float32(scale), y, use_mine=True, update_gmm=True)
+        steps.append({"loss": met.loss.item(), "accuracy": met.accuracy.item(),
+                      "em_active": met.em_active, "em_compact_fallback": met.em_compact_fallback})
+        if i == 0:
+            grad1 = torch.cat([p.grad.reshape(-1) for p in tr.params(st)]).clone()
+    out = {"steps": steps, "grad1": grad1, "theta0": theta0, "params": params_vector(tr, st),
+           "means": st.gmm.means.detach().clone(), "priors": st.gmm.priors.clone(),
+           "length": st.memory.length.clone(), "cursor": st.memory.cursor.clone()}
+    del tr, st
+    return out
+
+
+def dist_ranks_run(ckpt):
+    """16 (a)'s two ranks as processes on the card, every mesh of
+    DIST_MESHES in turn in one process group, joined within
+    DIST_CHILD_TIMEOUT_S; returns their wall seconds."""
+    spec_path = os.path.join(DIST_DIR, "spec.json")
+    for mesh in DIST_MESHES:
+        os.makedirs(os.path.join(DIST_DIR, f"mesh{mesh[0]}x{mesh[1]}"))
+    with open(spec_path, "w") as f:
+        json.dump({"init": f"tcp://localhost:{free_port()}", "meshes": DIST_MESHES, "ckpt": ckpt,
+                   "backend": DIST_BACKEND, "out": DIST_DIR}, f)
+    t0 = time.perf_counter()
+    logs = [open(os.path.join(DIST_DIR, f"rank{r}.log"), "w") for r in range(DIST_RANKS)]
+    procs = [subprocess.Popen([sys.executable, os.path.abspath(__file__), "--dist-child",
+                               spec_path, str(r)], cwd=HERE, stdout=logs[r],
+                              stderr=subprocess.STDOUT, env=dict(os.environ, PYTHONUNBUFFERED="1"))
+             for r in range(DIST_RANKS)]
+    try:
+        for r, p in enumerate(procs):
+            code = p.wait(timeout=max(DIST_CHILD_TIMEOUT_S - (time.perf_counter() - t0), 1))
+            logs[r].close()
+            check(code == 0, f"16 (a) rank {r} exited {code}:\n"
+                  + open(os.path.join(DIST_DIR, f"rank{r}.log")).read()[-3000:])
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+    return time.perf_counter() - t0
+
+
+def dist_mesh_check(smi, mesh, ref, floor, wall_s):
+    """16 (a) at one mesh: the two ranks' steps held to the one-process run
+    `ref`, within twice what the perturbed run `floor` moves it; returns
+    the launches of both ranks' DIST_STEPS steps."""
+    import numpy as np
+    import torch
+
+    out_dir = os.path.join(DIST_DIR, f"mesh{mesh[0]}x{mesh[1]}")
+    ranks = []
+    for r in range(DIST_RANKS):
+        with open(os.path.join(out_dir, f"rank{r}.json")) as f:
+            ranks.append(json.load(f))
+    got = np.load(os.path.join(out_dir, "state.npz"))
+    grad1 = torch.from_numpy(np.load(os.path.join(out_dir, "grad1.npy"))).cuda()
+
+    def diff(a, b):
+        return (torch.as_tensor(a, device="cuda").float()
+                - torch.as_tensor(b, device="cuda").float()).abs().max().item()
+
+    # per-rank launches a step: score_pool and its backward once, the block
+    # tails 16 times, the E-step num_em_loop times on the rank's slab
+    want = {"score_pool": 1, "score_pool_bwd": 1, "bn_epilogue": 16, "em_estep": 3}
+    for rk in ranks:
+        check(rk["fused"], f"16 (a) mesh {mesh}: the rank did not resolve to the kernels")
+        for i, step in enumerate(rk["steps"]):
+            check(step["launches"] == want, f"16 (a) mesh {mesh} rank {rk['rank']} step {i}: "
+                  f"launches {step['launches']}, expected {want}")
+            check(not step["nonfinite"], f"16 (a) mesh {mesh}: step {i} skipped as non-finite")
+    check(len({rk["params_sha256"] for rk in ranks}) == 1,
+          f"16 (a) mesh {mesh}: the ranks' parameters differ")
+    steps = ranks[0]["steps"]
+    for i, (s, r, fl) in enumerate(zip(steps, ref["steps"], floor["steps"])):
+        for rk in ranks[1:]:
+            check(rk["steps"][i]["loss"] == s["loss"], f"16 (a) mesh {mesh}: ranks' losses differ")
+        tol = max(TRAIN_LOSS_RTOL * abs(r["loss"]), TRAIN_GRAD_FLOOR_MULT * abs(fl["loss"] - r["loss"]))
+        check(abs(s["loss"] - r["loss"]) <= tol,
+              f"16 (a) mesh {mesh} step {i}: loss {s['loss']} vs one process {r['loss']} "
+              f"(tolerance {tol})")
+        check(abs(s["accuracy"] - r["accuracy"]) <= DIST_ACC_ATOL,
+              f"16 (a) mesh {mesh} step {i}: accuracy {s['accuracy']} vs {r['accuracy']}")
+        check(s["em_active"] == r["em_active"],
+              f"16 (a) mesh {mesh} step {i}: em_active {s['em_active']} vs {r['em_active']}")
+    check(bool(torch.equal(torch.from_numpy(got["length"]).cuda(), ref["length"].int())),
+          f"16 (a) mesh {mesh}: the bank's lengths differ from the one-process run's")
+    means_err, means_floor = diff(got["means"], ref["means"]), diff(floor["means"], ref["means"])
+    check(means_err <= max(1e-5, TRAIN_GRAD_FLOOR_MULT * means_floor),
+          f"16 (a) mesh {mesh}: means differ by {means_err} (floor {means_floor})")
+    grad_err = rel_norm(grad1, ref["grad1"])
+    grad_floor = rel_norm(floor["grad1"], ref["grad1"])
+    check(grad_err <= TRAIN_GRAD_FLOOR_MULT * grad_floor,
+          f"16 (a) mesh {mesh}: first-step gradient rel err {grad_err} > "
+          f"{TRAIN_GRAD_FLOOR_MULT} x the floor {grad_floor}")
+    update = (ref["params"] - ref["theta0"]).norm().item()
+    params = torch.from_numpy(got["params"]).cuda()
+    param_err = (params - ref["params"]).norm().item() / update
+    param_floor = (floor["params"] - ref["params"]).norm().item() / update
+    check(param_err <= TRAIN_GRAD_FLOOR_MULT * param_floor,
+          f"16 (a) mesh {mesh}: parameters after {DIST_STEPS} steps, rel err of the update "
+          f"{param_err} > {TRAIN_GRAD_FLOOR_MULT} x the floor {param_floor}")
+    cursors_equal = float((torch.from_numpy(got["cursor"]).cuda() == ref["cursor"]).float().mean())
+    per_rank = [{"rank": rk["rank"], "class_slab": rk["class_slab"], "em_width": rk["em_width"],
+                 "step_s": [s["s"] for s in rk["steps"]],
+                 "timed_step_s": [t["s"] for t in rk["timed"]],
+                 "collective_ms": [1e3 * t["collective_s"] for t in rk["timed"]],
+                 "compute_ms": [1e3 * t["compute_s"] for t in rk["timed"]],
+                 "collectives_per_step": [t["collectives"] for t in rk["timed"]],
+                 "collective_mb_per_step": [t["collective_bytes"] / 1e6 for t in rk["timed"]],
+                 "launches_per_step": rk["steps"][0]["launches"],
+                 "em_compact_fallback": [s["em_compact_fallback"] for s in rk["steps"]],
+                 "peak_mem_gb": rk["peak_mem_gb"]} for rk in ranks]
+    emit("distributed", part="a", card=smi, backend=DIST_BACKEND, mesh=list(mesh),
+         ranks_on_one_card=DIST_RANKS, global_batch=TRAIN_BATCH,
+         batch_per_rank=TRAIN_BATCH // DIST_RANKS, steps=DIST_STEPS,
+         ranks_wall_s_both_meshes=wall_s,
+         losses=[s["loss"] for s in steps], one_process_losses=[r["loss"] for r in ref["steps"]],
+         floor_losses=[r["loss"] for r in floor["steps"]],
+         accuracy=[s["accuracy"] for s in steps], em_active=[s["em_active"] for s in steps],
+         means_max_abs_err=means_err, means_floor=means_floor, grad_rel_err=grad_err,
+         grad_floor=grad_floor, param_update_rel_err=param_err, param_floor=param_floor,
+         cursors_equal_share=cursors_equal, params_bit_equal_across_ranks=True,
+         per_rank=per_rank,
+         note="gloo on one card: both ranks share the H100, and gloo stages CUDA tensors "
+              "through the host; not a multi-GPU NCCL figure")
+    return {k: sum(rk["launches"][k] for rk in ranks) for k in want}
+
+
+def dist_cli_flags():
+    root, ood = trust_trees()
+    return ["--train_dir", root, "--test_dir", ood, "--push_dir", ood, "--model_dir",
+            os.path.join(DIST_DIR, "cli"), "--num_workers", str(INPUT_WORKERS), "--no_pretrained"]
+
+
+def dist_cli_env():
+    """The launcher's environment of a group of one rank."""
+    return {"RANK": "0", "WORLD_SIZE": "1", "LOCAL_RANK": "0", "MASTER_ADDR": "localhost",
+            "MASTER_PORT": str(free_port())}
+
+
+def dist_cli_start():
+    """16 (b)'s `cli.train --distributed` process at world size 1 under NCCL
+    (the launcher's environment set here) for one epoch on the input
+    phase's folder, with the schedule phase's OoD folder as the test and
+    push set; started first, beside (a)'s untimed one-process runs."""
+    log = open(os.path.join(DIST_DIR, "cli_train.log"), "w")
+    flags = dist_cli_flags() + ["--distributed", "--epochs", "1", "--mine_start", "0",
+                                "--gmm_start", "0", "--push_start", "0", "--push_every", "1"]
+    proc = subprocess.Popen([sys.executable, "-m", "mgproto_tpu_torch.cli.train", *flags],
+                            cwd=HERE, stdout=log, stderr=subprocess.STDOUT,
+                            env=dict(os.environ, PYTHONUNBUFFERED="1", **dist_cli_env()))
+    return Started(proc, log.name)
+
+
+def dist_cli_check(smi, train):
+    """16 (b): the `cli.train --distributed` process `train` trained,
+    tested, pushed (rendered), pruned and saved; then `cli.evaluate
+    --distributed` and `cli.evaluate` without it restore the prune
+    checkpoint, beside each other, and print the run's last test
+    accuracy."""
+    import concurrent.futures
+
+    from mgproto_tpu_torch.utils import checkpoint as ck
+
+    rc, train_s = train.wait(timeout=400)
+    check(rc == 0, f"16 (b) cli.train --distributed exited {rc}:\n"
+          + open(train.out).read()[-3000:])
+    run_dir = os.path.join(DIST_DIR, "cli")
+    stages = sorted({c[1] for c in ck.list_checkpoints(run_dir)})
+    check(stages == ["nopush", "prune", "push"], f"16 (b) cli.train stage checkpoints {stages}")
+    log = open(os.path.join(run_dir, "train.log")).read()
+    check("rank: 0 of 1" in log and "backend: nccl" in log and "training done" in log,
+          "16 (b) cli.train: train.log does not show the NCCL group of one rank")
+    records = [json.loads(ln) for ln in open(os.path.join(run_dir, "metrics.jsonl"))]
+    img_dir = os.path.join(run_dir, "img", "epoch-0")
+    rendered = len(os.listdir(img_dir)) if os.path.isdir(img_dir) else 0
+    check(rendered > 0 and records[-1].get("stage") == "prune", "16 (b): no render or prune")
+    flags = dist_cli_flags()
+    with concurrent.futures.ThreadPoolExecutor(2) as pool:
+        dist_eval = pool.submit(run_main, "evaluate", flags + ["--distributed"], 300,
+                                dist_cli_env())
+        plain_eval = pool.submit(run_main, "evaluate", flags, 300)
+        (drc, dout, derr, dist_s), (prc, pout, perr, plain_s) = dist_eval.result(), plain_eval.result()
+    check(drc == 0, f"16 (b) cli.evaluate --distributed exited {drc}:\n{derr[-3000:]}")
+    check(prc == 0, f"16 (b) cli.evaluate exited {prc}:\n{perr[-3000:]}")
+    dres, pres = last_json(dout), last_json(pout)
+    prune = [c[3] for c in ck.list_checkpoints(run_dir) if c[1] == "prune"][0]
+    check(dres["checkpoint"] == pres["checkpoint"] == prune, "16 (b): evaluate read another file")
+    check(dres["accuracy"] == pres["accuracy"] == records[-1]["acc"],
+          f"16 (b): evaluate --distributed {dres['accuracy']}, without {pres['accuracy']}, the "
+          f"run's last test pass {records[-1]['acc']}")
+    emit("distributed", part="b", card=smi, backend="nccl", world_size=1, epochs=1,
+         batch=TRAIN_BATCH, train_wall_s=train_s, stages=stages, rendered_jpegs=rendered,
+         train_s=[r["train_s"] for r in records if "train_s" in r], accuracy=records[-1]["acc"],
+         evaluate_distributed_wall_s=dist_s, evaluate_wall_s=plain_s,
+         evaluate_accuracy=dres["accuracy"],
+         note="the train process ran beside (a)'s untimed one-process runs")
+
+
+def dist_phase(smi):
+    """Phase 16; returns the launch counts of (a)'s ranks, summed over both
+    meshes and both ranks."""
+    import shutil
+
+    import torch
+
+    from mgproto_tpu_torch.engine.train import Trainer
+    from mgproto_tpu_torch.utils.checkpoint import save_checkpoint
+
+    t_phase = time.perf_counter()
+    shutil.rmtree(DIST_DIR, ignore_errors=True)
+    os.makedirs(DIST_DIR)
+    train = dist_cli_start()
+    try:
+        cfg = dist_config(TRAIN_BATCH)
+        start = Trainer(cfg, steps_per_epoch=100, device="cuda").init_state(0)
+        start.memory = full_bank(cfg.model, seed=1)
+        ckpt = save_checkpoint(DIST_DIR, start, "start",
+                               metadata={"epoch": -1, "stage": "nopush"})
+        del start
+        batches = dist_batches()
+        ref = dist_reference(ckpt, batches)
+        floor = dist_reference(ckpt, batches, scale=1 + 1e-7)
+        torch.cuda.empty_cache()
+        # the ranks' steps are timed: (b)'s train process ends first
+        train.wait(timeout=400)
+        wall_s = dist_ranks_run(ckpt)
+        launches = {}
+        for mesh in DIST_MESHES:
+            for k, v in dist_mesh_check(smi, mesh, ref, floor, wall_s).items():
+                launches[k] = launches.get(k, 0) + v
+        del ref, floor
+        torch.cuda.empty_cache()
+        dist_cli_check(smi, train)
+    finally:
+        if train.proc.poll() is None:
+            train.proc.kill()
+            train.proc.wait()
+    emit("distributed", part="phase", seconds=time.perf_counter() - t_phase, launches=launches)
+    return launches
+
+
 def serve_once() -> None:
     """The kernel and serve phases alone; prints `RES ok` or `RES <the serve
     check's failure and its report>`."""
@@ -5185,6 +5674,10 @@ def main() -> int:
         return 0
     if sys.argv[1:2] == ["--trust-child"]:
         return trust_child(sys.argv[2:])
+    if sys.argv[1:2] == ["--dist-child"]:
+        return dist_child(sys.argv[2:])
+    if sys.argv[1:2] == ["--dist-probe"]:
+        return dist_probe()
     smi = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
         capture_output=True, text=True, timeout=60,
@@ -5212,6 +5705,8 @@ def main() -> int:
     elastic_launches, async_steps, elastic_dispatches = elastic_phase(smi)
     online_launches = online_phase(smi)
     trust_launches, trust_dispatches = trust_phase(smi)
+    torch.cuda.empty_cache()
+    distributed_launches = dist_phase(smi)
     for k in kernels:
         # `launches`: the loader-fed epoch of the input phase (this path's
         # main run); the train phase's and the serve phase's beside them
@@ -5265,6 +5760,10 @@ def main() -> int:
         k["trust_launches_per_dispatch"] = k["trust_launches"] / trust_dispatches
         check((k["trust_launches"] > 0) == (k["name"] in ("score_pool", "bn_epilogue")),
               f"{k['name']}: {k['trust_launches']} launches on the trust matrix")
+        # phase 16 (a): both ranks of both meshes, DIST_STEPS steps each
+        k["distributed_launches"] = distributed_launches[k["name"]]
+        check(k["distributed_launches"] > 0,
+              f"{k['name']} was not launched on the two-rank path")
         if k["name"] == "bn_epilogue":
             k["train_bf16"] = dict(epi_bf16, launches=bf16_launches["bn_epilogue"])
     print(json.dumps({"kernels": kernels, "input_steps": input_steps, "train_steps": train_steps,

@@ -3,8 +3,10 @@
 
 Every flag of the JAX package's `add_train_args` parses here under the
 same name and default. Each either sets the port's field of the same name,
-or is refused at a value other than its default by `config_from_args`,
-naming the ROADMAP item that will port it (`REFUSED`). `--no-telemetry`
+or is refused at a value other than its default (--distributed and the
+mesh flags: together with --async_bank) by `config_from_args`, naming the
+ROADMAP item that will port it (`REFUSED`). `maybe_init_distributed` joins
+the process group for --distributed before any device use. `--no-telemetry`
 is accepted: the port writes no telemetry in any case. The port adds
 `--device` (default cuda), its device rule: the entry points run on the
 card unless the caller names another device.
@@ -22,6 +24,7 @@ from mgproto_tpu_torch.config import (
     DataConfig,
     EMConfig,
     LossConfig,
+    MeshConfig,
     ModelConfig,
     OptimConfig,
     ScheduleConfig,
@@ -36,13 +39,18 @@ DATASET_PRESETS: Dict[str, Dict] = {
     "ImageNet": {"num_classes": 1000, "sub": "imagenet"},
 }
 
-# flags the port parses but does not implement: (dest, the value that is
-# accepted, the ROADMAP item that ports the rest). `ckpt_format` accepts
-# "auto" and "replicated", which are the same thing on one process.
+# flags the port parses but does not implement: (dest, what is accepted,
+# the ROADMAP item that ports the rest). What is accepted is a value, a
+# tuple of values, or a predicate of all the flags for a flag refused only
+# in combination. `ckpt_format` accepts "auto" and "replicated", which are
+# one format in the port at any world size (rank 0 writes the whole state).
 REFUSED = (
-    ("distributed", False, "A8 (multi-GPU)"),
-    ("mesh_data", -1, "A8 (multi-GPU)"),
-    ("mesh_model", 1, "A8 (multi-GPU)"),
+    ("distributed", lambda a: not (a.distributed and a.async_bank),
+     "A8 (multi-GPU: the async bank under a mesh)"),
+    ("mesh_data", lambda a: a.mesh_data == -1 or not a.async_bank,
+     "A8 (multi-GPU: the async bank under a mesh)"),
+    ("mesh_model", lambda a: a.mesh_model == 1 or not a.async_bank,
+     "A8 (multi-GPU: the async bank under a mesh)"),
     ("barrier_timeout_s", 300.0, "A8 (multi-GPU: the multi-host failure agreement)"),
     ("straggler_threshold", 0.25, "A8 (multi-GPU: straggler detection)"),
     ("straggler_patience", 5, "A8 (multi-GPU: straggler detection)"),
@@ -55,6 +63,14 @@ REFUSED = (
     ("telemetry_dir", "", "A9 (obs and telemetry)"),
 )
 
+
+# the mains that run one process (export, serve, interpret, trust) refuse
+# the distributed flags; cli.train and cli.evaluate take them
+SINGLE_PROCESS_REFUSED = (
+    ("distributed", False, "A8 (multi-GPU: this main runs one process)"),
+    ("mesh_data", -1, "A8 (multi-GPU: this main runs one process)"),
+    ("mesh_model", 1, "A8 (multi-GPU: this main runs one process)"),
+)
 
 # the serve and export mains' own flags that the port parses but does not
 # implement, refused the same way (cli/serve.py, cli/export.py check them
@@ -169,9 +185,13 @@ def add_train_args(p: argparse.ArgumentParser) -> None:
                    help="torch device to run on (default cuda; 'cpu' runs the "
                         "plain PyTorch path)")
     # runtime
-    p.add_argument("--distributed", action="store_true", help="not ported (A8): refused")
-    p.add_argument("--mesh_data", type=int, default=-1, help="not ported (A8): -1 only")
-    p.add_argument("--mesh_model", type=int, default=1, help="not ported (A8): 1 only")
+    p.add_argument("--distributed", action="store_true",
+                   help="join the process group the torch launcher describes "
+                        "(torchrun --nproc_per_node N): NCCL on CUDA, gloo on the CPU")
+    p.add_argument("--mesh_data", type=int, default=-1,
+                   help="ranks on the data axis (-1: all not on the model axis)")
+    p.add_argument("--mesh_model", type=int, default=1,
+                   help="ranks on the class axis of the GMM head, the bank and EM")
     p.add_argument("--resume", default="",
                    help="checkpoint path, or 'auto' for the newest checkpoint "
                         "with a valid manifest in model_dir (a preempted run "
@@ -203,8 +223,8 @@ def add_train_args(p: argparse.ArgumentParser) -> None:
                    help="not ported (A8): the default only")
     p.add_argument("--ckpt_format", default="auto", choices=["auto", "sharded", "replicated"],
                    help="checkpoint format: 'auto' and 'replicated' are the "
-                        "port's single-process format; 'sharded' is not "
-                        "ported (A8)")
+                        "port's one format (rank 0 writes the whole state); "
+                        "'sharded' is not ported (A8)")
     p.add_argument("--profile_dir", default="", help="not ported (A9): refused")
     p.add_argument("--profile_steps", default="", help="not ported (A9): refused")
     p.add_argument("--profile_on_anomaly", action="store_true",
@@ -224,10 +244,27 @@ def check_ported(args: argparse.Namespace, rows=REFUSED) -> None:
     set to a value the port does not implement."""
     for dest, accepted, item in rows:
         value = getattr(args, dest)
-        ok = value in accepted if isinstance(accepted, tuple) else value == accepted
+        flag = f"--{dest}={value!r}"
+        if callable(accepted):
+            ok, flag = accepted(args), flag + " with --async_bank"
+        else:
+            ok = value in accepted if isinstance(accepted, tuple) else value == accepted
         if not ok:
-            flag = "--" + dest
-            raise NotPortedError(f"{flag}={value!r} is not ported; ROADMAP {item}")
+            raise NotPortedError(f"{flag} is not ported; ROADMAP {item}")
+
+
+def maybe_init_distributed(args: argparse.Namespace) -> None:
+    """Honor --distributed before any device use: join the process group
+    from the torch launcher's environment (`torchrun`; strict: a rank that
+    cannot join raises rather than train alone) with NCCL for a CUDA
+    device and gloo for the CPU, and make a bare `--device cuda` this
+    rank's card, `cuda:LOCAL_RANK`."""
+    if not args.distributed:
+        return
+    from mgproto_tpu_torch.parallel.mesh import initialize_distributed, local_device
+
+    initialize_distributed(device=local_device(args.device), strict=True)
+    args.device = str(local_device(args.device))
 
 
 def config_from_args(args: argparse.Namespace) -> Config:
@@ -290,6 +327,7 @@ def config_from_args(args: argparse.Namespace) -> Config:
             prefetch_depth=args.prefetch_depth,
             device_augment=args.device_augment,
         ),
+        mesh=MeshConfig(data=args.mesh_data, model=args.mesh_model),
         seed=args.seed,
         model_dir=args.model_dir,
     )

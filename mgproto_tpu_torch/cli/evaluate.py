@@ -3,11 +3,14 @@ mgproto_tpu/cli/evaluate.py).
 
     python -m mgproto_tpu_torch.cli.evaluate --test_dir ... [--ood_dir ...] \
         [--checkpoint auto|<path>] [--ood_score sum|max|paper] [--device cuda]
+    torchrun --nproc_per_node 2 -m mgproto_tpu_torch.cli.evaluate --distributed ...
 
 Restores the checkpoint (the newest in --model_dir by default) after
 adopting its training settings, runs the test pass (with the OoD sets when
 --ood_dir is given) and prints the JAX CLI's JSON line: the checkpoint,
-the accuracy and the pass's results.
+the accuracy and the pass's results. With --distributed each rank
+restores the checkpoint onto the mesh (parallel/trainer.py), evaluates its
+loader shard, and rank 0 prints the line of the gathered pass.
 """
 
 from __future__ import annotations
@@ -16,15 +19,13 @@ import argparse
 import json
 from typing import Optional
 
-from mgproto_tpu_torch.cli.common import add_train_args, config_from_args
+from mgproto_tpu_torch.cli.common import add_train_args, config_from_args, maybe_init_distributed
 from mgproto_tpu_torch.cli.train import _test
 from mgproto_tpu_torch.data import build_pipelines
-from mgproto_tpu_torch.engine.train import Trainer
-from mgproto_tpu_torch.utils.checkpoint import (
-    adopt_checkpoint_train_config,
-    latest_checkpoint,
-    restore_checkpoint,
-)
+from mgproto_tpu_torch.parallel.mesh import leave_process_group
+from mgproto_tpu_torch.parallel.multihost import is_primary_host
+from mgproto_tpu_torch.parallel.trainer import ShardedTrainer
+from mgproto_tpu_torch.utils.checkpoint import adopt_checkpoint_train_config, latest_checkpoint
 
 
 def main(argv: Optional[list] = None) -> None:
@@ -38,22 +39,26 @@ def main(argv: Optional[list] = None) -> None:
                         "`evaluate_with_ood`); AUROC is reported for every rule")
     args = p.parse_args(argv)
     cfg = config_from_args(args)
-
-    path = latest_checkpoint(cfg.model_dir) if args.checkpoint == "auto" else args.checkpoint
-    if not path:
-        raise FileNotFoundError(f"no checkpoint found in {cfg.model_dir}")
-    cfg = adopt_checkpoint_train_config(cfg, path, log=print)
-    _, _, test_loader, ood_loaders = build_pipelines(cfg, device=args.device)
+    maybe_init_distributed(args)
     try:
-        trainer = Trainer(cfg, steps_per_epoch=1, device=args.device)
-        state = restore_checkpoint(path, trainer.init_state(cfg.seed, for_restore=True))
-        print(f"loaded {path}")
-        accu, results = _test(trainer, state, test_loader, ood_loaders, print,
-                              score_rule=args.ood_score)
+        path = latest_checkpoint(cfg.model_dir) if args.checkpoint == "auto" else args.checkpoint
+        if not path:
+            raise FileNotFoundError(f"no checkpoint found in {cfg.model_dir}")
+        log = print if is_primary_host() else (lambda *a, **k: None)
+        cfg = adopt_checkpoint_train_config(cfg, path, log=log)
+        _, _, test_loader, ood_loaders = build_pipelines(cfg, device=args.device)
+        try:
+            trainer = ShardedTrainer(cfg, steps_per_epoch=1, device=args.device)
+            state = trainer.restore(path)
+            log(f"loaded {path}")
+            accu, results = _test(trainer, state, test_loader, ood_loaders, log,
+                                  score_rule=args.ood_score)
+        finally:
+            for loader in (test_loader, *ood_loaders):
+                loader.close()
+        log(json.dumps({"checkpoint": path, "accuracy": accu, **results}))
     finally:
-        for loader in (test_loader, *ood_loaders):
-            loader.close()
-    print(json.dumps({"checkpoint": path, "accuracy": accu, **results}))
+        leave_process_group()
 
 
 if __name__ == "__main__":

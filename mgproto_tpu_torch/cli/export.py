@@ -26,6 +26,7 @@ from typing import Optional
 
 from mgproto_tpu_torch.cli.common import (
     EXPORT_REFUSED,
+    SINGLE_PROCESS_REFUSED,
     add_train_args,
     check_ported,
     config_from_args,
@@ -68,6 +69,7 @@ def main(argv: Optional[list] = None) -> None:
                    help="'int8' is not ported (A9): refused")
     args = p.parse_args(argv)
     check_ported(args, EXPORT_REFUSED)
+    check_ported(args, SINGLE_PROCESS_REFUSED)
     cfg = config_from_args(args)
 
     path = latest_checkpoint(cfg.model_dir) if args.checkpoint == "auto" else args.checkpoint

@@ -20,7 +20,12 @@ from typing import Dict, Optional, Union
 
 import torch
 
-from mgproto_tpu_torch.cli.common import add_train_args, config_from_args
+from mgproto_tpu_torch.cli.common import (
+    SINGLE_PROCESS_REFUSED,
+    add_train_args,
+    check_ported,
+    config_from_args,
+)
 from mgproto_tpu_torch.config import Config
 from mgproto_tpu_torch.data import Cub2011Eval, DataLoader, ood_transform
 from mgproto_tpu_torch.data.cub_parts import CubParts
@@ -157,6 +162,7 @@ def main(argv: Optional[list] = None) -> None:
     p.add_argument("--export_csv", default="",
                    help="also write the per-prototype top-K patch CSV")
     args = p.parse_args(argv)
+    check_ported(args, SINGLE_PROCESS_REFUSED)
     cfg = config_from_args(args)
     results = run_interpret(
         cfg, args.cub_root, checkpoint=args.checkpoint, metric=args.metric,

@@ -85,6 +85,7 @@ import numpy as np  # noqa: E402
 
 from mgproto_tpu_torch.cli.common import (  # noqa: E402
     SERVE_REFUSED,
+    SINGLE_PROCESS_REFUSED,
     add_train_args,
     check_ported,
     config_from_args,
@@ -606,6 +607,7 @@ def main(argv: Optional[list] = None) -> None:
     args = p.parse_args(argv)
     check_ported(args)
     check_ported(args, SERVE_REFUSED)
+    check_ported(args, SINGLE_PROCESS_REFUSED)
     if args.online and args.listen:
         raise SystemExit("--online is wired into the batch faces (and the drift drill: "
                          "python -m mgproto_tpu_torch.cli.online drill); the network face's "

@@ -20,11 +20,20 @@ most `max_rollbacks` times. SIGTERM/SIGINT (handlers installed by `main`)
 or the chaos drill's simulated preemption let the step in flight finish,
 save a `preempt` checkpoint with the position in the epoch, write
 PREEMPTED.json and return; `resume="auto"` then skips the batches already
-applied and continues bit for bit. One process: the JAX driver's
-multi-host agreement, telemetry, autotuning and profiler are not ported
-(`cli/common.py` refuses their flags).
+applied and continues bit for bit. The JAX CLI's telemetry, autotuning,
+profiler and guarded barriers are not ported (`cli/common.py` refuses their
+flags).
+
+Several ranks (`--distributed` under `torchrun --nproc_per_node N`, the
+mesh from --mesh_data/--mesh_model): training always runs through
+parallel/trainer.py's ShardedTrainer (one rank: the Trainer's step), each
+rank reads its loader shard, and the test pass and the push gather across
+the ranks. Rank 0 writes the checkpoints, push_provenance.json, the
+rendered pictures and the preemption marker; the other ranks log to
+host-tagged files (`train.log.h1`, `metrics.jsonl.h1`).
 
     python -m mgproto_tpu_torch.cli.train --train_dir ... --test_dir ... --push_dir ...
+    torchrun --nproc_per_node 2 -m mgproto_tpu_torch.cli.train --distributed ...
 """
 
 from __future__ import annotations
@@ -39,14 +48,21 @@ from typing import Optional, Tuple, Union
 import numpy as np
 import torch
 
-from mgproto_tpu_torch.cli.common import add_train_args, config_from_args, describe
+from mgproto_tpu_torch.cli.common import (
+    add_train_args,
+    config_from_args,
+    describe,
+    maybe_init_distributed,
+)
 from mgproto_tpu_torch.config import Config
 from mgproto_tpu_torch.core.mgproto import prune_top_m
 from mgproto_tpu_torch.core.state import TrainState
 from mgproto_tpu_torch.data import build_pipelines
 from mgproto_tpu_torch.engine.evaluate import evaluate, evaluate_with_ood
 from mgproto_tpu_torch.engine.push import provenance_dict, push_prototypes, render_prototypes
-from mgproto_tpu_torch.engine.train import Trainer
+from mgproto_tpu_torch.parallel.mesh import leave_process_group, world
+from mgproto_tpu_torch.parallel.multihost import is_primary_host
+from mgproto_tpu_torch.parallel.trainer import ShardedTrainer
 from mgproto_tpu_torch.perf.precision import policy_meta
 from mgproto_tpu_torch.resilience import chaos as chaos_mod
 from mgproto_tpu_torch.resilience import preemption
@@ -57,8 +73,6 @@ from mgproto_tpu_torch.utils.checkpoint import (
     checkpoint_name,
     find_latest_checkpoint,
     load_metadata,
-    restore_checkpoint,
-    save_checkpoint,
     save_state_w_condition,
 )
 from mgproto_tpu_torch.utils.log import Logger, MetricsWriter, timed_span
@@ -79,11 +93,12 @@ def _test(trainer, state, test_loader, ood_loaders, log, score_rule="sum"):
     return evaluate(trainer, state, _labeled(test_loader), log=log)
 
 
-def _restore(state, path, log):
-    """`state` restored in place from `path`; returns (state, the epoch to
-    run, the batches of it already applied, that epoch's gates or None)."""
+def _restore(trainer, state, path, log):
+    """`state` restored from `path` (`trainer.restore`); returns (state, the
+    epoch to run, the batches of it already applied, that epoch's gates or
+    None)."""
     meta = load_metadata(path) or {}
-    state = restore_checkpoint(path, state)
+    state = trainer.restore(path, state)
     if meta.get("stage") == "preempt":
         # a mid-epoch resume: the same epoch, its applied batches skipped
         # (the loader's order is deterministic), under the gates the epoch
@@ -148,31 +163,39 @@ def run_training(
     os.makedirs(cfg.model_dir, exist_ok=True)
     handler = preemption.get_handler()
     handler.reset()
+    rank, nranks = world()
+    primary = is_primary_host()
+    # run-wide files are rank 0's; the others log under host-tagged names
+    host_tag = "" if primary else f".h{rank}"
     with contextlib.ExitStack() as stack:  # closes whatever was opened, on every path
-        log = Logger(os.path.join(cfg.model_dir, "train.log"))
+        log = Logger(os.path.join(cfg.model_dir, f"train.log{host_tag}"))
         stack.callback(log.close)
         for note in adoption_notes:
             log(note)
-        metrics = MetricsWriter(os.path.join(cfg.model_dir, "metrics.jsonl"))
+        metrics = MetricsWriter(os.path.join(cfg.model_dir, f"metrics.jsonl{host_tag}"))
         stack.callback(metrics.close)
         log(describe(cfg))
         train_loader, push_loader, test_loader, ood_loaders = build_pipelines(cfg, device=device)
         for loader in (train_loader, push_loader, test_loader, *ood_loaders):
             stack.callback(loader.close)
-        trainer = Trainer(cfg, len(train_loader), device=device)
+        trainer = ShardedTrainer(cfg, len(train_loader), device=device)
+        backend = (torch.distributed.get_backend() if torch.distributed.is_initialized()
+                   else "none")
         log(f"device: {trainer.device}  steps/epoch: {trainer.steps_per_epoch}  "
-            f"async_bank: {trainer.async_bank}")
+            f"async_bank: {trainer.async_bank}  rank: {rank} of {nranks}  "
+            f"mesh: {trainer.mesh.shape}  backend: {backend}")
         # a restore target reads no pretrained trunk
         state = trainer.init_state(cfg.seed, for_restore=bool(resume_path))
         start_epoch, skip, flags = 0, 0, None
         if resume_path:
             meta = load_metadata(resume_path) or {}
             if meta.get("stage") == "prune":
-                state = restore_checkpoint(resume_path, state)
+                state = trainer.restore(resume_path, state)
                 log(f"run already complete ({resume_path}); nothing to resume")
                 return state, float(meta.get("accuracy", 0.0))
-            state, start_epoch, skip, flags = _restore(state, resume_path, log)
-            preemption.clear_marker(cfg.model_dir)
+            state, start_epoch, skip, flags = _restore(trainer, state, resume_path, log)
+            if primary:
+                preemption.clear_marker(cfg.model_dir)
 
         # what a restore must be built with (utils/checkpoint.py
         # `adopt_checkpoint_train_config`): the trunk's numerics, the aux
@@ -191,7 +214,8 @@ def run_training(
         epoch = start_epoch
         while epoch < cfg.schedule.num_train_epochs:
             guard = EpochGuard(max_bad_steps=max_bad_steps, check_every=divergence_check_every,
-                               chaos=chaos, preemption=handler, already_done=skip)
+                               chaos=chaos, preemption=handler, already_done=skip,
+                               multihost=nranks > 1)
             if flags is None:
                 flags = trainer.epoch_flags(state, epoch)
             try:
@@ -209,7 +233,7 @@ def run_training(
                                        "(lower lr, check the data) and restart") from e
                 log(f"{e}; rolling back to {last_good} ({rollbacks}/{max_rollbacks})")
                 trainer.reset_bank_pipeline()  # the held bank phase belongs to the lost state
-                state, epoch, skip, flags = _restore(state, last_good, log)
+                state, epoch, skip, flags = _restore(trainer, state, last_good, log)
                 continue
             if guard.preempted:
                 # the step in flight finished in train_epoch: save the whole
@@ -217,17 +241,18 @@ def run_training(
                 meta = {**run_meta, "epoch": epoch, "stage": "preempt", "accuracy": accu,
                         "batch_in_epoch": guard.batches_done, "reason": handler.reason or "",
                         "epoch_flags": flags}
-                path = save_checkpoint(cfg.model_dir, state,
-                                       checkpoint_name(epoch, "preempt", max(accu, 0.0)),
-                                       metadata=meta)
-                preemption.write_marker(cfg.model_dir, path, reason=handler.reason or "",
-                                        extra={"epoch": epoch,
-                                               "batch_in_epoch": guard.batches_done})
+                path = trainer.save(cfg.model_dir, state,
+                                    checkpoint_name(epoch, "preempt", max(accu, 0.0)),
+                                    metadata=meta)
+                if primary:
+                    preemption.write_marker(cfg.model_dir, path, reason=handler.reason or "",
+                                            extra={"epoch": epoch,
+                                                   "batch_in_epoch": guard.batches_done})
                 log(f"preempted ({handler.reason}); saved {path} at epoch {epoch} batch "
                     f"{guard.batches_done}; resume with --resume auto")
                 return state, accu
             skip, flags = 0, None
-            if keep_last > 0:
+            if keep_last > 0 and primary:
                 apply_retention(cfg.model_dir, keep_last, keep_best)
             epoch += 1
 
@@ -239,7 +264,7 @@ def run_training(
         metrics.write(state.step, {"epoch": last_epoch, "stage": "prune", "test_s": span["s"],
                                    **test_results})
         save_state_w_condition(cfg.model_dir, state, last_epoch, "prune", accu, target_accu,
-                               metadata=run_meta)
+                               metadata=run_meta, save=trainer.save)
         log("training done")
         return state, accu
 
@@ -277,29 +302,33 @@ def _run_epoch(cfg, trainer, state, epoch, train_loader, test_loader, push_loade
         accu, test_results = _test(trainer, state, test_loader, ood_loaders, log)
     metrics.write(state.step, {"epoch": epoch, "test_s": span["s"], **test_results})
     save_state_w_condition(cfg.model_dir, state, epoch, "nopush", accu, target_accu,
-                           metadata=run_meta)
+                           metadata=run_meta, save=trainer.save)
 
     if epoch in cfg.schedule.push_epochs():
         with timed_span(log, "push") as span:
             state, push_result = push_prototypes(trainer, state, push_loader)
-        with open(os.path.join(cfg.model_dir, "push_provenance.json"), "w") as f:
-            json.dump({"epoch": epoch, **provenance_dict(push_result)}, f)
+        primary = is_primary_host()
+        if primary:
+            with open(os.path.join(cfg.model_dir, "push_provenance.json"), "w") as f:
+                json.dump({"epoch": epoch, **provenance_dict(push_result)}, f)
         log(f"\tpushed: \t{int(push_result.pushed.sum())} of {push_result.pushed.size}")
         render = {}
         if img_dir is not None:
             push_ds = push_loader.dataset
+            gmm = trainer.full_gmm(state)  # a collective under a mesh: every rank
             # push_prototypes(save_dir=img_dir, ...) in one call, split here
-            # so the render has its own span
+            # so the render has its own span; rank 0 draws
             with timed_span(log, "push render") as render_span:
-                render_prototypes(trainer, state, push_result, lambda i: push_ds.load(i)[0],
-                                  img_dir, epoch)
+                if primary:
+                    render_prototypes(trainer, state, push_result,
+                                      lambda i: push_ds.load(i)[0], img_dir, epoch, gmm=gmm)
             render = {"render_s": render_span["s"]}
         accu, test_results = _test(trainer, state, test_loader, ood_loaders, log)
         metrics.write(state.step, {"epoch": epoch, "stage": "push", "push_s": span["s"],
                                    **render, "pushed": int(push_result.pushed.sum()),
                                    **test_results})
         save_state_w_condition(cfg.model_dir, state, epoch, "push", accu, target_accu,
-                               metadata=run_meta)
+                               metadata=run_meta, save=trainer.save)
     return state, accu
 
 
@@ -320,18 +349,22 @@ def main(argv: Optional[list] = None) -> None:
     add_train_args(p)
     args = p.parse_args(argv)
     cfg = config_from_args(args)
+    maybe_init_distributed(args)
     plan = chaos_mod.plan_from_env()
     # graceful preemption: SIGTERM/SIGINT finish the step in flight,
     # checkpoint, and exit 0
     if not args.no_preempt_handlers:
         preemption.install_handlers()
-    run_training(
-        cfg, resume=args.resume, keep_last=args.keep_last, device=args.device,
-        target_accu=args.target_accu, max_bad_steps=args.max_bad_steps,
-        divergence_check_every=args.divergence_check_every,
-        max_rollbacks=args.max_rollbacks, keep_best=args.keep_best,
-        chaos=chaos_mod.ChaosState(plan) if plan else None,
-    )
+    try:
+        run_training(
+            cfg, resume=args.resume, keep_last=args.keep_last, device=args.device,
+            target_accu=args.target_accu, max_bad_steps=args.max_bad_steps,
+            divergence_check_every=args.divergence_check_every,
+            max_rollbacks=args.max_rollbacks, keep_best=args.keep_best,
+            chaos=chaos_mod.ChaosState(plan) if plan else None,
+        )
+    finally:
+        leave_process_group()
     # a preempted run exits 0: the checkpoint and the marker let the next
     # run resume
 

@@ -188,7 +188,11 @@ def _matrix_sets(cfg, max_samples: int, device):
 
 
 def matrix_main(argv=None) -> int:
-    from mgproto_tpu_torch.cli.common import add_train_args, check_ported
+    from mgproto_tpu_torch.cli.common import (
+        SINGLE_PROCESS_REFUSED,
+        add_train_args,
+        check_ported,
+    )
     from mgproto_tpu_torch.numerics import resolve_device
 
     p = argparse.ArgumentParser(
@@ -213,6 +217,7 @@ def matrix_main(argv=None) -> int:
     p.add_argument("--out", default="trust_report.json", help="report path")
     args = p.parse_args(argv)
     check_ported(args)
+    check_ported(args, SINGLE_PROCESS_REFUSED)
     if resolve_device(args.device).type == "cuda":
         # the missing kernels of this face, one nvcc each, all at once
         from mgproto_tpu_torch.ops import _build

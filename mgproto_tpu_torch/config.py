@@ -161,6 +161,15 @@ class DataConfig:
 
 
 @dataclasses.dataclass(frozen=True)
+class MeshConfig:
+    """The rank mesh (parallel/mesh.py): data = batch sharding; model =
+    class-axis sharding of the GMM head, the bank and EM."""
+
+    data: int = -1  # -1: every rank not on the model axis
+    model: int = 1
+
+
+@dataclasses.dataclass(frozen=True)
 class Config:
     model: ModelConfig = dataclasses.field(default_factory=ModelConfig)
     em: EMConfig = dataclasses.field(default_factory=EMConfig)
@@ -168,6 +177,7 @@ class Config:
     schedule: ScheduleConfig = dataclasses.field(default_factory=ScheduleConfig)
     loss: LossConfig = dataclasses.field(default_factory=LossConfig)
     data: DataConfig = dataclasses.field(default_factory=DataConfig)
+    mesh: MeshConfig = dataclasses.field(default_factory=MeshConfig)
     seed: int = 0  # the loaders' shuffle and augmentation streams
     # checkpoints, train.log, metrics.jsonl and push_provenance.json
     model_dir: str = "./saved_models"

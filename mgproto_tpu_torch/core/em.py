@@ -1,5 +1,5 @@
 """EM over the memory bank: the only trainer of prototype means and priors
-(counterpart of mgproto_tpu/core/em.py, without the class-sharded path).
+(counterpart of mgproto_tpu/core/em.py).
 
 Per touched class with a FULL queue, `num_em_loop` rounds of
   E-step:  responsibilities under the current means and priors;
@@ -27,6 +27,16 @@ loss and their means pinned exactly at the end (`torch.where`).
 
 The gates are host-side Python: `bank_update` reads the divergence-guard
 flag and the EM gate's counts from the device in one transfer.
+
+CLASS-SHARDED EM (`mesh`, the JAX `_sharded_em_update`): each rank holds a
+slab of the classes (parallel/sharding.py) and runs the whole dispatch
+above on it (its own compaction at width min(width, C/nm), its slice of
+the mean-Adam moments, the E-step kernel on its slab); the gate's counts
+are summed over the model group first, so every rank of it takes the same
+branch, and only the four EMAux scalars are summed after. Reference
+stepping steps one Adam over every class in order, which no slab can do
+alone: under a mesh the group gathers the classes, every rank runs the
+same sequential pass, and each keeps its slab.
 """
 
 from __future__ import annotations
@@ -48,6 +58,7 @@ from mgproto_tpu_torch.ops.gaussian import (
     pairwise_sq_dists,
     precompute_diag_gaussian,
 )
+from mgproto_tpu_torch.parallel.collectives import all_gather, all_reduce_sum
 from mgproto_tpu_torch.perf.precision import assert_f32_stats
 
 
@@ -247,16 +258,21 @@ def _reference_em_update(gmm, memory, mean_opt, cfg, eps):
 
 def em_update(
     gmm: GMMState, memory: Memory, mean_opt: torch.optim.Adam, cfg: EMConfig,
-    eps: float = 1e-10, num_active: Optional[int] = None,
+    eps: float = 1e-10, num_active: Optional[int] = None, mesh=None,
 ) -> Tuple[GMMState, Memory, EMAux]:
     """One full EM call. `gmm.means` must be the mean optimizer's parameter:
     it is updated in place (and pinned for inactive classes). `num_active`
     (the count of updated & full classes) is read from the device when not
     given. Reference stepping when `cfg.reference_stepping`; otherwise
     dense when compaction is off (`max_active_classes` <= 0 or >= C) or
-    more than `width` classes are active, compact otherwise."""
+    more than `width` classes are active, compact otherwise. `mesh` (given
+    only when its model axis splits the classes): `gmm`, `memory` and
+    `mean_opt` are this rank's slab, `num_active` its own count, and the
+    returned EMAux is the model group's (`_sharded_em_update`)."""
     if num_active is None:
         num_active = int(_active(memory).sum())
+    if mesh is not None:
+        return _sharded_em_update(gmm, memory, mean_opt, cfg, eps, num_active, mesh)
     if cfg.reference_stepping:
         gmm, loss, ll = _reference_em_update(gmm, memory, mean_opt, cfg, eps)
         return gmm, clear_updated(memory), EMAux(
@@ -275,10 +291,61 @@ def em_update(
     )
 
 
+def _sharded_em_update(gmm, memory, mean_opt, cfg, eps, num_active, mesh):
+    """EM on this rank's class slab, then the EMAux scalars summed over the
+    model group: the loss, the active count and the fallbacks (the count
+    of ranks whose slab overflowed its width), and the log-likelihood as
+    the active-weighted mean (the JAX `_sharded_em_update`)."""
+    if cfg.reference_stepping:
+        return _sharded_reference_em(gmm, memory, mean_opt, cfg, eps, mesh)
+    c_loc = memory.num_classes
+    local_cfg = dataclasses.replace(
+        cfg, max_active_classes=min(max(cfg.max_active_classes, 0), c_loc))
+    gmm, memory, aux = em_update(gmm, memory, mean_opt, local_cfg, eps, num_active)
+    n_local = float(aux.num_active)
+    scalars = torch.stack([
+        aux.loss.detach().float(), aux.log_likelihood.float() * max(n_local, 1.0),
+        torch.full((), n_local, device=aux.loss.device),
+        torch.full((), float(aux.compact_fallback), device=aux.loss.device)])
+    loss, ll_num, n, fallback = all_reduce_sum(scalars, mesh.model_group)
+    n_int, fb = (int(v) for v in torch.stack([n, fallback]).tolist())
+    return gmm, memory, EMAux(loss=loss, num_active=n_int,
+                              log_likelihood=ll_num / max(n_int, 1), compact_fallback=fb)
+
+
+def _sharded_reference_em(gmm, memory, mean_opt, cfg, eps, mesh):
+    """Reference stepping under a mesh: the model group's slabs gathered,
+    the sequential pass over every class on each rank alike (a temporary
+    Adam on the gathered means with the gathered moments), then this rank's
+    slab of the means, priors, moments and bank flags kept."""
+    group = mesh.model_group
+    c_loc = memory.num_classes
+    c0 = mesh.model_index * c_loc
+    full = GMMState(*(all_gather(t.detach(), 0, group).clone() for t in gmm))
+    full_mem = Memory(*(all_gather(t, 0, group) for t in memory))
+    st = mean_opt.state.get(gmm.means)
+    group_cfg = {k: v for k, v in mean_opt.param_groups[0].items() if k != "params"}
+    opt = torch.optim.Adam([full.means.requires_grad_(True)], **group_cfg)
+    if st:
+        opt.state[full.means] = {"step": st["step"].clone(),
+                                 **{m: all_gather(st[m], 0, group).clone()
+                                    for m in ("exp_avg", "exp_avg_sq")}}
+    full, full_mem, aux = em_update(full, full_mem, opt, cfg, eps)
+    sl = slice(c0, c0 + c_loc)
+    with torch.no_grad():
+        gmm.means.copy_(full.means[sl])
+    fst = opt.state.get(full.means)
+    if fst:
+        mean_opt.state[gmm.means] = {"step": fst["step"].clone(),
+                                     **{m: fst[m][sl].clone() for m in ("exp_avg", "exp_avg_sq")}}
+    # the gathered bank's count is the group's: aux is already the group's
+    return gmm._replace(priors=full.priors[sl].clone()), clear_updated(memory), aux
+
+
 def bank_update(
     gmm: GMMState, memory: Memory, mean_opt: torch.optim.Adam, cfg: EMConfig,
     feats: torch.Tensor, classes: torch.Tensor, valid: torch.Tensor,
-    step: int, update_gmm: bool, finite: torch.Tensor,
+    step: int, update_gmm: bool, finite: torch.Tensor, mesh=None,
 ) -> Tuple[GMMState, Memory, BankAux, bool]:
     """The bank phase of one train step: memory enqueue + gated EM.
 
@@ -289,20 +356,30 @@ def bank_update(
     in ONE transfer, the step's only host sync; the host-side `finite` is
     returned for the caller's optimizer gate. The mixture, the bank and the
     enqueue candidates must be f32 whatever the trunk's dtype
-    (perf/precision.py)."""
+    (perf/precision.py).
+
+    `mesh` (given only when its model axis splits the classes): the
+    candidates are the global batch's, `gmm`, `memory` and `mean_opt` this
+    rank's slab; a candidate of another slab's class is dropped here, the
+    gate's counts are the model group's sums (`finite` is already the same
+    on every rank), and EM runs on the slab (`em_update`)."""
     for t, what in ((gmm.means, "gmm.means"), (gmm.priors, "gmm.priors"),
                     (memory.feats, "memory bank feats"), (feats, "memory enqueue candidates")):
         assert_f32_stats(t, what)
+    if mesh is not None:
+        classes = classes - mesh.model_index * memory.num_classes
     _, _, _, counts = push_plan(memory, classes, valid)
     cap = memory.capacity
     length = torch.clamp_max(memory.length + counts, cap)
     active = (memory.updated | (counts > 0)) & (length == cap)
-    probe = torch.stack([finite.long(), active.sum().long(), length.sum().long()])
-    ok, n_active, total = probe.tolist()
+    local = torch.stack([active.sum(), length.sum()]).double()
+    group = None if mesh is None else mesh.model_group
+    probe = torch.cat([finite.double()[None], local, all_reduce_sum(local, group)])
+    ok, n_active, _, _, total = (int(v) for v in probe.tolist())
     if not ok:
         return gmm, memory, BankAux(0, 0, None), False
     memory = memory_push(memory, feats, classes, valid)
     if not (update_gmm and step % cfg.update_interval == 0 and total > 0):
         return gmm, memory, BankAux(0, 0, None), True
-    gmm, memory, aux = em_update(gmm, memory, mean_opt, cfg, num_active=n_active)
+    gmm, memory, aux = em_update(gmm, memory, mean_opt, cfg, num_active=n_active, mesh=mesh)
     return gmm, memory, BankAux(aux.num_active, aux.compact_fallback, aux), True

@@ -38,6 +38,7 @@ from mgproto_tpu_torch.ops.pooling import (
     mine_mask_activations,
     top_t_pool,
 )
+from mgproto_tpu_torch.parallel.collectives import all_gather, all_reduce_sum
 
 
 def l2_normalize(x: torch.Tensor, dim: int = -1, eps: float = 1e-12) -> torch.Tensor:
@@ -240,40 +241,104 @@ def head_forward(
     mine_T: int,
     prior_eps: float = 1e-10,
     fused: bool = False,
+    mesh=None,
 ):
     """GMM head on an add-on feature map [B, H, W, d]: returns (logits
     [B, C, T], pooled activations, enqueue candidates (feats [B*K, d],
     classes [B*K], valid [B*K])). The candidates are detached: the bank
-    holds no autograd history."""
+    holds no autograd history.
+
+    `mesh` (parallel/mesh.py `Mesh`, given only when its model axis splits
+    the classes) makes this the class-sharded head: `gmm` is this rank's
+    class slab, and `_class_sharded_head` scores it for the rows of every
+    rank of its model group; the logits and candidates returned are this
+    rank's rows, over every class."""
+    if mesh is not None:
+        return _class_sharded_head(proto_map, gmm, labels, mine_T, prior_eps, fused, mesh)
+    pooled = _pool(proto_map, gmm, mine_T, fused)
+    logits = _mixture_logits(mine_mask_activations(pooled.log_act, labels), gmm, prior_eps)
+    b, _, k = pooled.top1_idx.shape
+    if labels is None:
+        return logits, pooled, _no_candidates(proto_map, b, k)
+    sel = labels.long()
+    idx, feats = _gt_top1(pooled, sel)  # a label -1 reads class C-1 (indexing wraps)
+    valid = dedup_first_occurrence(idx)
+    d = feats.shape[-1]
+    enq = (feats.detach().reshape(b * k, d), sel.repeat_interleave(k), valid.reshape(b * k))
+    return logits, pooled, enq
+
+
+def _pool(proto_map, gmm, mine_T, fused) -> PooledActivations:
     if fused:
-        pooled, _ = _fused_pool(proto_map, gmm, mine_T)
-    else:
-        log_prob, feat = patch_log_densities(proto_map, gmm)
-        pooled = top_t_pool(log_prob, feat, mine_T)
-    act = mine_mask_activations(pooled.log_act, labels)
+        return _fused_pool(proto_map, gmm, mine_T)[0]
+    log_prob, feat = patch_log_densities(proto_map, gmm)
+    return top_t_pool(log_prob, feat, mine_T)
+
+
+def _mixture_logits(act: torch.Tensor, gmm: GMMState, prior_eps: float) -> torch.Tensor:
+    """[B, C, T]: logsumexp over K of act [B, C, K, T] + log priors."""
     # exactly-zero priors (pruned slots) contribute exp(-inf) = 0, not eps
     log_priors = torch.where(
         gmm.priors > 0, torch.log(gmm.priors + prior_eps),
         torch.full_like(gmm.priors, float("-inf")),
     )
-    logits = torch.logsumexp(act + log_priors[None, :, :, None], dim=2)
+    return torch.logsumexp(act + log_priors[None, :, :, None], dim=2)
 
-    b, c, k = pooled.top1_idx.shape
-    d = pooled.top1_feat.shape[-1]
-    if labels is not None:
-        sel = labels.long()
-        rows = torch.arange(b, device=sel.device)
-        idx = pooled.top1_idx[rows, sel]  # [B, K]
-        feats = pooled.top1_feat[rows, sel]  # [B, K, d]
-        valid = dedup_first_occurrence(idx)
-        enq = (feats.detach().reshape(b * k, d), sel.repeat_interleave(k), valid.reshape(b * k))
-    else:
-        dev = proto_map.device
-        enq = (
-            torch.zeros(b * k, d, dtype=proto_map.dtype, device=dev),
-            torch.full((b * k,), -1, dtype=torch.long, device=dev),
-            torch.zeros(b * k, dtype=torch.bool, device=dev),
-        )
+
+def _gt_top1(pooled: PooledActivations, cls: torch.Tensor):
+    """Each row's top-1 patch indices [B, K] and features [B, K, d] under
+    the K prototypes of its class `cls` [B] (an index into the pool)."""
+    rows = torch.arange(cls.shape[0], device=cls.device)
+    return pooled.top1_idx[rows, cls], pooled.top1_feat[rows, cls]
+
+
+def _no_candidates(proto_map: torch.Tensor, b: int, k: int):
+    d, dev = proto_map.shape[-1], proto_map.device
+    return (
+        torch.zeros(b * k, d, dtype=proto_map.dtype, device=dev),
+        torch.full((b * k,), -1, dtype=torch.long, device=dev),
+        torch.zeros(b * k, dtype=torch.bool, device=dev),
+    )
+
+
+def _class_sharded_head(proto_map, gmm, labels, mine_T, prior_eps, fused, mesh):
+    """The head with the class axis split over the mesh's model group (the
+    JAX `_fused_pool` under shard_map, in_specs (data, model, model)):
+
+      * the feature maps of the group's ranks are gathered in rank order
+        (the rows of this data index), and the slab of C/nm classes scores
+        them (the score_pool kernel on CUDA when `fused`); the gather's
+        backward sums the slabs' feature gradients over the group and hands
+        each rank its rows (the psum of shard_map's transpose);
+      * the mining mask reads the labels shifted by the slab's first class
+        c0: a label of another slab is out of range there, so its row keeps
+        the top-1 at every level, as a non-ground-truth class does;
+      * the slab's [rows, C/nm, T] logits are gathered along the class axis
+        and each rank keeps its own rows;
+      * an enqueue candidate exists only on the rank holding its label's
+        class: it is selected there (a label -1 reads class C-1, as
+        indexing wraps in the one-process head) and summed over the group,
+        where every other rank adds zeros."""
+    group, nm, mi = mesh.model_group, mesh.model, mesh.model_index
+    b, c_loc, k = proto_map.shape[0], gmm.num_classes, gmm.k_per_class
+    c0 = mi * c_loc
+    rows = all_gather(proto_map, 0, group)
+    lab = None if labels is None else all_gather(labels.long(), 0, group)
+    pooled = _pool(rows, gmm, mine_T, fused)
+    act = mine_mask_activations(pooled.log_act, None if lab is None else lab - c0)
+    logits = all_gather(_mixture_logits(act, gmm, prior_eps), 1, group)[mi * b:(mi + 1) * b]
+    if lab is None:
+        return logits, pooled, _no_candidates(proto_map, b, k)
+    sel = torch.where(lab < 0, lab + c_loc * nm, lab)
+    own = ((sel >= c0) & (sel < c0 + c_loc))[:, None]
+    idx, feats = _gt_top1(pooled, (sel - c0).clamp(0, c_loc - 1))
+    valid = dedup_first_occurrence(idx) & own
+    d = feats.shape[-1]
+    packed = torch.cat([torch.where(own[..., None], feats.detach(), 0.0),
+                        valid[..., None].to(feats.dtype)], -1)  # [rows, K, d + 1]
+    packed = all_reduce_sum(packed, group)[mi * b:(mi + 1) * b]
+    enq = (packed[..., :d].reshape(b * k, d), labels.long().repeat_interleave(k),
+           (packed[..., d] > 0.5).reshape(b * k))
     return logits, pooled, enq
 
 

@@ -33,14 +33,19 @@ def build_pipelines(cfg, device=None):
     wire on (`DataConfig.device_augment`; None = on for a CUDA `device`) the
     train loader yields (u8 images, labels, ids, augment seeds) 4-tuples;
     the others yield f32 (images, labels, ids). `device` is the trainer's:
-    None means CUDA, or raise. One process: shard 0 of 1."""
+    None means CUDA, or raise. Each loader yields this process's shard:
+    shard `rank` of `world size` of the torch.distributed group (0 of 1
+    outside one), batches of `*_batch_size` rows per process."""
     from mgproto_tpu_torch.config import Config
     from mgproto_tpu_torch.numerics import resolve_device
     from mgproto_tpu_torch.ops.augment import resolve_device_augment
 
     if not isinstance(cfg, Config):
         raise TypeError(f"build_pipelines needs a mgproto_tpu_torch Config, got {type(cfg)}")
-    shard = dict(shard_index=0, shard_count=1)
+    from mgproto_tpu_torch.parallel.mesh import world
+
+    rank, size = world()
+    shard = dict(shard_index=rank, shard_count=size)
     d, img = cfg.data, cfg.model.img_size
     device_augment = resolve_device_augment(d.device_augment, resolve_device(device))
     wire_dtype = "uint8" if device_augment else "float32"

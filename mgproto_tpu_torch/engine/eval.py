@@ -47,11 +47,13 @@ def to_device_images(images, device: torch.device) -> torch.Tensor:
 
 
 def eval_forward(model: MGProtoFeatures, gmm: GMMState, images: torch.Tensor,
-                 labels: Optional[torch.Tensor], mine_T: int, fused: bool) -> EvalOutput:
+                 labels: Optional[torch.Tensor], mine_T: int, fused: bool,
+                 mesh=None) -> EvalOutput:
     """One eval batch through `model` as it is (the caller sets eval mode
-    and inference mode)."""
+    and inference mode). `mesh`: the class-sharded head
+    (core/mgproto.py `head_forward`), `gmm` this rank's slab."""
     proto_map, _ = model(images)
-    logits, _, _ = head_forward(proto_map, gmm, None, mine_T, fused=fused)
+    logits, _, _ = head_forward(proto_map, gmm, None, mine_T, fused=fused, mesh=mesh)
     lvl0 = logits[..., 0]
     if labels is not None:
         correct = lvl0.argmax(-1) == labels.to(lvl0.device)

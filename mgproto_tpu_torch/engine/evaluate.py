@@ -5,12 +5,15 @@
 OoD set, the fraction of its samples scored in-distribution (`FPR95_i`),
 its AUROC against the ID set, and the AUROC of other scoring rules.
 
-One process, so nothing is gathered across hosts. Each batch runs through
-`Trainer.eval_step` (the state's model in eval mode under inference mode,
-its train mode put back after; on CUDA the score_pool and BN epilogue
-kernels); per-sample scores come back to the host, where the loader's pad
-rows (label -1) are dropped and the percentile and CE bookkeeping runs in
-float64 numpy, as in the JAX package.
+Each batch runs through `Trainer.eval_step` (the state's model in eval
+mode under inference mode, its train mode put back after; on CUDA the
+score_pool and BN epilogue kernels); per-sample scores come back to the
+host, where the loader's pad rows (label -1) are dropped and the
+percentile and CE bookkeeping runs in float64 numpy, as in the JAX
+package. Under several ranks each evaluates its loader shard (one shape on
+every rank: the loaders pad every shard alike), the per-sample arrays are
+gathered in rank order and the CE sums added across the ranks, so every
+rank computes the same global metrics (parallel/multihost.py).
 """
 
 from __future__ import annotations
@@ -20,6 +23,7 @@ from typing import Dict, Iterable, Sequence, Tuple
 import numpy as np
 
 from mgproto_tpu_torch.core.mgproto import GMMState
+from mgproto_tpu_torch.parallel.multihost import allgather_rows, allgather_sum, host_local_rows
 from mgproto_tpu_torch.trust.auroc import binary_auroc
 
 
@@ -49,7 +53,7 @@ def _run_eval(trainer, state, batches) -> Tuple[np.ndarray, np.ndarray, float, i
         else:
             images, labels = batch, None
         out = trainer.eval_step(state, images, labels)
-        logits = out.logits.cpu().numpy().astype(np.float64)
+        logits = host_local_rows(out.logits).astype(np.float64)
         if labels is None:
             valid = np.ones(logits.shape[0], bool)
         else:
@@ -59,15 +63,18 @@ def _run_eval(trainer, state, batches) -> Tuple[np.ndarray, np.ndarray, float, i
             if valid.any():
                 ce_total += float(np.mean((lse - logits[np.arange(len(lbl)), lbl])[valid]))
                 n_batches += 1
-        log_pxs.append(out.log_px.cpu().numpy())
-        corrects.append(out.correct.cpu().numpy())
+        log_pxs.append(host_local_rows(out.log_px))
+        corrects.append(host_local_rows(out.correct))
         valids.append(valid)
         logit_rows.append(logits)
-    n_c = int(state.gmm.num_classes)
-    log_px = np.concatenate(log_pxs) if log_pxs else np.zeros((0,), np.float32)
-    correct = np.concatenate(corrects) if corrects else np.zeros((0,), bool)
-    valid = np.concatenate(valids) if valids else np.zeros((0,), bool)
-    logits_all = np.concatenate(logit_rows) if logit_rows else np.zeros((0, n_c))
+    n_c = int(trainer.cfg.model.num_classes)
+    log_px = allgather_rows(np.concatenate(log_pxs) if log_pxs else np.zeros((0,), np.float32))
+    correct = allgather_rows(np.concatenate(corrects) if corrects else np.zeros((0,), bool))
+    valid = allgather_rows(np.concatenate(valids) if valids else np.zeros((0,), bool))
+    logits_all = allgather_rows(np.concatenate(logit_rows) if logit_rows
+                                else np.zeros((0, n_c)))
+    ce_total = allgather_sum(ce_total)
+    n_batches = int(allgather_sum(float(n_batches)))
     return log_px[valid], correct[valid].astype(bool), ce_total, n_batches, logits_all[valid]
 
 
@@ -76,7 +83,7 @@ def evaluate(trainer, state, batches, log=print) -> Tuple[float, Dict]:
     (accuracy, {'acc', 'cross_entropy', 'p_avg_pair_dist'})."""
     _, correct, ce_total, n_batches, _ = _run_eval(trainer, state, batches)
     acc = float(correct.mean()) if correct.size else 0.0
-    pdist = prototype_pair_distance(state.gmm)
+    pdist = prototype_pair_distance(trainer.full_gmm(state))
     log(f"\ttest acc: \t\t{acc * 100}%")
     log(f"\tp dist pair: \t{pdist}")
     return acc, {
@@ -113,7 +120,7 @@ def evaluate_with_ood(
     acc = float(correct.mean()) if correct.size else 0.0
     log(f"\tTest Acc: \t{acc * 100}")
 
-    num_classes = state.gmm.num_classes
+    num_classes = id_logits.shape[-1]  # every class of the state (its logits' width)
     # float64 on the host for a stable percentile; "max" and "paper" stay in
     # log space, where exp would underflow to 0 below about -745
     if score_rule == "sum":

@@ -22,6 +22,12 @@ host through utils/vis.py.
 
 The push loader yields resize-only images in [0, 1]; they are normalized
 here with `preprocess_input`.
+
+Under several ranks (parallel/) each scans its loader shard against every
+class's prototypes (`Trainer.full_gmm`, the slabs gathered), the
+candidates are gathered in rank order, every rank runs the same greedy
+assignment and writes its own class slab's means, and rank 0 alone
+renders.
 """
 
 from __future__ import annotations
@@ -36,6 +42,7 @@ import torch
 from mgproto_tpu_torch.core.mgproto import GMMState, MGProtoFeatures, gt_class_log_densities
 from mgproto_tpu_torch.core.state import TrainState
 from mgproto_tpu_torch.engine.eval import eval_mode, to_device_images
+from mgproto_tpu_torch.parallel.multihost import allgather_rows, is_primary_host
 from mgproto_tpu_torch.utils import vis
 from mgproto_tpu_torch.utils.images import preprocess_input
 
@@ -105,16 +112,20 @@ def scan_batch(model: MGProtoFeatures, gmm: GMMState, images: torch.Tensor,
     return val, idx, fvec
 
 
-def scan_candidates(trainer, state: TrainState, batches: Iterable) -> PushCandidates:
+def scan_candidates(trainer, state: TrainState, batches: Iterable,
+                    gmm: Optional[GMMState] = None) -> PushCandidates:
     """Pass 1 over (images in [0, 1], labels, image_ids[, ...]) host batches,
-    the push loader's, with the state's model in eval mode."""
+    the push loader's, with the state's model in eval mode, against `gmm`
+    (every class; the state's own by default). Under several ranks the
+    candidates of every rank's shard, gathered in rank order."""
+    gmm = state.gmm if gmm is None else gmm
     out: Dict[str, List[np.ndarray]] = {k: [] for k in PushCandidates._fields}
     with eval_mode(state.model) as model:
         for batch in batches:
             images, labels, image_ids = batch[0], batch[1], batch[2]
             x = to_device_images(preprocess_input(np.asarray(images, np.float32)), trainer.device)
             lbl = torch.from_numpy(np.asarray(labels, np.int64)).to(trainer.device)
-            val, idx, fvec = scan_batch(model, state.gmm, x, lbl)
+            val, idx, fvec = scan_batch(model, gmm, x, lbl)
             out["labels"].append(np.asarray(labels))
             out["image_ids"].append(np.asarray(image_ids))
             out["vals"].append(val.cpu().numpy())
@@ -122,7 +133,7 @@ def scan_candidates(trainer, state: TrainState, batches: Iterable) -> PushCandid
             out["fvecs"].append(fvec.cpu().numpy())
     if not out["labels"]:
         raise ValueError("push set is empty")
-    return PushCandidates(**{k: np.concatenate(v) for k, v in out.items()})
+    return PushCandidates(**{k: allgather_rows(np.concatenate(v)) for k, v in out.items()})
 
 
 def _greedy_assign(
@@ -194,11 +205,17 @@ def push_prototypes(
     [H, W, 3] float in [0, 1], the push transform's image."""
     if save_dir is not None and load_image is None:
         raise ValueError("save_dir requires load_image")
-    cand = scan_candidates(trainer, state, batches)
-    new_means, result = _greedy_assign(*cand, state.gmm.num_classes)
-    write_back(state.gmm, new_means, result.pushed)
-    if save_dir is not None:
-        render_prototypes(trainer, state, result, load_image, save_dir, epoch)
+    gmm = trainer.full_gmm(state)
+    cand = scan_candidates(trainer, state, batches, gmm)
+    new_means, result = _greedy_assign(*cand, gmm.num_classes)
+    if gmm is state.gmm:
+        write_back(gmm, new_means, result.pushed)
+    else:  # a mesh's class slabs: this rank's, and the gathered copy the render reads
+        c0, c1 = trainer.class_slab()
+        write_back(state.gmm, new_means[c0:c1], result.pushed[c0:c1])
+        write_back(gmm, new_means, result.pushed)
+    if save_dir is not None and is_primary_host():
+        render_prototypes(trainer, state, result, load_image, save_dir, epoch, gmm=gmm)
     return state, result
 
 
@@ -209,6 +226,7 @@ def render_prototypes(
     load_image: Callable[[int], np.ndarray],
     save_dir: str,
     epoch: Optional[int] = None,
+    gmm: Optional[GMMState] = None,
 ) -> str:
     """Per pushed prototype j = c*K + k, three JPEGs (reference
     push.py:202-226): `{j}prototype-img-original.jpg` (the source image
@@ -217,7 +235,9 @@ def render_prototypes(
     crop). Activations are exp(log-density) of the class's prototypes on
     the image (the reference's `-proto_dist`); each chosen image is
     forwarded once per class and its [K, H, W] map upsampled on the state's
-    device. Returns the directory written."""
+    device, under `gmm` (every class; the state's own by default). Returns
+    the directory written."""
+    gmm = state.gmm if gmm is None else gmm
     out = os.path.join(save_dir, f"epoch-{epoch}") if epoch is not None else save_dir
     vis.makedir(out)
     dev = trainer.device
@@ -235,7 +255,7 @@ def render_prototypes(
                     raw = np.asarray(load_image(img_id), np.float32)
                     x = to_device_images(preprocess_input(raw)[None], dev)
                     lp, _ = gt_class_log_densities(
-                        model, state.gmm, x, torch.full((1,), c, dtype=torch.long, device=dev))
+                        model, gmm, x, torch.full((1,), c, dtype=torch.long, device=dev))
                     img_cache[img_id] = (raw, torch.exp(lp[0]))  # [K, H, W]
                 raw, acts = img_cache[img_id]
                 j = c * k_per_class + k  # the reference's flat prototype index

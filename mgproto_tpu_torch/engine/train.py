@@ -52,6 +52,7 @@ refused. Each put records timing events around its copies, so
 
 from __future__ import annotations
 
+import os
 import time
 from typing import Dict, Iterable, List, NamedTuple, Optional, Union
 
@@ -68,7 +69,15 @@ from mgproto_tpu_torch.engine.eval import EvalOutput, eval_forward, eval_mode, t
 from mgproto_tpu_torch.models.common import BatchNorm
 from mgproto_tpu_torch.numerics import apply_numerics_policy, resolve_device, use_kernel
 from mgproto_tpu_torch.ops.augment import augment_draws, augment_tail, resolve_device_augment
+from mgproto_tpu_torch.parallel.collectives import (
+    all_gather,
+    all_reduce_sum,
+    group_size,
+    sum_tensors,
+)
+from mgproto_tpu_torch.parallel.multihost import barrier, fetch_replicated, is_primary_host
 from mgproto_tpu_torch.perf.precision import resolve_policy
+from mgproto_tpu_torch.utils.checkpoint import restore_checkpoint, save_checkpoint
 
 
 class TrainMetrics(NamedTuple):
@@ -171,6 +180,12 @@ class Trainer:
         self._held = None  # the held bank phase: (enq, step0, update_gmm, finite)
         self._snap_ready: Optional[torch.cuda.Event] = None  # main stream, after the copy
         self._bank_done: Optional[torch.cuda.Event] = None  # bank stream, after its phase
+        # one process: no mesh. parallel/trainer.py's ShardedTrainer sets
+        # the mesh, the group its batch is sharded over (every rank) and,
+        # when its model axis splits the classes, `_class_mesh`
+        self.mesh = None
+        self._world_group = None
+        self._class_mesh = None
 
     def init_state(self, seed: int = 0, for_restore: bool = False) -> TrainState:
         """A fresh state from `seed`; `for_restore=True` builds a restore
@@ -226,19 +241,98 @@ class Trainer:
     def _loss(self, state: TrainState, images: torch.Tensor, labels: torch.Tensor,
               use_mine: float, gmm):
         """The JAX `_loss_fn` against `gmm`: (loss, (enq, ce, mine, aux,
-        accuracy))."""
+        accuracy)).
+
+        Under a mesh of n ranks each holds 1/n of the global batch, and
+        the returned loss, ce, mine and accuracy are this rank's SHARE of
+        the global means (its rows' mean over n), so that one sum over the
+        ranks gives the global value and the summed gradients the global
+        gradient (`_sum_over_world`). The aux loss couples the batch's
+        rows (per-class sums, [B, B] pair masks): it runs on the
+        embeddings and labels of every rank, gathered in rank order, and
+        is the same on every rank; its share is 1/n of it, so the gather's
+        backward hands each rank the whole gradient of its rows and the
+        replicated proxies collect theirs once. The enqueue candidates are
+        the global batch's, in global row order."""
         proto_map, embed = state.model(images)
         gmm = gmm._replace(means=gmm.means.detach())
         logits, _, enq = head_forward(
             proto_map, gmm, labels, self.cfg.model.mine_T, fused=self.fused,
+            mesh=self._class_mesh,
         )
+        world, n = self._world_group, group_size(self._world_group)
         ce = L.cross_entropy(logits[..., 0], labels)
         mine = L.mine_loss(logits, labels) * float(use_mine)
-        aux = L.aux_loss(self.cfg.loss.aux_loss, embed, labels, state.proxies)
+        aux = L.aux_loss(self.cfg.loss.aux_loss, all_gather(embed, 0, world),
+                         all_gather(labels, 0, world), state.proxies)
         c = self.cfg.loss
         loss = c.crs_ent * ce + c.mine * mine + c.aux * aux
         acc = (logits[..., 0].argmax(-1) == labels).float().mean()
-        return loss, (enq, ce, mine, aux, acc)
+        enq = tuple(all_gather(t, 0, world) for t in enq)
+        if n == 1:
+            return loss, (enq, ce, mine, aux, acc)
+        return loss / n, (enq, ce / n, mine / n, aux, acc / n)
+
+    def _sum_over_world(self, params, loss, ce, mine, acc):
+        """Under a mesh: every gradient and the four shares summed over the
+        ranks, as one flat all-reduce in the parameters' order, so every
+        rank holds the global gradient and scalars, bit for bit alike (and
+        takes the same optimizer and divergence-guard branch). One
+        process: as they are."""
+        if self._world_group is None:
+            return loss, ce, mine, acc
+        scalars = torch.stack([loss.detach(), ce.detach(), mine.detach(), acc.detach()])
+        sum_tensors([p.grad for p in params if p.grad is not None] + [scalars],
+                    self._world_group)
+        return tuple(scalars)
+
+    def full_mem_ratio(self, mem) -> torch.Tensor:
+        """The fraction of all classes whose queue is full (under a mesh
+        that splits the classes, summed over the model group's slabs)."""
+        full = (mem.length == mem.capacity).float()
+        if self._class_mesh is None:
+            return full.mean()
+        m = self._class_mesh
+        return all_reduce_sum(full.sum(), m.model_group) / (mem.num_classes * m.model)
+
+    def class_slab(self):
+        """[c0, c1): the classes this trainer's state holds."""
+        c = self.cfg.model.num_classes
+        return (0, c) if self._class_mesh is None else self._class_mesh.class_slab(c)
+
+    def full_gmm(self, state: TrainState):
+        """The GMM of every class: the state's own, or under a mesh that
+        splits the classes its slabs gathered over the model group (a
+        collective: every rank of the group calls it)."""
+        if self._class_mesh is None:
+            return state.gmm
+        return fetch_replicated(state.gmm, self._class_mesh, self.cfg.model.num_classes)
+
+    def full_state(self, state: TrainState) -> TrainState:
+        """`state` with every class (`full_gmm`'s gather for the GMM, the
+        bank and the mean optimizer)."""
+        if self._class_mesh is None:
+            return state
+        return fetch_replicated(state, self._class_mesh, self.cfg.model.num_classes)
+
+    def save(self, ckpt_dir: str, state: TrainState, name: str,
+             metadata: Optional[dict] = None) -> str:
+        """Write `state` as the checkpoint `ckpt_dir/name`
+        (utils/checkpoint.py). Under a mesh every rank calls it: the state
+        is gathered (`full_state`), rank 0 writes it, and every rank
+        passes a barrier after the write."""
+        if self._world_group is None:
+            return save_checkpoint(ckpt_dir, state, name, metadata=metadata)
+        full = self.full_state(state)
+        if is_primary_host():
+            save_checkpoint(ckpt_dir, full, name, metadata=metadata)
+        barrier()
+        return os.path.abspath(os.path.join(ckpt_dir, name))
+
+    def restore(self, path: str, state: TrainState) -> TrainState:
+        """`state` restored from the checkpoint at `path`
+        (utils/checkpoint.py `restore_checkpoint`)."""
+        return restore_checkpoint(path, state)
 
     @staticmethod
     def params(state: TrainState):
@@ -275,13 +369,11 @@ class Trainer:
         state.step += 1  # counts attempts
         state.gmm, state.memory, bank, ok = bank_update(
             state.gmm, state.memory, state.mean_opt, self.em_cfg,
-            *trunk.enq, step0, update_gmm, trunk.finite,
+            *trunk.enq, step0, update_gmm, trunk.finite, mesh=self._class_mesh,
         )
         self.last_bank = bank
         self._apply_trunk(state, trunk, ok, warm)
-        mem = state.memory
-        return state, self._metrics(trunk, (mem.length == mem.capacity).float().mean(), bank,
-                                    ok)
+        return state, self._metrics(trunk, self.full_mem_ratio(state.memory), bank, ok)
 
     def _trunk_step(self, state: TrainState, images: torch.Tensor, labels: torch.Tensor,
                     use_mine: bool, gmm) -> _TrunkOut:
@@ -299,6 +391,7 @@ class Trainer:
 
         loss, (enq, ce, mine, aux, acc) = self._loss(state, images, labels, use_mine, gmm)
         loss.backward()
+        loss, ce, mine, acc = self._sum_over_world(params, loss, ce, mine, acc)
         grad_sums = torch.stack([p.grad.sum() for p in params if p.grad is not None])
         finite = torch.isfinite(loss) & torch.isfinite(grad_sums).all()
         return _TrunkOut(loss, enq, ce, mine, aux, acc, finite, stats, snapshot)
@@ -372,8 +465,7 @@ class Trainer:
                 state.gmm, state.memory, state.mean_opt, self.em_cfg,
                 feats, classes, valid, step0, update_gmm, finite,
             )
-            mem = state.memory
-            return aux, (mem.length == mem.capacity).float().mean()
+            return aux, self.full_mem_ratio(state.memory)
 
         stream = self._bank_stream
         if stream is None:
@@ -427,13 +519,12 @@ class Trainer:
             labels = _host_tensor(labels).to(torch.int64)
         with eval_mode(state.model) as model:
             return eval_forward(model, state.gmm, to_device_images(images, self.device), labels,
-                                self.cfg.model.mine_T, self.fused)
+                                self.cfg.model.mine_T, self.fused, mesh=self._class_mesh)
 
     def epoch_flags(self, state: TrainState, epoch: int) -> Dict[str, bool]:
         """Python-side epoch gates (the JAX `epoch_flags`)."""
         s = self.cfg.schedule
-        mem = state.memory
-        all_full = bool((mem.length == mem.capacity).all())
+        all_full = bool(self.full_mem_ratio(state.memory) == 1.0)
         return {
             "warm": epoch < s.num_warm_epochs,
             "use_mine": epoch >= s.mine_start,

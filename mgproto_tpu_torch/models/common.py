@@ -10,6 +10,9 @@ its input's dtype at each call (flax `promote_dtype`), so the modules are
 never cast and Adam and the checkpoints keep f32 masters; a `BatchNorm`
 computes its statistics in f32 and its output in f32, rounded once to the
 input's dtype (flax `_normalize`), in train and in eval mode.
+
+Under a mesh (parallel/), a BatchNorm whose `stats_group` is set takes its
+train-mode statistics over the batch of every rank of that group.
 """
 
 from __future__ import annotations
@@ -20,6 +23,8 @@ from typing import Any, List, Tuple
 import torch
 from torch import nn
 from torch.utils.checkpoint import checkpoint
+
+from mgproto_tpu_torch.parallel.collectives import all_reduce_sum, group_size
 
 # a trunk's `conv_info()`: (kernels, strides, paddings) of the convs and
 # pools its forward runs, in order (ops/receptive_field.py reads it)
@@ -68,6 +73,12 @@ class BatchNorm(nn.BatchNorm2d):
     The running statistics are updated in place during the train-mode
     forward, as torch's BatchNorm does, once per step: a forward recomputed
     by remat (models/resnet.py) runs with `update_stats` off.
+    With `stats_group` set (`set_stats_group`), the statistics are the
+    means over the group's ranks of each rank's E[x] and E[x^2], summed by
+    a collective whose backward sums the gradients back (equal batches on
+    every rank, as the sharded loader gives; the JAX package's SPMD
+    BatchNorm over the global batch). A remat recompute issues it again,
+    in the same order on every rank.
     `engine/train.py` snapshots and restores them around a step the
     divergence guard skips. Eval mode is `BatchNorm2d`'s own in f32; a half
     input is normalized by `bn_apply` in f32 and rounded once, as flax
@@ -76,12 +87,16 @@ class BatchNorm(nn.BatchNorm2d):
     def __init__(self, num_features: int, eps: float = 1e-5):
         super().__init__(num_features, eps=eps, momentum=1.0 - MOMENTUM)
         self.update_stats = True  # False while remat recomputes a forward
+        self.stats_group = None  # the ranks whose batches the statistics span
 
     def batch_statistics(self, x: torch.Tensor):
         """(mean, var) [C] of an NCHW batch, f32, and the running update."""
         xf = x.float()
         mean = xf.mean(dim=(0, 2, 3))
         mean2 = (xf * xf).mean(dim=(0, 2, 3))
+        if group_size(self.stats_group) > 1:
+            both = all_reduce_sum(torch.stack([mean, mean2]), self.stats_group)
+            mean, mean2 = both / group_size(self.stats_group)
         var = torch.clamp_min(mean2 - mean * mean, 0.0)
         if self.update_stats:
             with torch.no_grad():
@@ -97,6 +112,14 @@ class BatchNorm(nn.BatchNorm2d):
         else:
             mean, var = self.running_mean, self.running_var
         return bn_apply(x, mean, var, self.weight, self.bias, self.eps).to(x.dtype)
+
+
+def set_stats_group(module: nn.Module, group) -> None:
+    """Take the train-mode statistics of every BatchNorm in `module` over
+    the ranks of `group` (None: this process's batch only)."""
+    for m in module.modules():
+        if isinstance(m, BatchNorm):
+            m.stats_group = group
 
 
 def batch_norm(ch: int) -> BatchNorm:

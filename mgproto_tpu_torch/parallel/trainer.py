@@ -1,0 +1,99 @@
+"""The Trainer over a rank mesh (counterpart of mgproto_tpu/parallel/trainer.py).
+
+The JAX `ShardedTrainer` jits the single-chip step with shardings pinned
+and lets SPMD partitioning insert the collectives. Here each rank runs
+engine/train.py's step on its own rows, and the collectives are written
+out:
+
+  * the batch is sharded over every rank: `train_step` and `eval_step`
+    take this rank's rows (the sharded loader's, data/__init__.py, or
+    `parallel/sharding.py::put_batch` of a global batch);
+  * BatchNorm's batch statistics are summed over the world
+    (models/common.py `stats_group`), in the forward and in a remat
+    recompute alike;
+  * each rank's loss is its share of the global means, the aux loss sees
+    the global batch, and one flat sum-all-reduce of the gradients (and
+    the scalars) after the backward gives every rank the global gradient
+    (engine/train.py `_loss`, `_sum_over_world`); the parameters start
+    equal (`prepare` broadcasts rank 0's) and stay bit-identical;
+  * when the model axis divides the classes, the GMM, the bank and the
+    mean-Adam state hold this rank's class slab (`parallel/sharding.py`):
+    score_pool and its backward run on the slab for the model group's rows
+    (core/mgproto.py `head_forward`), the enqueue sees the global batch's
+    candidates and keeps its slab's, and EM runs on the slab with its gate
+    and scalars summed over the group (core/em.py).
+
+Checkpoints are written whole by rank 0 (`Trainer.save`) and cut to each
+rank's slab on restore, so a checkpoint of N ranks restores onto M. The
+async bank pipeline under more than one rank is not ported (ROADMAP A
+item 5).
+"""
+
+from __future__ import annotations
+
+from typing import Optional, Union
+
+import torch
+
+from mgproto_tpu_torch.config import Config
+from mgproto_tpu_torch.core.em import resolve_em_config
+from mgproto_tpu_torch.core.state import TrainState
+from mgproto_tpu_torch.engine.train import Trainer
+from mgproto_tpu_torch.models.common import set_stats_group
+from mgproto_tpu_torch.parallel.collectives import broadcast_tensors
+from mgproto_tpu_torch.parallel.mesh import Mesh, make_mesh
+from mgproto_tpu_torch.parallel.sharding import shard_classes
+from mgproto_tpu_torch.utils.checkpoint import restore_checkpoint
+
+
+class ShardedTrainer(Trainer):
+    """`ShardedTrainer(cfg, steps_per_epoch, mesh=None, device=None)`: the
+    mesh defaults to `make_mesh(cfg.mesh.data, cfg.mesh.model)` over the
+    process group (one rank outside one, where this is the Trainer).
+    States pass through `prepare` once (`init_state` and `restore` do)."""
+
+    def __init__(self, cfg: Config, steps_per_epoch: int, mesh: Optional[Mesh] = None,
+                 device: Union[str, torch.device, None] = None):
+        super().__init__(cfg, steps_per_epoch, device=device)
+        self.mesh = mesh if mesh is not None else make_mesh(cfg.mesh.data, cfg.mesh.model)
+        c, m = cfg.model.num_classes, self.mesh
+        if m.model > 1 and c % m.model and cfg.model.fused_scoring is True:
+            raise ValueError(
+                f"fused_scoring=True requires num_classes ({c}) divisible by the mesh model "
+                f"axis ({m.model}); adjust --mesh_model or drop --fused_scoring")
+        if self.async_bank and m.size > 1:
+            from mgproto_tpu_torch.cli.common import NotPortedError
+
+            raise NotPortedError(
+                "EMConfig.async_bank under more than one rank is not ported (the bank "
+                "stream's collectives); ROADMAP A8 (multi-GPU)")
+        self._world_group = m.world_group
+        self._class_mesh = m if m.shards_classes(c) else None
+        # the auto EM width is the GLOBAL batch's (each rank gets b rows)
+        self.em_cfg = resolve_em_config(cfg.em, c, cfg.data.train_batch_size * m.size)
+
+    def prepare(self, state: TrainState) -> TrainState:
+        """Place `state` on the mesh in place: the model's parameters and
+        buffers and the proxies set to rank 0's, BatchNorm's statistics
+        over the world, and (when the model axis splits the classes) the
+        GMM, the bank and the mean optimizer cut to this rank's slab. A
+        state already prepared is left as it is."""
+        if self._world_group is not None:
+            tensors = list(state.model.parameters()) + list(state.model.buffers())
+            if state.proxies is not None:
+                tensors.append(state.proxies)
+            broadcast_tensors(tensors, 0, self._world_group)
+        set_stats_group(state.model, self._world_group)
+        if self._class_mesh is not None and state.gmm.num_classes == self.cfg.model.num_classes:
+            shard_classes(state, self.mesh)
+        return state
+
+    def init_state(self, seed: int = 0, for_restore: bool = False) -> TrainState:
+        return self.prepare(super().init_state(seed, for_restore=for_restore))
+
+    def restore(self, path: str, state: Optional[TrainState] = None) -> TrainState:
+        """The checkpoint at `path` (a whole state, from any number of
+        ranks) restored on every rank and cut to this rank's slab; `state`
+        is not used (the restore target holds every class)."""
+        full = Trainer.init_state(self, 0, for_restore=True)
+        return self.prepare(restore_checkpoint(path, full))

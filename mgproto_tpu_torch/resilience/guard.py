@@ -1,5 +1,5 @@
 """EpochGuard: the recovery policy of one training epoch (counterpart of
-mgproto_tpu/resilience/guard.py, single process).
+mgproto_tpu/resilience/guard.py).
 
   * Divergence: the step already skips a non-finite update
     (engine/train.py) and reports it in `TrainMetrics.nonfinite`, a host
@@ -9,8 +9,12 @@ mgproto_tpu/resilience/guard.py, single process).
     `max_bad_steps` raises `DivergenceError`, which `cli/train.py`
     answers by restoring the last good checkpoint and replaying. It
     raises at the step the JAX guard raises at, for the same flags.
-  * Preemption: after each step, the process flag (a signal or the chaos
-    drill) stops the epoch; the step in flight finishes first.
+  * Preemption: after each step, the flag (a signal or the chaos drill)
+    stops the epoch; the step in flight finishes first. Under several
+    ranks (`multihost`) the flag is agreed across them after every step
+    (`PreemptionHandler.requested_any_host`), so all stop after the same
+    step; the divergence flags need no agreement, as every rank's step
+    reads the same summed loss and gradients (parallel/trainer.py).
   * Chaos: `wrap_batches` applies the active `ChaosState` to the placed
     batches, keyed by the global step: a simulated preemption, and NaN
     inputs (`ChaosState.corrupt_batch`).
@@ -48,16 +52,20 @@ class EpochGuard:
       preemption: the PreemptionHandler (None disables preemption checks).
       already_done: batches of this epoch applied by a previous run (a
         mid-epoch resume), so `batches_done` is the position in the epoch.
+      multihost: agree on the preemption flag across the ranks after each
+        step (a collective: every rank's guard must have it).
     """
 
     def __init__(self, max_bad_steps: int = 3, check_every: int = 8,
                  chaos: Optional[ChaosState] = None,
-                 preemption: Optional[PreemptionHandler] = None, already_done: int = 0):
+                 preemption: Optional[PreemptionHandler] = None, already_done: int = 0,
+                 multihost: bool = False):
         self.max_bad_steps = int(max_bad_steps)
         self.check_every = max(int(check_every), 1)
         self.chaos = chaos
         self.preemption = preemption
         self.already_done = int(already_done)
+        self.multihost = multihost
         self.epoch = -1
         self.preempted = False
         self.bad_total = 0
@@ -125,4 +133,8 @@ class EpochGuard:
                                   epoch=self.epoch)
 
     def _check_preempt(self) -> bool:
-        return self.preemption is not None and self.preemption.requested()
+        if self.preemption is None:
+            return False
+        if self.multihost:
+            return self.preemption.requested_any_host()
+        return self.preemption.requested()

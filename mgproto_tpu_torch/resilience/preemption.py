@@ -15,8 +15,10 @@ import that took over SIGINT would break every embedding program's Ctrl-C.
 The chaos drill raises the same flag (`PreemptionHandler.request`), so a
 simulated preemption takes the path a real SIGTERM takes.
 
-The JAX package's multi-host agreement (`requested_any_host`) is not
-ported: one process holds the flag.
+Under several ranks (parallel/) a signal reaches one of them, but every
+rank must stop after the same step, or the next collective waits forever:
+`requested_any_host` agrees on the flag across the ranks, and the guard
+asks it after every step.
 """
 
 from __future__ import annotations
@@ -45,6 +47,13 @@ class PreemptionHandler:
 
     def requested(self) -> bool:
         return self._event.is_set()
+
+    def requested_any_host(self) -> bool:
+        """True when ANY rank has the flag. A collective: every rank calls
+        it at the same point; the local flag in one process."""
+        from mgproto_tpu_torch.parallel.multihost import any_across_hosts
+
+        return any_across_hosts(self.requested())
 
     def reset(self) -> None:
         """Clear the flag (each run_training call starts clean)."""

@@ -24,7 +24,11 @@ optimizers hold, and loads the optimizer states, which torch maps onto the
 parameters' device: a checkpoint written on the card restores on the CPU
 and the other way round.
 
-The JAX package's orbax and sharded multi-host formats are not ported.
+Under several ranks (parallel/), the trainer's `save` gathers the class
+slabs and rank 0 writes the whole state in this one format, and every
+rank restores the whole state and cuts its slab, so a checkpoint of N
+ranks restores onto M. The JAX package's orbax and sharded multi-host
+formats are not ported.
 """
 
 from __future__ import annotations
@@ -297,16 +301,17 @@ def adopt_checkpoint_train_config(cfg, path: str, log=None):
 
 def save_state_w_condition(ckpt_dir: str, state: TrainState, epoch: int, stage: str,
                            accuracy: float, target_accuracy: float,
-                           metadata: Optional[dict] = None) -> Optional[str]:
+                           metadata: Optional[dict] = None, save=None) -> Optional[str]:
     """Save only when `accuracy >= target_accuracy` (equality saves: the
     default target 0.0 keeps every stage checkpoint); the name encodes
-    epoch, stage and accuracy."""
+    epoch, stage and accuracy. `save` (default `save_checkpoint`, same
+    arguments) writes it: under a mesh, the trainer's `save`."""
     if accuracy < target_accuracy:
         return None
     meta = dict(metadata or {})
     meta.update(epoch=epoch, stage=stage, accuracy=accuracy)
-    return save_checkpoint(ckpt_dir, state, checkpoint_name(epoch, stage, accuracy),
-                           metadata=meta)
+    return (save or save_checkpoint)(ckpt_dir, state, checkpoint_name(epoch, stage, accuracy),
+                                     metadata=meta)
 
 
 # Within one epoch the reference saves nopush, then push, then prune: resume

@@ -1,0 +1,111 @@
+"""One rank of the port's multi-process parity runs (tests/test_torch_parallel.py,
+tests/test_torch_cuda.py). Imports torch and the port only, never JAX.
+
+    python tests/_torch_parallel_worker.py SPEC.json RANK
+
+SPEC: {"init": "tcp://127.0.0.1:PORT", "world": n, "mesh": [data, model],
+"device": "cpu" | "cuda:0", "backend": "gloo", "batches": npz path,
+"scenarios": [...]}. Each scenario restores `ckpt` (a whole state) onto
+the mesh, runs `steps` train steps on this rank's rows of batches x{i},
+y{i} (a global batch each), and writes `out/rank{r}.npz`: the per-step
+loss, accuracy and EM count, the gathered means, priors and bank, every
+parameter flattened, the kernel launches of the steps (score_pool, its
+backward, the epilogue, the E-step), the eval logits of batch ex before
+and after the steps gathered in rank order, and (with `save`) a checkpoint written
+through `Trainer.save`.
+"""
+
+import dataclasses
+import json
+import os
+import sys
+
+import numpy as np
+import torch
+
+sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
+
+from mgproto_tpu_torch.config import EMConfig, LossConfig, tiny_test_config  # noqa: E402
+from mgproto_tpu_torch.ops.em_kernels import em_estep_stats  # noqa: E402
+from mgproto_tpu_torch.ops.fused_epilogue import fused_bn_epilogue  # noqa: E402
+from mgproto_tpu_torch.ops.fused_scoring import score_pool, score_pool_bwd  # noqa: E402
+from mgproto_tpu_torch.parallel.mesh import initialize_distributed, make_mesh  # noqa: E402
+from mgproto_tpu_torch.parallel.multihost import allgather_rows  # noqa: E402
+from mgproto_tpu_torch.parallel.sharding import put_batch  # noqa: E402
+from mgproto_tpu_torch.parallel.trainer import ShardedTrainer  # noqa: E402
+
+
+def scenario_config(sc, batch):
+    """The tiny config of a scenario at `batch` rows a process (f32 batches:
+    device augmentation off on every device): its aux loss, EM stepping and
+    width, and the scoring and E-step routes (None = the device's
+    default)."""
+    cfg = tiny_test_config(num_classes=sc.get("num_classes", 4))
+    model = dataclasses.replace(cfg.model, fused_scoring=sc.get("fused_scoring"))
+    em = EMConfig(reference_stepping=sc.get("reference_stepping", False),
+                  fused_estep=sc.get("fused_estep"),
+                  max_active_classes=sc.get("max_active_classes", -1))
+    return cfg.replace(model=model, em=em,
+                       loss=LossConfig(aux_loss=sc.get("aux_loss", "proxy_anchor")),
+                       data=dataclasses.replace(cfg.data, train_batch_size=batch,
+                                                device_augment=False))
+
+
+def run_scenario(sc, mesh, batches, device):
+    cfg = scenario_config(sc, len(batches["y0"]) // mesh.size)
+    trainer = ShardedTrainer(cfg, steps_per_epoch=4, mesh=mesh, device=device)
+    state = trainer.restore(sc["ckpt"])
+    out = {}
+    if "ex" in batches:
+        (ex,) = put_batch((batches["ex"],), mesh)
+        out["eval0"] = allgather_rows(trainer.eval_step(state, ex).logits.cpu().numpy())
+    losses, accs, em = [], [], []
+    kernels = (score_pool, score_pool_bwd, fused_bn_epilogue, em_estep_stats)
+    for fn in kernels:
+        fn.launches = 0
+    for i in range(sc["steps"]):
+        x, y = put_batch((batches[f"x{i}"], batches[f"y{i}"]), mesh)
+        state, m = trainer.train_step(state, x, y, use_mine=True, update_gmm=True)
+        losses.append(float(m.loss))
+        accs.append(float(m.accuracy))
+        em.append(m.em_active)
+    launches = [fn.launches for fn in kernels]
+    full = trainer.full_state(state)
+    out.update(
+        launches=np.array(launches),
+        loss=np.array(losses), accuracy=np.array(accs), em_active=np.array(em),
+        means=full.gmm.means.detach().cpu().numpy(), priors=full.gmm.priors.cpu().numpy(),
+        length=full.memory.length.cpu().numpy(), cursor=full.memory.cursor.cpu().numpy(),
+        feats=full.memory.feats.cpu().numpy(),
+        params=torch.cat([p.detach().reshape(-1) for p in trainer.params(state)]).cpu().numpy(),
+        trunk0=next(state.model.features.parameters()).detach().cpu().numpy(),
+        running_mean=next(b for n, b in state.model.named_buffers()
+                          if n.endswith("running_mean")).cpu().numpy(),
+    )
+    if "ex" in batches:
+        out["eval_logits"] = allgather_rows(trainer.eval_step(state, ex).logits.cpu().numpy())
+    if sc.get("save"):
+        trainer.save(sc["save"], state, "1nopush0.5000", metadata={"epoch": 1, "stage": "nopush"})
+    return out
+
+
+def main(argv):
+    with open(argv[1]) as f:
+        spec = json.load(f)
+    rank = int(argv[2])
+    device = spec.get("device", "cpu")
+    if device.startswith("cuda"):
+        torch.cuda.set_device(torch.device(device))
+    initialize_distributed(backend=spec.get("backend", "gloo"), init_method=spec["init"],
+                           rank=rank, world_size=spec["world"], device=device, timeout_s=90)
+    mesh = make_mesh(*spec["mesh"], timeout_s=90)
+    batches = dict(np.load(spec["batches"]))
+    for sc in spec["scenarios"]:
+        res = run_scenario(sc, mesh, batches, device)
+        os.makedirs(sc["out"], exist_ok=True)
+        np.savez(os.path.join(sc["out"], f"rank{rank}.npz"), **res)
+    torch.distributed.destroy_process_group()
+
+
+if __name__ == "__main__":
+    main(sys.argv)

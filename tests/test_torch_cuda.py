@@ -1008,3 +1008,78 @@ def test_the_trust_drill_on_the_card_matches_the_cpu():
         elif len(a["scores"]) == len(b["scores"]):
             assert max((abs(x - y) for x, y in zip(a["scores"], b["scores"])), default=0) <= 1e-4
 
+
+# ------------------------------------------------------- two ranks, one card
+@pytest.mark.cuda
+@pytest.mark.parametrize("mesh", [(2, 1), (1, 2)], ids=["2x1", "1x2"])
+def test_two_ranks_on_one_card_step_bit_equal(tmp_path, mesh):
+    """Two ranks (gloo, named explicitly: NCCL refuses one card twice) on
+    the card at the tiny width, two steps with mining and EM from a full
+    seeded bank, through tests/_torch_parallel_worker.py: every kernel of
+    the path launches on each rank (the tiny trunk has no epilogue), and the
+    ranks' parameters, BatchNorm statistics, losses and gathered means are
+    bit-equal."""
+    import dataclasses
+    import json
+    import os
+    import socket
+    import subprocess
+    import sys
+    import time
+
+    import numpy as np
+
+    from mgproto_tpu_torch.config import tiny_test_config
+    from mgproto_tpu_torch.core.state import create_train_state
+    from mgproto_tpu_torch.utils.checkpoint import save_checkpoint
+
+    _need_cuda()
+    mode = subprocess.run(["nvidia-smi", "--query-gpu=compute_mode", "--format=csv,noheader"],
+                          capture_output=True, text=True, timeout=60).stdout
+    if "Exclusive" in mode:
+        pytest.skip(f"the card's compute mode ({mode.strip()}) refuses a second process")
+    cfg = tiny_test_config()
+    cfg = cfg.replace(data=dataclasses.replace(cfg.data, train_batch_size=4))
+    state = create_train_state(cfg, torch.Generator().manual_seed(0), "cpu")
+    m = cfg.model
+    bank = torch.nn.functional.normalize(
+        torch.randn(m.num_classes, m.mem_capacity, m.proto_dim,
+                    generator=torch.Generator().manual_seed(1)), dim=-1)
+    state.memory = state.memory._replace(
+        feats=bank, length=torch.full((m.num_classes,), m.mem_capacity, dtype=torch.int32),
+        updated=torch.ones(m.num_classes, dtype=torch.bool))
+    ckpt = save_checkpoint(str(tmp_path), state, "0start0.0000")
+    rng = np.random.RandomState(0)
+    batches = {f"x{i}": rng.rand(8, 32, 32, 3).astype(np.float32) for i in range(2)}
+    batches.update({f"y{i}": rng.randint(0, 4, size=8).astype(np.int64) for i in range(2)})
+    np.savez(str(tmp_path / "b.npz"), **batches)
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        port = s.getsockname()[1]
+    out = str(tmp_path / "out")
+    spec = {"init": f"tcp://127.0.0.1:{port}", "world": 2, "mesh": list(mesh),
+            "device": "cuda:0", "backend": "gloo", "batches": str(tmp_path / "b.npz"),
+            "scenarios": [{"ckpt": ckpt, "steps": 2, "out": out}]}
+    with open(tmp_path / "spec.json", "w") as f:
+        json.dump(spec, f)
+    here = os.path.dirname(os.path.abspath(__file__))
+    procs = [subprocess.Popen([sys.executable, os.path.join(here, "_torch_parallel_worker.py"),
+                               str(tmp_path / "spec.json"), str(r)], cwd=here,
+                              stderr=subprocess.PIPE, text=True) for r in range(2)]
+    deadline = time.monotonic() + 120
+    try:
+        errs = [p.communicate(timeout=max(deadline - time.monotonic(), 1))[1] for p in procs]
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+    assert all(p.returncode == 0 for p in procs), "\n".join(e[-3000:] for e in errs)
+    r0, r1 = (dict(np.load(os.path.join(out, f"rank{r}.npz"))) for r in range(2))
+    for k in ("params", "running_mean", "loss", "means", "priors", "length"):
+        np.testing.assert_array_equal(r0[k], r1[k], err_msg=k)
+    for r in (r0, r1):
+        score, bwd, _, estep = r["launches"]
+        assert score == 2 and bwd == 2 and estep == 2 * 3, r["launches"]
+    assert np.isfinite(r0["loss"]).all()
+

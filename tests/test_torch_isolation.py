@@ -62,7 +62,7 @@ spec = importlib.util.spec_from_file_location("chip_smoke", {SMOKE!r})
 importlib.util.module_from_spec(spec)
 spec.loader.exec_module(importlib.util.module_from_spec(spec))
 missing = [m for m in {INPUT_PATH_MODULES + INTERPRET_MODULES + OPTION_MODULES + SERVE_MODULES
-                       + ONLINE_MODULES + TRUST_MODULES!r}
+                       + ONLINE_MODULES + TRUST_MODULES + PARALLEL_MODULES!r}
            if m not in mods]
 assert not missing, missing
 print(len(mods))
@@ -107,6 +107,12 @@ TRUST_MODULES = ("mgproto_tpu_torch.ops.corrupt", "mgproto_tpu_torch.trust",
                  "mgproto_tpu_torch.trust.auroc", "mgproto_tpu_torch.trust.matrix",
                  "mgproto_tpu_torch.trust.metrics", "mgproto_tpu_torch.cli.trust",
                  "mgproto_tpu_torch.cli.telemetry")
+# the distributed runtime
+PARALLEL_MODULES = ("mgproto_tpu_torch.parallel", "mgproto_tpu_torch.parallel.mesh",
+                    "mgproto_tpu_torch.parallel.collectives",
+                    "mgproto_tpu_torch.parallel.sharding",
+                    "mgproto_tpu_torch.parallel.multihost",
+                    "mgproto_tpu_torch.parallel.trainer")
 # the trust check re-derives a report's verdicts on a host without torch
 TORCHLESS_TRUST_MODULES = ("mgproto_tpu_torch.trust.auroc", "mgproto_tpu_torch.trust.metrics",
                            "mgproto_tpu_torch.cli.telemetry")
