@@ -261,13 +261,40 @@ Phases, one JSON line each (`t_s`: seconds since the script started):
              equal, the bank's lengths equal, the means, the first step's
              gradient and the parameters' update within twice that
              perturbation's floor; then two more steps with the collectives
-             timed apart (per-rank step s, collective and compute ms); (b)
-             `cli.train --distributed` at world size 1 under NCCL (the
-             launcher's environment set) for one epoch on the input phase's
-             folder, the OoD folder as test and push set: it trains, tests,
-             pushes (rendered), prunes and saves, and `cli.evaluate
-             --distributed` and `cli.evaluate` print the run's last test
-             accuracy from its prune checkpoint.
+             timed apart (per-rank step s, collective and compute ms); then
+             three steps of the async bank pipeline and its flush at each
+             mesh (the bank phase's gather and EM sums on its own process
+             groups, from the bank stream), held to the one-process async
+             Trainer the same way, the ranks bit-equal, launches a rank and
+             step score_pool 1, its backward 1, the epilogue 16, the E-step
+             3 on the bank stream (none on the fill step, 3 in the flush);
+             the async state saved sharded at (1, 2) (each rank its slab,
+             COMMIT-published), restored by the pair at (2, 1) and by the
+             parent at world 1, each bit-equal to the saved gathered state
+             (save and restore seconds and bytes a rank); (b) `cli.train
+             --distributed` at world size 1 under NCCL (the launcher's
+             environment set) for one epoch on the input phase's folder,
+             the OoD folder as test and push set: it trains, tests, pushes
+             (rendered), prunes and saves, and `cli.evaluate --distributed`
+             prints the run's last test accuracy from its prune checkpoint;
+             (c) the pod drill: resnet18 at the flagship's head widths, two
+             gloo ranks of `cli.train --distributed --ckpt_format sharded
+             --barrier_timeout_s 10` on cuda:0 (`chip_smoke.py
+             --pod-child`, cuDNN deterministic) on the OoD folder, one pair
+             clean and one with MGPROTO_CHAOS_KILL_HOST_AT on rank 1: rank
+             1 exits 86, rank 0 exits 75 within the failure agreement's
+             wait (the timeout twice) and a margin with PEER_LOST.json
+             naming rank 1 and its flight recorder dump (rank 0's,
+             unsuffixed), only committed checkpoints are left, and the
+             pair relaunched with `--resume auto` ends at the clean run's
+             state digest; `cli.evaluate` in one process restores the
+             clean pair's sharded prune checkpoint and prints its last
+             test accuracy (within one sample); (d) the (1, 2) pair's
+             `interp_metrics_sharded` on the interpret phase's CUB tree cut
+             to its first 32 images, from (a)'s sharded save, equals
+             `run_interpret`'s metrics on them in one process exactly, or
+             differs by at most two near ties where every map is within
+             1e-4 of the other's largest value.
 Then the kernel summary line (times at the train step's shapes, the serve
 path's beside them; `launches` counted on the input phase's epoch,
 `schedule_launches` on the schedule phase's run, `interpret_launches` on
@@ -279,7 +306,8 @@ steps and their flushes, `async_drill_launches` on its async drills,
 `elastic_serve_launches` on its autoscaled and tenant planes,
 `online_launches` on phase 14's consolidation on the card, `trust_launches`
 on phase 15's full-width matrix process, `distributed_launches` on
-phase 16 (a)'s ranks, both meshes; the epilogue's
+phase 16 (a)'s ranks, both meshes, `distributed_async_launches` on their
+async steps and flushes, `distributed_interp_launches` on (d); the epilogue's
 bf16 times at B = 80 under "train_bf16"), the card line as
 nvidia-smi prints it, and last `{"ok": true, "device": {...}}`. Any failed
 check exits non-zero before that line is printed.
@@ -5156,6 +5184,18 @@ DIST_MESHES = ((2, 1), (1, 2))
 DIST_BACKEND = "gloo"  # two ranks on one card: NCCL refuses a card twice
 DIST_ACC_ATOL = 1.0 / TRAIN_BATCH  # one sample's argmax may flip at a near tie
 DIST_CHILD_TIMEOUT_S = 300
+DIST_SAVE_MESH, DIST_RESTORE_MESH = (1, 2), (2, 1)  # (a)'s sharded save, then its restore
+DIST_INTERP_MESH = (1, 2)  # (d): the class slabs score the maps
+DIST_INTERP_IMAGES, DIST_INTERP_BATCH = 32, 16  # the interpret tree's first 32 images
+# (d) is exact unless the two collections differ only by rounding: every map
+# within this share of its largest value of the other's, and at most this
+# many peaks or top-K orders moved by it
+DIST_INTERP_MAP_RTOL, DIST_INTERP_MAX_TIES = 1e-4, 2
+# (c): the pod drill, resnet18 at the flagship's head widths, two gloo ranks
+POD_TIMEOUT_S = 10  # --barrier_timeout_s
+POD_KILL_AT = 7  # the global step whose batch kills rank 1 (epoch 1 of 2, 5 steps each)
+POD_BATCH = 8  # a rank's rows: a global batch of 16 on the OoD folder's 80 images
+POD_EXIT_MARGIN_S = 30  # rank 0's exit after rank 1's: the agreement's wait plus this at most
 
 
 def dist_batches():
@@ -5167,10 +5207,136 @@ def dist_batches():
              rng.integers(0, 200, size=TRAIN_BATCH)) for _ in range(DIST_STEPS + DIST_TIMED_STEPS)]
 
 
-def dist_config(batch):
-    from mgproto_tpu_torch.config import Config, DataConfig
+def dist_config(batch, async_bank=False):
+    from mgproto_tpu_torch.config import Config, DataConfig, EMConfig
 
-    return Config(data=DataConfig(device_augment=False, train_batch_size=batch))
+    return Config(data=DataConfig(device_augment=False, train_batch_size=batch),
+                  em=EMConfig(async_bank=async_bank))
+
+
+def dist_state_digest(trainer, state):
+    """sha256 of the parameters and buffers (the ranks' bit-equality)."""
+    import hashlib
+
+    import torch
+
+    params = params_vector(trainer, state)
+    buffers = torch.cat([b.float().reshape(-1) for b in state.model.buffers()])
+    return hashlib.sha256(torch.cat([params, buffers]).cpu().numpy().tobytes()).hexdigest()
+
+
+def dist_save_npz(path, trainer, full):
+    import numpy as np
+
+    np.savez(path, params=params_vector(trainer, full).cpu().numpy(),
+             means=full.gmm.means.detach().cpu().numpy(), priors=full.gmm.priors.cpu().numpy(),
+             length=full.memory.length.cpu().numpy(), cursor=full.memory.cursor.cpu().numpy())
+
+
+def dist_child_async(spec, rank, mesh, shape, batches, out, out_dir):
+    """16 (a)'s async steps at `mesh`: DIST_STEPS steps and the flush from
+    the seeded start, each step's launches counted (the E-step on the bank
+    stream), the gathered state to the parent; at DIST_SAVE_MESH the state
+    saved sharded, each rank's save seconds and shard bytes."""
+    import torch
+
+    from mgproto_tpu_torch.parallel.sharding import put_batch
+    from mgproto_tpu_torch.parallel.trainer import ShardedTrainer
+    from mgproto_tpu_torch.utils.checkpoint import state_digest
+
+    trainer = ShardedTrainer(dist_config(TRAIN_BATCH // DIST_RANKS, async_bank=True),
+                             steps_per_epoch=100, mesh=mesh, device="cuda:0")
+    state = trainer.restore(spec["ckpt"])
+    out["async_steps"] = []
+    for i in range(DIST_STEPS):
+        x, y = put_batch(batches[i], mesh)
+        before = launch_counts()
+        t0 = time.perf_counter()
+        state, met = trainer.train_step(state, x, y, use_mine=True, update_gmm=True)
+        torch.cuda.synchronize()
+        out["async_steps"].append({
+            "s": time.perf_counter() - t0, "loss": met.loss.item(),
+            "accuracy": met.accuracy.item(), "em_active": met.em_active,
+            "nonfinite": met.nonfinite,
+            "launches": {k: v - before[k] for k, v in launch_counts().items()}})
+    before = launch_counts()
+    state, flushed = trainer.flush_bank(state)
+    torch.cuda.synchronize()
+    out["async_flush"] = {"em_active": flushed[0].num_active,
+                          "launches": {k: v - before[k] for k, v in launch_counts().items()}}
+    out["async_sha256"] = dist_state_digest(trainer, state)
+    full = trainer.full_state(state)
+    if rank == 0:
+        dist_save_npz(os.path.join(out_dir, "async_state.npz"), trainer, full)
+    if tuple(shape) == DIST_SAVE_MESH:
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        path = trainer.save(spec["ckpt_dir"], state, "1nopush0.0000",
+                            metadata={"epoch": 1, "stage": "nopush"})
+        out["save"] = {"s": time.perf_counter() - t0, "path": path,
+                       "bytes": sum(os.path.getsize(os.path.join(path, f))
+                                    for f in os.listdir(path)
+                                    if f.startswith(f"shard_{rank:05d}.")),
+                       "gathered_digest": state_digest(full)}
+    del trainer, state, full
+    torch.cuda.empty_cache()
+
+
+def dist_child_restore_and_interp(spec, rank, out):
+    """16 (a)'s restore of the sharded save by the pair at DIST_RESTORE_MESH
+    (seconds, the gathered state's digest), then (d): the save restored at
+    DIST_INTERP_MESH and `interp_metrics_sharded` over the interpret tree's
+    first images (its launches counted); rank 0 writes the maps too."""
+    import dataclasses
+
+    import numpy as np
+    import torch
+
+    from mgproto_tpu_torch.cli.interpret import build_eval_loader
+    from mgproto_tpu_torch.data.cub_parts import CubParts
+    from mgproto_tpu_torch.parallel.mesh import make_mesh
+    from mgproto_tpu_torch.parallel.trainer import ShardedTrainer
+    from mgproto_tpu_torch.trust.interp_sharded import (
+        collect_gt_activations_sharded,
+        interp_metrics_sharded,
+    )
+    from mgproto_tpu_torch.utils.checkpoint import state_digest
+
+    saved = os.path.join(spec["ckpt_dir"], "1nopush0.0000")
+    mesh = make_mesh(*DIST_RESTORE_MESH, timeout_s=DIST_CHILD_TIMEOUT_S)
+    trainer = ShardedTrainer(dist_config(TRAIN_BATCH // DIST_RANKS, async_bank=True),
+                             steps_per_epoch=100, mesh=mesh, device="cuda:0")
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    state = trainer.restore(saved)
+    torch.cuda.synchronize()
+    out["restore"] = {"s": time.perf_counter() - t0, "mesh": list(DIST_RESTORE_MESH),
+                      "read_bytes": sum(os.path.getsize(os.path.join(saved, f))
+                                        for f in os.listdir(saved)),
+                      "gathered_digest": state_digest(trainer.full_state(state))}
+    del trainer, state
+    mesh = make_mesh(*DIST_INTERP_MESH, timeout_s=DIST_CHILD_TIMEOUT_S)
+    cfg = dist_config(TRAIN_BATCH // DIST_RANKS)
+    cfg = cfg.replace(data=dataclasses.replace(cfg.data, test_batch_size=DIST_INTERP_BATCH,
+                                               num_workers=0))
+    trainer = ShardedTrainer(cfg, steps_per_epoch=1, mesh=mesh, device="cuda:0")
+    state = trainer.restore(saved)
+    batches = lambda: iter(build_eval_loader(cfg, spec["cub"]))  # noqa: E731
+    torch.cuda.synchronize()
+    reset_launch_counts()
+    t0 = time.perf_counter()
+    out["interp"] = interp_metrics_sharded(trainer, state, batches, CubParts(spec["cub"]),
+                                           cfg.model.num_classes)
+    torch.cuda.synchronize()
+    out["interp"].update(s=time.perf_counter() - t0, launches=launch_counts(),
+                         class_slab=trainer.class_slab())
+    clean = collect_gt_activations_sharded(trainer, state, batches())
+    noisy = collect_gt_activations_sharded(trainer, state, batches(), use_noise=True)
+    if rank == 0:
+        np.savez(os.path.join(spec["out"], "interp_maps.npz"), clean=clean[0].cpu().numpy(),
+                 noisy=noisy[0].cpu().numpy(), targets=clean[1], ids=clean[2])
+    del trainer, state
+    torch.cuda.empty_cache()
 
 
 def params_vector(trainer, state):
@@ -5181,14 +5347,15 @@ def params_vector(trainer, state):
 
 def dist_child(argv):
     """`python3 chip_smoke.py --dist-child SPEC RANK`: one rank of 16 (a)
-    on the card (`cuda:0`, shared with the other rank), with the backend
-    SPEC names, for each mesh of SPEC in turn: restores the seeded start
-    onto the mesh, runs DIST_STEPS steps on its rows of the phase's global
-    batches (each step's launches counted), then DIST_TIMED_STEPS with the
-    collectives timed apart, and writes what the parent holds to the
-    one-process run under SPEC's out/mesh{d}x{m}/."""
-    import hashlib
-
+    and (d) on the card (`cuda:0`, shared with the other rank), with the
+    backend SPEC names, for each mesh of SPEC in turn: restores the seeded
+    start onto the mesh, runs DIST_STEPS steps on its rows of the phase's
+    global batches (each step's launches counted), then DIST_TIMED_STEPS
+    with the collectives timed apart, then the async steps
+    (`dist_child_async`, the sharded save at DIST_SAVE_MESH), and writes
+    what the parent holds to the one-process runs under SPEC's
+    out/mesh{d}x{m}/; last the save's restore and (d)
+    (`dist_child_restore_and_interp`), into out/."""
     import numpy as np
     import torch
 
@@ -5232,16 +5399,9 @@ def dist_child(argv):
                 np.save(os.path.join(out_dir, "grad1.npy"), grad.cpu().numpy())
         out["launches"] = launch_counts()
         full = trainer.full_state(state)
-        params = params_vector(trainer, state)
-        buffers = torch.cat([b.float().reshape(-1) for b in state.model.buffers()])
-        out["params_sha256"] = hashlib.sha256(
-            torch.cat([params, buffers]).cpu().numpy().tobytes()).hexdigest()
+        out["params_sha256"] = dist_state_digest(trainer, state)
         if rank == 0:
-            np.savez(os.path.join(out_dir, "state.npz"), params=params.cpu().numpy(),
-                     means=full.gmm.means.detach().cpu().numpy(),
-                     priors=full.gmm.priors.cpu().numpy(),
-                     length=full.memory.length.cpu().numpy(),
-                     cursor=full.memory.cursor.cpu().numpy())
+            dist_save_npz(os.path.join(out_dir, "state.npz"), trainer, full)
         collectives.stats.timing = True
         for i in range(DIST_STEPS, DIST_STEPS + DIST_TIMED_STEPS):
             x, y = put_batch(batches[i], mesh)
@@ -5256,11 +5416,17 @@ def dist_child(argv):
                                  "collectives": collectives.stats.calls,
                                  "collective_bytes": collectives.stats.bytes})
         collectives.stats.timing = False
+        del trainer, state, full
+        torch.cuda.empty_cache()
+        reset_launch_counts()
+        dist_child_async(spec, rank, mesh, shape, batches, out, out_dir)
         out["peak_mem_gb"] = torch.cuda.max_memory_allocated() / 1e9
         with open(os.path.join(out_dir, f"rank{rank}.json"), "w") as f:
             json.dump(out, f)
-        del trainer, state, full, params, buffers
-        torch.cuda.empty_cache()
+    out = {"rank": rank}
+    dist_child_restore_and_interp(spec, rank, out)
+    with open(os.path.join(spec["out"], f"rank{rank}.json"), "w") as f:
+        json.dump(out, f)
     torch.distributed.destroy_process_group()
     return 0
 
@@ -5352,9 +5518,10 @@ def dist_probe() -> int:
     return 0
 
 
-def dist_reference(ckpt, batches, scale=1.0):
+def dist_reference(ckpt, batches, scale=1.0, async_bank=False):
     """The one-process Trainer's DIST_STEPS steps from the start checkpoint
-    on the global batches (images times `scale`): per-step records, the
+    on the global batches (images times `scale`; with `async_bank` the
+    async pipeline, flushed after the last step): per-step records, the
     first step's gradient, the final parameters and the gathered bank."""
     import numpy as np
     import torch
@@ -5362,7 +5529,7 @@ def dist_reference(ckpt, batches, scale=1.0):
     from mgproto_tpu_torch.engine.train import Trainer
     from mgproto_tpu_torch.utils.checkpoint import restore_checkpoint
 
-    tr = Trainer(dist_config(TRAIN_BATCH), steps_per_epoch=100, device="cuda")
+    tr = Trainer(dist_config(TRAIN_BATCH, async_bank), steps_per_epoch=100, device="cuda")
     st = restore_checkpoint(ckpt, tr.init_state(0, for_restore=True))
     theta0 = params_vector(tr, st).clone()
     steps, grad1 = [], None
@@ -5373,6 +5540,7 @@ def dist_reference(ckpt, batches, scale=1.0):
                       "em_active": met.em_active, "em_compact_fallback": met.em_compact_fallback})
         if i == 0:
             grad1 = torch.cat([p.grad.reshape(-1) for p in tr.params(st)]).clone()
+    st, _ = tr.flush_bank(st)  # a no-op in sync mode
     out = {"steps": steps, "grad1": grad1, "theta0": theta0, "params": params_vector(tr, st),
            "means": st.gmm.means.detach().clone(), "priors": st.gmm.priors.clone(),
            "length": st.memory.length.clone(), "cursor": st.memory.cursor.clone()}
@@ -5380,16 +5548,18 @@ def dist_reference(ckpt, batches, scale=1.0):
     return out
 
 
-def dist_ranks_run(ckpt):
-    """16 (a)'s two ranks as processes on the card, every mesh of
-    DIST_MESHES in turn in one process group, joined within
-    DIST_CHILD_TIMEOUT_S; returns their wall seconds."""
+def dist_ranks_run(ckpt, cub):
+    """16 (a)'s and (d)'s two ranks as processes on the card, every mesh of
+    DIST_MESHES in turn in one process group, then the restore and (d) on
+    the CUB tree `cub`, joined within DIST_CHILD_TIMEOUT_S; returns their
+    wall seconds."""
     spec_path = os.path.join(DIST_DIR, "spec.json")
     for mesh in DIST_MESHES:
         os.makedirs(os.path.join(DIST_DIR, f"mesh{mesh[0]}x{mesh[1]}"))
     with open(spec_path, "w") as f:
         json.dump({"init": f"tcp://localhost:{free_port()}", "meshes": DIST_MESHES, "ckpt": ckpt,
-                   "backend": DIST_BACKEND, "out": DIST_DIR}, f)
+                   "backend": DIST_BACKEND, "out": DIST_DIR,
+                   "ckpt_dir": os.path.join(DIST_DIR, "sharded"), "cub": cub}, f)
     t0 = time.perf_counter()
     logs = [open(os.path.join(DIST_DIR, f"rank{r}.log"), "w") for r in range(DIST_RANKS)]
     procs = [subprocess.Popen([sys.executable, os.path.abspath(__file__), "--dist-child",
@@ -5410,10 +5580,13 @@ def dist_ranks_run(ckpt):
     return time.perf_counter() - t0
 
 
-def dist_mesh_check(smi, mesh, ref, floor, wall_s):
+def dist_mesh_check(smi, mesh, refs, wall_s):
     """16 (a) at one mesh: the two ranks' steps held to the one-process run
-    `ref`, within twice what the perturbed run `floor` moves it; returns
-    the launches of both ranks' DIST_STEPS steps."""
+    `refs["sync"]`, within twice what the perturbed run `refs["floor"]`
+    moves it, then their async steps (`dist_async_check`); returns the
+    launches of both ranks' DIST_STEPS sync steps, and of their async
+    steps and flush."""
+    ref, floor = refs["sync"], refs["floor"]
     import numpy as np
     import torch
 
@@ -5493,7 +5666,200 @@ def dist_mesh_check(smi, mesh, ref, floor, wall_s):
          per_rank=per_rank,
          note="gloo on one card: both ranks share the H100, and gloo stages CUDA tensors "
               "through the host; not a multi-GPU NCCL figure")
-    return {k: sum(rk["launches"][k] for rk in ranks) for k in want}
+    sync_launches = {k: sum(rk["launches"][k] for rk in ranks) for k in want}
+    async_launches = dist_async_check(smi, mesh, ranks, out_dir, refs["async"],
+                                      refs["async_floor"], want)
+    return sync_launches, async_launches
+
+
+def dist_async_check(smi, mesh, ranks, out_dir, ref, floor, want):
+    """16 (a)'s async steps at one mesh, held to the one-process async
+    trainer `ref` within twice what the perturbed run `floor` moves it
+    (the sync steps' floors): the launches of each rank and step (the fill step
+    holds its bank phase, so no E-step; every later step the previous
+    bank phase's num_em_loop on the bank stream; the flush the last), the
+    ranks bit-equal. Returns both ranks' launches, steps and flush."""
+    import numpy as np
+    import torch
+
+    got = np.load(os.path.join(out_dir, "async_state.npz"))
+
+    def diff(a, b):
+        return (torch.as_tensor(a, device="cuda").float()
+                - torch.as_tensor(b, device="cuda").float()).abs().max().item()
+
+    for rk in ranks:
+        for i, step in enumerate(rk["async_steps"]):
+            exp = dict(want, em_estep=0 if i == 0 else want["em_estep"])
+            check(step["launches"] == exp, f"16 (a) async mesh {mesh} rank {rk['rank']} step "
+                  f"{i}: launches {step['launches']}, expected {exp}")
+            check(not step["nonfinite"], f"16 (a) async mesh {mesh}: step {i} non-finite")
+        flush = dict.fromkeys(want, 0)
+        flush["em_estep"] = want["em_estep"]
+        check(rk["async_flush"]["launches"] == flush,
+              f"16 (a) async mesh {mesh}: the flush launched {rk['async_flush']['launches']}")
+    check(len({rk["async_sha256"] for rk in ranks}) == 1,
+          f"16 (a) async mesh {mesh}: the ranks' parameters differ")
+    steps = ranks[0]["async_steps"]
+    for i, (s, r, fl) in enumerate(zip(steps, ref["steps"], floor["steps"])):
+        tol = max(TRAIN_LOSS_RTOL * abs(r["loss"]), TRAIN_GRAD_FLOOR_MULT * abs(fl["loss"] - r["loss"]))
+        check(abs(s["loss"] - r["loss"]) <= tol, f"16 (a) async mesh {mesh} step {i}: loss "
+              f"{s['loss']} vs one process {r['loss']} (tolerance {tol})")
+        check(abs(s["accuracy"] - r["accuracy"]) <= DIST_ACC_ATOL,
+              f"16 (a) async mesh {mesh} step {i}: accuracy {s['accuracy']} vs {r['accuracy']}")
+        check(s["em_active"] == r["em_active"], f"16 (a) async mesh {mesh} step {i}: "
+              f"em_active {s['em_active']} vs {r['em_active']}")
+    check(bool(torch.equal(torch.from_numpy(got["length"]).cuda(), ref["length"].int())),
+          f"16 (a) async mesh {mesh}: the bank's lengths differ from the one-process run's")
+    means_err, means_floor = diff(got["means"], ref["means"]), diff(floor["means"], ref["means"])
+    check(means_err <= max(1e-5, TRAIN_GRAD_FLOOR_MULT * means_floor),
+          f"16 (a) async mesh {mesh}: means differ by {means_err} (floor {means_floor})")
+    update = (ref["params"] - ref["theta0"]).norm().item()
+    params = torch.from_numpy(got["params"]).cuda()
+    param_err = (params - ref["params"]).norm().item() / update
+    param_floor = (floor["params"] - ref["params"]).norm().item() / update
+    check(param_err <= TRAIN_GRAD_FLOOR_MULT * param_floor,
+          f"16 (a) async mesh {mesh}: parameters, rel err of the update {param_err} > "
+          f"{TRAIN_GRAD_FLOOR_MULT} x the floor {param_floor}")
+    emit("distributed", part="a_async", card=smi, backend=DIST_BACKEND, mesh=list(mesh),
+         steps=DIST_STEPS, losses=[s["loss"] for s in steps],
+         one_process_losses=[r["loss"] for r in ref["steps"]],
+         em_active=[s["em_active"] for s in steps],
+         flush_em_active=ranks[0]["async_flush"]["em_active"], means_max_abs_err=means_err,
+         means_floor=means_floor, param_update_rel_err=param_err, param_floor=param_floor,
+         params_bit_equal_across_ranks=True,
+         step_s=[[s["s"] for s in rk["async_steps"]] for rk in ranks],
+         launches_per_step=[s["launches"] for s in ranks[0]["async_steps"]],
+         flush_launches=ranks[0]["async_flush"]["launches"])
+    out = {k: 0 for k in want}
+    for rk in ranks:
+        for step in rk["async_steps"] + [rk["async_flush"]]:
+            for k in want:
+                out[k] += step["launches"][k]
+    return out
+
+
+def dist_restore_check(smi, ranks_dir):
+    """16 (a)'s sharded save at DIST_SAVE_MESH: restored by the pair at
+    DIST_RESTORE_MESH and here at world 1, the gathered state's digest
+    equal to the saving ranks' each time; each rank's save and restore
+    seconds and bytes."""
+    import torch
+
+    from mgproto_tpu_torch.engine.train import Trainer
+    from mgproto_tpu_torch.utils import checkpoint as ck
+
+    save_dir = os.path.join(DIST_DIR, f"mesh{DIST_SAVE_MESH[0]}x{DIST_SAVE_MESH[1]}")
+    savers = [json.load(open(os.path.join(save_dir, f"rank{r}.json"))) for r in range(DIST_RANKS)]
+    restorers = [json.load(open(os.path.join(ranks_dir, f"rank{r}.json")))
+                 for r in range(DIST_RANKS)]
+    path = savers[0]["save"]["path"]
+    check(ck.is_committed(path) and ck.has_shard_files(path),
+          f"16 (a): the sharded save {path} is not committed")
+    digest = savers[0]["save"]["gathered_digest"]
+    check(all(s["save"]["gathered_digest"] == digest for s in savers),
+          "16 (a): the saving ranks' gathered states differ")
+    for rk in restorers:
+        check(rk["restore"]["gathered_digest"] == digest,
+              f"16 (a): rank {rk['rank']} at mesh {DIST_RESTORE_MESH} restored another state")
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    tr = Trainer(dist_config(TRAIN_BATCH, async_bank=True), steps_per_epoch=100, device="cuda")
+    st = ck.restore_checkpoint(path, tr.init_state(0, for_restore=True))
+    torch.cuda.synchronize()
+    world1_s = time.perf_counter() - t0
+    check(ck.state_digest(st) == digest, "16 (a): the world-1 restore differs from the save")
+    del tr, st
+    emit("distributed", part="a_checkpoint", card=smi, saved_at=list(DIST_SAVE_MESH),
+         restored_at=[list(DIST_RESTORE_MESH), [1, 1]], bit_equal=True,
+         save_s=[s["save"]["s"] for s in savers],
+         shard_bytes_per_rank=[s["save"]["bytes"] for s in savers],
+         restore_s=[r["restore"]["s"] for r in restorers],
+         restore_read_bytes_per_rank=[r["restore"]["read_bytes"] for r in restorers],
+         world1_restore_s=world1_s, files=sorted(os.listdir(path)))
+    return path
+
+
+def dist_interp_near_ties(cfg, cub, saved, ranks_dir):
+    """(the differences between the one-process collections of `saved` and
+    the ranks' maps: maps whose upsampled peak differs, clean or noisy, and
+    prototypes whose top-K image order differs; the prototypes scored; the
+    largest map difference over the largest map value). Each difference is
+    a near tie when that share is within DIST_INTERP_MAP_RTOL."""
+    import numpy as np
+
+    from mgproto_tpu_torch.cli.interpret import build_eval_loader
+    from mgproto_tpu_torch.engine import interpretability as ti
+    from mgproto_tpu_torch.engine.train import Trainer
+    from mgproto_tpu_torch.utils.checkpoint import restore_checkpoint
+
+    tr = Trainer(cfg, steps_per_epoch=1, device="cuda")
+    st = restore_checkpoint(saved, tr.init_state(0, for_restore=True))
+    got = np.load(os.path.join(ranks_dir, "interp_maps.npz"))
+    img, flips, rel = cfg.model.img_size, set(), 0.0
+    for noisy in (False, True):
+        loader = build_eval_loader(cfg, cub)
+        try:
+            acts = ti.collect_gt_activations(tr, st, iter(loader), use_noise=noisy)
+        finally:
+            loader.close()
+        theirs = got["noisy" if noisy else "clean"]
+        rel = max(rel, float(np.abs(acts[0] - theirs).max() / max(np.abs(acts[0]).max(), 1e-30)))
+        moved = (ti.peak_positions(acts[0], img) != ti.peak_positions(theirs, img)).any(-1)
+        flips |= {("map", int(r), int(k)) for r, k in np.argwhere(moved)}
+    classes = sorted(set(acts[1].tolist()))
+    for c in classes:
+        idx = np.nonzero(acts[1] == c)[0]
+        mine, yours = ti._topk_rows(acts[0][idx], 10), ti._topk_rows(got["clean"][idx], 10)
+        flips |= {("topk", c, int(k)) for k in np.nonzero((mine != yours).any(0))[0]}
+    return flips, len(classes) * acts[0].shape[1], rel
+
+
+def dist_interp_check(smi, ranks_dir, saved, cub):
+    """16 (d): the ranks' `interp_metrics_sharded` at DIST_INTERP_MESH equals
+    `run_interpret`'s metrics on the same images in one process, exactly
+    (the CPU test's rule). Only where the two collections differ by
+    rounding alone (every map within DIST_INTERP_MAP_RTOL of the other's,
+    `dist_interp_near_ties`) may each of at most DIST_INTERP_MAX_TIES near
+    ties (a map's peak or a prototype's top-K order) move a metric by one
+    prototype's weight (100 / prototypes); a wrong pass fails."""
+    import dataclasses
+
+    from mgproto_tpu_torch.cli.interpret import run_interpret
+
+    ranks = [json.load(open(os.path.join(ranks_dir, f"rank{r}.json")))["interp"]
+             for r in range(DIST_RANKS)]
+    keys = ("consistency", "stability", "purity", "purity_std")
+    check(all(r[k] == ranks[0][k] for r in ranks for k in keys), "16 (d): the ranks disagree")
+    cfg = dist_config(TRAIN_BATCH)
+    cfg = cfg.replace(data=dataclasses.replace(cfg.data, test_batch_size=DIST_INTERP_BATCH,
+                                               num_workers=0))
+    t0 = time.perf_counter()
+    one = run_interpret(cfg, cub, checkpoint=saved, device="cuda")
+    one_s = time.perf_counter() - t0
+    check(one["images"] == ranks[0]["num_images"] == DIST_INTERP_IMAGES,
+          f"16 (d): {one['images']} and {ranks[0]['num_images']} images")
+    flips, n_protos, rel = set(), 1, 0.0
+    if any(ranks[0][k] != one[k] for k in keys):
+        flips, n_protos, rel = dist_interp_near_ties(cfg, cub, saved, ranks_dir)
+        check(rel <= DIST_INTERP_MAP_RTOL and len(flips) <= DIST_INTERP_MAX_TIES,
+              f"16 (d): metrics {[(ranks[0][k], one[k]) for k in keys]} differ with the maps "
+              f"{rel} apart (limit {DIST_INTERP_MAP_RTOL}) and {len(flips)} moved peaks or "
+              f"orders (limit {DIST_INTERP_MAX_TIES}): {sorted(flips)[:20]}")
+    for k in keys:
+        check(abs(ranks[0][k] - one[k]) <= 100.0 * len(flips) / n_protos + 1e-9,
+              f"16 (d): {k} {ranks[0][k]} on two ranks vs {one[k]} in one process "
+              f"(near ties {sorted(flips)})")
+    per_rank = 16 * 2 * -(-DIST_INTERP_IMAGES // DIST_INTERP_BATCH)
+    check(ranks[0]["launches"]["bn_epilogue"] == per_rank,
+          f"16 (d): the epilogue launched {ranks[0]['launches']}, expected {per_rank} a rank")
+    emit("distributed", part="d", card=smi, mesh=list(DIST_INTERP_MESH), images=one["images"],
+         batch=DIST_INTERP_BATCH, two_ranks={k: ranks[0][k] for k in keys},
+         one_process={k: one[k] for k in keys}, near_ties=len(flips), maps_rel_diff=rel,
+         class_slab=[r["class_slab"] for r in ranks], launches_per_rank=ranks[0]["launches"],
+         two_ranks_s=ranks[0]["s"], one_process_s=one_s,
+         reduced="the interpret phase's CUB tree cut to its first 32 images (8 classes)")
+    return {k: sum(r["launches"][k] for r in ranks) for k in ranks[0]["launches"]}
 
 
 def dist_cli_flags():
@@ -5522,14 +5888,11 @@ def dist_cli_start():
     return Started(proc, log.name)
 
 
-def dist_cli_check(smi, train):
+def dist_cli_check(smi, train, evaluate):
     """16 (b): the `cli.train --distributed` process `train` trained,
-    tested, pushed (rendered), pruned and saved; then `cli.evaluate
-    --distributed` and `cli.evaluate` without it restore the prune
-    checkpoint, beside each other, and print the run's last test
-    accuracy."""
-    import concurrent.futures
-
+    tested, pushed (rendered), pruned and saved; `evaluate`, the future of
+    its `cli.evaluate --distributed` run, restored the prune checkpoint and
+    printed the run's last test accuracy."""
     from mgproto_tpu_torch.utils import checkpoint as ck
 
     rc, train_s = train.wait(timeout=400)
@@ -5545,31 +5908,178 @@ def dist_cli_check(smi, train):
     img_dir = os.path.join(run_dir, "img", "epoch-0")
     rendered = len(os.listdir(img_dir)) if os.path.isdir(img_dir) else 0
     check(rendered > 0 and records[-1].get("stage") == "prune", "16 (b): no render or prune")
-    flags = dist_cli_flags()
-    with concurrent.futures.ThreadPoolExecutor(2) as pool:
-        dist_eval = pool.submit(run_main, "evaluate", flags + ["--distributed"], 300,
-                                dist_cli_env())
-        plain_eval = pool.submit(run_main, "evaluate", flags, 300)
-        (drc, dout, derr, dist_s), (prc, pout, perr, plain_s) = dist_eval.result(), plain_eval.result()
+    drc, dout, derr, dist_s = evaluate.result()
     check(drc == 0, f"16 (b) cli.evaluate --distributed exited {drc}:\n{derr[-3000:]}")
-    check(prc == 0, f"16 (b) cli.evaluate exited {prc}:\n{perr[-3000:]}")
-    dres, pres = last_json(dout), last_json(pout)
+    dres = last_json(dout)
     prune = [c[3] for c in ck.list_checkpoints(run_dir) if c[1] == "prune"][0]
-    check(dres["checkpoint"] == pres["checkpoint"] == prune, "16 (b): evaluate read another file")
-    check(dres["accuracy"] == pres["accuracy"] == records[-1]["acc"],
-          f"16 (b): evaluate --distributed {dres['accuracy']}, without {pres['accuracy']}, the "
-          f"run's last test pass {records[-1]['acc']}")
+    check(dres["checkpoint"] == prune, "16 (b): evaluate read another file")
+    check(dres["accuracy"] == records[-1]["acc"],
+          f"16 (b): evaluate --distributed {dres['accuracy']}, the run's last test pass "
+          f"{records[-1]['acc']}")
     emit("distributed", part="b", card=smi, backend="nccl", world_size=1, epochs=1,
          batch=TRAIN_BATCH, train_wall_s=train_s, stages=stages, rendered_jpegs=rendered,
          train_s=[r["train_s"] for r in records if "train_s" in r], accuracy=records[-1]["acc"],
-         evaluate_distributed_wall_s=dist_s, evaluate_wall_s=plain_s,
-         evaluate_accuracy=dres["accuracy"],
-         note="the train process ran beside (a)'s untimed one-process runs")
+         evaluate_distributed_wall_s=dist_s, evaluate_accuracy=dres["accuracy"],
+         note="the train process ran beside (a)'s untimed one-process runs and (c)'s drills")
+
+
+# ---------------------------------------------------------- 16 (c): the pod drill
+POD_DIR = os.path.join(DIST_DIR, "pod")
+
+
+def pod_flags(model_dir):
+    """The drill's model and data: resnet18 at the flagship's head widths
+    (C = 200, K = 10, d = 64, T = 20, a bank of 800), 224 px, on the
+    schedule phase's OoD folder (80 images) as train, test and push set;
+    2 epochs of 5 steps at a global batch of 16, no push."""
+    _, ood = trust_trees()
+    return ["--arch", "resnet18", "--no_pretrained", "--num_workers", "0",
+            "--batch_size", str(POD_BATCH), "--epochs", "2", "--mine_start", "0",
+            "--gmm_start", "0", "--push_start", "99", "--train_dir", ood, "--test_dir", ood,
+            "--push_dir", ood, "--model_dir", model_dir]
+
+
+def pod_child(argv):
+    """`python3 chip_smoke.py --pod-child FLAGS`: `cli.train`'s main with
+    cuDNN deterministic (bit-exact resume needs it on the card), in the
+    gloo group joined here first (two ranks on one card: NCCL refuses a
+    card twice; main's own join then finds the group)."""
+    import torch
+
+    torch.backends.cudnn.deterministic, torch.backends.cudnn.benchmark = True, False
+    from mgproto_tpu_torch.cli import train
+    from mgproto_tpu_torch.parallel.mesh import initialize_distributed
+
+    initialize_distributed(backend=DIST_BACKEND, device="cuda:0", strict=True,
+                           timeout_s=POD_TIMEOUT_S)
+    train.main(argv)
+    return 0
+
+
+def pod_start(name, kill=False, resume=False):
+    """16 (c)'s two gloo ranks of `cli.train --distributed --ckpt_format
+    sharded --barrier_timeout_s POD_TIMEOUT_S` on cuda:0 (the launcher's
+    environment set here; `pod_child` joins the gloo group); with `kill`,
+    MGPROTO_CHAOS_KILL_HOST_AT in rank 1's environment only."""
+    model_dir = os.path.join(POD_DIR, "kill" if name == "relaunch" else name)
+    port, procs = free_port(), []
+    for r in range(DIST_RANKS):
+        env = dict(os.environ, PYTHONUNBUFFERED="1", RANK=str(r), WORLD_SIZE=str(DIST_RANKS),
+                   LOCAL_RANK="0", MASTER_ADDR="localhost", MASTER_PORT=str(port))
+        env.pop("MGPROTO_BARRIER_SESSION", None)  # each incarnation agrees on its own
+        if kill and r == 1:
+            env["MGPROTO_CHAOS_KILL_HOST_AT"] = str(POD_KILL_AT)
+        argv = pod_flags(model_dir) + ["--distributed", "--ckpt_format", "sharded",
+                                       "--barrier_timeout_s", str(POD_TIMEOUT_S),
+                                       "--no_preempt_handlers"]
+        log = open(os.path.join(POD_DIR, f"{name}_rank{r}.log"), "w")
+        procs.append(Started(subprocess.Popen(
+            [sys.executable, os.path.abspath(__file__), "--pod-child", *argv,
+             *(["--resume", "auto"] if resume else [])],
+            cwd=HERE, stdout=log, stderr=subprocess.STDOUT, env=env), log.name))
+    return procs
+
+
+def pod_wait(procs, timeout=400):
+    """[(exit code, wall s)] of the ranks, each waited for in turn."""
+    return [p.wait(timeout=timeout) for p in procs]
+
+
+def pod_digest(model_dir):
+    """(the newest resumable checkpoint, the digest of its whole state
+    restored here, at world 1)."""
+    import argparse
+
+    from mgproto_tpu_torch.cli.common import add_train_args, config_from_args
+    from mgproto_tpu_torch.engine.train import Trainer
+    from mgproto_tpu_torch.utils import checkpoint as ck
+
+    p = argparse.ArgumentParser()
+    add_train_args(p)
+    cfg = config_from_args(p.parse_args(pod_flags(model_dir)))
+    last = ck.find_latest_checkpoint(model_dir)
+    tr = Trainer(cfg, steps_per_epoch=1, device="cuda")
+    return last, ck.state_digest(ck.restore_checkpoint(last, tr.init_state(0, for_restore=True)))
+
+
+def pod_kill_check(clean, kill):
+    """16 (c), the kill: the clean pair exits 0; rank 1 of the killed pair
+    exits 86, rank 0 exits 75 within the failure agreement's wait (the
+    barrier timeout plus the process group's, the same POD_TIMEOUT_S) and
+    POD_EXIT_MARGIN_S of rank 1's death, with PEER_LOST.json naming rank 1
+    and its flight recorder dumped (unsuffixed: rank 0's name); only
+    committed checkpoints are listed."""
+    from mgproto_tpu_torch.parallel.multihost import PEER_LOST_EXIT_CODE, PEER_LOST_FILE
+    from mgproto_tpu_torch.resilience.chaos import HOST_KILL_EXIT_CODE
+    from mgproto_tpu_torch.utils import checkpoint as ck
+
+    for r, (code, _) in enumerate(pod_wait(clean)):
+        check(code == 0, f"16 (c) clean rank {r} exited {code}:\n"
+              + open(clean[r].out).read()[-3000:])
+    codes = pod_wait(kill)
+    check(codes[1][0] == HOST_KILL_EXIT_CODE, f"16 (c): the killed rank exited {codes[1][0]}")
+    check(codes[0][0] == PEER_LOST_EXIT_CODE, f"16 (c): the survivor exited {codes[0][0]}:\n"
+          + open(kill[0].out).read()[-3000:])
+    after_s = kill[0].t1 - kill[1].t1
+    check(after_s <= 2 * POD_TIMEOUT_S + POD_EXIT_MARGIN_S,
+          f"16 (c): the survivor exited {after_s} s after its peer died")
+    kill_dir = os.path.join(POD_DIR, "kill")
+    with open(os.path.join(kill_dir, PEER_LOST_FILE)) as f:
+        marker = json.load(f)
+    check(marker["missing_processes"] == [1] and marker["survivor"] == 0,
+          f"16 (c): PEER_LOST.json {marker}")
+    dump = os.path.join(kill_dir, "telemetry", "flightrec_peer_lost_000.jsonl")
+    check(os.path.isfile(dump), "16 (c): no peer_lost dump of rank 0")
+    header = json.loads(open(dump).readline())
+    check(header["host"] == 0 and header["reason"] == "peer_lost", f"16 (c): dump {header}")
+    listed = ck.list_checkpoints(kill_dir)
+    names = [n for n in os.listdir(kill_dir) if ck.parse_checkpoint_name(n)]
+    check(all(ck.is_committed(os.path.join(kill_dir, n)) for n in names),
+          f"16 (c): an uncommitted checkpoint directory is left: {sorted(names)}")
+    check([(c[0], c[1]) for c in listed] == [(0, "nopush")], f"16 (c): listed {listed}")
+    return {"clean_wall_s": [c[1] for c in pod_wait(clean)], "killed_exit": codes[1][0],
+            "survivor_exit": codes[0][0], "survivor_after_kill_s": after_s,
+            "marker": {k: marker[k] for k in ("barrier", "missing_processes", "timeout_s")},
+            "listed_after_kill": [os.path.basename(c[3]) for c in listed]}
+
+
+def pod_relaunch_check(smi, relaunch, killed, evaluate):
+    """16 (c), the relaunch: both ranks resume from the last commit and end
+    at the clean run's state digest, bit for bit; `evaluate` (cli.evaluate
+    in one process, the elastic restore of the clean pair's sharded prune
+    checkpoint) prints that run's last test accuracy, within one sample."""
+    for r, (code, _) in enumerate(pod_wait(relaunch)):
+        check(code == 0, f"16 (c) relaunched rank {r} exited {code}:\n"
+              + open(relaunch[r].out).read()[-3000:])
+    kill_dir = os.path.join(POD_DIR, "kill")
+    clean_last, clean = pod_digest(os.path.join(POD_DIR, "clean"))
+    last, digest = pod_digest(kill_dir)
+    check(os.path.basename(last) == os.path.basename(clean_last),
+          f"16 (c): the relaunch ended at {last}, the clean run at {clean_last}")
+    check(digest == clean, "16 (c): the relaunched run's state differs from the clean run's")
+    records = [json.loads(ln)
+               for ln in open(os.path.join(POD_DIR, "clean", "metrics.jsonl"))]
+    rc, out, err, eval_s = evaluate.result()
+    check(rc == 0, f"16 (c) cli.evaluate of the drill exited {rc}:\n{err[-3000:]}")
+    res = last_json(out)
+    n_test = OOD_CLASSES * OOD_PER_CLASS
+    check(res["checkpoint"] == clean_last
+          and abs(res["accuracy"] - records[-1]["acc"]) <= 1 / n_test,
+          f"16 (c): evaluate {res} vs the run's last test pass {records[-1]['acc']}")
+    emit("distributed", part="c", card=smi, backend=DIST_BACKEND, arch="resnet18",
+         global_batch=POD_BATCH * DIST_RANKS, epochs=2, kill_at_step=POD_KILL_AT,
+         barrier_timeout_s=POD_TIMEOUT_S, **killed, digest_equal=True,
+         relaunch_wall_s=[c[1] for c in pod_wait(relaunch)], final=os.path.basename(last),
+         evaluate_wall_s=eval_s, evaluate_accuracy=res["accuracy"],
+         run_accuracy=records[-1]["acc"],
+         note="two gloo ranks share cuda:0; a lost peer shows first as gloo's connection "
+              "error; NCCL's loss path is not shown on one card")
 
 
 def dist_phase(smi):
-    """Phase 16; returns the launch counts of (a)'s ranks, summed over both
-    meshes and both ranks."""
+    """Phase 16; returns the launch counts of (a)'s ranks (sync and async,
+    both meshes and both ranks) and of (d)'s."""
+    import concurrent.futures
     import shutil
 
     import torch
@@ -5579,8 +6089,11 @@ def dist_phase(smi):
 
     t_phase = time.perf_counter()
     shutil.rmtree(DIST_DIR, ignore_errors=True)
-    os.makedirs(DIST_DIR)
+    os.makedirs(POD_DIR)
     train = dist_cli_start()
+    clean, kill = pod_start("clean"), pod_start("kill", kill=True)
+    started = [train, *clean, *kill]
+    pool = concurrent.futures.ThreadPoolExecutor(2)
     try:
         cfg = dist_config(TRAIN_BATCH)
         start = Trainer(cfg, steps_per_epoch=100, device="cuda").init_state(0)
@@ -5589,23 +6102,44 @@ def dist_phase(smi):
                                metadata={"epoch": -1, "stage": "nopush"})
         del start
         batches = dist_batches()
-        ref = dist_reference(ckpt, batches)
-        floor = dist_reference(ckpt, batches, scale=1 + 1e-7)
+        refs = {"sync": dist_reference(ckpt, batches),
+                "floor": dist_reference(ckpt, batches, scale=1 + 1e-7),
+                "async": dist_reference(ckpt, batches, async_bank=True),
+                "async_floor": dist_reference(ckpt, batches, scale=1 + 1e-7, async_bank=True)}
         torch.cuda.empty_cache()
-        # the ranks' steps are timed: (b)'s train process ends first
+        # (c)'s first two pairs end, then (b)'s train; the relaunch runs
+        # beside (b)'s evaluation and the drill's (of the clean run's
+        # sharded checkpoint)
+        killed = pod_kill_check(clean, kill)
+        relaunch = pod_start("relaunch", resume=True)
+        started += relaunch
         train.wait(timeout=400)
-        wall_s = dist_ranks_run(ckpt)
-        launches = {}
+        b_eval = pool.submit(run_main, "evaluate", dist_cli_flags() + ["--distributed"], 300,
+                             dist_cli_env())
+        c_eval = pool.submit(run_main, "evaluate", pod_flags(os.path.join(POD_DIR, "clean")), 300)
+        dist_cli_check(smi, train, b_eval)
+        pod_relaunch_check(smi, relaunch, killed, c_eval)
+        # (a) and (d): the ranks have the card to themselves (their steps are timed)
+        cub = os.path.join(DIST_DIR, "cub")
+        n = write_cub_tree(cub, DIST_INTERP_IMAGES // INTERPRET_PER_CLASS, INTERPRET_PER_CLASS,
+                           INPUT_HW, seed=11)
+        check(n == DIST_INTERP_IMAGES, f"16 (d): {n} images written")
+        wall_s = dist_ranks_run(ckpt, cub)
+        launches = {"sync": {}, "async": {}}
         for mesh in DIST_MESHES:
-            for k, v in dist_mesh_check(smi, mesh, ref, floor, wall_s).items():
-                launches[k] = launches.get(k, 0) + v
-        del ref, floor
+            for part, counts in zip(("sync", "async"), dist_mesh_check(smi, mesh, refs, wall_s)):
+                for k, v in counts.items():
+                    launches[part][k] = launches[part].get(k, 0) + v
+        del refs
         torch.cuda.empty_cache()
-        dist_cli_check(smi, train)
+        saved = dist_restore_check(smi, DIST_DIR)
+        launches["interp"] = dist_interp_check(smi, DIST_DIR, saved, cub)
     finally:
-        if train.proc.poll() is None:
-            train.proc.kill()
-            train.proc.wait()
+        pool.shutdown(wait=False, cancel_futures=True)
+        for p in started:
+            if p.proc.poll() is None:
+                p.proc.kill()
+                p.proc.wait()
     emit("distributed", part="phase", seconds=time.perf_counter() - t_phase, launches=launches)
     return launches
 
@@ -5678,6 +6212,8 @@ def main() -> int:
         return dist_child(sys.argv[2:])
     if sys.argv[1:2] == ["--dist-probe"]:
         return dist_probe()
+    if sys.argv[1:2] == ["--pod-child"]:
+        return pod_child(sys.argv[2:])
     smi = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
         capture_output=True, text=True, timeout=60,
@@ -5760,10 +6296,17 @@ def main() -> int:
         k["trust_launches_per_dispatch"] = k["trust_launches"] / trust_dispatches
         check((k["trust_launches"] > 0) == (k["name"] in ("score_pool", "bn_epilogue")),
               f"{k['name']}: {k['trust_launches']} launches on the trust matrix")
-        # phase 16 (a): both ranks of both meshes, DIST_STEPS steps each
-        k["distributed_launches"] = distributed_launches[k["name"]]
-        check(k["distributed_launches"] > 0,
+        # phase 16 (a): both ranks of both meshes, DIST_STEPS steps each,
+        # sync, then async with its flush; (d): the sharded interp pass,
+        # the trunk's tails only (its density is plain torch, as in JAX)
+        k["distributed_launches"] = distributed_launches["sync"][k["name"]]
+        k["distributed_async_launches"] = distributed_launches["async"][k["name"]]
+        check(k["distributed_launches"] > 0 and k["distributed_async_launches"] > 0,
               f"{k['name']} was not launched on the two-rank path")
+        k["distributed_interp_launches"] = distributed_launches["interp"].get(k["name"], 0)
+        check((k["distributed_interp_launches"] > 0) == (k["name"] == "bn_epilogue"),
+              f"{k['name']}: {k['distributed_interp_launches']} launches on the sharded "
+              "interp pass")
         if k["name"] == "bn_epilogue":
             k["train_bf16"] = dict(epi_bf16, launches=bf16_launches["bn_epilogue"])
     print(json.dumps({"kernels": kernels, "input_steps": input_steps, "train_steps": train_steps,

@@ -2,11 +2,13 @@
 (counterpart of mgproto_tpu/cli/common.py).
 
 Every flag of the JAX package's `add_train_args` parses here under the
-same name and default. Each either sets the port's field of the same name,
-or is refused at a value other than its default (--distributed and the
-mesh flags: together with --async_bank) by `config_from_args`, naming the
-ROADMAP item that will port it (`REFUSED`). `maybe_init_distributed` joins
-the process group for --distributed before any device use. `--no-telemetry`
+same name and default. Each either sets the port's field of the same name
+(or, for the run's own settings such as --ckpt_format and
+--barrier_timeout_s, is read by `cli/train.py`), or is refused at a value
+other than its default by `config_from_args`, naming the ROADMAP item
+that will port it (`REFUSED`). `maybe_init_distributed` joins the process
+group for --distributed before any device use, with --barrier_timeout_s
+as the timeout of every collective. `--no-telemetry`
 is accepted: the port writes no telemetry in any case. The port adds
 `--device` (default cuda), its device rule: the entry points run on the
 card unless the caller names another device.
@@ -40,21 +42,11 @@ DATASET_PRESETS: Dict[str, Dict] = {
 }
 
 # flags the port parses but does not implement: (dest, what is accepted,
-# the ROADMAP item that ports the rest). What is accepted is a value, a
-# tuple of values, or a predicate of all the flags for a flag refused only
-# in combination. `ckpt_format` accepts "auto" and "replicated", which are
-# one format in the port at any world size (rank 0 writes the whole state).
+# the ROADMAP item that ports the rest). What is accepted is a value or a
+# tuple of values.
 REFUSED = (
-    ("distributed", lambda a: not (a.distributed and a.async_bank),
-     "A8 (multi-GPU: the async bank under a mesh)"),
-    ("mesh_data", lambda a: a.mesh_data == -1 or not a.async_bank,
-     "A8 (multi-GPU: the async bank under a mesh)"),
-    ("mesh_model", lambda a: a.mesh_model == 1 or not a.async_bank,
-     "A8 (multi-GPU: the async bank under a mesh)"),
-    ("barrier_timeout_s", 300.0, "A8 (multi-GPU: the multi-host failure agreement)"),
-    ("straggler_threshold", 0.25, "A8 (multi-GPU: straggler detection)"),
-    ("straggler_patience", 5, "A8 (multi-GPU: straggler detection)"),
-    ("ckpt_format", ("auto", "replicated"), "A8 (multi-GPU: sharded checkpoints)"),
+    ("straggler_threshold", 0.25, "A9 (obs and telemetry: straggler detection)"),
+    ("straggler_patience", 5, "A9 (obs and telemetry: straggler detection)"),
     ("auto_tune", False, "A9 (perf/planner.py)"),
     ("profile_dir", "", "A9 (obs and telemetry)"),
     ("profile_steps", "", "A9 (obs and telemetry)"),
@@ -216,15 +208,18 @@ def add_train_args(p: argparse.ArgumentParser) -> None:
                         "installed; the first signal checkpoints and exits 0, "
                         "a second kills)")
     p.add_argument("--barrier_timeout_s", type=float, default=300.0,
-                   help="not ported (A8): the default only")
+                   help="under --distributed: seconds a guarded barrier, and every "
+                        "collective, waits for a peer before the survivors write "
+                        "PEER_LOST.json, dump the flight recorder and exit 75 "
+                        "(<= 0: no guard, collectives wait 600 s)")
     p.add_argument("--straggler_threshold", type=float, default=0.25,
-                   help="not ported (A8): the default only")
+                   help="not ported (A9): the default only")
     p.add_argument("--straggler_patience", type=int, default=5,
-                   help="not ported (A8): the default only")
+                   help="not ported (A9): the default only")
     p.add_argument("--ckpt_format", default="auto", choices=["auto", "sharded", "replicated"],
-                   help="checkpoint format: 'auto' and 'replicated' are the "
-                        "port's one format (rank 0 writes the whole state); "
-                        "'sharded' is not ported (A8)")
+                   help="checkpoint format: 'sharded' (every rank writes its own shards, "
+                        "a COMMIT marker publishes), 'replicated' (rank 0 writes the "
+                        "whole state), 'auto' (sharded under several ranks)")
     p.add_argument("--profile_dir", default="", help="not ported (A9): refused")
     p.add_argument("--profile_steps", default="", help="not ported (A9): refused")
     p.add_argument("--profile_on_anomaly", action="store_true",
@@ -244,13 +239,9 @@ def check_ported(args: argparse.Namespace, rows=REFUSED) -> None:
     set to a value the port does not implement."""
     for dest, accepted, item in rows:
         value = getattr(args, dest)
-        flag = f"--{dest}={value!r}"
-        if callable(accepted):
-            ok, flag = accepted(args), flag + " with --async_bank"
-        else:
-            ok = value in accepted if isinstance(accepted, tuple) else value == accepted
+        ok = value in accepted if isinstance(accepted, tuple) else value == accepted
         if not ok:
-            raise NotPortedError(f"{flag} is not ported; ROADMAP {item}")
+            raise NotPortedError(f"--{dest}={value!r} is not ported; ROADMAP {item}")
 
 
 def maybe_init_distributed(args: argparse.Namespace) -> None:
@@ -258,12 +249,21 @@ def maybe_init_distributed(args: argparse.Namespace) -> None:
     from the torch launcher's environment (`torchrun`; strict: a rank that
     cannot join raises rather than train alone) with NCCL for a CUDA
     device and gloo for the CPU, and make a bare `--device cuda` this
-    rank's card, `cuda:LOCAL_RANK`."""
+    rank's card, `cuda:LOCAL_RANK`. Every collective's timeout is
+    --barrier_timeout_s when it is above 0 (a wedged peer then surfaces
+    as an error the failure agreement answers, cli/train.py). A group
+    the caller joined before is kept as it is."""
     if not args.distributed:
         return
-    from mgproto_tpu_torch.parallel.mesh import initialize_distributed, local_device
+    from mgproto_tpu_torch.parallel.mesh import (
+        DEFAULT_TIMEOUT_S,
+        initialize_distributed,
+        local_device,
+    )
 
-    initialize_distributed(device=local_device(args.device), strict=True)
+    timeout = getattr(args, "barrier_timeout_s", 0.0)
+    initialize_distributed(device=local_device(args.device), strict=True,
+                           timeout_s=timeout if timeout and timeout > 0 else DEFAULT_TIMEOUT_S)
     args.device = str(local_device(args.device))
 
 

@@ -5,7 +5,8 @@ mgproto_tpu/cli/evaluate.py).
         [--checkpoint auto|<path>] [--ood_score sum|max|paper] [--device cuda]
     torchrun --nproc_per_node 2 -m mgproto_tpu_torch.cli.evaluate --distributed ...
 
-Restores the checkpoint (the newest in --model_dir by default) after
+Restores the checkpoint (the newest in --model_dir by default; replicated,
+or sharded by any number of ranks and committed) after
 adopting its training settings, runs the test pass (with the OoD sets when
 --ood_dir is given) and prints the JAX CLI's JSON line: the checkpoint,
 the accuracy and the pass's results. With --distributed each rank

@@ -5,7 +5,8 @@ mgproto_tpu/cli/export.py; the artifact format is engine/export.py's).
         [--checkpoint auto|<path>] [--calibrate --test_dir ...] [--explain] \
         [--static_batch N] [--device cuda]
 
-Restores the checkpoint (the newest in --model_dir by default) after
+Restores the checkpoint (the newest in --model_dir by default; replicated,
+or sharded by any number of ranks and committed) after
 adopting its training settings, as the JAX main does; `--calibrate` embeds
 the calibration from the --test_dir loader (serving/calibration.py
 `calibrate_from_config`); `--explain` embeds the explanation table, with

@@ -4,7 +4,7 @@
         [--metric all] [--checkpoint auto|<path>] [--export_csv p.csv] [--device cuda]
 
 Reference: eval_consistency.py, eval_stability.py, eval_purity.py. Restores
-a checkpoint, runs the CUB test split once through the gt-class activation
+a checkpoint (replicated, or sharded by any number of ranks), runs the CUB test split once through the gt-class activation
 collector (one clean pass shared by every metric; the stability metric adds
 one noisy pass), computes the selected metrics and, on request, writes the
 per-prototype patch CSV.

@@ -20,17 +20,28 @@ most `max_rollbacks` times. SIGTERM/SIGINT (handlers installed by `main`)
 or the chaos drill's simulated preemption let the step in flight finish,
 save a `preempt` checkpoint with the position in the epoch, write
 PREEMPTED.json and return; `resume="auto"` then skips the batches already
-applied and continues bit for bit. The JAX CLI's telemetry, autotuning,
-profiler and guarded barriers are not ported (`cli/common.py` refuses their
-flags).
+applied and continues bit for bit. A fresh flight recorder records the
+rollbacks and preemptions and dumps into `model_dir/telemetry` on each of
+them and on a crash. The JAX CLI's telemetry, autotuning, profiler and
+straggler detection are not ported (`cli/common.py` refuses their flags).
 
 Several ranks (`--distributed` under `torchrun --nproc_per_node N`, the
 mesh from --mesh_data/--mesh_model): training always runs through
 parallel/trainer.py's ShardedTrainer (one rank: the Trainer's step), each
 rank reads its loader shard, and the test pass and the push gather across
-the ranks. Rank 0 writes the checkpoints, push_provenance.json, the
-rendered pictures and the preemption marker; the other ranks log to
-host-tagged files (`train.log.h1`, `metrics.jsonl.h1`).
+the ranks. Checkpoints are sharded by default (`ckpt_format`, each rank
+writes its own shards, a COMMIT marker publishes); rank 0 writes the
+rest: push_provenance.json, the rendered pictures and the preemption
+marker; the other ranks log to host-tagged files (`train.log.h1`,
+`metrics.jsonl.h1`). Pod fault tolerance: `barrier_timeout_s` > 0 arms
+the guarded barrier over `model_dir` (parallel/multihost.py; its session
+from MGPROTO_BARRIER_SESSION or rank 0's clock), and the process group's
+collectives time out with it too. A peer that dies (MGPROTO_CHAOS_
+KILL_HOST_AT: exit 86) or hangs (_WEDGE_HOST_AT) shows as a barrier
+timeout or a collective's error; either way the survivors agree on the
+lost ranks, write PEER_LOST.json, dump the flight recorder and `main`
+exits 75, so a launcher relaunches every rank with `--resume auto` from
+the last committed checkpoint.
 
     python -m mgproto_tpu_torch.cli.train --train_dir ... --test_dir ... --push_dir ...
     torchrun --nproc_per_node 2 -m mgproto_tpu_torch.cli.train --distributed ...
@@ -43,6 +54,7 @@ import contextlib
 import itertools
 import json
 import os
+import sys
 from typing import Optional, Tuple, Union
 
 import numpy as np
@@ -60,11 +72,14 @@ from mgproto_tpu_torch.core.state import TrainState
 from mgproto_tpu_torch.data import build_pipelines
 from mgproto_tpu_torch.engine.evaluate import evaluate, evaluate_with_ood
 from mgproto_tpu_torch.engine.push import provenance_dict, push_prototypes, render_prototypes
+from mgproto_tpu_torch.obs.flightrec import FlightRecorder, set_recorder
+from mgproto_tpu_torch.parallel import multihost
 from mgproto_tpu_torch.parallel.mesh import leave_process_group, world
 from mgproto_tpu_torch.parallel.multihost import is_primary_host
 from mgproto_tpu_torch.parallel.trainer import ShardedTrainer
 from mgproto_tpu_torch.perf.precision import policy_meta
 from mgproto_tpu_torch.resilience import chaos as chaos_mod
+from mgproto_tpu_torch.resilience import metrics as res_metrics
 from mgproto_tpu_torch.resilience import preemption
 from mgproto_tpu_torch.resilience.guard import DivergenceError, EpochGuard
 from mgproto_tpu_torch.utils.checkpoint import (
@@ -123,6 +138,8 @@ def run_training(
     max_rollbacks: int = 2,
     keep_best: int = 1,
     chaos: Optional[chaos_mod.ChaosState] = None,
+    ckpt_format: str = "auto",
+    barrier_timeout_s: float = 300.0,
 ) -> Tuple[TrainState, float]:
     """Run the whole schedule of `cfg`; returns (final state, last test
     accuracy).
@@ -147,7 +164,15 @@ def run_training(
     DivergenceError propagates). `chaos` (a `resilience.chaos.ChaosState`)
     injects the drills; its one-shot events do not fire again in a replay.
     A preemption (`resilience.preemption.get_handler()`) returns early
-    after the `preempt` save."""
+    after the `preempt` save.
+
+    `ckpt_format`: "sharded", "replicated" or "auto" (sharded under
+    several ranks). `barrier_timeout_s` > 0 arms the guarded barrier under
+    several ranks: a lost peer raises `BarrierTimeoutError` out of here
+    after the survivor wrote PEER_LOST.json and dumped the flight
+    recorder (`main` exits 75 on it)."""
+    if ckpt_format not in ("auto", "sharded", "replicated"):
+        raise ValueError(f"unknown ckpt_format {ckpt_format!r}")
     resume_path = None
     if resume == "auto":
         resume_path = find_latest_checkpoint(cfg.model_dir)
@@ -165,9 +190,18 @@ def run_training(
     handler.reset()
     rank, nranks = world()
     primary = is_primary_host()
+    if primary:
+        # this incarnation owns the last one's failure marker: a stale one
+        # would make a relaunching launcher loop
+        with contextlib.suppress(OSError):
+            os.unlink(os.path.join(cfg.model_dir, multihost.PEER_LOST_FILE))
     # run-wide files are rank 0's; the others log under host-tagged names
     host_tag = "" if primary else f".h{rank}"
     with contextlib.ExitStack() as stack:  # closes whatever was opened, on every path
+        recorder = FlightRecorder(dump_dir=os.path.join(cfg.model_dir, "telemetry"))
+        stack.callback(set_recorder, set_recorder(recorder))
+        if chaos is not None:  # the checkpoint reads the process-active state
+            stack.callback(chaos_mod.set_active, chaos_mod.set_active(chaos))
         log = Logger(os.path.join(cfg.model_dir, f"train.log{host_tag}"))
         stack.callback(log.close)
         for note in adoption_notes:
@@ -179,6 +213,7 @@ def run_training(
         for loader in (train_loader, push_loader, test_loader, *ood_loaders):
             stack.callback(loader.close)
         trainer = ShardedTrainer(cfg, len(train_loader), device=device)
+        trainer.ckpt_sharded = {"auto": None, "sharded": True, "replicated": False}[ckpt_format]
         backend = (torch.distributed.get_backend() if torch.distributed.is_initialized()
                    else "none")
         log(f"device: {trainer.device}  steps/epoch: {trainer.steps_per_epoch}  "
@@ -208,65 +243,90 @@ def run_training(
                     # the async bank pipeline, resolved (one-step-stale EM when on)
                     "async_bank": trainer.async_bank}
         img_dir = os.path.join(cfg.model_dir, "img") if render_push else None
-        accu = 0.0
-        rollbacks = 0
-        log("start training")
-        epoch = start_epoch
-        while epoch < cfg.schedule.num_train_epochs:
-            guard = EpochGuard(max_bad_steps=max_bad_steps, check_every=divergence_check_every,
-                               chaos=chaos, preemption=handler, already_done=skip,
-                               multihost=nranks > 1)
-            if flags is None:
-                flags = trainer.epoch_flags(state, epoch)
-            try:
-                state, accu = _run_epoch(cfg, trainer, state, epoch, train_loader, test_loader,
-                                         push_loader, ood_loaders, log, metrics, run_meta,
-                                         img_dir, target_accu, guard, skip, flags)
-            except DivergenceError as e:
-                rollbacks += 1
-                if rollbacks > max_rollbacks:
-                    log(f"rollback budget exhausted ({max_rollbacks}); giving up")
-                    raise
-                last_good = find_latest_checkpoint(cfg.model_dir)
-                if last_good is None:
-                    raise RuntimeError(f"{e}; no checkpoint to roll back to: adjust the config "
-                                       "(lower lr, check the data) and restart") from e
-                log(f"{e}; rolling back to {last_good} ({rollbacks}/{max_rollbacks})")
-                trainer.reset_bank_pipeline()  # the held bank phase belongs to the lost state
-                state, epoch, skip, flags = _restore(trainer, state, last_good, log)
-                continue
-            if guard.preempted:
-                # the step in flight finished in train_epoch: save the whole
-                # state with its position in the epoch, unconditionally
-                meta = {**run_meta, "epoch": epoch, "stage": "preempt", "accuracy": accu,
-                        "batch_in_epoch": guard.batches_done, "reason": handler.reason or "",
-                        "epoch_flags": flags}
-                path = trainer.save(cfg.model_dir, state,
-                                    checkpoint_name(epoch, "preempt", max(accu, 0.0)),
-                                    metadata=meta)
-                if primary:
-                    preemption.write_marker(cfg.model_dir, path, reason=handler.reason or "",
-                                            extra={"epoch": epoch,
-                                                   "batch_in_epoch": guard.batches_done})
-                log(f"preempted ({handler.reason}); saved {path} at epoch {epoch} batch "
-                    f"{guard.batches_done}; resume with --resume auto")
-                return state, accu
-            skip, flags = 0, None
-            if keep_last > 0 and primary:
-                apply_retention(cfg.model_dir, keep_last, keep_best)
-            epoch += 1
+        if nranks > 1 and barrier_timeout_s and barrier_timeout_s > 0:
+            # armed after every fallible set-up step; cleared on every path
+            multihost.configure_barrier(cfg.model_dir, barrier_timeout_s)
+            stack.callback(multihost.clear_barrier)
+        try:
+            accu = 0.0
+            rollbacks = 0
+            log("start training")
+            epoch = start_epoch
+            while epoch < cfg.schedule.num_train_epochs:
+                guard = EpochGuard(max_bad_steps=max_bad_steps, check_every=divergence_check_every,
+                                   chaos=chaos, preemption=handler, already_done=skip,
+                                   multihost=nranks > 1)
+                if flags is None:
+                    flags = trainer.epoch_flags(state, epoch)
+                try:
+                    state, accu = _run_epoch(cfg, trainer, state, epoch, train_loader, test_loader,
+                                             push_loader, ood_loaders, log, metrics, run_meta,
+                                             img_dir, target_accu, guard, skip, flags)
+                except DivergenceError as e:
+                    rollbacks += 1
+                    res_metrics.counter(res_metrics.ROLLBACKS).inc()
+                    recorder.record("rollback", epoch=epoch, error=str(e))
+                    dumped = recorder.maybe_dump("divergence_rollback")
+                    if dumped:
+                        log(f"flight recorder dumped to {dumped}")
+                    if rollbacks > max_rollbacks:
+                        log(f"rollback budget exhausted ({max_rollbacks}); giving up")
+                        raise
+                    last_good = find_latest_checkpoint(cfg.model_dir)
+                    if last_good is None:
+                        raise RuntimeError(f"{e}; no checkpoint to roll back to: adjust the config "
+                                           "(lower lr, check the data) and restart") from e
+                    log(f"{e}; rolling back to {last_good} ({rollbacks}/{max_rollbacks})")
+                    trainer.reset_bank_pipeline()  # the held bank phase belongs to the lost state
+                    state, epoch, skip, flags = _restore(trainer, state, last_good, log)
+                    continue
+                if guard.preempted:
+                    # the step in flight finished in train_epoch: save the whole
+                    # state with its position in the epoch, unconditionally
+                    meta = {**run_meta, "epoch": epoch, "stage": "preempt", "accuracy": accu,
+                            "batch_in_epoch": guard.batches_done, "reason": handler.reason or "",
+                            "epoch_flags": flags}
+                    path = trainer.save(cfg.model_dir, state,
+                                        checkpoint_name(epoch, "preempt", max(accu, 0.0)),
+                                        metadata=meta)
+                    res_metrics.counter(res_metrics.PREEMPTION_SAVES).inc()
+                    if primary:
+                        preemption.write_marker(cfg.model_dir, path, reason=handler.reason or "",
+                                                extra={"epoch": epoch,
+                                                       "batch_in_epoch": guard.batches_done})
+                    recorder.record("preemption", epoch=epoch, batch=guard.batches_done,
+                                    reason=handler.reason or "")
+                    recorder.maybe_dump("preemption")
+                    log(f"preempted ({handler.reason}); saved {path} at epoch {epoch} batch "
+                        f"{guard.batches_done}; resume with --resume auto")
+                    return state, accu
+                skip, flags = 0, None
+                if keep_last > 0 and primary:
+                    apply_retention(cfg.model_dir, keep_last, keep_best)
+                epoch += 1
 
-        last_epoch = max(cfg.schedule.num_train_epochs - 1, start_epoch)
-        top_m = min(cfg.schedule.prune_top_m, cfg.model.prototypes_per_class)
-        state.gmm = prune_top_m(state.gmm, top_m, renormalize=cfg.schedule.prune_renormalize)
-        with timed_span(log, "prune test") as span:
-            accu, test_results = _test(trainer, state, test_loader, ood_loaders, log)
-        metrics.write(state.step, {"epoch": last_epoch, "stage": "prune", "test_s": span["s"],
-                                   **test_results})
-        save_state_w_condition(cfg.model_dir, state, last_epoch, "prune", accu, target_accu,
-                               metadata=run_meta, save=trainer.save)
-        log("training done")
-        return state, accu
+            last_epoch = max(cfg.schedule.num_train_epochs - 1, start_epoch)
+            top_m = min(cfg.schedule.prune_top_m, cfg.model.prototypes_per_class)
+            state.gmm = prune_top_m(state.gmm, top_m, renormalize=cfg.schedule.prune_renormalize)
+            with timed_span(log, "prune test") as span:
+                accu, test_results = _test(trainer, state, test_loader, ood_loaders, log)
+            metrics.write(state.step, {"epoch": last_epoch, "stage": "prune", "test_s": span["s"],
+                                       **test_results})
+            save_state_w_condition(cfg.model_dir, state, last_epoch, "prune", accu, target_accu,
+                                   metadata=run_meta, save=trainer.save)
+            log("training done")
+            return state, accu
+        except BaseException as e:
+            if isinstance(e, Exception) and not isinstance(e, multihost.BarrierTimeoutError):
+                # a collective's error: a lost peer, when the ranks cannot all
+                # meet at the failure agreement's barrier
+                lost = multihost.agree_on_failure(e)
+                if lost is not None:
+                    log(f"peer lost: {lost}")
+                    raise lost from e
+            if not isinstance(e, multihost.BarrierTimeoutError):
+                recorder.maybe_dump("crash")
+            raise
 
 
 def _run_epoch(cfg, trainer, state, epoch, train_loader, test_loader, push_loader,
@@ -336,9 +396,18 @@ CHAOS_ENV_HELP = """\
 chaos drills (environment; all off by default):
   MGPROTO_CHAOS_NAN_AT_STEP     NaN inputs at this global step
   MGPROTO_CHAOS_PREEMPT_AT_STEP a simulated SIGTERM at this global step
+  MGPROTO_CHAOS_CKPT_FAILS      fail the first N checkpoint saves (each retried)
+  MGPROTO_CHAOS_KILL_HOST_AT    this rank dies hard (exit 86) when the batch of
+                                this global step is drawn (the survivors exit 75)
+  MGPROTO_CHAOS_WEDGE_HOST_AT   the same, but the rank hangs
+  MGPROTO_CHAOS_HOST_INDEX      restrict the kill and the wedge to this rank
+                                (-1: any rank whose environment carries them)
+  MGPROTO_BARRIER_SESSION       this incarnation's guarded-barrier namespace
+                                (default: rank 0's clock, broadcast)
 the serving knobs (MGPROTO_CHAOS_SEED, MGPROTO_CHAOS_SERVE_*,
 MGPROTO_CHAOS_TENANT_STORM_AT and _BAD_SWAP) are read by cli.serve; the
-JAX package's other MGPROTO_CHAOS_* knobs are refused (not ported)
+JAX package's loader knobs and MGPROTO_CHAOS_SLOW_HOST_MS are refused (not
+ported)
 """
 
 
@@ -362,7 +431,16 @@ def main(argv: Optional[list] = None) -> None:
             divergence_check_every=args.divergence_check_every,
             max_rollbacks=args.max_rollbacks, keep_best=args.keep_best,
             chaos=chaos_mod.ChaosState(plan) if plan else None,
+            ckpt_format=args.ckpt_format, barrier_timeout_s=args.barrier_timeout_s,
         )
+    except multihost.BarrierTimeoutError as e:
+        # the marker and the dump are on disk; exit hard with the status a
+        # launcher relaunches on: leaving the process group would wait for
+        # the peer that is gone
+        sys.stderr.write(f"peer lost: {e}\n")
+        sys.stderr.flush()
+        sys.stdout.flush()
+        os._exit(multihost.PEER_LOST_EXIT_CODE)
     finally:
         leave_process_group()
     # a preempted run exits 0: the checkpoint and the marker let the next

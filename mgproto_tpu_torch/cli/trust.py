@@ -18,11 +18,16 @@ initial TrainState (the tests carry JAX's PRNGKey state across). The
 matrix exits 0 when every gate of `cli/telemetry.py::trust_gates` passes,
 1 otherwise, after printing JAX's one-line summary.
 
+    python -m mgproto_tpu_torch.cli.trust interp --cub_root CUB --model_dir run/ \
+        [--checkpoint auto] [model flags] --out interp.json
+    torchrun --nproc_per_node 2 -m mgproto_tpu_torch.cli.trust interp --distributed ...
+
 `--device` is the port's flag (default cuda). The training flags that the
-port refuses elsewhere are refused here too. `interp` (sharded
-consistency, stability and purity) needs the JAX package's
-trust/interp_sharded.py and ShardedTrainer, which come with multi-GPU: it
-raises NotPortedError naming A8.
+port refuses elsewhere are refused here too. `interp` scores consistency,
+stability and purity of a checkpoint on a CUB-layout parts tree through
+trust/interp_sharded.py on a ShardedTrainer (one process, or the ranks of
+--distributed with --mesh_data/--mesh_model), and writes JAX's
+`trust_interp` record (rank 0), which `report --interp` merges.
 """
 
 from __future__ import annotations
@@ -277,11 +282,75 @@ def matrix_main(argv=None) -> int:
 
 # -------------------------------------------------------------------- interp
 def interp_main(argv=None) -> int:
-    from mgproto_tpu_torch.cli.common import NotPortedError
+    from mgproto_tpu_torch.cli.common import (
+        add_train_args,
+        check_ported,
+        config_from_args,
+        maybe_init_distributed,
+    )
 
-    raise NotPortedError("trust interp needs the sharded interpretability evaluator "
-                         "(trust/interp_sharded.py) and ShardedTrainer; ROADMAP A8 "
-                         "(multi-GPU), A item 5")
+    p = argparse.ArgumentParser(
+        prog="python -m mgproto_tpu_torch.cli.trust interp",
+        description="Sharded consistency/stability/purity over a checkpoint and a "
+                    "CUB-layout parts tree (trust/interp_sharded.py)")
+    add_train_args(p)
+    p.add_argument("--cub_root", required=True,
+                   help="CUB_200_2011-layout root (images.txt, parts/)")
+    p.add_argument("--checkpoint", default="auto")
+    p.add_argument("--half_size", type=int, default=36)
+    p.add_argument("--purity_half_size", type=int, default=16)
+    p.add_argument("--top_k", type=int, default=10)
+    p.add_argument("--noise_seed", type=int, default=0)
+    p.add_argument("--out", default="trust_interp.json")
+    args = p.parse_args(argv)
+    check_ported(args)
+    cfg = config_from_args(args)
+    maybe_init_distributed(args)
+    from mgproto_tpu_torch.cli.interpret import build_eval_loader
+    from mgproto_tpu_torch.data.cub_parts import CubParts
+    from mgproto_tpu_torch.numerics import resolve_device
+    from mgproto_tpu_torch.parallel.mesh import leave_process_group
+    from mgproto_tpu_torch.parallel.multihost import is_primary_host
+    from mgproto_tpu_torch.parallel.trainer import ShardedTrainer
+    from mgproto_tpu_torch.trust.interp_sharded import interp_metrics_sharded
+    from mgproto_tpu_torch.utils.checkpoint import (
+        adopt_checkpoint_train_config,
+        latest_checkpoint,
+    )
+
+    try:
+        if resolve_device(args.device).type == "cuda":
+            from mgproto_tpu_torch.ops import _build
+
+            _build.build_all(("bn_epilogue",))  # the trunk's tails; the density is plain
+        path = latest_checkpoint(cfg.model_dir) if args.checkpoint == "auto" else args.checkpoint
+        if not path:
+            raise FileNotFoundError(f"no checkpoint found in {cfg.model_dir}")
+        cfg = adopt_checkpoint_train_config(cfg, path, log=print if is_primary_host() else None)
+        trainer = ShardedTrainer(cfg, steps_per_epoch=1, device=args.device)
+        state = trainer.restore(path)
+        loaders = []
+
+        def batches():  # a fresh iterator of global batches per pass, every rank alike
+            loaders.append(build_eval_loader(cfg, args.cub_root))
+            return iter(loaders[-1])
+
+        try:
+            metrics = interp_metrics_sharded(
+                trainer, state, batches, CubParts(args.cub_root), cfg.model.num_classes,
+                consistency_half_size=args.half_size, purity_half_size=args.purity_half_size,
+                top_k=args.top_k, noise_seed=args.noise_seed)
+        finally:
+            for loader in loaders:
+                loader.close()
+        record = {"trust_interp": True, "checkpoint": path, **metrics}
+        if is_primary_host():
+            with open(args.out, "w") as f:
+                json.dump(record, f, indent=2, sort_keys=True)
+            print(json.dumps(record))
+    finally:
+        leave_process_group()
+    return 0
 
 
 # -------------------------------------------------------------------- report
@@ -334,6 +403,7 @@ def main(argv: Optional[list] = None) -> Optional[int]:
     print("usage: python -m mgproto_tpu_torch.cli.trust {matrix|interp|report} [options]\n"
           "  matrix --synthetic --device cpu --out report.json\n"
           "  matrix --artifact M.mgproto --test_dir D --ood_dir O\n"
+          "  interp --cub_root CUB --model_dir RUN --device cpu --out interp.json\n"
           "  report report.json")
     return 2
 

@@ -205,15 +205,21 @@ def gt_class_log_densities(
     proto_map, _ = model(images)
     b, h, w, d = proto_map.shape
     feat = l2_normalize(proto_map, dim=-1)
-    f = feat.reshape(b, h * w, d)
     cls = labels.long().clamp(0, gmm.num_classes - 1)
+    lp = row_class_log_densities(feat.reshape(b, h * w, d), gmm, cls)
+    return lp.reshape(b, gmm.k_per_class, h, w), feat
+
+
+def row_class_log_densities(f: torch.Tensor, gmm: GMMState, cls: torch.Tensor) -> torch.Tensor:
+    """[B, K, HW] log-densities of each row's patches `f` [B, HW, d] under
+    the K prototypes of its class `cls` [B] (an index into `gmm`)."""
+    b, _, d = f.shape
     k = gmm.k_per_class
     m_scaled, inv_var, const = precompute_diag_gaussian(
         gmm.means[cls], gmm.sigmas[cls], DEFAULT_SIGMA_EPS)
     m_scaled, inv_var = m_scaled.reshape(b, k, d), inv_var.reshape(b, k, d)
-    lp = (const.reshape(b, k, 1) + m_scaled @ f.transpose(1, 2)
-          - 0.5 * (inv_var @ (f * f).transpose(1, 2)))  # [B, K, HW]
-    return lp.reshape(b, k, h, w), feat
+    return (const.reshape(b, k, 1) + m_scaled @ f.transpose(1, 2)
+            - 0.5 * (inv_var @ (f * f).transpose(1, 2)))
 
 
 def _fused_pool(

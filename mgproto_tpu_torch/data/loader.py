@@ -72,7 +72,7 @@ from typing import Iterator, Optional, Tuple
 import numpy as np
 
 from mgproto_tpu_torch.serving import metrics as _m
-from mgproto_tpu_torch.utils.retry import backoff_delays
+from mgproto_tpu_torch.resilience.retry import backoff_delays
 
 # per-sample retry budget: attempts = retries + 1, backoff base * 2^k with
 # deterministic jitter (seeded by sample identity, so a run with failing

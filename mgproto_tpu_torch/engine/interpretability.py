@@ -55,18 +55,29 @@ def perturb_images(
     return images + noise
 
 
+def gt_act(model, gmm, images: torch.Tensor, labels: torch.Tensor) -> torch.Tensor:
+    """[B, K, h, w] exp-density maps of each image's ground-truth class's
+    prototypes (the JAX `make_gt_act_fn`'s function)."""
+    lp, _ = gt_class_log_densities(model, gmm, images, labels)
+    return torch.exp(lp)
+
+
 def collect_gt_activations(
     trainer,
     state,
     batches,
     use_noise: bool = False,
     noise_seed: int = 0,
+    act_fn=None,
 ) -> Activations:
     """Run the test set; returns (acts [N, K, h, w] on the trainer's device,
     targets [N], img_ids [N] numpy). `batches` yields (normalized images,
     labels, img_ids) host batches; the noise is drawn on the host over each
     whole batch, pad rows included, in loader order (as the JAX package
-    draws it); padded rows (label -1) are dropped after collection."""
+    draws it); padded rows (label -1) are dropped after collection.
+    `act_fn(model, gmm, images, labels)` computes a batch's maps (default
+    `gt_act`; trust/interp_sharded.py passes the class-sharded one)."""
+    act_fn = gt_act if act_fn is None else act_fn
     rng = np.random.default_rng(noise_seed)
     accs, targets, ids = [], [], []
     with eval_mode(state.model) as model:
@@ -77,8 +88,7 @@ def collect_gt_activations(
                 images = perturb_images(images, rng)
             x = to_device_images(images, trainer.device)
             lbl = torch.from_numpy(np.maximum(labels, 0).astype(np.int64)).to(trainer.device)
-            lp, _ = gt_class_log_densities(model, state.gmm, x, lbl)
-            accs.append(torch.exp(lp))
+            accs.append(act_fn(model, state.gmm, x, lbl))
             targets.append(labels)
             ids.append(img_ids)
     target, img_id = np.concatenate(targets), np.concatenate(ids)

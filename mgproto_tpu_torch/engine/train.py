@@ -34,7 +34,13 @@ for the bank's completion event before the step returns, so the metrics,
 the next copy and everything after the epoch read a finished bank.
 `train_epoch` resets the pipeline at its start and flushes it at its end
 and on a preemption; a `DivergenceError` leaves held work that the next
-reset discards.
+reset discards. Under a mesh (parallel/trainer.py) the trunk holds its own
+rows' enqueue candidates, and the bank phase issues its collectives (the
+gather of the global batch's candidates, EM's sums over the model group)
+on process groups of its own (`parallel/collectives.py::bank_groups`)
+from inside the bank stream, so gloo's staging copies of CUDA tensors
+wait for the bank stream's kernels and the trunk's collectives never
+queue behind them.
 
 Batch intake (the JAX `put_batch`): uint8 images stay uint8 on the wire.
 On CUDA a host batch is staged in pinned memory and copied on a dedicated
@@ -52,7 +58,6 @@ refused. Each put records timing events around its copies, so
 
 from __future__ import annotations
 
-import os
 import time
 from typing import Dict, Iterable, List, NamedTuple, Optional, Union
 
@@ -75,7 +80,7 @@ from mgproto_tpu_torch.parallel.collectives import (
     group_size,
     sum_tensors,
 )
-from mgproto_tpu_torch.parallel.multihost import barrier, fetch_replicated, is_primary_host
+from mgproto_tpu_torch.parallel.multihost import fetch_replicated, heartbeat_tick
 from mgproto_tpu_torch.perf.precision import resolve_policy
 from mgproto_tpu_torch.utils.checkpoint import restore_checkpoint, save_checkpoint
 
@@ -186,6 +191,13 @@ class Trainer:
         self.mesh = None
         self._world_group = None
         self._class_mesh = None
+        # the async bank phase's own groups under a mesh (bank_groups): the
+        # world for the candidates' gather, the mesh when it splits classes
+        self._bank_world = None
+        self._bank_class_mesh = None
+        # checkpoint format: None = sharded under several ranks (run_training
+        # sets it from --ckpt_format)
+        self.ckpt_sharded: Optional[bool] = None
 
     def init_state(self, seed: int = 0, for_restore: bool = False) -> TrainState:
         """A fresh state from `seed`; `for_restore=True` builds a restore
@@ -268,7 +280,8 @@ class Trainer:
         c = self.cfg.loss
         loss = c.crs_ent * ce + c.mine * mine + c.aux * aux
         acc = (logits[..., 0].argmax(-1) == labels).float().mean()
-        enq = tuple(all_gather(t, 0, world) for t in enq)
+        if not self.async_bank:  # the async bank phase gathers on its own groups
+            enq = tuple(all_gather(t, 0, world) for t in enq)
         if n == 1:
             return loss, (enq, ce, mine, aux, acc)
         return loss / n, (enq, ce / n, mine / n, aux, acc / n)
@@ -289,11 +302,7 @@ class Trainer:
     def full_mem_ratio(self, mem) -> torch.Tensor:
         """The fraction of all classes whose queue is full (under a mesh
         that splits the classes, summed over the model group's slabs)."""
-        full = (mem.length == mem.capacity).float()
-        if self._class_mesh is None:
-            return full.mean()
-        m = self._class_mesh
-        return all_reduce_sum(full.sum(), m.model_group) / (mem.num_classes * m.model)
+        return _full_ratio(mem, self._class_mesh)
 
     def class_slab(self):
         """[c0, c1): the classes this trainer's state holds."""
@@ -318,16 +327,19 @@ class Trainer:
     def save(self, ckpt_dir: str, state: TrainState, name: str,
              metadata: Optional[dict] = None) -> str:
         """Write `state` as the checkpoint `ckpt_dir/name`
-        (utils/checkpoint.py). Under a mesh every rank calls it: the state
-        is gathered (`full_state`), rank 0 writes it, and every rank
-        passes a barrier after the write."""
-        if self._world_group is None:
-            return save_checkpoint(ckpt_dir, state, name, metadata=metadata)
-        full = self.full_state(state)
-        if is_primary_host():
-            save_checkpoint(ckpt_dir, full, name, metadata=metadata)
-        barrier()
-        return os.path.abspath(os.path.join(ckpt_dir, name))
+        (utils/checkpoint.py) in the format `ckpt_sharded` names (None:
+        sharded under several ranks). Under a mesh every rank calls it:
+        sharded, each rank writes what it owns of its slab state;
+        replicated, the state is gathered (`full_state`) and rank 0
+        writes it."""
+        sharded = self.ckpt_sharded
+        if sharded is None:
+            sharded = self._world_group is not None
+        if sharded:
+            return save_checkpoint(ckpt_dir, state, name, metadata=metadata, sharded=True,
+                                   class_mesh=self._class_mesh)
+        return save_checkpoint(ckpt_dir, self.full_state(state), name, metadata=metadata,
+                               sharded=False)
 
     def restore(self, path: str, state: TrainState) -> TrainState:
         """`state` restored from the checkpoint at `path`
@@ -461,11 +473,15 @@ class Trainer:
         (feats, classes, valid), step0, update_gmm, finite = held
 
         def bank():
+            enq = (feats, classes, valid)
+            if self._bank_world is not None:  # the global batch's candidates
+                enq = tuple(all_gather(t, 0, self._bank_world) for t in enq)
+            mesh = self._bank_class_mesh
             state.gmm, state.memory, aux, _ = bank_update(
                 state.gmm, state.memory, state.mean_opt, self.em_cfg,
-                feats, classes, valid, step0, update_gmm, finite,
+                *enq, step0, update_gmm, finite, mesh=mesh,
             )
-            return aux, self.full_mem_ratio(state.memory)
+            return aux, _full_ratio(state.memory, mesh)
 
         stream = self._bank_stream
         if stream is None:
@@ -570,6 +586,7 @@ class Trainer:
                     break
                 wait_s = time.perf_counter() - t_fetch
                 state, last = self.train_step(state, batch, None, **flags)
+                heartbeat_tick()  # the guarded barrier's liveness file, if armed
                 now = time.perf_counter()
                 # the step read the device, so the copy is done: no wait here
                 self.step_log.append(StepRecord(wait_s, now - t_prev, batch.image_bytes,
@@ -603,6 +620,15 @@ class Trainer:
             last = last._replace(em_active=em_max, full_mem_ratio=fm_max,
                                  em_compact_fallback=fb_sum)
         return state, last
+
+
+def _full_ratio(mem, mesh) -> torch.Tensor:
+    """The fraction of all classes whose queue is full; under `mesh` (one
+    that splits the classes) summed over its model group's slabs."""
+    full = (mem.length == mem.capacity).float()
+    if mesh is None:
+        return full.mean()
+    return all_reduce_sum(full.sum(), mesh.model_group) / (mem.num_classes * mesh.model)
 
 
 def _host_tensor(a) -> torch.Tensor:

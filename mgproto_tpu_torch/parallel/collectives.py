@@ -11,7 +11,10 @@ from SPMD partitioning and shard_map's transposes).
     embeddings of the aux loss (engine/train.py).
 
 Each takes a process group (`parallel/mesh.py::Mesh`'s); None, or a group
-of one rank, makes it a no-op, so a single process runs the same code. The
+of one rank, makes it a no-op, so a single process runs the same code.
+`bank_groups` makes the async bank phase's own groups (engine/train.py):
+its collectives run beside the trunk's, and the one host thread that
+issues both fixes each group's order on every rank. The
 backend the group was made with does the work on the tensors' device: a
 collective it cannot do there raises, and nothing moves a tensor to
 another device to get round it. `stats` accumulates the host seconds spent
@@ -22,11 +25,14 @@ it costs one flag test per call.
 
 from __future__ import annotations
 
+import dataclasses
 import time
-from typing import Any, List
+from typing import Any, List, NamedTuple
 
 import torch
 import torch.distributed as dist
+
+from mgproto_tpu_torch.parallel.mesh import Mesh, grid_groups, group_timeout
 
 
 class CollectiveStats:
@@ -152,3 +158,24 @@ def broadcast_tensors(tensors: List[torch.Tensor], src: int = 0, group: Any = No
     with torch.no_grad():
         for t, part in zip(tensors, flat.split([t.numel() for t in tensors])):
             t.copy_(part.view_as(t).to(t.dtype))
+
+
+class BankGroups(NamedTuple):
+    """The async bank phase's process groups: `world` (every rank: the
+    gather of the global batch's enqueue candidates) and `mesh`, the mesh
+    with a model group of its own (EM's sums over the class slabs)."""
+
+    world: Any
+    mesh: Mesh
+
+
+def bank_groups(mesh: Mesh) -> BankGroups:
+    """New process groups for the bank phase of `mesh`'s ranks: every rank
+    calls this together, in the same order (a trainer's constructor).
+    At world size 1, no group."""
+    if mesh.size == 1:
+        return BankGroups(None, mesh)
+    world = dist.new_group(list(range(mesh.size)), timeout=group_timeout())
+    model_group, data_group = grid_groups(mesh.data, mesh.model, mesh.rank)
+    return BankGroups(world, dataclasses.replace(mesh, model_group=model_group,
+                                                 data_group=data_group))

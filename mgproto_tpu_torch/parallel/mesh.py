@@ -18,8 +18,9 @@ devices: rank r sits at data index r // model and model index r % model.
 any device use; `make_mesh` then builds the grid and its process groups.
 The backend is the caller's choice, never switched on a failure: with none
 named it is NCCL for a CUDA device and gloo for the CPU. Every group is
-made with a timeout, so a rank that died leaves its peers with an error in
-their next collective, not a hang.
+made with a timeout (the default group's, which `cli/common.py` ties to
+--barrier_timeout_s), so a rank that died or hangs leaves its peers with
+an error in their next collective, not a wait without end.
 """
 
 from __future__ import annotations
@@ -35,8 +36,10 @@ import torch.distributed as dist
 DATA_AXIS = "data"
 MODEL_AXIS = "model"
 
-# seconds a collective may wait for its peers before it raises
+# seconds a collective may wait for its peers before it raises, unless
+# the caller names its own (cli/common.py: --barrier_timeout_s)
 DEFAULT_TIMEOUT_S = 600.0
+_timeout_s = DEFAULT_TIMEOUT_S  # the default group's, for the groups made after it
 
 _LAUNCHER_ENV = ("RANK", "WORLD_SIZE", "MASTER_ADDR", "MASTER_PORT")
 
@@ -85,6 +88,8 @@ def initialize_distributed(
         raise ValueError("initialize_distributed: init_method needs rank and world_size")
     if torch.device(device).type == "cuda":
         torch.cuda.set_device(local_device(device))
+    global _timeout_s
+    _timeout_s = float(timeout_s)
     dist.init_process_group(
         backend or default_backend(device), init_method=init_method, rank=int(rank),
         world_size=int(world_size), timeout=datetime.timedelta(seconds=float(timeout_s)))
@@ -177,15 +182,18 @@ class Mesh:
         return self.model_index * per, (self.model_index + 1) * per
 
 
-def make_mesh(data: int = -1, model: int = 1, timeout_s: float = DEFAULT_TIMEOUT_S) -> Mesh:
-    """The mesh over every rank of the default group (one rank outside a
-    group). Every rank must call it, in the same order as its peers: each
-    process group is made by all ranks together, with `timeout_s`."""
-    rank, size = world()
-    timeout = datetime.timedelta(seconds=float(timeout_s))
-    data, model = mesh_shape(size, data, model)
-    if size == 1:
-        return Mesh(data, model, rank)
+def group_timeout() -> datetime.timedelta:
+    """The timeout of the groups made after the default one: the default
+    group's own (`initialize_distributed`'s `timeout_s`)."""
+    return datetime.timedelta(seconds=_timeout_s)
+
+
+def grid_groups(data: int, model: int, rank: int, timeout_s: Optional[float] = None):
+    """(model_group, data_group) of `rank` in a [data, model] grid, made
+    as new process groups: every rank calls this together, in the same
+    order (a group of one rank is None)."""
+    timeout = (group_timeout() if timeout_s is None
+               else datetime.timedelta(seconds=float(timeout_s)))
     grid = [[d * model + m for m in range(model)] for d in range(data)]
     model_group = data_group = None
     for d in range(data):  # the data rows: one class axis each
@@ -197,4 +205,16 @@ def make_mesh(data: int = -1, model: int = 1, timeout_s: float = DEFAULT_TIMEOUT
              else None)
         if rank % model == m:
             data_group = g
-    return Mesh(data, model, rank, model_group, data_group)
+    return model_group, data_group
+
+
+def make_mesh(data: int = -1, model: int = 1, timeout_s: Optional[float] = None) -> Mesh:
+    """The mesh over every rank of the default group (one rank outside a
+    group). Every rank must call it, in the same order as its peers: each
+    process group is made by all ranks together, with `timeout_s` (None:
+    the default group's)."""
+    rank, size = world()
+    data, model = mesh_shape(size, data, model)
+    if size == 1:
+        return Mesh(data, model, rank)
+    return Mesh(data, model, rank, *grid_groups(data, model, rank, timeout_s))

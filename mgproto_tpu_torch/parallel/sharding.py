@@ -29,7 +29,7 @@ from __future__ import annotations
 
 import dataclasses
 import math
-from typing import Any, Dict, Tuple
+from typing import Any, Dict, Set, Tuple
 
 import torch
 
@@ -99,8 +99,9 @@ def _weight_spec(name: str, shape, model_size: int) -> Spec:
     return tuple(spec[j] for j in perm)
 
 
-def _class_spec(t: torch.Tensor, num_classes: int, model_size: int) -> Spec:
-    if (model_size > 1 and t.dim() >= 1 and t.shape[0] == num_classes
+def _class_spec(t: torch.Tensor, num_classes: int, model_size: int, slab: bool) -> Spec:
+    rows = num_classes // model_size if slab else num_classes
+    if (model_size > 1 and t.dim() >= 1 and t.shape[0] == rows
             and num_classes % model_size == 0):
         return (MODEL_AXIS,)
     return ()
@@ -125,11 +126,13 @@ def _opt_specs(opt: torch.optim.Optimizer, names: Dict[int, str], spec_of) -> Di
     return out
 
 
-def state_partition_specs(state: TrainState, num_classes: int,
-                          model_size: int) -> Dict[str, Any]:
+def state_partition_specs(state: TrainState, num_classes: int, model_size: int,
+                          class_slab: bool = False) -> Dict[str, Any]:
     """{field: spec, or {leaf name: spec}} for `state`, from
-    SHARDING_RULES. Shape math only: no group, no device. Raises
-    `ShardingCoverageError` on a field the table does not name."""
+    SHARDING_RULES. `class_slab`: `state` holds one rank's class slab
+    (`shard_classes`), num_classes / model_size of the `num_classes`.
+    Shape math only: no group, no device. Raises `ShardingCoverageError`
+    on a field the table does not name."""
     fields = [f.name for f in dataclasses.fields(state)]
     missing = [f for f in fields if f not in SHARDING_RULES]
     if missing:
@@ -144,7 +147,7 @@ def state_partition_specs(state: TrainState, num_classes: int,
         return _weight_spec(name, tuple(p.shape), model_size)
 
     def class_spec(_, t):
-        return _class_spec(t, num_classes, model_size)
+        return _class_spec(t, num_classes, model_size, class_slab)
 
     out: Dict[str, Any] = {}
     for f in fields:
@@ -164,6 +167,31 @@ def state_partition_specs(state: TrainState, num_classes: int,
             out[f] = _opt_specs(sub, names, class_spec)
         else:  # pragma: no cover - the table is module-local
             raise ValueError(f"unknown sharding rule {rule!r} for {f!r}")
+    return out
+
+
+def class_sharded_payload_paths(state: TrainState, num_classes: int,
+                                model_size: int) -> Set[str]:
+    """The leaves of a rank's class-slab `state` that rule "class" puts on
+    'model', by their path in its checkpoint payload
+    (utils/checkpoint.py `state_payload`: `gmm/<field>`, `memory/<field>`,
+    `<optimizer>/state/<i>/<moment>` with i the parameter's position in
+    the optimizer's groups): what each model column writes of a sharded
+    checkpoint."""
+    specs = state_partition_specs(state, num_classes, model_size, class_slab=True)
+    names = _param_names(state)
+    out: Set[str] = set()
+    for f, rule in SHARDING_RULES.items():
+        if rule != "class":
+            continue
+        sub = getattr(state, f)
+        if f in ("gmm", "memory"):
+            keyed = {f"{f}/{k}": spec for k, spec in specs[f].items()}
+        else:  # an optimizer: its state_dict numbers the parameters in order
+            params = [p for group in sub.param_groups for p in group["params"]]
+            keyed = {f"{f}/state/{i}/{key}": specs[f][f"{names[id(p)]}/{key}"]
+                     for i, p in enumerate(params) for key in ("exp_avg", "exp_avg_sq")}
+        out.update(path for path, spec in keyed.items() if MODEL_AXIS in spec)
     return out
 
 

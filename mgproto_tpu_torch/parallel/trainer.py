@@ -23,10 +23,16 @@ out:
     candidates and keeps its slab's, and EM runs on the slab with its gate
     and scalars summed over the group (core/em.py).
 
-Checkpoints are written whole by rank 0 (`Trainer.save`) and cut to each
-rank's slab on restore, so a checkpoint of N ranks restores onto M. The
-async bank pipeline under more than one rank is not ported (ROADMAP A
-item 5).
+The async bank pipeline (`EMConfig.async_bank`) runs at any mesh, as the
+JAX `ShardedTrainer` does: the trunk scores a copy of the one-step-stale
+means of its class slab, and the held bank phase issues its gather of the
+global batch's candidates and EM's model-group sums on process groups of
+its own (`collectives.bank_groups`, made here by every rank together).
+
+Checkpoints (`Trainer.save`): sharded under several ranks by default,
+each rank writing what it owns, or replicated (the slabs gathered, rank 0
+writes); either restores onto any mesh, cut to each rank's slab here, so
+a checkpoint of N ranks restores onto M.
 """
 
 from __future__ import annotations
@@ -40,7 +46,7 @@ from mgproto_tpu_torch.core.em import resolve_em_config
 from mgproto_tpu_torch.core.state import TrainState
 from mgproto_tpu_torch.engine.train import Trainer
 from mgproto_tpu_torch.models.common import set_stats_group
-from mgproto_tpu_torch.parallel.collectives import broadcast_tensors
+from mgproto_tpu_torch.parallel.collectives import bank_groups, broadcast_tensors
 from mgproto_tpu_torch.parallel.mesh import Mesh, make_mesh
 from mgproto_tpu_torch.parallel.sharding import shard_classes
 from mgproto_tpu_torch.utils.checkpoint import restore_checkpoint
@@ -61,14 +67,12 @@ class ShardedTrainer(Trainer):
             raise ValueError(
                 f"fused_scoring=True requires num_classes ({c}) divisible by the mesh model "
                 f"axis ({m.model}); adjust --mesh_model or drop --fused_scoring")
-        if self.async_bank and m.size > 1:
-            from mgproto_tpu_torch.cli.common import NotPortedError
-
-            raise NotPortedError(
-                "EMConfig.async_bank under more than one rank is not ported (the bank "
-                "stream's collectives); ROADMAP A8 (multi-GPU)")
         self._world_group = m.world_group
         self._class_mesh = m if m.shards_classes(c) else None
+        if self.async_bank and m.size > 1:
+            bank = bank_groups(m)
+            self._bank_world = bank.world
+            self._bank_class_mesh = bank.mesh if m.shards_classes(c) else None
         # the auto EM width is the GLOBAL batch's (each rank gets b rows)
         self.em_cfg = resolve_em_config(cfg.em, c, cfg.data.train_batch_size * m.size)
 
@@ -92,8 +96,8 @@ class ShardedTrainer(Trainer):
         return self.prepare(super().init_state(seed, for_restore=for_restore))
 
     def restore(self, path: str, state: Optional[TrainState] = None) -> TrainState:
-        """The checkpoint at `path` (a whole state, from any number of
-        ranks) restored on every rank and cut to this rank's slab; `state`
-        is not used (the restore target holds every class)."""
+        """The checkpoint at `path` (replicated or sharded, from any number
+        of ranks) restored whole on every rank and cut to this rank's slab;
+        `state` is not used (the restore target holds every class)."""
         full = Trainer.init_state(self, 0, for_restore=True)
         return self.prepare(restore_checkpoint(path, full))

@@ -1,5 +1,6 @@
-"""Deterministic fault injection for the training and serving drills (the
-training and serving subset of mgproto_tpu/resilience/chaos.py).
+"""Deterministic fault injection for the training, pod and serving drills
+(counterpart of mgproto_tpu/resilience/chaos.py but for the loader's and
+the straggler's knobs).
 
 Training: two one-shot events, keyed by the global step: a NaN batch
 (`nan_at_step`) and a simulated preemption (`preempt_at_step`).
@@ -11,6 +12,14 @@ draws carry it). The step itself is the same with chaos on or off. The one-shot
 state lives in the `ChaosState`, so a rollback that replays the same steps
 does not inject again; that is what lets a drill end bit-equal to the
 clean run.
+
+Pods (several ranks): when the batch of `kill_host_at` is drawn the
+targeted rank dies hard (`os._exit(HOST_KILL_EXIT_CODE)`, a host crash),
+and at `wedge_host_at` it hangs (a stuck host), both in
+`EpochGuard.wrap_batches`; `host_index` names the rank (-1: any process
+whose environment carries the knob). Checkpoints: the first
+`checkpoint_write_failures` saves fail just before their publish point
+(utils/checkpoint.py), each retried in lockstep. One-shot each.
 
 Serving: the engine, the replica supervisor, the fleet swap and the tenant
 directory consult the process-active state (`get_active`, `install`):
@@ -25,7 +34,9 @@ monitor may see). Every draw is numpy's
 hits the same requests in both packages.
 
 `plan_from_env` reads MGPROTO_CHAOS_SEED, MGPROTO_CHAOS_NAN_AT_STEP,
-MGPROTO_CHAOS_PREEMPT_AT_STEP, the MGPROTO_CHAOS_SERVE_* and
+MGPROTO_CHAOS_PREEMPT_AT_STEP, MGPROTO_CHAOS_CKPT_FAILS,
+MGPROTO_CHAOS_{KILL,WEDGE}_HOST_AT, MGPROTO_CHAOS_HOST_INDEX, the
+MGPROTO_CHAOS_SERVE_* and
 MGPROTO_CHAOS_TENANT_{STORM_AT, BAD_SWAP, POISON_RATE} knobs and
 MGPROTO_CHAOS_ONLINE_POISON_RATE, and refuses every other
 MGPROTO_CHAOS_* knob of the JAX package, naming the ROADMAP item that
@@ -45,13 +56,15 @@ import torch
 # the JAX package's knobs the port does not read yet, by the ROADMAP item
 # that ports them
 UNPORTED_KNOBS: Dict[str, str] = {
-    **{k: "A9 (resilience: the loader's and the checkpoint's chaos injection)"
-       for k in ("MGPROTO_CHAOS_LOADER_IO_RATE", "MGPROTO_CHAOS_LOADER_IO_FAILS",
-                 "MGPROTO_CHAOS_CKPT_FAILS")},
-    **{k: "A8 (multi-GPU: the multi-host drills)"
-       for k in ("MGPROTO_CHAOS_KILL_HOST_AT", "MGPROTO_CHAOS_WEDGE_HOST_AT",
-                 "MGPROTO_CHAOS_SLOW_HOST_MS", "MGPROTO_CHAOS_HOST_INDEX")},
+    **{k: "A9 (resilience: the loader's chaos injection)"
+       for k in ("MGPROTO_CHAOS_LOADER_IO_RATE", "MGPROTO_CHAOS_LOADER_IO_FAILS")},
+    "MGPROTO_CHAOS_SLOW_HOST_MS": "A9 (obs and telemetry: straggler detection)",
 }
+
+# the status a chaos-killed rank dies with (os._exit: no cleanup, as a real
+# crash); distinct from parallel/multihost.py's PEER_LOST_EXIT_CODE, so a
+# post-mortem tells the victim from the survivors
+HOST_KILL_EXIT_CODE = 86
 
 
 class ChaosError(IOError):
@@ -91,9 +104,20 @@ class ChaosPlan:
     # tenant's requests replaced by off-manifold junk
     online_poison_rate: float = 0.0
     tenant_poison_rate: float = 0.0
+    # the first N checkpoint saves fail before their publish point
+    checkpoint_write_failures: int = 0
+    # pods, one-shot each: when the batch of this global step is drawn, the
+    # targeted rank dies hard / hangs
+    kill_host_at: Optional[int] = None
+    wedge_host_at: Optional[int] = None
+    # the rank the kill and the wedge target; -1 = any process whose
+    # environment carries the knob
+    host_index: int = -1
 
     def any_active(self) -> bool:
         return (self.nan_at_step is not None or self.preempt_at_step is not None
+                or self.checkpoint_write_failures > 0 or self.kill_host_at is not None
+                or self.wedge_host_at is not None
                 or self.serve_malformed_rate > 0.0 or self.serve_nan_rate > 0.0
                 or bool(self.serve_device_errors)
                 or (self.serve_storm_at is not None and self.serve_storm_len > 0)
@@ -118,6 +142,9 @@ class ChaosState:
         self._bad_swaps_left = int(plan.serve_swap_bad_artifact)
         self._tenant_storm_counted = False
         self._tenant_bad_swaps_left = int(plan.tenant_bad_swap)
+        self._ckpt_failures_left = int(plan.checkpoint_write_failures)
+        self._host_kill_fired = False
+        self._host_wedge_fired = False
         self.injections: Dict[str, int] = {}
 
     def _count(self, kind: str) -> None:
@@ -152,6 +179,33 @@ class ChaosState:
         if due:
             self._count("preempt_signal")
         return due
+
+    # ------------------------------------------------------------- pods
+    def _host_fault_due(self, attr: str, at: Optional[int], global_step: int,
+                        process_index: int, kind: str) -> bool:
+        if at is None or (self.plan.host_index >= 0 and process_index != self.plan.host_index):
+            return False
+        with self._lock:
+            if getattr(self, attr) or int(global_step) < int(at):
+                return False
+            setattr(self, attr, True)
+        self._count(kind)
+        return True
+
+    def host_kill_due(self, global_step: int, process_index: int) -> bool:
+        """True once, on the targeted rank, when the batch of
+        `kill_host_at` (or a later one) is drawn: the caller hard-exits."""
+        return self._host_fault_due("_host_kill_fired", self.plan.kill_host_at, global_step,
+                                    process_index, "host_kill")
+
+    def host_wedge_due(self, global_step: int, process_index: int) -> bool:
+        """The same at `wedge_host_at`: the caller hangs without exiting."""
+        return self._host_fault_due("_host_wedge_fired", self.plan.wedge_host_at, global_step,
+                                    process_index, "host_wedge")
+
+    def checkpoint_should_fail(self) -> bool:
+        """True for the first `checkpoint_write_failures` checkpoint saves."""
+        return self._take("_ckpt_failures_left", "checkpoint_write")
 
     # ----------------------------------------------------------- serving
     def serve_corrupt_request(self, index: int, payload):
@@ -326,6 +380,10 @@ def plan_from_env(environ=None) -> Optional[ChaosPlan]:
         tenant_bad_swap=_get("MGPROTO_CHAOS_TENANT_BAD_SWAP", int, 0),
         online_poison_rate=_get("MGPROTO_CHAOS_ONLINE_POISON_RATE", float, 0.0),
         tenant_poison_rate=_get("MGPROTO_CHAOS_TENANT_POISON_RATE", float, 0.0),
+        checkpoint_write_failures=_get("MGPROTO_CHAOS_CKPT_FAILS", int, 0),
+        kill_host_at=_get("MGPROTO_CHAOS_KILL_HOST_AT", int, None),
+        wedge_host_at=_get("MGPROTO_CHAOS_WEDGE_HOST_AT", int, None),
+        host_index=_get("MGPROTO_CHAOS_HOST_INDEX", int, -1),
     )
     return plan if plan.any_active() else None
 
@@ -333,7 +391,9 @@ def plan_from_env(environ=None) -> Optional[ChaosPlan]:
 _READ = frozenset(
     ["MGPROTO_CHAOS_SEED", "MGPROTO_CHAOS_NAN_AT_STEP", "MGPROTO_CHAOS_PREEMPT_AT_STEP",
      "MGPROTO_CHAOS_TENANT_STORM_AT", "MGPROTO_CHAOS_TENANT_BAD_SWAP",
-     "MGPROTO_CHAOS_TENANT_POISON_RATE", "MGPROTO_CHAOS_ONLINE_POISON_RATE"]
+     "MGPROTO_CHAOS_TENANT_POISON_RATE", "MGPROTO_CHAOS_ONLINE_POISON_RATE",
+     "MGPROTO_CHAOS_CKPT_FAILS", "MGPROTO_CHAOS_KILL_HOST_AT", "MGPROTO_CHAOS_WEDGE_HOST_AT",
+     "MGPROTO_CHAOS_HOST_INDEX"]
     + [f"MGPROTO_CHAOS_SERVE_{k}" for k in (
         "MALFORMED_RATE", "NAN_RATE", "DEVICE_ERRORS", "STORM_AT", "STORM_LEN",
         "REPLICA_KILL_AT", "WEDGE_AT", "SWAP_BAD_ARTIFACT")])

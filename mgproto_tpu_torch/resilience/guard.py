@@ -16,15 +16,20 @@ mgproto_tpu/resilience/guard.py).
     step; the divergence flags need no agreement, as every rank's step
     reads the same summed loss and gradients (parallel/trainer.py).
   * Chaos: `wrap_batches` applies the active `ChaosState` to the placed
-    batches, keyed by the global step: a simulated preemption, and NaN
-    inputs (`ChaosState.corrupt_batch`).
+    batches, keyed by the global step: the pod drills first (the targeted
+    rank dies hard with HOST_KILL_EXIT_CODE, or hangs, before its batch
+    reaches the step, so its peers meet the loss in their next collective
+    or guarded barrier), then a simulated preemption, and NaN inputs
+    (`ChaosState.corrupt_batch`).
 """
 
 from __future__ import annotations
 
+import os
+import time
 from typing import Optional
 
-from mgproto_tpu_torch.resilience.chaos import ChaosState
+from mgproto_tpu_torch.resilience.chaos import HOST_KILL_EXIT_CODE, ChaosState
 from mgproto_tpu_torch.resilience.preemption import PreemptionHandler
 
 
@@ -93,9 +98,17 @@ class EpochGuard:
         if self.chaos is None:
             return batches
 
+        from mgproto_tpu_torch.parallel.mesh import world
+
         def _gen():
             for i, batch in enumerate(batches):
                 step = self._base_step + i
+                rank = world()[0]
+                if self.chaos.host_kill_due(step, rank):
+                    os._exit(HOST_KILL_EXIT_CODE)  # a crash, not a shutdown
+                if self.chaos.host_wedge_due(step, rank):
+                    while True:  # a stuck host: alive, silent, not stepping
+                        time.sleep(3600)
                 if self.chaos.preempt_due(step) and self.preemption is not None:
                     self.preemption.request("chaos preempt_at_step")
                 yield self.chaos.corrupt_batch(step, batch)

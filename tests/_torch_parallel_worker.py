@@ -12,7 +12,14 @@ loss, accuracy and EM count, the gathered means, priors and bank, every
 parameter flattened, the kernel launches of the steps (score_pool, its
 backward, the epilogue, the E-step), the eval logits of batch ex before
 and after the steps gathered in rank order, and (with `save`) a checkpoint written
-through `Trainer.save`.
+through `Trainer.save` (sharded, or replicated with `"save_format": "replicated"`).
+With `"async_bank": true` the steps run the async bank pipeline, flushed
+after the last. A scenario of `"kind": "interp"` restores `ckpt` and writes
+`trust/interp_sharded.py::interp_metrics_sharded` of the CUB-layout tree
+`cub` (global batches of `batch`) as `out/rank{r}.json`; one of `"kind":
+"wire"` writes there the float64 sum and the row gather of
+parallel/multihost.py over the ranks, and dumps a flight recorder into
+`out` (its host identity).
 """
 
 import dataclasses
@@ -44,7 +51,8 @@ def scenario_config(sc, batch):
     model = dataclasses.replace(cfg.model, fused_scoring=sc.get("fused_scoring"))
     em = EMConfig(reference_stepping=sc.get("reference_stepping", False),
                   fused_estep=sc.get("fused_estep"),
-                  max_active_classes=sc.get("max_active_classes", -1))
+                  max_active_classes=sc.get("max_active_classes", -1),
+                  async_bank=sc.get("async_bank", False))
     return cfg.replace(model=model, em=em,
                        loss=LossConfig(aux_loss=sc.get("aux_loss", "proxy_anchor")),
                        data=dataclasses.replace(cfg.data, train_batch_size=batch,
@@ -69,6 +77,8 @@ def run_scenario(sc, mesh, batches, device):
         losses.append(float(m.loss))
         accs.append(float(m.accuracy))
         em.append(m.em_active)
+    if trainer.async_bank:
+        state, _ = trainer.flush_bank(state)
     launches = [fn.launches for fn in kernels]
     full = trainer.full_state(state)
     out.update(
@@ -85,8 +95,37 @@ def run_scenario(sc, mesh, batches, device):
     if "ex" in batches:
         out["eval_logits"] = allgather_rows(trainer.eval_step(state, ex).logits.cpu().numpy())
     if sc.get("save"):
+        trainer.ckpt_sharded = sc.get("save_format", "sharded") == "sharded"
         trainer.save(sc["save"], state, "1nopush0.5000", metadata={"epoch": 1, "stage": "nopush"})
     return out
+
+
+def run_interp(sc, mesh, device):
+    from mgproto_tpu_torch.cli.interpret import build_eval_loader
+    from mgproto_tpu_torch.data.cub_parts import CubParts
+    from mgproto_tpu_torch.trust.interp_sharded import interp_metrics_sharded
+
+    cfg = scenario_config(sc, sc["batch"])
+    cfg = cfg.replace(data=dataclasses.replace(cfg.data, test_batch_size=sc["batch"],
+                                               num_workers=0))
+    trainer = ShardedTrainer(cfg, steps_per_epoch=1, mesh=mesh, device=device)
+    state = trainer.restore(sc["ckpt"])
+    return interp_metrics_sharded(
+        trainer, state, lambda: iter(build_eval_loader(cfg, sc["cub"])), CubParts(sc["cub"]),
+        cfg.model.num_classes, consistency_half_size=sc["half_size"],
+        purity_half_size=sc["purity_half_size"], top_k=sc["top_k"])
+
+
+def run_wire(sc):
+    from mgproto_tpu_torch.obs.flightrec import FlightRecorder
+    from mgproto_tpu_torch.parallel.multihost import allgather_sum
+
+    rank = torch.distributed.get_rank()
+    rec = FlightRecorder(dump_dir=sc["out"])
+    rec.record("probe", value=rank)
+    rows = allgather_rows(np.array([[rank, 2.0 ** 53 - 1 - rank]], np.float64))
+    return {"sum": allgather_sum(float(2 ** 24 + 1) + rank), "rows": rows.tolist(),
+            "dump": rec.maybe_dump("probe"), "event": rec.events()[-1]}
 
 
 def main(argv):
@@ -99,10 +138,15 @@ def main(argv):
     initialize_distributed(backend=spec.get("backend", "gloo"), init_method=spec["init"],
                            rank=rank, world_size=spec["world"], device=device, timeout_s=90)
     mesh = make_mesh(*spec["mesh"], timeout_s=90)
-    batches = dict(np.load(spec["batches"]))
+    batches = dict(np.load(spec["batches"])) if spec.get("batches") else {}
     for sc in spec["scenarios"]:
-        res = run_scenario(sc, mesh, batches, device)
         os.makedirs(sc["out"], exist_ok=True)
+        if sc.get("kind") in ("interp", "wire"):
+            res = run_interp(sc, mesh, device) if sc["kind"] == "interp" else run_wire(sc)
+            with open(os.path.join(sc["out"], f"rank{rank}.json"), "w") as f:
+                json.dump(res, f)
+            continue
+        res = run_scenario(sc, mesh, batches, device)
         np.savez(os.path.join(sc["out"], f"rank{rank}.npz"), **res)
     torch.distributed.destroy_process_group()
 

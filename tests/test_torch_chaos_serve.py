@@ -188,10 +188,10 @@ def test_serve_main_installs_the_environments_plan_and_removes_it(monkeypatch):
     one raises there) and leaves no plan active after it returns."""
     from mgproto_tpu_torch.cli import serve as tserve
 
-    monkeypatch.setenv("MGPROTO_CHAOS_CKPT_FAILS", "1")
-    with pytest.raises(ValueError, match="CKPT_FAILS.*A9"):
+    monkeypatch.setenv("MGPROTO_CHAOS_LOADER_IO_RATE", "0.5")
+    with pytest.raises(ValueError, match="LOADER_IO_RATE.*A9"):
         tserve.main(["--device", "cpu", "--artifact", "/nonexistent.mgproto"])
-    monkeypatch.delenv("MGPROTO_CHAOS_CKPT_FAILS")
+    monkeypatch.delenv("MGPROTO_CHAOS_LOADER_IO_RATE")
     monkeypatch.setenv("MGPROTO_CHAOS_SERVE_DEVICE_ERRORS", "0")
     with pytest.raises(Exception):
         tserve.main(["--device", "cpu", "--artifact", "/nonexistent.mgproto"])

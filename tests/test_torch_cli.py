@@ -96,6 +96,10 @@ ARGVS = {
                  "--keep_last", "2", "--target_accu", "0.5"],
     # refused until the async bank pipeline was ported; now it sets the field
     "async_bank": ["--async_bank"],
+    # refused until the pod fault tolerance was ported: the async bank under
+    # a mesh, sharded checkpoints and the guarded barrier's timeout
+    "pod": ["--async_bank", "--mesh_model", "2", "--ckpt_format", "sharded",
+            "--barrier_timeout_s", "10"],
 }
 
 
@@ -116,16 +120,11 @@ def test_config_fields_equal_jax(case):
     _assert_fields_equal(port, ref)
 
 
-# --distributed and the mesh flags are ported; what stays refused of them
-# is their combination with the async bank pipeline
+# the multi-GPU flags are ported but straggler detection, which waits for
+# the obs and telemetry plane
 REFUSED_ARGVS = {
-    "distributed": (["--distributed", "--async_bank"], "A8"),
-    "mesh_data": (["--mesh_data", "2", "--async_bank"], "A8"),
-    "mesh_model": (["--mesh_model", "2", "--async_bank"], "A8"),
-    "barrier_timeout_s": (["--barrier_timeout_s", "10"], "A8"),
-    "straggler_threshold": (["--straggler_threshold", "0.5"], "A8"),
-    "straggler_patience": (["--straggler_patience", "2"], "A8"),
-    "ckpt_format": (["--ckpt_format", "sharded"], "A8"),
+    "straggler_threshold": (["--straggler_threshold", "0.5"], "A9"),
+    "straggler_patience": (["--straggler_patience", "2"], "A9"),
     "auto_tune": (["--auto_tune"], "A9"),
     "profile_dir": (["--profile_dir", "/p"], "A9"),
     "profile_steps": (["--profile_steps", "3:5"], "A9"),

@@ -1018,7 +1018,11 @@ def test_two_ranks_on_one_card_step_bit_equal(tmp_path, mesh):
     seeded bank, through tests/_torch_parallel_worker.py: every kernel of
     the path launches on each rank (the tiny trunk has no epilogue), and the
     ranks' parameters, BatchNorm statistics, losses and gathered means are
-    bit-equal."""
+    bit-equal. Then the same two steps on the async bank pipeline (the
+    bank phase's collectives from the bank stream; flushed after the
+    last), the ranks bit-equal again, and its state saved sharded by the
+    ranks and restored whole by this process on the card, bit-equal to
+    the ranks' gathered state."""
     import dataclasses
     import json
     import os
@@ -1031,7 +1035,12 @@ def test_two_ranks_on_one_card_step_bit_equal(tmp_path, mesh):
 
     from mgproto_tpu_torch.config import tiny_test_config
     from mgproto_tpu_torch.core.state import create_train_state
-    from mgproto_tpu_torch.utils.checkpoint import save_checkpoint
+    from mgproto_tpu_torch.engine.train import Trainer
+    from mgproto_tpu_torch.utils.checkpoint import (
+        is_committed,
+        restore_checkpoint,
+        save_checkpoint,
+    )
 
     _need_cuda()
     mode = subprocess.run(["nvidia-smi", "--query-gpu=compute_mode", "--format=csv,noheader"],
@@ -1059,7 +1068,9 @@ def test_two_ranks_on_one_card_step_bit_equal(tmp_path, mesh):
     out = str(tmp_path / "out")
     spec = {"init": f"tcp://127.0.0.1:{port}", "world": 2, "mesh": list(mesh),
             "device": "cuda:0", "backend": "gloo", "batches": str(tmp_path / "b.npz"),
-            "scenarios": [{"ckpt": ckpt, "steps": 2, "out": out}]}
+            "scenarios": [{"ckpt": ckpt, "steps": 2, "out": out},
+                          {"ckpt": ckpt, "steps": 2, "out": out + "_async", "async_bank": True,
+                           "save": str(tmp_path / "saved")}]}
     with open(tmp_path / "spec.json", "w") as f:
         json.dump(spec, f)
     here = os.path.dirname(os.path.abspath(__file__))
@@ -1075,11 +1086,23 @@ def test_two_ranks_on_one_card_step_bit_equal(tmp_path, mesh):
                 p.kill()
                 p.wait()
     assert all(p.returncode == 0 for p in procs), "\n".join(e[-3000:] for e in errs)
-    r0, r1 = (dict(np.load(os.path.join(out, f"rank{r}.npz"))) for r in range(2))
-    for k in ("params", "running_mean", "loss", "means", "priors", "length"):
-        np.testing.assert_array_equal(r0[k], r1[k], err_msg=k)
-    for r in (r0, r1):
-        score, bwd, _, estep = r["launches"]
-        assert score == 2 and bwd == 2 and estep == 2 * 3, r["launches"]
-    assert np.isfinite(r0["loss"]).all()
+    for run in (out, out + "_async"):
+        r0, r1 = (dict(np.load(os.path.join(run, f"rank{r}.npz"))) for r in range(2))
+        for k in ("params", "running_mean", "loss", "means", "priors", "length", "feats"):
+            np.testing.assert_array_equal(r0[k], r1[k], err_msg=k)
+        for r in (r0, r1):
+            # async: the fill step holds its E-steps, the flush runs the last
+            score, bwd, _, estep = r["launches"]
+            assert score == 2 and bwd == 2 and estep == 2 * 3, r["launches"]
+        assert np.isfinite(r0["loss"]).all()
+    saved = str(tmp_path / "saved" / "1nopush0.5000")
+    assert is_committed(saved)
+    st = restore_checkpoint(saved, Trainer(cfg, 1, device="cuda").init_state(0, for_restore=True))
+    assert st.gmm.means.is_cuda
+    np.testing.assert_array_equal(st.gmm.means.detach().cpu().numpy(), r0["means"])
+    np.testing.assert_array_equal(st.memory.feats.cpu().numpy(), r0["feats"])
+    np.testing.assert_array_equal(st.memory.cursor.cpu().numpy(), r0["cursor"])
+    np.testing.assert_array_equal(
+        torch.cat([p.detach().reshape(-1) for p in Trainer.params(st)]).cpu().numpy(),
+        r0["params"])
 

@@ -215,11 +215,7 @@ def test_plan_from_env_reads_the_ported_knobs():
 @pytest.mark.parametrize("knob,item", [
     ("MGPROTO_CHAOS_LOADER_IO_RATE", "A9"),
     ("MGPROTO_CHAOS_LOADER_IO_FAILS", "A9"),
-    ("MGPROTO_CHAOS_CKPT_FAILS", "A9"),
-    ("MGPROTO_CHAOS_KILL_HOST_AT", "A8"),
-    ("MGPROTO_CHAOS_WEDGE_HOST_AT", "A8"),
-    ("MGPROTO_CHAOS_SLOW_HOST_MS", "A8"),
-    ("MGPROTO_CHAOS_HOST_INDEX", "A8"),
+    ("MGPROTO_CHAOS_SLOW_HOST_MS", "A9"),
 ])
 def test_plan_from_env_refuses_a_knob_it_does_not_read(knob, item):
     with pytest.raises(ValueError, match=f"{knob}=.*ROADMAP item {item}"):
@@ -240,10 +236,15 @@ def test_plan_from_env_refuses_a_knob_it_does_not_read(knob, item):
     ("MGPROTO_CHAOS_TENANT_BAD_SWAP", "2"),
     ("MGPROTO_CHAOS_ONLINE_POISON_RATE", "0.25"),
     ("MGPROTO_CHAOS_TENANT_POISON_RATE", "0.5"),
+    ("MGPROTO_CHAOS_CKPT_FAILS", "2"),
+    ("MGPROTO_CHAOS_KILL_HOST_AT", "4"),
+    ("MGPROTO_CHAOS_WEDGE_HOST_AT", "6"),
+    ("MGPROTO_CHAOS_HOST_INDEX", "1"),
 ])
 def test_plan_from_env_reads_the_serving_knobs_as_jax_does(knob, raw):
-    """The serving, tenant and online knobs (refused before each was
-    ported) parse to the JAX package's values, field for field."""
+    """The serving, tenant, online, checkpoint and pod knobs (refused
+    before each was ported) parse to the JAX package's values, field for
+    field."""
     from mgproto_tpu.resilience import chaos as jchaos
 
     env = {knob: raw, "MGPROTO_CHAOS_NAN_AT_STEP": "2"}

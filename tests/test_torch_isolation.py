@@ -80,7 +80,7 @@ INPUT_PATH_MODULES = (
     "mgproto_tpu_torch.data", "mgproto_tpu_torch.data.folder", "mgproto_tpu_torch.data.loader",
     "mgproto_tpu_torch.data.transforms", "mgproto_tpu_torch.native",
     "mgproto_tpu_torch.ops.augment", "mgproto_tpu_torch.ops.prng",
-    "mgproto_tpu_torch.utils.images", "mgproto_tpu_torch.utils.retry",
+    "mgproto_tpu_torch.utils.images", "mgproto_tpu_torch.resilience.retry",
 )
 # the interpretability plane's modules, walked and imported the same way
 INTERPRET_MODULES = (
@@ -112,7 +112,9 @@ PARALLEL_MODULES = ("mgproto_tpu_torch.parallel", "mgproto_tpu_torch.parallel.me
                     "mgproto_tpu_torch.parallel.collectives",
                     "mgproto_tpu_torch.parallel.sharding",
                     "mgproto_tpu_torch.parallel.multihost",
-                    "mgproto_tpu_torch.parallel.trainer")
+                    "mgproto_tpu_torch.parallel.trainer",
+                    "mgproto_tpu_torch.resilience.metrics", "mgproto_tpu_torch.resilience.retry",
+                    "mgproto_tpu_torch.trust.interp_sharded")
 # the trust check re-derives a report's verdicts on a host without torch
 TORCHLESS_TRUST_MODULES = ("mgproto_tpu_torch.trust.auroc", "mgproto_tpu_torch.trust.metrics",
                            "mgproto_tpu_torch.cli.telemetry")
@@ -128,7 +130,7 @@ TORCHLESS_ONLINE_MODULES = ("mgproto_tpu_torch.online.capture", "mgproto_tpu_tor
 WORKER_MODULES = ("mgproto_tpu_torch.data.loader", "mgproto_tpu_torch.data.folder",
                   "mgproto_tpu_torch.data.transforms", "mgproto_tpu_torch.native",
                   "mgproto_tpu_torch.data.cub_parts", "mgproto_tpu_torch.perf.precision",
-                  "mgproto_tpu_torch.config")
+                  "mgproto_tpu_torch.config", "mgproto_tpu_torch.resilience.retry")
 
 
 def test_the_online_taps_import_without_torch():

@@ -33,6 +33,13 @@ Tolerances:
     bit-equal.
   * a checkpoint written by n ranks, restored by one process: bit-equal to
     the ranks' gathered state.
+  * the async bank pipeline (three steps from a full bank, then the flush):
+    against the port's one-process async Trainer as above (TIGHT, the
+    bank's lengths, cursors and EM counts exact); against JAX's
+    ShardedTrainer(async_bank=True) on the same mesh shape with the
+    tolerances above, the means within 2 lr per EM round over the run's
+    three bank phases and the first trunk parameter within 2 features_lr
+    per Adam step; the ranks bit-equal.
 """
 
 import dataclasses
@@ -55,7 +62,7 @@ from mgproto_tpu.engine.train import Trainer as JaxTrainer
 from mgproto_tpu.parallel import ShardedTrainer as JaxShardedTrainer
 from mgproto_tpu.parallel import make_mesh as jax_make_mesh
 from mgproto_tpu.parallel import sharding as jsharding
-from mgproto_tpu_torch.config import EMConfig, LossConfig, tiny_test_config
+from mgproto_tpu_torch.config import LossConfig, tiny_test_config
 from mgproto_tpu_torch.core.state import create_train_state
 from mgproto_tpu_torch.engine.train import Trainer
 from mgproto_tpu_torch.models.convert import _module_name, from_jax_train_state, from_jax_variables
@@ -132,9 +139,9 @@ def _port_cfg(sc, batch):
     return worker.scenario_config(sc, batch)
 
 
-def _jax_cfg(reference_stepping=False):
+def _jax_cfg(reference_stepping=False, async_bank=False):
     cfg = jax_tiny_config()
-    return cfg.replace(em=JaxEMConfig(async_bank=False, reference_stepping=reference_stepping))
+    return cfg.replace(em=JaxEMConfig(async_bank=async_bank, reference_stepping=reference_stepping))
 
 
 # the scenarios of every mesh's run: (name, scenario keys, start state, steps)
@@ -144,6 +151,7 @@ SCENARIOS = (
     ("ref", {"reference_stepping": True}, "s1", 1),
     ("ms", {"aux_loss": "ms"}, "ms", 2),
     ("fused", {"fused_scoring": True, "fused_estep": True}, "s1", 2),
+    ("async", {"async_bank": True}, "s1", 3),
 )
 
 
@@ -158,7 +166,27 @@ def _port_single(sc, ckpt, batches, steps):
         st, m = tr.train_step(st, batches[f"x{i}"], batches[f"y{i}"], use_mine=True,
                               update_gmm=True)
         rec.append((float(m.loss), float(m.accuracy), m.em_active))
+    st, _ = tr.flush_bank(st)
     return tr, st, rec, eval0, tr.eval_step(st, batches["ex"]).logits.numpy()
+
+
+def _jax_async(s1, batches, mesh):
+    """JAX's ShardedTrainer(async_bank=True) on conftest's virtual devices:
+    three steps from the full bank, then the flush."""
+    jcfg = _jax_cfg(async_bank=True)
+    devices = jax.devices()[:mesh[0] * mesh[1]]
+    sh = JaxShardedTrainer(jcfg, 4, mesh=jax_make_mesh(*mesh, devices=devices))
+    st = sh.prepare(s1)
+    rec = []
+    for i in range(3):
+        st, m = sh.train_step(st, batches[f"x{i}"], batches[f"y{i}"].astype(np.int32),
+                              use_mine=True, update_gmm=True)
+        rec.append((float(m.loss), int(m.em_active)))
+    st, _ = sh.flush_bank(st)
+    sd, _ = from_jax_variables({"params": jax.device_get(st.params["net"])},
+                               jax.device_get(st.gmm))
+    return dict(rec=rec, length=np.asarray(st.memory.length), means=np.asarray(st.gmm.means),
+                params={k: v.numpy() for k, v in sd.items()})
 
 
 @pytest.fixture(scope="module")
@@ -226,13 +254,15 @@ def runs(tmp_path_factory):
     st, m = sh.train_step(sh.prepare(s1), x, y, use_mine=True, update_gmm=True)
     jax_ref = dict(loss=float(m.loss), em_active=int(m.em_active),
                    means=np.asarray(st.gmm.means), priors=np.asarray(st.gmm.priors))
+    jax_async = {m: _jax_async(s1, batches, m) for m in MESHES[:2]}
     join(MESHES[1], running)
     running = start_ranks(root, MESHES[2], scenarios[MESHES[2]], bpath)
     single = {name: _port_single(keys, ckpts[start], batches, steps)
               for name, keys, start, steps in SCENARIOS}
+    jax_async[MESHES[2]] = _jax_async(s1, batches, MESHES[2])
     join(MESHES[2], running)
     return {"port": port, "jax": jax_out, "jax_ref": jax_ref, "single": single,
-            "batches": batches, "cfg": tcfg, "root": root}
+            "jax_async": jax_async, "batches": batches, "cfg": tcfg, "root": root}
 
 
 def _full_of(state):
@@ -461,15 +491,41 @@ def test_fused_scoring_with_indivisible_classes_raises_at_construction():
                           mesh=jax_make_mesh(1, 2, devices=jax.devices()[:2]))
 
 
-def test_async_bank_under_several_ranks_is_refused():
-    from mgproto_tpu_torch.cli.common import NotPortedError
+@pytest.mark.parametrize("mesh", MESHES, ids=lambda m: f"{m[0]}x{m[1]}")
+def test_async_steps_match_jax_sharded_and_the_one_process_async_trainer(runs, mesh):
+    """Three async steps from a full bank and the flush on the ranks: every
+    rank holds the one-process async trainer's state (the trunk on the
+    one-step-stale means of its slab, the bank phase's gather and EM sums
+    on the bank's own process groups), the ranks bit-equal, and within the
+    stated bounds of JAX's async ShardedTrainer on the same mesh shape."""
+    ranks = runs["port"][mesh]["async"]
+    r0 = ranks[0]
+    _, st, rec, _, eval1 = runs["single"]["async"]
+    np.testing.assert_allclose(r0["loss"], [r[0] for r in rec], rtol=2e-5)
+    np.testing.assert_array_equal(r0["em_active"], [r[2] for r in rec])
+    assert r0["em_active"][0] == 0  # the fill step holds its bank phase
+    full = _full_of(st)
+    for k in ("length", "cursor"):
+        np.testing.assert_array_equal(r0[k], full[k], err_msg=k)
+    np.testing.assert_allclose(r0["feats"], full["feats"], atol=1e-5)
+    for k in ("means", "priors", "params"):
+        np.testing.assert_allclose(r0[k], full[k], **TIGHT, err_msg=k)
+    np.testing.assert_allclose(r0["eval_logits"], eval1, **TIGHT)
+    for r in ranks[1:]:
+        for k in ("params", "running_mean", "means", "priors", "length", "loss", "feats"):
+            np.testing.assert_array_equal(r[k], r0[k], err_msg=k)
 
-    cfg = tiny_test_config()
-    cfg = cfg.replace(em=EMConfig(async_bank=True))
-    with pytest.raises(NotPortedError, match="A8"):
-        ShardedTrainer(cfg, steps_per_epoch=4, mesh=Mesh(2, 1, rank=0), device="cpu")
-    # one rank: the Trainer's pipeline
-    assert ShardedTrainer(cfg, steps_per_epoch=4, device="cpu").async_bank
+    j = runs["jax_async"][mesh]
+    cfg = runs["cfg"]
+    np.testing.assert_allclose(r0["loss"], [x[0] for x in j["rec"]], atol=1e-4)
+    np.testing.assert_array_equal(r0["em_active"], [x[1] for x in j["rec"]])
+    np.testing.assert_array_equal(r0["length"], j["length"])
+    np.testing.assert_allclose(r0["means"], j["means"],
+                               atol=3 * 2 * cfg.em.num_em_loop * cfg.em.mean_lr)
+    trunk0 = next(n for n, _ in create_train_state(
+        cfg, torch.Generator(), "cpu").model.features.named_parameters())
+    np.testing.assert_allclose(r0["trunk0"], j["params"][f"features.{trunk0}"],
+                               atol=3 * 2 * cfg.optim.features_lr)
 
 
 def test_one_rank_sharded_trainer_is_the_trainer():

@@ -14,8 +14,8 @@ calibrated on the same seeded batches.
   * `check --trust` exits 0 and 1 as JAX's does; every other gate and
     `summarize` raise NotPortedError naming "A9 (obs and telemetry)".
   * `report` renders and merges as JAX's does; the trust metric family is
-    registered under the JAX names; `interp` is refused naming A8; `matrix`
-    from an artifact and a folder tree exits by its gates.
+    registered under the JAX names; `matrix` from an artifact and a folder
+    tree exits by its gates (`interp`: tests/test_torch_interp_sharded.py).
 """
 
 import contextlib
@@ -285,11 +285,6 @@ def test_the_drill_preregisters_the_trust_family(monkeypatch):
                         lambda reg: (seen.append(reg), real(reg)))
     drill.run_storm(seed=0, phases=drill.parse_phases("0.1x40"), online=True, device="cpu")
     assert len(seen) == 1 and tmetrics.PAIR_AUROC in seen[0].snapshot()
-
-
-def test_interp_is_refused_naming_a8():
-    with pytest.raises(NotPortedError, match="A8"):
-        ttrust_cli.main(["interp", "--cub_root", "x"])
 
 
 def test_matrix_main_synthetic_exits_by_its_gates(tmp_path):
