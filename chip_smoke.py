@@ -134,7 +134,8 @@ Phases, one JSON line each (`t_s`: seconds since the script started):
              worker is still starting in that group: exit 0,
              PREEMPTED.json, a preempt checkpoint with its batch position,
              its 2 spawn workers neither replaced nor left behind, and `--resume auto` finishes
-             the run and clears the marker; (e) the preempt and NaN drills
+             the run (the OoD folder as its test set) and clears the
+             marker; (e) the preempt and NaN drills
              through run_training (resnet18, cuDNN deterministic) end bit
              for bit at the clean run's state, and a budget of 0 rollbacks
              raises.
@@ -261,17 +262,25 @@ Phases, one JSON line each (`t_s`: seconds since the script started):
              equal, the bank's lengths equal, the means, the first step's
              gradient and the parameters' update within twice that
              perturbation's floor; then two more steps with the collectives
-             timed apart (per-rank step s, collective and compute ms); then
+             timed apart (per-rank step s, collective and compute ms); at
+             (1, 2) the parameters, the proxies and their Adam moments are
+             held cut over the model axis, and after the restore, after the
+             steps and after the async steps every rank's storage behind
+             them equals `tree_bytes_per_chip` of their specs exactly
+             (printed beside the replicated count, with the card's
+             allocated bytes at rest); then
              three steps of the async bank pipeline and its flush at each
              mesh (the bank phase's gather and EM sums on its own process
              groups, from the bank stream), held to the one-process async
              Trainer the same way, the ranks bit-equal, launches a rank and
              step score_pool 1, its backward 1, the epilogue 16, the E-step
              3 on the bank stream (none on the fill step, 3 in the flush);
-             the async state saved sharded at (1, 2) (each rank its slab,
-             COMMIT-published), restored by the pair at (2, 1) and by the
-             parent at world 1, each bit-equal to the saved gathered state
-             (save and restore seconds and bytes a rank); (b) `cli.train
+             the async state saved sharded at (1, 2) (each rank its slab and
+             its slices, COMMIT-published; each rank's npz within its chunks'
+             headers of the bytes its specs give it), restored by the pair
+             at (2, 1) and by the parent at world 1, each bit-equal to the
+             saved gathered state (save and restore seconds and bytes a
+             rank); (b) `cli.train
              --distributed` at world size 1 under NCCL (the launcher's
              environment set) for one epoch on the input phase's folder,
              the OoD folder as test and push set: it trains, tests, pushes
@@ -294,7 +303,13 @@ Phases, one JSON line each (`t_s`: seconds since the script started):
              to its first 32 images, from (a)'s sharded save, equals
              `run_interpret`'s metrics on them in one process exactly, or
              differs by at most two near ties where every map is within
-             1e-4 of the other's largest value.
+             1e-4 of the other's largest value; beside it `cli.interpret
+             --distributed --mesh_model 2` as two gloo rank processes on
+             cuda:0 (`chip_smoke.py --interp-child`, started with the
+             phase, its main run once the save's COMMIT exists) on the same
+             save and images prints the pair's metrics by the same rule, rank 0
+             alone printing and writing the CSV, each rank's epilogue
+             launches exact.
 Then the kernel summary line (times at the train step's shapes, the serve
 path's beside them; `launches` counted on the input phase's epoch,
 `schedule_launches` on the schedule phase's run, `interpret_launches` on
@@ -307,8 +322,10 @@ steps and their flushes, `async_drill_launches` on its async drills,
 `online_launches` on phase 14's consolidation on the card, `trust_launches`
 on phase 15's full-width matrix process, `distributed_launches` on
 phase 16 (a)'s ranks, both meshes, `distributed_async_launches` on their
-async steps and flushes, `distributed_interp_launches` on (d); the epilogue's
-bf16 times at B = 80 under "train_bf16"), the card line as
+async steps and flushes, `distributed_interp_launches` on (d),
+`distributed_interpret_cli_launches` on (d)'s cli.interpret pair; the epilogue's
+bf16 times at B = 80 under "train_bf16") after a `script` line with the
+script's seconds, the card line as
 nvidia-smi prints it, and last `{"ok": true, "device": {...}}`. Any failed
 check exits non-zero before that line is printed.
 """
@@ -3149,8 +3166,11 @@ def cli_preempt_check(smi, root, base):
     from mgproto_tpu_torch.utils import checkpoint as ck
 
     run_dir = os.path.join(base, "sigterm")
+    # the schedule phase's OoD folder (5 x 16) as the test set: the resume's
+    # two test passes need no more to show the run finished
+    ood = trust_trees()[1]
     run = dict(arch="resnet18", epochs=1, mine_start=0, gmm_start=0, push_start=100,
-               no_pretrained=True)
+               no_pretrained=True, test_dir=ood, push_dir=ood)
     flags = cli_flags(root, run_dir, **run)
     spawn = cli_flags(root, run_dir, **run, num_workers=SIGTERM_WORKERS,
                       worker_backend="process")
@@ -5187,6 +5207,8 @@ DIST_CHILD_TIMEOUT_S = 300
 DIST_SAVE_MESH, DIST_RESTORE_MESH = (1, 2), (2, 1)  # (a)'s sharded save, then its restore
 DIST_INTERP_MESH = (1, 2)  # (d): the class slabs score the maps
 DIST_INTERP_IMAGES, DIST_INTERP_BATCH = 32, 16  # the interpret tree's first 32 images
+DIST_NPZ_HEADER_BYTES = 512  # a chunk's zip entry and .npy header, at most
+DIST_INTERP_WAIT_S = 900  # (d)'s cli.interpret pair waits this long for the save
 # (d) is exact unless the two collections differ only by rounding: every map
 # within this share of its largest value of the other's, and at most this
 # many peaks or top-K orders moved by it
@@ -5265,19 +5287,24 @@ def dist_child_async(spec, rank, mesh, shape, batches, out, out_dir):
     out["async_flush"] = {"em_active": flushed[0].num_active,
                           "launches": {k: v - before[k] for k, v in launch_counts().items()}}
     out["async_sha256"] = dist_state_digest(trainer, state)
-    full = trainer.full_state(state)
-    if rank == 0:
-        dist_save_npz(os.path.join(out_dir, "async_state.npz"), trainer, full)
+    with trainer.full_params(state, moments=True):
+        full = trainer.full_state(state)
+        if rank == 0:
+            dist_save_npz(os.path.join(out_dir, "async_state.npz"), trainer, full)
+        gathered = state_digest(full)
+    out["async_layout"] = param_layout(trainer, state)
     if tuple(shape) == DIST_SAVE_MESH:
         torch.cuda.synchronize()
         t0 = time.perf_counter()
         path = trainer.save(spec["ckpt_dir"], state, "1nopush0.0000",
                             metadata={"epoch": 1, "stage": "nopush"})
+        spec_bytes, chunks = shard_spec_bytes(trainer, state)
         out["save"] = {"s": time.perf_counter() - t0, "path": path,
                        "bytes": sum(os.path.getsize(os.path.join(path, f))
                                     for f in os.listdir(path)
                                     if f.startswith(f"shard_{rank:05d}.")),
-                       "gathered_digest": state_digest(full)}
+                       "npz_bytes": os.path.getsize(os.path.join(path, f"shard_{rank:05d}.npz")),
+                       "spec_bytes": spec_bytes, "chunks": chunks, "gathered_digest": gathered}
     del trainer, state, full
     torch.cuda.empty_cache()
 
@@ -5310,10 +5337,13 @@ def dist_child_restore_and_interp(spec, rank, out):
     t0 = time.perf_counter()
     state = trainer.restore(saved)
     torch.cuda.synchronize()
-    out["restore"] = {"s": time.perf_counter() - t0, "mesh": list(DIST_RESTORE_MESH),
+    restore_s = time.perf_counter() - t0
+    with trainer.full_params(state, moments=True):
+        gathered = state_digest(trainer.full_state(state))
+    out["restore"] = {"s": restore_s, "mesh": list(DIST_RESTORE_MESH),
                       "read_bytes": sum(os.path.getsize(os.path.join(saved, f))
                                         for f in os.listdir(saved)),
-                      "gathered_digest": state_digest(trainer.full_state(state))}
+                      "gathered_digest": gathered}
     del trainer, state
     mesh = make_mesh(*DIST_INTERP_MESH, timeout_s=DIST_CHILD_TIMEOUT_S)
     cfg = dist_config(TRAIN_BATCH // DIST_RANKS)
@@ -5340,9 +5370,43 @@ def dist_child_restore_and_interp(spec, rank, out):
 
 
 def params_vector(trainer, state):
+    """Every parameter flattened, whole: under a mesh that cuts them,
+    gathered over the model group (a collective of the group)."""
     import torch
 
-    return torch.cat([p.detach().reshape(-1) for p in trainer.params(state)])
+    with trainer.full_params(state):
+        return torch.cat([p.detach().reshape(-1) for p in trainer.params(state)])
+
+
+def param_layout(trainer, state):
+    """The rank's parameters and Adam moments at rest: the bytes of the
+    storage behind them (each storage once) beside `tree_bytes_per_chip`
+    of their specs at the mesh's model axis and at a model axis of 1 (the
+    replicated layout), and the card's allocated bytes."""
+    import torch
+
+    from mgproto_tpu_torch.parallel import sharding
+
+    c, m = trainer.cfg.model.num_classes, trainer.mesh.model
+    return {"held_bytes": sharding.held_bytes(sharding.param_tensors(state)),
+            "spec_bytes": sharding.param_bytes_per_rank(state, c, m),
+            "replicated_bytes": sharding.param_bytes_per_rank(state, c, 1),
+            "memory_allocated_gb": torch.cuda.memory_allocated() / 1e9}
+
+
+def shard_spec_bytes(trainer, state):
+    """(bytes, chunks) this rank writes of a sharded save of `state` by the
+    specs: the leaves `sharded_payload_axes` names when it is the first
+    rank of its model column, every other leaf on rank 0."""
+    from mgproto_tpu_torch.parallel.sharding import sharded_payload_axes
+    from mgproto_tpu_torch.utils import checkpoint as ck
+
+    mesh = trainer.mesh
+    axes = (sharded_payload_axes(state, trainer.cfg.model.num_classes, mesh.model)
+            if mesh.model > 1 else {})
+    leaves = [t for path, t in ck._tensors(ck.state_payload(state))
+              if (mesh.data_index == 0 if path in axes else mesh.rank == 0)]
+    return sum(t.numel() * t.element_size() for t in leaves), len(leaves)
 
 
 def dist_child(argv):
@@ -5361,7 +5425,7 @@ def dist_child(argv):
 
     from mgproto_tpu_torch.parallel import collectives
     from mgproto_tpu_torch.parallel.mesh import initialize_distributed, make_mesh
-    from mgproto_tpu_torch.parallel.sharding import put_batch
+    from mgproto_tpu_torch.parallel.sharding import put_batch, whole_grads
     from mgproto_tpu_torch.parallel.trainer import ShardedTrainer
 
     with open(argv[0]) as f:
@@ -5377,9 +5441,10 @@ def dist_child(argv):
         cfg = dist_config(TRAIN_BATCH // DIST_RANKS)
         trainer = ShardedTrainer(cfg, steps_per_epoch=100, mesh=mesh, device="cuda:0")
         state = trainer.restore(spec["ckpt"])
+        torch.cuda.synchronize()
         out = {"rank": rank, "mesh": shape, "class_slab": trainer.class_slab(),
                "em_width": trainer.em_cfg.max_active_classes, "fused": trainer.fused,
-               "steps": [], "timed": []}
+               "steps": [], "timed": [], "layout_restored": param_layout(trainer, state)}
         torch.cuda.synchronize()
         torch.cuda.reset_peak_memory_stats()
         reset_launch_counts()
@@ -5394,14 +5459,20 @@ def dist_child(argv):
                 "accuracy": met.accuracy.item(), "em_active": met.em_active,
                 "em_compact_fallback": met.em_compact_fallback, "nonfinite": met.nonfinite,
                 "launches": {k: v - before[k] for k, v in launch_counts().items()}})
-            if i == 0 and rank == 0:
-                grad = torch.cat([p.grad.reshape(-1) for p in trainer.params(state)])
-                np.save(os.path.join(out_dir, "grad1.npy"), grad.cpu().numpy())
+            if i == 0:  # the whole gradient: a collective where the mesh cuts it
+                grads = whole_grads(trainer.params(state), trainer._param_mesh)
+                if rank == 0:
+                    grad = torch.cat([g.reshape(-1) for g in grads])
+                    np.save(os.path.join(out_dir, "grad1.npy"), grad.cpu().numpy())
+                del grads
         out["launches"] = launch_counts()
-        full = trainer.full_state(state)
+        torch.cuda.synchronize()
+        out["layout"] = param_layout(trainer, state)
         out["params_sha256"] = dist_state_digest(trainer, state)
-        if rank == 0:
-            dist_save_npz(os.path.join(out_dir, "state.npz"), trainer, full)
+        with trainer.full_params(state, moments=True):
+            full = trainer.full_state(state)
+            if rank == 0:
+                dist_save_npz(os.path.join(out_dir, "state.npz"), trainer, full)
         collectives.stats.timing = True
         for i in range(DIST_STEPS, DIST_STEPS + DIST_TIMED_STEPS):
             x, y = put_batch(batches[i], mesh)
@@ -5613,6 +5684,14 @@ def dist_mesh_check(smi, mesh, refs, wall_s):
             check(not step["nonfinite"], f"16 (a) mesh {mesh}: step {i} skipped as non-finite")
     check(len({rk["params_sha256"] for rk in ranks}) == 1,
           f"16 (a) mesh {mesh}: the ranks' parameters differ")
+    for rk in ranks:  # the parameters and moments at rest: the specs' bytes exactly
+        for when in ("layout_restored", "layout", "async_layout"):
+            lay = rk[when]
+            check(lay["held_bytes"] == lay["spec_bytes"],
+                  f"16 (a) mesh {mesh} rank {rk['rank']} {when}: the parameters and moments "
+                  f"hold {lay['held_bytes']} bytes, the specs {lay['spec_bytes']}")
+            check((lay["spec_bytes"] < lay["replicated_bytes"]) == (mesh[1] > 1),
+                  f"16 (a) mesh {mesh} rank {rk['rank']} {when}: {lay}")
     steps = ranks[0]["steps"]
     for i, (s, r, fl) in enumerate(zip(steps, ref["steps"], floor["steps"])):
         for rk in ranks[1:]:
@@ -5652,6 +5731,9 @@ def dist_mesh_check(smi, mesh, refs, wall_s):
                  "collective_mb_per_step": [t["collective_bytes"] / 1e6 for t in rk["timed"]],
                  "launches_per_step": rk["steps"][0]["launches"],
                  "em_compact_fallback": [s["em_compact_fallback"] for s in rk["steps"]],
+                 "params_and_moments_at_rest": {
+                     "after_restore": rk["layout_restored"], "after_steps": rk["layout"],
+                     "after_async_steps": rk["async_layout"]},
                  "peak_mem_gb": rk["peak_mem_gb"]} for rk in ranks]
     emit("distributed", part="a", card=smi, backend=DIST_BACKEND, mesh=list(mesh),
          ranks_on_one_card=DIST_RANKS, global_batch=TRAIN_BATCH,
@@ -5663,7 +5745,9 @@ def dist_mesh_check(smi, mesh, refs, wall_s):
          means_max_abs_err=means_err, means_floor=means_floor, grad_rel_err=grad_err,
          grad_floor=grad_floor, param_update_rel_err=param_err, param_floor=param_floor,
          cursors_equal_share=cursors_equal, params_bit_equal_across_ranks=True,
-         per_rank=per_rank,
+         params_sharded_at_rest=mesh[1] > 1, per_rank=per_rank,
+         compare_with="mesh (2, 1) of this run (model axis 1: the replicated layout) and "
+                      "PERF.md section 5, Distributed",
          note="gloo on one card: both ranks share the H100, and gloo stages CUDA tensors "
               "through the host; not a multi-GPU NCCL figure")
     sync_launches = {k: sum(rk["launches"][k] for rk in ranks) for k in want}
@@ -5756,6 +5840,12 @@ def dist_restore_check(smi, ranks_dir):
     path = savers[0]["save"]["path"]
     check(ck.is_committed(path) and ck.has_shard_files(path),
           f"16 (a): the sharded save {path} is not committed")
+    for r, sv in enumerate(savers):  # each rank's shard: its spec's chunks, plus npz headers
+        save = sv["save"]
+        check(save["spec_bytes"] <= save["npz_bytes"]
+              <= save["spec_bytes"] + DIST_NPZ_HEADER_BYTES * save["chunks"],
+              f"16 (a): rank {r}'s shard holds {save['npz_bytes']} bytes for the specs' "
+              f"{save['spec_bytes']} in {save['chunks']} chunks")
     digest = savers[0]["save"]["gathered_digest"]
     check(all(s["save"]["gathered_digest"] == digest for s in savers),
           "16 (a): the saving ranks' gathered states differ")
@@ -5774,6 +5864,9 @@ def dist_restore_check(smi, ranks_dir):
          restored_at=[list(DIST_RESTORE_MESH), [1, 1]], bit_equal=True,
          save_s=[s["save"]["s"] for s in savers],
          shard_bytes_per_rank=[s["save"]["bytes"] for s in savers],
+         shard_npz_bytes_per_rank=[s["save"]["npz_bytes"] for s in savers],
+         spec_bytes_per_rank=[s["save"]["spec_bytes"] for s in savers],
+         chunks_per_rank=[s["save"]["chunks"] for s in savers],
          restore_s=[r["restore"]["s"] for r in restorers],
          restore_read_bytes_per_rank=[r["restore"]["read_bytes"] for r in restorers],
          world1_restore_s=world1_s, files=sorted(os.listdir(path)))
@@ -5815,14 +5908,79 @@ def dist_interp_near_ties(cfg, cub, saved, ranks_dir):
     return flips, len(classes) * acts[0].shape[1], rel
 
 
-def dist_interp_check(smi, ranks_dir, saved, cub):
+def interp_child(argv):
+    """`python3 chip_smoke.py --interp-child READY FLAGS`: one rank of (d)'s
+    `cli.interpret --distributed` pair on cuda:0: the gloo group joined
+    first (two ranks on one card: NCCL refuses a card twice; the main's
+    own join then finds the group), then, once the file READY exists (the
+    checkpoint's COMMIT), `cli.interpret.main` on FLAGS, then one JSON line
+    of the process's launch counts and the seconds of `main`."""
+    from mgproto_tpu_torch.cli import interpret
+    from mgproto_tpu_torch.parallel.mesh import initialize_distributed
+
+    initialize_distributed(backend=DIST_BACKEND, device="cuda:0", strict=True,
+                           timeout_s=DIST_CHILD_TIMEOUT_S)
+    deadline = time.time() + DIST_INTERP_WAIT_S
+    while not os.path.exists(argv[0]):
+        check(time.time() < deadline, f"16 (d): {argv[0]} did not appear")
+        time.sleep(0.2)
+    argv = argv[1:]
+    reset_launch_counts()
+    t0 = time.perf_counter()
+    interpret.main(argv)
+    print(json.dumps({"interp_child": {"launches": launch_counts(),
+                                       "seconds": time.perf_counter() - t0}}), flush=True)
+    return 0
+
+
+def interp_cli_start(saved, cub):
+    """(d)'s `cli.interpret --distributed --mesh_model 2` as two gloo rank
+    processes on cuda:0 (the launcher's environment set here, LOCAL_RANK 0
+    for both) on (a)'s sharded save and the CUB tree `cub`, at the pair's
+    batch; each rank names a CSV of its own, of which only rank 0's may
+    appear. Started with the phase, each runs its main once the save's
+    COMMIT exists, so its process start is off the phase's critical path."""
+    port, procs = free_port(), []
+    for r in range(DIST_RANKS):
+        env = dict(os.environ, PYTHONUNBUFFERED="1", RANK=str(r), WORLD_SIZE=str(DIST_RANKS),
+                   LOCAL_RANK="0", MASTER_ADDR="localhost", MASTER_PORT=str(port))
+        flags = ["--cub_root", cub, "--checkpoint", saved, "--model_dir", os.path.dirname(saved),
+                 "--batch_size", str(DIST_INTERP_BATCH), "--num_workers", "0",
+                 "--no_pretrained", "--distributed", "--mesh_model", str(DIST_INTERP_MESH[1]),
+                 "--export_csv", os.path.join(DIST_DIR, f"interpret_rank{r}.csv")]
+        log = open(os.path.join(DIST_DIR, f"interp_cli_rank{r}.log"), "w")
+        procs.append(Started(subprocess.Popen(
+            [sys.executable, os.path.abspath(__file__), "--interp-child",
+             os.path.join(saved, "COMMIT"), *flags], cwd=HERE,
+            stdout=log, stderr=subprocess.STDOUT, env=env), log.name))
+    return procs
+
+
+def interp_cli_results(pair):
+    """Each rank's (metric line or None, launch line) of the pair, both
+    exited 0."""
+    out = []
+    for r, (code, _) in enumerate(p.wait(timeout=DIST_CHILD_TIMEOUT_S) for p in pair):
+        text = open(pair[r].out).read()
+        check(code == 0, f"16 (d) cli.interpret rank {r} exited {code}:\n{text[-3000:]}")
+        lines = [json.loads(ln) for ln in text.splitlines() if ln.startswith("{")]
+        child = [ln["interp_child"] for ln in lines if "interp_child" in ln]
+        metrics = [ln for ln in lines if "interp_child" not in ln]
+        check(len(child) == 1, f"16 (d) cli.interpret rank {r}: no launch line:\n{text[-3000:]}")
+        out.append((metrics[-1] if metrics else None, child[0]))
+    return out
+
+
+def dist_interp_check(smi, ranks_dir, saved, cub, pair):
     """16 (d): the ranks' `interp_metrics_sharded` at DIST_INTERP_MESH equals
     `run_interpret`'s metrics on the same images in one process, exactly
     (the CPU test's rule). Only where the two collections differ by
     rounding alone (every map within DIST_INTERP_MAP_RTOL of the other's,
     `dist_interp_near_ties`) may each of at most DIST_INTERP_MAX_TIES near
     ties (a map's peak or a prototype's top-K order) move a metric by one
-    prototype's weight (100 / prototypes); a wrong pass fails."""
+    prototype's weight (100 / prototypes); a wrong pass fails. The
+    `cli.interpret` rank pair `pair` prints (rank 0 alone, with the CSV)
+    the in-process pair's metrics by the same rule."""
     import dataclasses
 
     from mgproto_tpu_torch.cli.interpret import run_interpret
@@ -5853,13 +6011,37 @@ def dist_interp_check(smi, ranks_dir, saved, cub):
     per_rank = 16 * 2 * -(-DIST_INTERP_IMAGES // DIST_INTERP_BATCH)
     check(ranks[0]["launches"]["bn_epilogue"] == per_rank,
           f"16 (d): the epilogue launched {ranks[0]['launches']}, expected {per_rank} a rank")
+    (cli, child0), (cli1, child1) = interp_cli_results(pair)
+    check(cli is not None and cli1 is None, "16 (d) cli.interpret: rank 0 alone prints the line")
+    check(os.path.isfile(cli["csv"]) and cli["csv_rows"] > 0
+          and not os.path.exists(os.path.join(DIST_DIR, "interpret_rank1.csv")),
+          f"16 (d) cli.interpret: the CSV is not rank 0's alone: {cli}")
+    if any(cli[k] != ranks[0][k] for k in keys):
+        if not flips:
+            flips, n_protos, rel = dist_interp_near_ties(cfg, cub, saved, ranks_dir)
+        check(rel <= DIST_INTERP_MAP_RTOL and len(flips) <= DIST_INTERP_MAX_TIES
+              and all(abs(cli[k] - one[k]) <= 100.0 * len(flips) / n_protos + 1e-9
+                      for k in keys),
+              f"16 (d) cli.interpret: {[(cli[k], ranks[0][k], one[k]) for k in keys]} (the "
+              f"pair, the in-process pair, one process) with near ties {sorted(flips)}")
+    for child in (child0, child1):
+        check(child["launches"] == dict(dict.fromkeys(child["launches"], 0),
+                                        bn_epilogue=per_rank),
+              f"16 (d) cli.interpret: a rank launched {child['launches']}, expected the "
+              f"epilogue {per_rank} times")
     emit("distributed", part="d", card=smi, mesh=list(DIST_INTERP_MESH), images=one["images"],
          batch=DIST_INTERP_BATCH, two_ranks={k: ranks[0][k] for k in keys},
          one_process={k: one[k] for k in keys}, near_ties=len(flips), maps_rel_diff=rel,
          class_slab=[r["class_slab"] for r in ranks], launches_per_rank=ranks[0]["launches"],
          two_ranks_s=ranks[0]["s"], one_process_s=one_s,
+         cli_interpret={k: cli[k] for k in keys + ("csv_rows",)},
+         cli_interpret_main_s=[child0["seconds"], child1["seconds"]],
+         cli_interpret_launches_per_rank=child0["launches"],
+         note="the cli.interpret pair's main ran from the save's COMMIT on, beside the ranks' "
+              "restore and interp pass and this process's one-process interpret",
          reduced="the interpret phase's CUB tree cut to its first 32 images (8 classes)")
-    return {k: sum(r["launches"][k] for r in ranks) for k in ranks[0]["launches"]}
+    return ({k: sum(r["launches"][k] for r in ranks) for k in ranks[0]["launches"]},
+            {k: child0["launches"][k] + child1["launches"][k] for k in child0["launches"]})
 
 
 def dist_cli_flags():
@@ -6092,7 +6274,10 @@ def dist_phase(smi):
     os.makedirs(POD_DIR)
     train = dist_cli_start()
     clean, kill = pod_start("clean"), pod_start("kill", kill=True)
-    started = [train, *clean, *kill]
+    cub = os.path.join(DIST_DIR, "cub")
+    # (d)'s cli.interpret pair waits for (a)'s sharded save to run its main
+    pair = interp_cli_start(os.path.join(DIST_DIR, "sharded", "1nopush0.0000"), cub)
+    started = [train, *clean, *kill, *pair]
     pool = concurrent.futures.ThreadPoolExecutor(2)
     try:
         cfg = dist_config(TRAIN_BATCH)
@@ -6119,8 +6304,8 @@ def dist_phase(smi):
         c_eval = pool.submit(run_main, "evaluate", pod_flags(os.path.join(POD_DIR, "clean")), 300)
         dist_cli_check(smi, train, b_eval)
         pod_relaunch_check(smi, relaunch, killed, c_eval)
-        # (a) and (d): the ranks have the card to themselves (their steps are timed)
-        cub = os.path.join(DIST_DIR, "cub")
+        # (a) and (d): the ranks have the card to themselves (their steps are
+        # timed) until their save publishes, when the cli.interpret pair starts
         n = write_cub_tree(cub, DIST_INTERP_IMAGES // INTERPRET_PER_CLASS, INTERPRET_PER_CLASS,
                            INPUT_HW, seed=11)
         check(n == DIST_INTERP_IMAGES, f"16 (d): {n} images written")
@@ -6133,7 +6318,8 @@ def dist_phase(smi):
         del refs
         torch.cuda.empty_cache()
         saved = dist_restore_check(smi, DIST_DIR)
-        launches["interp"] = dist_interp_check(smi, DIST_DIR, saved, cub)
+        launches["interp"], launches["interpret_cli"] = dist_interp_check(smi, DIST_DIR, saved,
+                                                                          cub, pair)
     finally:
         pool.shutdown(wait=False, cancel_futures=True)
         for p in started:
@@ -6214,6 +6400,8 @@ def main() -> int:
         return dist_probe()
     if sys.argv[1:2] == ["--pod-child"]:
         return pod_child(sys.argv[2:])
+    if sys.argv[1:2] == ["--interp-child"]:
+        return interp_child(sys.argv[2:])
     smi = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
         capture_output=True, text=True, timeout=60,
@@ -6307,8 +6495,14 @@ def main() -> int:
         check((k["distributed_interp_launches"] > 0) == (k["name"] == "bn_epilogue"),
               f"{k['name']}: {k['distributed_interp_launches']} launches on the sharded "
               "interp pass")
+        # (d)'s cli.interpret --distributed pair, both ranks
+        k["distributed_interpret_cli_launches"] = distributed_launches["interpret_cli"][k["name"]]
+        check((k["distributed_interpret_cli_launches"] > 0) == (k["name"] == "bn_epilogue"),
+              f"{k['name']}: {k['distributed_interpret_cli_launches']} launches in the "
+              "cli.interpret pair")
         if k["name"] == "bn_epilogue":
             k["train_bf16"] = dict(epi_bf16, launches=bf16_launches["bn_epilogue"])
+    emit("script", seconds=time.perf_counter() - T_START, limit_s=1200)
     print(json.dumps({"kernels": kernels, "input_steps": input_steps, "train_steps": train_steps,
                       "serve_dispatches": dispatches, "bf16_train_steps": bf16_steps,
                       "backbone_steps": TRAIN_STEPS, "async_steps": async_steps,

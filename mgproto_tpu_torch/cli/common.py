@@ -56,12 +56,15 @@ REFUSED = (
 )
 
 
-# the mains that run one process (export, serve, interpret, trust) refuse
-# the distributed flags; cli.train and cli.evaluate take them
+# the mains that run one process in both packages (export, serve, trust
+# matrix: JAX's parse these flags but never joins a group) refuse the
+# distributed flags; cli.train, cli.evaluate, cli.interpret and cli.trust
+# interp take them
+ONE_PROCESS = "is refused by design: this main runs one process, in the JAX package too"
 SINGLE_PROCESS_REFUSED = (
-    ("distributed", False, "A8 (multi-GPU: this main runs one process)"),
-    ("mesh_data", -1, "A8 (multi-GPU: this main runs one process)"),
-    ("mesh_model", 1, "A8 (multi-GPU: this main runs one process)"),
+    ("distributed", False, ONE_PROCESS),
+    ("mesh_data", -1, ONE_PROCESS),
+    ("mesh_model", 1, ONE_PROCESS),
 )
 
 # the serve and export mains' own flags that the port parses but does not
@@ -236,12 +239,14 @@ def add_train_args(p: argparse.ArgumentParser) -> None:
 
 def check_ported(args: argparse.Namespace, rows=REFUSED) -> None:
     """Raise NotPortedError for the first flag of `rows` (default `REFUSED`)
-    set to a value the port does not implement."""
+    set to a value the port does not implement (or, for
+    `SINGLE_PROCESS_REFUSED`, that the main does not take by design)."""
     for dest, accepted, item in rows:
         value = getattr(args, dest)
         ok = value in accepted if isinstance(accepted, tuple) else value == accepted
         if not ok:
-            raise NotPortedError(f"--{dest}={value!r} is not ported; ROADMAP {item}")
+            reason = item if item == ONE_PROCESS else f"is not ported; ROADMAP {item}"
+            raise NotPortedError(f"--{dest}={value!r} {reason}")
 
 
 def maybe_init_distributed(args: argparse.Namespace) -> None:

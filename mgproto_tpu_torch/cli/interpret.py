@@ -2,12 +2,19 @@
 
     python -m mgproto_tpu_torch.cli.interpret --cub_root CUB_200_2011 \
         [--metric all] [--checkpoint auto|<path>] [--export_csv p.csv] [--device cuda]
+    torchrun --nproc_per_node 2 -m mgproto_tpu_torch.cli.interpret --distributed \
+        [--mesh_model 2] --cub_root CUB_200_2011 ...
 
 Reference: eval_consistency.py, eval_stability.py, eval_purity.py. Restores
-a checkpoint (replicated, or sharded by any number of ranks), runs the CUB test split once through the gt-class activation
-collector (one clean pass shared by every metric; the stability metric adds
-one noisy pass), computes the selected metrics and, on request, writes the
-per-prototype patch CSV.
+a checkpoint (replicated, or sharded by any number of ranks) through the
+ShardedTrainer, runs the CUB test split once through the gt-class
+activation collector (one clean pass shared by every metric; the
+stability metric adds one noisy pass), computes the selected metrics and,
+on request, writes the per-prototype patch CSV. With --distributed every
+rank reads every global batch and scores its own rows (against its class
+slab when the model axis splits the classes, trust/interp_sharded.py),
+the maps are gathered onto every rank, and rank 0 prints the line and
+writes the CSV: the metrics of one process, on any mesh.
 """
 
 from __future__ import annotations
@@ -20,12 +27,7 @@ from typing import Dict, Optional, Union
 
 import torch
 
-from mgproto_tpu_torch.cli.common import (
-    SINGLE_PROCESS_REFUSED,
-    add_train_args,
-    check_ported,
-    config_from_args,
-)
+from mgproto_tpu_torch.cli.common import add_train_args, config_from_args, maybe_init_distributed
 from mgproto_tpu_torch.config import Config
 from mgproto_tpu_torch.data import Cub2011Eval, DataLoader, ood_transform
 from mgproto_tpu_torch.data.cub_parts import CubParts
@@ -36,13 +38,12 @@ from mgproto_tpu_torch.engine.interpretability import (
     evaluate_stability,
     export_prototype_patches_csv,
 )
-from mgproto_tpu_torch.engine.train import Trainer
 from mgproto_tpu_torch.numerics import resolve_device
-from mgproto_tpu_torch.utils.checkpoint import (
-    adopt_checkpoint_train_config,
-    latest_checkpoint,
-    restore_checkpoint,
-)
+from mgproto_tpu_torch.parallel.mesh import leave_process_group
+from mgproto_tpu_torch.parallel.multihost import is_primary_host
+from mgproto_tpu_torch.parallel.trainer import ShardedTrainer
+from mgproto_tpu_torch.trust.interp_sharded import sharded_act_fn
+from mgproto_tpu_torch.utils.checkpoint import adopt_checkpoint_train_config, latest_checkpoint
 
 METRICS = ("consistency", "stability", "purity", "all")
 
@@ -90,7 +91,10 @@ def run_interpret(
     checkpoint's training settings (compute dtype, aux loss, EM stepping)
     are adopted into `cfg` first (`adopt_checkpoint_train_config`), and
     the rest of its model must match `cfg`'s. `device`: CUDA unless the
-    caller names another.
+    caller names another. In a process group every rank calls it: the
+    checkpoint is restored onto the mesh of `cfg.mesh` and the passes run
+    sharded (trust/interp_sharded.py `sharded_act_fn`), every rank
+    computing the same metrics; rank 0 alone writes the CSV.
 
     Returns the metrics the JAX CLI prints ("consistency", "stability",
     "purity", "purity_std", "csv_rows", "csv") and "checkpoint", "images",
@@ -104,8 +108,9 @@ def run_interpret(
         raise FileNotFoundError(f"no checkpoint in {cfg.model_dir}")
     cfg = adopt_checkpoint_train_config(cfg, path)
     parts = CubParts(cub_root)
-    trainer = Trainer(cfg, steps_per_epoch=1, device=dev)
-    state = restore_checkpoint(path, trainer.init_state(cfg.seed, for_restore=True))
+    trainer = ShardedTrainer(cfg, steps_per_epoch=1, device=dev)
+    state = trainer.restore(path)
+    act_fn = sharded_act_fn(trainer, state)  # gt_act in one process
 
     c = cfg.model.num_classes
     seconds: Dict[str, float] = {}
@@ -113,7 +118,7 @@ def run_interpret(
     loader = build_eval_loader(cfg, cub_root)
     try:
         with _timed(seconds, "clean_pass", dev):
-            clean = collect_gt_activations(trainer, state, iter(loader))
+            clean = collect_gt_activations(trainer, state, iter(loader), act_fn=act_fn)
         results["images"] = len(clean[1])
         if metric in ("consistency", "all"):
             with _timed(seconds, "consistency", dev):
@@ -121,7 +126,8 @@ def run_interpret(
                     trainer, state, None, parts, c, half_size=half_size, activations=clean)
         if metric in ("stability", "all"):
             with _timed(seconds, "noisy_pass", dev):
-                noisy = collect_gt_activations(trainer, state, iter(loader), use_noise=True)
+                noisy = collect_gt_activations(trainer, state, iter(loader), use_noise=True,
+                                               act_fn=act_fn)
             with _timed(seconds, "stability", dev):
                 results["stability"] = evaluate_stability(
                     trainer, state, None, parts, c, half_size=half_size,
@@ -132,7 +138,7 @@ def run_interpret(
                     trainer, state, None, parts, c, half_size=purity_half_size,
                     top_k=purity_top_k, activations=clean)
             results["purity"], results["purity_std"] = mean, std
-        if export_csv:
+        if export_csv and is_primary_host():  # every rank holds every map
             with _timed(seconds, "csv", dev):
                 results["csv_rows"] = export_prototype_patches_csv(
                     export_csv, trainer, state, None, c, half_size=purity_half_size,
@@ -145,9 +151,10 @@ def run_interpret(
 
 
 def main(argv: Optional[list] = None) -> None:
-    """Parse the JAX CLI's flags, run `run_interpret`, print its metrics as
-    the JAX CLI prints them (one JSON line: consistency, stability,
-    purity, purity_std, and csv_rows and csv with --export_csv)."""
+    """Parse the JAX CLI's flags, join the process group for --distributed,
+    run `run_interpret`, print its metrics as the JAX CLI prints them (one
+    JSON line: consistency, stability, purity, purity_std, and csv_rows and
+    csv with --export_csv; rank 0 alone under --distributed)."""
     p = argparse.ArgumentParser(
         description="Prototype interpretability metrics (the reference's eval_*.py)")
     add_train_args(p)
@@ -162,15 +169,19 @@ def main(argv: Optional[list] = None) -> None:
     p.add_argument("--export_csv", default="",
                    help="also write the per-prototype top-K patch CSV")
     args = p.parse_args(argv)
-    check_ported(args, SINGLE_PROCESS_REFUSED)
     cfg = config_from_args(args)
-    results = run_interpret(
-        cfg, args.cub_root, checkpoint=args.checkpoint, metric=args.metric,
-        half_size=args.half_size, purity_half_size=args.purity_half_size,
-        purity_top_k=args.purity_top_k, export_csv=args.export_csv, device=args.device)
-    print(f"loaded {results['checkpoint']}")
-    keys = ("consistency", "stability", "purity", "purity_std", "csv_rows", "csv")
-    print(json.dumps({k: results[k] for k in keys if k in results}))
+    maybe_init_distributed(args)
+    try:
+        results = run_interpret(
+            cfg, args.cub_root, checkpoint=args.checkpoint, metric=args.metric,
+            half_size=args.half_size, purity_half_size=args.purity_half_size,
+            purity_top_k=args.purity_top_k, export_csv=args.export_csv, device=args.device)
+        if is_primary_host():
+            print(f"loaded {results['checkpoint']}")
+            keys = ("consistency", "stability", "purity", "purity_std", "csv_rows", "csv")
+            print(json.dumps({k: results[k] for k in keys if k in results}))
+    finally:
+        leave_process_group()
 
 
 if __name__ == "__main__":

@@ -377,8 +377,9 @@ def _run_epoch(cfg, trainer, state, epoch, train_loader, test_loader, push_loade
             push_ds = push_loader.dataset
             gmm = trainer.full_gmm(state)  # a collective under a mesh: every rank
             # push_prototypes(save_dir=img_dir, ...) in one call, split here
-            # so the render has its own span; rank 0 draws
-            with timed_span(log, "push render") as render_span:
+            # so the render has its own span; rank 0 draws, every rank lends
+            # it the whole parameters (a collective too)
+            with trainer.full_params(state), timed_span(log, "push render") as render_span:
                 if primary:
                     render_prototypes(trainer, state, push_result,
                                       lambda i: push_ds.load(i)[0], img_dir, epoch, gmm=gmm)

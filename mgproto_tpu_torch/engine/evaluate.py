@@ -47,26 +47,27 @@ def _run_eval(trainer, state, batches) -> Tuple[np.ndarray, np.ndarray, float, i
     rows) are dropped here."""
     log_pxs, corrects, valids, logit_rows = [], [], [], []
     ce_total, n_batches = 0.0, 0
-    for batch in batches:
-        if isinstance(batch, tuple):
-            images, labels = batch[0], np.asarray(batch[1])
-        else:
-            images, labels = batch, None
-        out = trainer.eval_step(state, images, labels)
-        logits = host_local_rows(out.logits).astype(np.float64)
-        if labels is None:
-            valid = np.ones(logits.shape[0], bool)
-        else:
-            valid = labels >= 0
-            lse = _logsumexp(logits)
-            lbl = np.where(valid, labels, 0)
-            if valid.any():
-                ce_total += float(np.mean((lse - logits[np.arange(len(lbl)), lbl])[valid]))
-                n_batches += 1
-        log_pxs.append(host_local_rows(out.log_px))
-        corrects.append(host_local_rows(out.correct))
-        valids.append(valid)
-        logit_rows.append(logits)
+    with trainer.full_params(state):  # one gather of cut parameters for the pass
+        for batch in batches:
+            if isinstance(batch, tuple):
+                images, labels = batch[0], np.asarray(batch[1])
+            else:
+                images, labels = batch, None
+            out = trainer.eval_step(state, images, labels)
+            logits = host_local_rows(out.logits).astype(np.float64)
+            if labels is None:
+                valid = np.ones(logits.shape[0], bool)
+            else:
+                valid = labels >= 0
+                lse = _logsumexp(logits)
+                lbl = np.where(valid, labels, 0)
+                if valid.any():
+                    ce_total += float(np.mean((lse - logits[np.arange(len(lbl)), lbl])[valid]))
+                    n_batches += 1
+            log_pxs.append(host_local_rows(out.log_px))
+            corrects.append(host_local_rows(out.correct))
+            valids.append(valid)
+            logit_rows.append(logits)
     n_c = int(trainer.cfg.model.num_classes)
     log_px = allgather_rows(np.concatenate(log_pxs) if log_pxs else np.zeros((0,), np.float32))
     correct = allgather_rows(np.concatenate(corrects) if corrects else np.zeros((0,), bool))

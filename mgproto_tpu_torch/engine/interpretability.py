@@ -80,7 +80,7 @@ def collect_gt_activations(
     act_fn = gt_act if act_fn is None else act_fn
     rng = np.random.default_rng(noise_seed)
     accs, targets, ids = [], [], []
-    with eval_mode(state.model) as model:
+    with trainer.full_params(state), eval_mode(state.model) as model:
         for batch in batches:
             images, labels, img_ids = batch[0], np.asarray(batch[1]), np.asarray(batch[2])
             images = np.asarray(images, np.float32)

@@ -120,7 +120,7 @@ def scan_candidates(trainer, state: TrainState, batches: Iterable,
     candidates of every rank's shard, gathered in rank order."""
     gmm = state.gmm if gmm is None else gmm
     out: Dict[str, List[np.ndarray]] = {k: [] for k in PushCandidates._fields}
-    with eval_mode(state.model) as model:
+    with trainer.full_params(state), eval_mode(state.model) as model:
         for batch in batches:
             images, labels, image_ids = batch[0], batch[1], batch[2]
             x = to_device_images(preprocess_input(np.asarray(images, np.float32)), trainer.device)
@@ -206,16 +206,18 @@ def push_prototypes(
     if save_dir is not None and load_image is None:
         raise ValueError("save_dir requires load_image")
     gmm = trainer.full_gmm(state)
-    cand = scan_candidates(trainer, state, batches, gmm)
-    new_means, result = _greedy_assign(*cand, gmm.num_classes)
-    if gmm is state.gmm:
-        write_back(gmm, new_means, result.pushed)
-    else:  # a mesh's class slabs: this rank's, and the gathered copy the render reads
-        c0, c1 = trainer.class_slab()
-        write_back(state.gmm, new_means[c0:c1], result.pushed[c0:c1])
-        write_back(gmm, new_means, result.pushed)
-    if save_dir is not None and is_primary_host():
-        render_prototypes(trainer, state, result, load_image, save_dir, epoch, gmm=gmm)
+    # the whole parameters for the scan and rank 0's render, every rank alike
+    with trainer.full_params(state):
+        cand = scan_candidates(trainer, state, batches, gmm)
+        new_means, result = _greedy_assign(*cand, gmm.num_classes)
+        if gmm is state.gmm:
+            write_back(gmm, new_means, result.pushed)
+        else:  # a mesh's class slabs: this rank's, and the gathered copy the render reads
+            c0, c1 = trainer.class_slab()
+            write_back(state.gmm, new_means[c0:c1], result.pushed[c0:c1])
+            write_back(gmm, new_means, result.pushed)
+        if save_dir is not None and is_primary_host():
+            render_prototypes(trainer, state, result, load_image, save_dir, epoch, gmm=gmm)
     return state, result
 
 
@@ -235,7 +237,9 @@ def render_prototypes(
     crop). Activations are exp(log-density) of the class's prototypes on
     the image (the reference's `-proto_dist`); each chosen image is
     forwarded once per class and its [K, H, W] map upsampled on the state's
-    device, under `gmm` (every class; the state's own by default). Returns
+    device, under `gmm` (every class; the state's own by default). Under a
+    mesh that cuts the parameters the caller holds `trainer.full_params(
+    state)` on every rank (a collective), as `push_prototypes` does. Returns
     the directory written."""
     gmm = state.gmm if gmm is None else gmm
     out = os.path.join(save_dir, f"epoch-{epoch}") if epoch is not None else save_dir

@@ -58,8 +58,9 @@ refused. Each put records timing events around its copies, so
 
 from __future__ import annotations
 
+import contextlib
 import time
-from typing import Dict, Iterable, List, NamedTuple, Optional, Union
+from typing import Dict, Iterable, Iterator, List, NamedTuple, Optional, Union
 
 import numpy as np
 import torch
@@ -81,6 +82,12 @@ from mgproto_tpu_torch.parallel.collectives import (
     sum_tensors,
 )
 from mgproto_tpu_torch.parallel.multihost import fetch_replicated, heartbeat_tick
+from mgproto_tpu_torch.parallel.sharding import (
+    gather_params,
+    holds_slices,
+    scatter_grads,
+    whole_params,
+)
 from mgproto_tpu_torch.perf.precision import resolve_policy
 from mgproto_tpu_torch.utils.checkpoint import restore_checkpoint, save_checkpoint
 
@@ -191,6 +198,9 @@ class Trainer:
         self.mesh = None
         self._world_group = None
         self._class_mesh = None
+        # the mesh when its model axis cuts the parameters and their moments
+        # (parallel/sharding.py `shard_params`), else None
+        self._param_mesh = None
         # the async bank phase's own groups under a mesh (bank_groups): the
         # world for the candidates' gather, the mesh when it splits classes
         self._bank_world = None
@@ -286,17 +296,21 @@ class Trainer:
             return loss, (enq, ce, mine, aux, acc)
         return loss / n, (enq, ce / n, mine / n, aux, acc / n)
 
-    def _sum_over_world(self, params, loss, ce, mine, acc):
-        """Under a mesh: every gradient and the four shares summed over the
-        ranks, as one flat all-reduce in the parameters' order, so every
-        rank holds the global gradient and scalars, bit for bit alike (and
-        takes the same optimizer and divergence-guard branch). One
-        process: as they are."""
+    def _sum_over_world(self, params, loss, ce, mine, acc, held=()):
+        """Under a mesh: every whole gradient and the four shares summed
+        over the ranks, as one flat all-reduce in the parameters' order, so
+        every rank holds the global gradient and scalars, bit for bit alike
+        (and takes the same optimizer and divergence-guard branch); the
+        gradients of the leaves `gather_params` opened (`held`) summed and
+        cut to this rank's slices (`scatter_grads`), their slices put back.
+        One process: as they are."""
         if self._world_group is None:
             return loss, ce, mine, acc
+        cut = {id(t) for t, _ in held}
         scalars = torch.stack([loss.detach(), ce.detach(), mine.detach(), acc.detach()])
-        sum_tensors([p.grad for p in params if p.grad is not None] + [scalars],
-                    self._world_group)
+        sum_tensors([p.grad for p in params if p.grad is not None and id(p) not in cut]
+                    + [scalars], self._world_group)
+        scatter_grads(list(held), self.mesh)
         return tuple(scalars)
 
     def full_mem_ratio(self, mem) -> torch.Tensor:
@@ -317,9 +331,25 @@ class Trainer:
             return state.gmm
         return fetch_replicated(state.gmm, self._class_mesh, self.cfg.model.num_classes)
 
+    @contextlib.contextmanager
+    def full_params(self, state: TrainState, moments: bool = False) -> Iterator[TrainState]:
+        """Lend the block the whole parameters and proxies of `state` (with
+        `moments`, the joint and warm Adam moments too): under a mesh that
+        cuts them (parallel/sharding.py `whole_params`) gathered over the
+        model group on entry, every rank of the group together, and cut
+        back on exit; calls nest. One process, or nothing cut: a no-op."""
+        with whole_params(state, self._param_mesh, moments) as st:
+            yield st
+
     def full_state(self, state: TrainState) -> TrainState:
         """`state` with every class (`full_gmm`'s gather for the GMM, the
-        bank and the mean optimizer)."""
+        bank and the mean optimizer). It shares the model and the joint and
+        warm optimizers with `state`: under a mesh that cuts the parameters,
+        call it inside `full_params(state, moments=True)`, or it raises."""
+        if self._param_mesh is not None and holds_slices(state):
+            raise RuntimeError("full_state: the parameters or moments hold this rank's "
+                               "slices; call it inside trainer.full_params(state, "
+                               "moments=True)")
         if self._class_mesh is None:
             return state
         return fetch_replicated(state, self._class_mesh, self.cfg.model.num_classes)
@@ -329,17 +359,19 @@ class Trainer:
         """Write `state` as the checkpoint `ckpt_dir/name`
         (utils/checkpoint.py) in the format `ckpt_sharded` names (None:
         sharded under several ranks). Under a mesh every rank calls it:
-        sharded, each rank writes what it owns of its slab state;
-        replicated, the state is gathered (`full_state`) and rank 0
-        writes it."""
+        sharded, each rank writes what it owns of its state (its class
+        slab, its slices of the parameters and moments); replicated, the
+        state is gathered (`full_params`, `full_state`) and rank 0 writes
+        it."""
         sharded = self.ckpt_sharded
         if sharded is None:
             sharded = self._world_group is not None
         if sharded:
             return save_checkpoint(ckpt_dir, state, name, metadata=metadata, sharded=True,
-                                   class_mesh=self._class_mesh)
-        return save_checkpoint(ckpt_dir, self.full_state(state), name, metadata=metadata,
-                               sharded=False)
+                                   mesh=self.mesh, num_classes=self.cfg.model.num_classes)
+        with self.full_params(state, moments=True):
+            return save_checkpoint(ckpt_dir, self.full_state(state), name, metadata=metadata,
+                                   sharded=False)
 
     def restore(self, path: str, state: TrainState) -> TrainState:
         """`state` restored from the checkpoint at `path`
@@ -401,11 +433,19 @@ class Trainer:
         # BatchNorm, e.g. VGG without _bn)
         snapshot = torch.cat([t.reshape(-1) for t in stats]) if stats else None
 
+        # under a mesh that cuts the parameters: the whole tensors through
+        # the forward and the backward (a remat recompute included)
+        held = gather_params(params, self._param_mesh)
         loss, (enq, ce, mine, aux, acc) = self._loss(state, images, labels, use_mine, gmm)
         loss.backward()
-        loss, ce, mine, acc = self._sum_over_world(params, loss, ce, mine, acc)
+        loss, ce, mine, acc = self._sum_over_world(params, loss, ce, mine, acc, held)
         grad_sums = torch.stack([p.grad.sum() for p in params if p.grad is not None])
-        finite = torch.isfinite(loss) & torch.isfinite(grad_sums).all()
+        if not held:
+            finite = torch.isfinite(loss) & torch.isfinite(grad_sums).all()
+        else:  # this rank's slices: the model group's count covers the whole gradient
+            bad = (~torch.isfinite(grad_sums)).sum(dtype=torch.float32).reshape(1)
+            sum_tensors([bad], self.mesh.model_group)
+            finite = torch.isfinite(loss) & (bad[0] == 0)
         return _TrunkOut(loss, enq, ce, mine, aux, acc, finite, stats, snapshot)
 
     def _apply_trunk(self, state: TrainState, trunk: _TrunkOut, ok: bool, warm: bool) -> None:
@@ -533,7 +573,7 @@ class Trainer:
         next train step sees the state as it was."""
         if labels is not None:
             labels = _host_tensor(labels).to(torch.int64)
-        with eval_mode(state.model) as model:
+        with self.full_params(state), eval_mode(state.model) as model:
             return eval_forward(model, state.gmm, to_device_images(images, self.device), labels,
                                 self.cfg.model.mine_T, self.fused, mesh=self._class_mesh)
 

@@ -16,6 +16,23 @@ out:
     the scalars) after the backward gives every rank the global gradient
     (engine/train.py `_loss`, `_sum_over_world`); the parameters start
     equal (`prepare` broadcasts rank 0's) and stay bit-identical;
+  * when the model axis is above 1, the parameters, the proxies and both
+    Adam moments of the joint and warm optimizers are held cut at rest
+    (`parallel/sharding.py::shard_params`, JAX's rule "param"): each leaf
+    whose spec names 'model' keeps only this rank's slice of its spec's
+    axis, in storage of its own. A step gathers the whole tensors over the
+    model group before the forward and keeps them through the backward
+    (a remat recompute, the bf16 trunk's per-call casts), sums each cut
+    leaf's gradient over the world as a reduce-scatter over the model
+    group and a sum over the data group, puts the slices back and steps
+    Adam on them (elementwise, so the slice's update is the whole
+    tensor's cut). The finiteness flag is summed over the model group, so
+    every rank takes the same branch. The ranks of a model column hold
+    the same slices bit for bit, so the gathered parameters are equal on
+    every rank. A reader outside a step (the eval step, the test pass,
+    the push, the interpretability passes, `full_state`, the replicated
+    save) takes the whole tensors through `full_params(state)`, a
+    collective of the model group that nests;
   * when the model axis divides the classes, the GMM, the bank and the
     mean-Adam state hold this rank's class slab (`parallel/sharding.py`):
     score_pool and its backward run on the slab for the model group's rows
@@ -30,9 +47,12 @@ global batch's candidates and EM's model-group sums on process groups of
 its own (`collectives.bank_groups`, made here by every rank together).
 
 Checkpoints (`Trainer.save`): sharded under several ranks by default,
-each rank writing what it owns, or replicated (the slabs gathered, rank 0
-writes); either restores onto any mesh, cut to each rank's slab here, so
-a checkpoint of N ranks restores onto M.
+each rank writing what it owns (the first rank of a model column its
+class slab and its slices of the parameters and moments, with their span
+on the spec's axis; rank 0 every leaf held whole), or replicated (the
+slabs and slices gathered, rank 0 writes); either restores onto any mesh,
+whole first and then cut to each rank's slab and slices here, so a
+checkpoint of N ranks restores onto M.
 """
 
 from __future__ import annotations
@@ -48,7 +68,7 @@ from mgproto_tpu_torch.engine.train import Trainer
 from mgproto_tpu_torch.models.common import set_stats_group
 from mgproto_tpu_torch.parallel.collectives import bank_groups, broadcast_tensors
 from mgproto_tpu_torch.parallel.mesh import Mesh, make_mesh
-from mgproto_tpu_torch.parallel.sharding import shard_classes
+from mgproto_tpu_torch.parallel.sharding import holds_slices, shard_classes, shard_params
 from mgproto_tpu_torch.utils.checkpoint import restore_checkpoint
 
 
@@ -69,6 +89,7 @@ class ShardedTrainer(Trainer):
                 f"axis ({m.model}); adjust --mesh_model or drop --fused_scoring")
         self._world_group = m.world_group
         self._class_mesh = m if m.shards_classes(c) else None
+        self._param_mesh = m if m.model > 1 else None
         if self.async_bank and m.size > 1:
             bank = bank_groups(m)
             self._bank_world = bank.world
@@ -78,15 +99,20 @@ class ShardedTrainer(Trainer):
 
     def prepare(self, state: TrainState) -> TrainState:
         """Place `state` on the mesh in place: the model's parameters and
-        buffers and the proxies set to rank 0's, BatchNorm's statistics
-        over the world, and (when the model axis splits the classes) the
-        GMM, the bank and the mean optimizer cut to this rank's slab. A
-        state already prepared is left as it is."""
-        if self._world_group is not None:
-            tensors = list(state.model.parameters()) + list(state.model.buffers())
-            if state.proxies is not None:
-                tensors.append(state.proxies)
-            broadcast_tensors(tensors, 0, self._world_group)
+        buffers and the proxies set to rank 0's, then (model axis above 1)
+        the parameters, the proxies and the joint and warm Adam moments cut
+        to this rank's slices; BatchNorm's statistics over the world; and
+        (when the model axis splits the classes) the GMM, the bank and the
+        mean optimizer cut to this rank's slab. A state already prepared is
+        left as it is."""
+        if not holds_slices(state):
+            if self._world_group is not None:
+                tensors = list(state.model.parameters()) + list(state.model.buffers())
+                if state.proxies is not None:
+                    tensors.append(state.proxies)
+                broadcast_tensors(tensors, 0, self._world_group)
+            if self._param_mesh is not None:
+                shard_params(state, self.mesh, self.cfg.model.num_classes)
         set_stats_group(state.model, self._world_group)
         if self._class_mesh is not None and state.gmm.num_classes == self.cfg.model.num_classes:
             shard_classes(state, self.mesh)
@@ -97,7 +123,7 @@ class ShardedTrainer(Trainer):
 
     def restore(self, path: str, state: Optional[TrainState] = None) -> TrainState:
         """The checkpoint at `path` (replicated or sharded, from any number
-        of ranks) restored whole on every rank and cut to this rank's slab;
-        `state` is not used (the restore target holds every class)."""
+        of ranks) restored whole on every rank and cut to this rank's slab
+        and slices; `state` is not used (the restore target is whole)."""
         full = Trainer.init_state(self, 0, for_restore=True)
         return self.prepare(restore_checkpoint(path, full))

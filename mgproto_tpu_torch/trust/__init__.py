@@ -10,11 +10,12 @@ against the production serving path:
                trust report with per-cell AUROC, per-severity
                risk-coverage and the calibration-drift reading, gated by
                `python -m mgproto_tpu_torch.cli.telemetry check --trust`.
+  interp_sharded.py — consistency, stability and purity with the device
+               half sharded over the (data, model) rank mesh (each rank
+               its rows, each class slab its prototypes), equal to the
+               one-process metrics; `cli.trust interp` and
+               `cli.interpret --distributed` run it.
   auroc.py   — the midrank AUROC, numpy only, so the check re-derives
                every per-pair verdict from the report's raw scores.
   metrics.py — the trust_* metric family.
-
-The sharded interpretability evaluator (the JAX package's
-trust/interp_sharded.py) needs multi-GPU and is not ported (ROADMAP A
-item 5); `cli.trust interp` refuses it by name.
 """

@@ -26,10 +26,12 @@ and the other way round.
 
 The sharded format (`sharded=True`; the default under several ranks, as
 in the JAX package) is the JAX package's coordinated protocol with its
-files: every rank writes only what it owns (its class slab of the GMM,
-the bank and the mean optimizer's moments when the model axis splits the
-classes and it is the first rank of its model column; rank 0 the
-replicated leaves) as `shard_<rank:05d>.npz` + `shard_<rank:05d>.idx.json`
+files: every rank writes only what it owns (when it is the first rank of
+its model column, its class slab of the GMM, the bank and the mean
+optimizer's moments where the model axis splits the classes, and its
+slices of the parameters, the proxies and their joint and warm moments
+where the model axis cuts them, parallel/sharding.py; rank 0 every leaf
+held whole) as `shard_<rank:05d>.npz` + `shard_<rank:05d>.idx.json`
 (each chunk's leaf, key and global [start, stop) span per dimension) into
 the staging directory `<name>.tmp`; rank 0 adds the manifest (global
 shapes, `sharded`, the saving world size), the metadata, `skeleton.pt`
@@ -45,8 +47,8 @@ any moment of a save leaves nothing `resume="auto"` trusts, and retention
 never deletes the last committed checkpoint for it. A restore reassembles
 each leaf whole on the host from the chunks of every rank, refusing a
 torn or overlapping cover, and loads it into a whole-state target, which
-`parallel/trainer.py` then cuts to the restoring rank's slab: N ranks
-restore onto M (`elastic_restores_total` counts N != M).
+`parallel/trainer.py` then cuts to the restoring rank's slab and slices:
+N ranks restore onto M (`elastic_restores_total` counts N != M).
 
 The replicated format under several ranks: the trainer gathers the class
 slabs, rank 0 writes, and every rank joins the publish and verify
@@ -242,21 +244,22 @@ def _fill(tree: Any, leaves: Dict[str, torch.Tensor], prefix: str = "") -> Any:
     return tree
 
 
-def _sharded_leaves(payload: Dict[str, Any], class_mesh, class_paths: set) -> List[dict]:
+def _sharded_leaves(payload: Dict[str, Any], mesh, axes: Dict[str, int]) -> List[dict]:
     """Every tensor of `payload` with its global shape and the [start,
-    stop) span this rank holds of it, and whether this rank writes it:
-    a leaf of `class_paths` (the slab's, by parallel/sharding.py's specs)
-    its model column's first rank (data index 0), every other leaf rank
-    0."""
+    stop) span this rank holds of it, and whether this rank writes it: a
+    leaf of `axes` (cut on that axis over `mesh`'s model axis, by
+    parallel/sharding.py's specs) its model column's first rank (data
+    index 0), every other leaf rank 0."""
     rank = _world()[0]
     out = []
     for path, t in _tensors(payload):
         shape, span, writes = list(t.shape), [[0, d] for d in t.shape], rank == 0
-        if class_mesh is not None and path in class_paths:
-            c0 = class_mesh.model_index * shape[0]
-            span[0] = [c0, c0 + shape[0]]
-            shape[0] *= class_mesh.model
-            writes = class_mesh.data_index == 0
+        axis = axes.get(path)
+        if axis is not None:
+            start = mesh.model_index * shape[axis]
+            span[axis] = [start, start + shape[axis]]
+            shape[axis] *= mesh.model
+            writes = mesh.data_index == 0
         out.append({"path": path, "tensor": t, "shape": shape, "span": span, "writes": writes})
     return out
 
@@ -281,7 +284,7 @@ def _write_rank_shards(staging: str, leaves: List[dict], rank: int) -> None:
 
 
 def _save_sharded(path: str, payload: Dict[str, Any], name: str, metadata: Optional[dict],
-                  class_mesh, class_paths: set) -> None:
+                  mesh, axes: Dict[str, int]) -> None:
     """One attempt of the coordinated sharded save, called in lockstep by
     every rank (the JAX package's `_save_sharded`, step for step):
 
@@ -306,7 +309,7 @@ def _save_sharded(path: str, payload: Dict[str, Any], name: str, metadata: Optio
     rank, size = _world()
     primary = rank == 0
     staging = path + TMP_SUFFIX
-    leaves = _sharded_leaves(payload, class_mesh, class_paths)
+    leaves = _sharded_leaves(payload, mesh, axes)
     if primary:
         if os.path.isdir(staging):
             shutil.rmtree(staging)
@@ -395,15 +398,18 @@ def _save_replicated(path: str, payload: Dict[str, Any], name: str,
 
 def save_checkpoint(ckpt_dir: str, state: TrainState, name: str,
                     metadata: Optional[dict] = None, retries: int = SAVE_RETRIES,
-                    sharded: Optional[bool] = None, class_mesh=None) -> str:
+                    sharded: Optional[bool] = None, mesh=None,
+                    num_classes: Optional[int] = None) -> str:
     """Write `state` as the checkpoint `ckpt_dir/name`; returns its path.
 
     `sharded=None` is the sharded format under several ranks and the
     replicated one in one process; True or False is honored as given
-    (`--ckpt_format`). Sharded: every rank calls this with its own state,
-    `class_mesh` the mesh when its model axis splits the classes (the
-    state then holds this rank's slab), else None. Replicated: every rank
-    calls it with the whole state and rank 0 writes. A failed attempt is
+    (`--ckpt_format`). Sharded: every rank calls this with its own state
+    and `mesh` (parallel/mesh.py; None: every leaf whole), the model's
+    `num_classes`: the leaves the model axis splits (a class slab, the
+    cut parameters and moments) are written by the first rank of each
+    model column with their span. Replicated: every rank calls it with
+    the whole state and rank 0 writes. A failed attempt is
     counted (`checkpoint_write_failures_total`) and retried up to
     `retries` times with backoff, by every rank in lockstep; a barrier
     timeout is not retried (the dead peer cannot join a retry)."""
@@ -415,17 +421,16 @@ def save_checkpoint(ckpt_dir: str, state: TrainState, name: str,
         sharded = _world()[1] > 1
     path = os.path.abspath(os.path.join(ckpt_dir, name))
     payload = state_payload(state)
-    class_paths: set = set()
-    if sharded and class_mesh is not None:
-        from mgproto_tpu_torch.parallel.sharding import class_sharded_payload_paths
+    axes: Dict[str, int] = {}
+    if sharded and mesh is not None and mesh.model > 1:
+        from mgproto_tpu_torch.parallel.sharding import sharded_payload_axes
 
-        class_paths = class_sharded_payload_paths(
-            state, state.gmm.num_classes * class_mesh.model, class_mesh.model)
+        axes = sharded_payload_axes(state, num_classes, mesh.model)
 
     def attempt() -> None:
         try:
             if sharded:
-                _save_sharded(path, payload, name, metadata, class_mesh, class_paths)
+                _save_sharded(path, payload, name, metadata, mesh, axes)
             else:
                 _save_replicated(path, payload, name, metadata)
         except Exception:

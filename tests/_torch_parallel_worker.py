@@ -11,7 +11,11 @@ y{i} (a global batch each), and writes `out/rank{r}.npz`: the per-step
 loss, accuracy and EM count, the gathered means, priors and bank, every
 parameter flattened, the kernel launches of the steps (score_pool, its
 backward, the epilogue, the E-step), the eval logits of batch ex before
-and after the steps gathered in rank order, and (with `save`) a checkpoint written
+and after the steps gathered in rank order, the rank's at-rest layout of
+the parameters and moments after the restore (`layout0_*`) and after the
+steps (`layout_*`: the bytes of their storage, the specs' per-rank and
+replicated counts, the leaves held cut and whether each equals its slice
+of the gathered whole), and (with `save`) a checkpoint written
 through `Trainer.save` (sharded, or replicated with `"save_format": "replicated"`).
 With `"async_bank": true` the steps run the async bank pipeline, flushed
 after the last. A scenario of `"kind": "interp"` restores `ckpt` and writes
@@ -38,6 +42,7 @@ from mgproto_tpu_torch.ops.fused_epilogue import fused_bn_epilogue  # noqa: E402
 from mgproto_tpu_torch.ops.fused_scoring import score_pool, score_pool_bwd  # noqa: E402
 from mgproto_tpu_torch.parallel.mesh import initialize_distributed, make_mesh  # noqa: E402
 from mgproto_tpu_torch.parallel.multihost import allgather_rows  # noqa: E402
+from mgproto_tpu_torch.parallel import sharding  # noqa: E402
 from mgproto_tpu_torch.parallel.sharding import put_batch  # noqa: E402
 from mgproto_tpu_torch.parallel.trainer import ShardedTrainer  # noqa: E402
 
@@ -59,11 +64,42 @@ def scenario_config(sc, batch):
                                                 device_augment=False))
 
 
+def layout(trainer, state, prefix):
+    """The rank's at-rest layout of the parameters and moments: the bytes
+    of their storage, `param_bytes_per_rank` at the mesh's model axis and
+    at 1, the leaves held cut, and whether each equals its slice of the
+    whole gathered by `full_params` (a collective of the model group)."""
+    c, m = trainer.cfg.model.num_classes, trainer.mesh.model
+    tree = sharding.param_tensors(state)
+    leaves = [t for sub in tree.values() for t in (sub.values() if isinstance(sub, dict) else [sub])]
+    rest = [t.detach().clone() for t in leaves]
+    with trainer.full_params(state, moments=True):
+        whole = sharding.param_tensors(state)
+        wleaves = [t for sub in whole.values()
+                   for t in (sub.values() if isinstance(sub, dict) else [sub])]
+        params = dict(state.model.named_parameters())
+        owner = dict(params, **({"proxies": state.proxies} if state.proxies is not None else {}))
+        names = [n for f, sub in tree.items() for n in (sub if isinstance(sub, dict) else [f])]
+        cut, equal = 0, True
+        for name, r, w in zip(names, rest, wleaves):
+            shard = sharding.param_shard(owner[name.split("/")[0]])
+            if shard is None:
+                equal &= torch.equal(r, w)
+                continue
+            cut += 1
+            equal &= tuple(r.shape) != tuple(w.shape) and torch.equal(r, shard.slice_of(w))
+    return {f"{prefix}_bytes": sharding.held_bytes(tree),
+            f"{prefix}_spec": sharding.param_bytes_per_rank(state, c, m),
+            f"{prefix}_replicated": sharding.param_bytes_per_rank(state, c, 1),
+            f"{prefix}_cut": cut, f"{prefix}_leaves": len(leaves),
+            f"{prefix}_equal": bool(equal)}
+
+
 def run_scenario(sc, mesh, batches, device):
     cfg = scenario_config(sc, len(batches["y0"]) // mesh.size)
     trainer = ShardedTrainer(cfg, steps_per_epoch=4, mesh=mesh, device=device)
     state = trainer.restore(sc["ckpt"])
-    out = {}
+    out = layout(trainer, state, "layout0")
     if "ex" in batches:
         (ex,) = put_batch((batches["ex"],), mesh)
         out["eval0"] = allgather_rows(trainer.eval_step(state, ex).logits.cpu().numpy())
@@ -80,18 +116,21 @@ def run_scenario(sc, mesh, batches, device):
     if trainer.async_bank:
         state, _ = trainer.flush_bank(state)
     launches = [fn.launches for fn in kernels]
-    full = trainer.full_state(state)
-    out.update(
-        launches=np.array(launches),
-        loss=np.array(losses), accuracy=np.array(accs), em_active=np.array(em),
-        means=full.gmm.means.detach().cpu().numpy(), priors=full.gmm.priors.cpu().numpy(),
-        length=full.memory.length.cpu().numpy(), cursor=full.memory.cursor.cpu().numpy(),
-        feats=full.memory.feats.cpu().numpy(),
-        params=torch.cat([p.detach().reshape(-1) for p in trainer.params(state)]).cpu().numpy(),
-        trunk0=next(state.model.features.parameters()).detach().cpu().numpy(),
-        running_mean=next(b for n, b in state.model.named_buffers()
-                          if n.endswith("running_mean")).cpu().numpy(),
-    )
+    out.update(layout(trainer, state, "layout"))
+    with trainer.full_params(state, moments=True):
+        full = trainer.full_state(state)
+        out.update(
+            launches=np.array(launches),
+            loss=np.array(losses), accuracy=np.array(accs), em_active=np.array(em),
+            means=full.gmm.means.detach().cpu().numpy(), priors=full.gmm.priors.cpu().numpy(),
+            length=full.memory.length.cpu().numpy(), cursor=full.memory.cursor.cpu().numpy(),
+            feats=full.memory.feats.cpu().numpy(),
+            params=torch.cat([p.detach().reshape(-1)
+                              for p in trainer.params(state)]).cpu().numpy(),
+            trunk0=next(state.model.features.parameters()).detach().cpu().numpy(),
+            running_mean=next(b for n, b in state.model.named_buffers()
+                              if n.endswith("running_mean")).cpu().numpy(),
+        )
     if "ex" in batches:
         out["eval_logits"] = allgather_rows(trainer.eval_step(state, ex).logits.cpu().numpy())
     if sc.get("save"):

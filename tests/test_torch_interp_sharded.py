@@ -10,10 +10,12 @@ global batches of 4 that split over two ranks. The port's ranks are gloo
 processes: at mesh (2, 1) tests/_torch_parallel_worker.py (each rank its
 rows against the whole mixture), at (1, 2) `cli.trust interp --distributed
 --mesh_model 2` (each rank scores its class slab, one sum over the model
-group assembles the maps); both are joined within their own wall limit.
+group assembles the maps) and `cli.interpret --distributed --mesh_model
+2` (the interpretability main's own line and CSV); all are joined within
+their own wall limit.
 
 Tolerances: the port's sharded metrics equal its one-process metrics on
-the same batches exactly; against JAX's sharded metrics the rule of
+the same batches exactly (the CLI's line and CSV too); against JAX's sharded metrics the rule of
 tests/test_torch_interpretability.py: equal, unless a map's peak or a
 prototype's top-K order differs between the packages' collections (named;
 each such prototype may move a metric by its weight, 100 / prototypes).
@@ -52,6 +54,8 @@ HALF, PURITY_HALF, TOP_K = 12, 8, 2
 C = 4
 WALL_S = 120
 KEYS = ("consistency", "stability", "purity", "purity_std")
+INTERPRET = ["--half_size", str(HALF), "--purity_half_size", str(PURITY_HALF),
+             "--purity_top_k", str(TOP_K)]
 TINY = ["--dataset", "CUB", "--arch", "tiny", "--num_classes", "4", "--protos_per_class", "3",
         "--proto_dim", "8", "--aux_emb_sz", "8", "--mine_level", "4", "--mem_sz", "16",
         "--no_pretrained", "--num_workers", "0", "--device", "cpu", "--img_size", str(IMG),
@@ -87,7 +91,8 @@ def runs(tmp_path_factory):
         s.bind(("127.0.0.1", 0))
         port = s.getsockname()[1]
     rec12 = os.path.join(root, "interp_1x2.json")
-    cli = []
+    csvs = [os.path.join(root, f"interpret_rank{r}.csv") for r in range(2)]
+    cli, interpret = [], []
     for r in range(2):
         env = dict(os.environ, OMP_NUM_THREADS="1", RANK=str(r), WORLD_SIZE="2",
                    LOCAL_RANK=str(r), MASTER_ADDR="127.0.0.1", MASTER_PORT=str(port))
@@ -96,6 +101,17 @@ def runs(tmp_path_factory):
             + ["--distributed", "--mesh_model", "2", "--cub_root", cub, "--model_dir",
                model_dir, "--half_size", str(HALF), "--purity_half_size", str(PURITY_HALF),
                "--top_k", str(TOP_K), "--out", rec12],
+            cwd=REPO, env=env, stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True))
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        port = s.getsockname()[1]
+    for r in range(2):  # each rank names a CSV of its own: only rank 0's may appear
+        env = dict(os.environ, OMP_NUM_THREADS="1", RANK=str(r), WORLD_SIZE="2",
+                   LOCAL_RANK=str(r), MASTER_ADDR="127.0.0.1", MASTER_PORT=str(port))
+        interpret.append(subprocess.Popen(
+            [sys.executable, "-m", "mgproto_tpu_torch.cli.interpret"] + TINY
+            + ["--distributed", "--mesh_model", "2", "--cub_root", cub, "--model_dir",
+               model_dir] + INTERPRET + ["--export_csv", csvs[r]],
             cwd=REPO, env=env, stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True))
     jax_out = {m: _jax_metrics(cub, m) for m in ((2, 1), (1, 2))}
     # the port in one process, at the ranks' global batches
@@ -106,11 +122,13 @@ def runs(tmp_path_factory):
         consistency_half_size=HALF, purity_half_size=PURITY_HALF, top_k=TOP_K)
     join_ranks(procs, deadline)
     join_ranks(cli, deadline)
+    printed = join_ranks(interpret, deadline)
     with open(rec12) as f:
         port12 = json.load(f)
     port21 = [json.load(open(os.path.join(out21, f"rank{r}.json"))) for r in (0, 1)]
     return {"cub": cub, "jax": jax_out, "one": one, "port": {(2, 1): port21[0], (1, 2): port12},
-            "rank1": port21[1], "record": rec12, "model_dir": model_dir}
+            "rank1": port21[1], "record": rec12, "model_dir": model_dir,
+            "interpret": printed, "csvs": csvs}
 
 
 @pytest.mark.parametrize("mesh", [(2, 1), (1, 2)], ids=["2x1", "1x2"])
@@ -153,3 +171,25 @@ def test_cli_trust_interp_in_one_process(runs, tmp_path, capsys):
     for k in KEYS:
         assert record[k] == runs["one"][k], k
     assert json.loads(capsys.readouterr().out.strip().splitlines()[-1]) == record
+
+
+def test_cli_interpret_distributed_prints_the_one_process_line(runs, tmp_path, capsys):
+    """`cli.interpret --distributed --mesh_model 2` on two gloo ranks (the
+    parameters cut over the model axis, each rank scoring its class slab):
+    rank 0 prints the one-process main's lines with the same metrics
+    exactly and writes the same CSV; rank 1 prints nothing and writes no
+    CSV, though it was given a path of its own."""
+    one_csv = str(tmp_path / "one.csv")
+    tcli.main(TINY + ["--cub_root", runs["cub"], "--model_dir", runs["model_dir"]] + INTERPRET
+              + ["--export_csv", one_csv])
+    one = capsys.readouterr().out.strip().splitlines()
+    rank0, rank1 = runs["interpret"]
+    got = rank0.strip().splitlines()
+    assert not rank1.strip()
+    assert got[0] == one[0] and got[0].startswith("loaded ")
+    want, line = json.loads(one[-1]), json.loads(got[-1])
+    assert line.pop("csv") == runs["csvs"][0] and want.pop("csv") == one_csv
+    assert line == want and set(KEYS) <= set(line) and line["csv_rows"] > 0
+    with open(runs["csvs"][0]) as a, open(one_csv) as b:
+        assert a.read() == b.read()
+    assert not os.path.exists(runs["csvs"][1])

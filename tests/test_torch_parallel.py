@@ -33,6 +33,11 @@ Tolerances:
     bit-equal.
   * a checkpoint written by n ranks, restored by one process: bit-equal to
     the ranks' gathered state.
+  * the at-rest layout (model axis above 1): every cut parameter and
+    moment equal to its slice of the gathered whole, bit for bit; the
+    bytes of their storage equal `tree_bytes_per_chip` of the specs
+    exactly, and that count equals JAX's for its state at the same model
+    axis exactly.
   * the async bank pipeline (three steps from a full bank, then the flush):
     against the port's one-process async Trainer as above (TIGHT, the
     bank's lengths, cursors and EM counts exact); against JAX's
@@ -105,22 +110,25 @@ def start_ranks(root, mesh, scenarios, batches, device="cpu"):
 
 def join_ranks(procs, deadline):
     """Wait for every rank until `deadline` (time.monotonic()), kill what
-    is left; fails with each failed rank's stderr."""
-    errors = []
+    is left; fails with each failed rank's stderr. Returns each rank's
+    stdout (None where it was not piped)."""
+    errors, outs = [], []
     for r, p in enumerate(procs):
         try:
-            _, err = p.communicate(timeout=max(deadline - time.monotonic(), 1))
+            out, err = p.communicate(timeout=max(deadline - time.monotonic(), 1))
         except subprocess.TimeoutExpired:
             for q in procs:
                 q.kill()
-            _, err = p.communicate()
+            out, err = p.communicate()
             errors.append(f"rank {r}: killed at the wall limit\n{err[-3000:]}")
-            continue
-        if p.returncode:
-            errors.append(f"rank {r}: exit {p.returncode}\n{err[-3000:]}")
+        else:
+            if p.returncode:
+                errors.append(f"rank {r}: exit {p.returncode}\n{err[-3000:]}")
+        outs.append(out)
     for p in procs:  # a rank killed above
         p.wait(timeout=10)
     assert not errors, "\n".join(errors)
+    return outs
 
 
 def _results(out, n):
@@ -362,6 +370,43 @@ def test_checkpoint_of_n_ranks_restores_in_one_process(runs, mesh):
     assert st.step == 3
 
 
+def _jax_param_bytes(model_size):
+    """`tree_bytes_per_chip` of JAX's tiny state at a model axis of
+    `model_size`: its parameters and the joint optimizer's Adam moments
+    (the step counts left out: the port's Adam keeps a step per
+    parameter)."""
+    jstate = jax.eval_shape(JaxTrainer(_jax_cfg(), steps_per_epoch=4).init_state,
+                            jax.random.PRNGKey(0))
+    specs = jsharding.state_partition_specs(jstate, 4, model_size)
+    counts = sum(np.dtype(x.dtype).itemsize for x in jax.tree_util.tree_leaves(jstate.opt_state)
+                 if not x.shape)
+    return (jsharding.tree_bytes_per_chip(jstate.params, specs.params, model_size)
+            + jsharding.tree_bytes_per_chip(jstate.opt_state, specs.opt_state, model_size)
+            - counts)
+
+
+@pytest.mark.parametrize("mesh", MESHES, ids=lambda m: f"{m[0]}x{m[1]}")
+def test_parameters_and_moments_are_held_as_slices_at_rest(runs, mesh):
+    """On every rank, after the restore onto the mesh and after three
+    steps: at a model axis above 1 the leaves whose spec names 'model'
+    hold only their slices, each equal to its slice of the gathered whole,
+    and the storage behind the parameters and moments is exactly
+    `tree_bytes_per_chip` of the specs (less than the whole state's),
+    which is JAX's count for its state at that model axis; at (2, 1)
+    everything whole."""
+    for r in runs["port"][mesh]["three"]:
+        for pre in ("layout0", "layout"):
+            assert r[f"{pre}_equal"], pre
+            assert r[f"{pre}_bytes"] == r[f"{pre}_spec"], pre
+            if mesh[1] == 1:
+                assert r[f"{pre}_cut"] == 0 and r[f"{pre}_spec"] == r[f"{pre}_replicated"]
+            else:
+                assert 0 < r[f"{pre}_cut"] <= r[f"{pre}_leaves"], pre
+                assert r[f"{pre}_spec"] < r[f"{pre}_replicated"], pre
+        assert r["layout_leaves"] > r["layout0_leaves"]  # the joint moments exist now
+        assert int(r["layout_spec"]) == _jax_param_bytes(mesh[1])
+
+
 # ------------------------------------------------------------ no spawning
 def test_mesh_shapes_and_errors_match_jax():
     assert mesh_shape(8) == (8, 1)
@@ -455,6 +500,44 @@ def test_state_partition_specs_match_jax_leaf_by_leaf(classes, model_size):
         jsharding.tree_bytes_per_chip(jb, {f: getattr(jspecs, f) for f in jb}, model_size)
     assert tsharding.param_partition_spec((3, 5), 2) == ()
     assert tsharding.param_partition_spec((3, 3, 8, 16), 2) == (None, None, None, MODEL_AXIS)
+
+
+@pytest.mark.parametrize("model_size", [2, 4])
+def test_a_cut_state_holds_the_specs_bytes_on_every_rank(model_size):
+    """`shard_params` on each rank of a constructed (1, m) mesh (no
+    collective) of the tiny state with its joint moments: the storage
+    behind the parameters and moments is `param_bytes_per_rank` exactly,
+    which is JAX's per-chip count at m; the state then holds slices, and a
+    second cut leaves it as it is."""
+    cfg = tiny_test_config()
+    for rank in range(model_size):
+        st = create_train_state(cfg, torch.Generator().manual_seed(0), "cpu")
+        for p in Trainer.params(st):
+            p.grad = torch.ones_like(p)
+        st.opt.step()
+        assert not tsharding.holds_slices(st)
+        whole = tsharding.param_bytes_per_rank(st, 4, 1)
+        assert tsharding.held_bytes(tsharding.param_tensors(st)) == whole
+        tsharding.shard_params(st, Mesh(1, model_size, rank=rank), 4)
+        held = tsharding.held_bytes(tsharding.param_tensors(st))
+        assert tsharding.holds_slices(st)
+        assert held == tsharding.param_bytes_per_rank(st, 4, model_size) == \
+            _jax_param_bytes(model_size) < whole
+        cut = {n: p.detach().clone() for n, p in st.model.named_parameters()}
+        tsharding.shard_params(st, Mesh(1, model_size, rank=rank), 4)
+        assert all(torch.equal(p, cut[n]) for n, p in st.model.named_parameters())
+
+
+def test_full_state_refuses_a_cut_state_outside_full_params():
+    """A state whose parameters hold this rank's slices has no whole
+    parameters to give: `full_state` raises and names `full_params`."""
+    cfg = tiny_test_config()
+    mesh = Mesh(1, 2, rank=1)
+    trainer = ShardedTrainer(cfg, steps_per_epoch=4, mesh=mesh, device="cpu")
+    st = tsharding.shard_params(create_train_state(cfg, torch.Generator().manual_seed(0), "cpu"),
+                                mesh, cfg.model.num_classes)
+    with pytest.raises(RuntimeError, match="full_params"):
+        trainer.full_state(st)
 
 
 def test_sharding_rules_cover_every_state_field():

@@ -7,9 +7,10 @@ One-process cases save the port's tiny state (a JAX state trained two
 steps, carried across by models/convert.py, so the optimizers hold their
 moments) with `sharded=True`; the cross-rank cases run two gloo ranks
 (tests/_torch_parallel_worker.py, which imports no JAX): a save at mesh
-(1, 2), each rank writing its class slab, restored by two ranks at (2, 1)
-and by this process at world 1. The ranks are joined within their own
-wall limit and killed past it.
+(1, 2), each rank writing its class slab and its slices of the
+parameters and moments, restored by two ranks at (2, 1), by four at
+(2, 2) and by this process at world 1. The ranks are joined within their
+own wall limit and killed past it.
 
 Tolerances: none. Every restore is held bit for bit (`state_digest`, or
 each array equal) to the state saved or to the ranks' gathered state; the
@@ -406,8 +407,9 @@ def test_retry_schedule_and_budget_match_jax():
 @pytest.fixture(scope="module")
 def two_ranks(tmp_path_factory, start):
     """A save by two ranks at (1, 2) of one step from the carried state
-    (each rank writing its class slab), restored by two ranks at (2, 1);
-    the wire scenario beside it."""
+    (each rank writing its class slab and its slices of the parameters and
+    moments), restored by two ranks at (2, 1) and by four at (2, 2); the
+    wire scenario beside it."""
     tr, st = start
     root = str(tmp_path_factory.mktemp("sharded"))
     ckpt = save_checkpoint(root, st, "0start0.0000", sharded=False)
@@ -418,14 +420,16 @@ def two_ranks(tmp_path_factory, start):
         {"kind": "wire", "out": os.path.join(root, "wire")}], _batches_file(root))
     join_ranks(procs, deadline)
     saved = os.path.join(out, "ckpt", "1nopush0.5000")
-    back = os.path.join(root, "2x1")
-    procs = start_ranks(root, (2, 1), [{"ckpt": saved, "steps": 0, "out": back}],
-                        _batches_file(root))
+    backs = {mesh: os.path.join(root, f"{mesh[0]}x{mesh[1]}") for mesh in ((2, 1), (2, 2))}
+    procs = [p for mesh, back in backs.items()
+             for p in start_ranks(root, mesh, [{"ckpt": saved, "steps": 0, "out": back}],
+                                  _batches_file(root))]
     join_ranks(procs, deadline)
     load = lambda d, r: dict(np.load(os.path.join(d, f"rank{r}.npz")))  # noqa: E731
     return {"saved": saved, "ranks": [load(out, r) for r in (0, 1)],
-            "back": [load(back, r) for r in (0, 1)], "wire": os.path.join(root, "wire"),
-            "trainer": tr}
+            "back": [load(backs[(2, 1)], r) for r in (0, 1)],
+            "back22": [load(backs[(2, 2)], r) for r in range(4)],
+            "wire": os.path.join(root, "wire"), "trainer": tr}
 
 
 def _batches_file(root):
@@ -437,25 +441,64 @@ def _batches_file(root):
     return path
 
 
-def test_two_rank_save_restores_bit_equal_at_another_mesh_and_at_world_one(two_ranks):
-    """The (1, 2) ranks each wrote their slab (shard_00000 and shard_00001
-    both hold chunks); the (2, 1) ranks and one process restore the
+def _rank_chunks(whole_path, trainer, mesh):
+    """{payload path: [start, stop) per axis} of what rank `mesh.rank` of a
+    (1, m) `mesh` writes of a sharded save: its slab and slices of the
+    whole state at `whole_path`, cut here by `shard_params` and
+    `shard_classes`, spanned by `sharded_payload_axes`, and rank 0 every
+    leaf held whole."""
+    from mgproto_tpu_torch.parallel.sharding import (
+        shard_classes,
+        shard_params,
+        sharded_payload_axes,
+    )
+
+    c = trainer.cfg.model.num_classes
+    st = restore_checkpoint(whole_path, _target(trainer))
+    shard_classes(shard_params(st, mesh, c), mesh)
+    axes = sharded_payload_axes(st, c, mesh.model)
+    out = {}
+    for path, t in ck._tensors(ck.state_payload(st)):
+        span = [[0, d] for d in t.shape]
+        if path in axes:
+            a, n = axes[path], t.shape[axes[path]]
+            span[a] = [mesh.model_index * n, (mesh.model_index + 1) * n]
+        elif mesh.rank:
+            continue
+        out[path] = span
+    return out
+
+
+def test_two_rank_save_restores_bit_equal_at_another_mesh_and_at_world_one(two_ranks, tmp_path):
+    """The (1, 2) ranks each wrote exactly their spec's chunks: the class
+    slab and their slices of the parameters and moments (rank 1 a half of
+    the trunk, rank 0 no longer the whole of it), rank 0 the leaves held
+    whole; the (2, 1) and (2, 2) ranks and one process restore the
     gathered state bit for bit, an elastic restore at world 1."""
+    from mgproto_tpu_torch.parallel.mesh import Mesh
+
     saved = two_ranks["saved"]
     assert is_committed(saved) and jck.is_committed(saved)
+    tr = two_ranks["trainer"]
+    whole = save_checkpoint(str(tmp_path), restore_checkpoint(saved, _target(tr)),
+                            "1nopush0.5000", sharded=False)
+    with open(os.path.join(saved, MANIFEST_FILE)) as f:
+        shapes = {e["path"]: e["shape"] for e in json.load(f)["leaves"]}
     for r in (0, 1):
         with open(os.path.join(saved, f"shard_{r:05d}.idx.json")) as f:
-            paths = [c["path"] for c in json.load(f)["chunks"]]
-        assert "gmm/means" in paths, r  # every rank writes its slab
-        assert any(p.startswith("model/") for p in paths) == (r == 0)
+            chunks = {c["path"]: c["index"] for c in json.load(f)["chunks"]}
+        assert chunks == _rank_chunks(whole, tr, Mesh(1, 2, rank=r)), r
+        assert "gmm/means" in chunks, r  # every rank writes its slab
+        trunk = [p for p in chunks if p.startswith("model/features.") and p.endswith("weight")]
+        assert trunk and any(b - a != d for p in trunk
+                             for (a, b), d in zip(chunks[p], shapes[p])), r
     r0 = two_ranks["ranks"][0]
-    for back in two_ranks["back"]:
+    for back in two_ranks["back"] + two_ranks["back22"]:
         for k in ("means", "priors", "length", "cursor", "feats", "params", "running_mean"):
             np.testing.assert_array_equal(back[k], r0[k], err_msg=k)
     reg = MetricRegistry()
     prev = set_current_registry(reg)
     try:
-        tr = two_ranks["trainer"]
         st = restore_checkpoint(saved, tr.init_state(0, for_restore=True))
     finally:
         set_current_registry(prev)
@@ -532,24 +575,99 @@ def test_cli_evaluate_restores_the_ranks_sharded_checkpoint_in_one_process(two_r
 
 @pytest.mark.parametrize("classes", [4, 6])
 def test_a_slabs_sharded_leaves_come_from_the_sharding_specs(classes):
-    """`class_sharded_payload_paths` on a rank's slab at model axis 2
-    names exactly the payload's class-leading leaves: the GMM, the bank and
-    the mean optimizer's two moments, at C/2 rows each (6 classes: a slab
-    of 3, which the model axis does not divide again), nothing else."""
+    """`sharded_payload_axes` on a rank's state at model axis 2 names
+    exactly the leaves the specs put on 'model' that the rank holds cut:
+    after `shard_classes` the payload's class-leading leaves (the GMM, the
+    bank and the mean optimizer's two moments, at C/2 rows each on axis 0;
+    6 classes: a slab of 3, which the model axis does not divide again);
+    after `shard_params` as well every parameter, proxy and joint moment
+    whose spec names 'model', on its spec's axis, at half its length."""
     from mgproto_tpu_torch.config import tiny_test_config
     from mgproto_tpu_torch.core.state import create_train_state
-    from mgproto_tpu_torch.parallel.mesh import Mesh
-    from mgproto_tpu_torch.parallel.sharding import class_sharded_payload_paths, shard_classes
+    from mgproto_tpu_torch.parallel.mesh import MODEL_AXIS, Mesh
+    from mgproto_tpu_torch.parallel.sharding import (
+        shard_classes,
+        shard_params,
+        sharded_payload_axes,
+        state_partition_specs,
+    )
 
     state = create_train_state(tiny_test_config(num_classes=classes),
                                torch.Generator().manual_seed(0), "cpu")
-    state.gmm.means.grad = torch.ones_like(state.gmm.means)
+    for p in [state.gmm.means] + Trainer.params(state):
+        p.grad = torch.ones_like(p)
     state.mean_opt.step()  # the moments exist
+    state.opt.step()
+    specs = state_partition_specs(state, classes, 2)
     state = shard_classes(state, Mesh(1, 2, rank=1))
     slab = classes // 2
-    paths = class_sharded_payload_paths(state, classes, 2)
+    axes = sharded_payload_axes(state, classes, 2)
     leaves = dict(ck._tensors(ck.state_payload(state)))
     want = {p for p in leaves if p.split("/")[0] in ("gmm", "memory")}
     want |= {"mean_opt/state/0/exp_avg", "mean_opt/state/0/exp_avg_sq"}
-    assert paths == want
-    assert all(leaves[p].shape[0] == slab for p in paths)
+    assert axes == dict.fromkeys(want, 0)
+    assert all(leaves[p].shape[0] == slab for p in axes)
+
+    whole = {p: tuple(t.shape) for p, t in leaves.items()}
+    shard_params(state, Mesh(1, 2, rank=1), classes)
+    axes = sharded_payload_axes(state, classes, 2)
+    leaves = dict(ck._tensors(ck.state_payload(state)))
+    names = {id(p): n for n, p in state.model.named_parameters()}
+    params = [p for g in state.opt.param_groups for p in g["params"]]
+    want = dict.fromkeys(want, 0)
+    for n, spec in specs["model"].items():
+        if MODEL_AXIS in spec:
+            want[f"model/{n}"] = spec.index(MODEL_AXIS)
+    if MODEL_AXIS in specs["proxies"]:
+        want["proxies"] = specs["proxies"].index(MODEL_AXIS)
+    for i, p in enumerate(params):
+        name = "proxies" if p is state.proxies else names[id(p)]
+        for key in ("exp_avg", "exp_avg_sq"):
+            spec = specs["opt"][f"{name}/{key}"]
+            if MODEL_AXIS in spec:
+                want[f"opt/state/{i}/{key}"] = spec.index(MODEL_AXIS)
+    assert axes == want
+    assert any(p.startswith("model/") for p in axes) and any(p.startswith("opt/") for p in axes)
+    for p, a in axes.items():
+        if p.split("/")[0] not in ("gmm", "memory", "mean_opt"):
+            assert leaves[p].shape[a] * 2 == whole[p][a], p
+
+
+def test_a_model_axis_of_four_cuts_every_leaf_once():
+    """`shard_params` on four constructed (1, 4) ranks of one whole state
+    with its joint and warm moments: on each leaf the specs put on 'model',
+    the four slices cover every element exactly once, in the spans
+    `sharded_payload_axes` gives, and hold the whole state's values; the
+    leaves held whole are equal on every rank."""
+    from mgproto_tpu_torch.config import tiny_test_config
+    from mgproto_tpu_torch.core.state import create_train_state
+    from mgproto_tpu_torch.parallel.mesh import Mesh
+    from mgproto_tpu_torch.parallel.sharding import shard_params, sharded_payload_axes
+
+    cfg = tiny_test_config(num_classes=8, proto_dim=16)
+
+    def state():
+        st = create_train_state(cfg, torch.Generator().manual_seed(0), "cpu")
+        for i, p in enumerate(Trainer.params(st)):
+            p.grad = torch.full_like(p, float(i + 1))
+        st.opt.step()
+        st.warm_opt.step()
+        return st
+
+    whole = dict(ck._tensors(ck.state_payload(state())))
+    cover = {p: torch.zeros(t.shape, dtype=torch.int64) for p, t in whole.items()}
+    for r in range(4):
+        st = shard_params(state(), Mesh(1, 4, rank=r), cfg.model.num_classes)
+        axes = sharded_payload_axes(st, cfg.model.num_classes, 4)
+        assert all(not p.startswith(("gmm/", "memory/", "mean_opt/")) for p in axes)
+        assert any(p.startswith("warm_opt/") for p in axes)
+        for p, t in ck._tensors(ck.state_payload(st)):
+            if p not in axes:
+                assert torch.equal(t, whole[p]), p
+                continue
+            a, n = axes[p], t.shape[axes[p]]
+            assert n * 4 == whole[p].shape[a], p
+            assert torch.equal(t, whole[p].narrow(a, r * n, n)), p
+            cover[p].narrow(a, r * n, n).add_(1)
+    cut = [p for p, c in cover.items() if int(c.max()) > 0]
+    assert cut and all(bool((cover[p] == 1).all()) for p in cut)

@@ -299,7 +299,7 @@ def test_matrix_main_synthetic_exits_by_its_gates(tmp_path):
     assert code == ttelemetry.check_main(["--trust", str(out)])
     assert line["steady_state_recompiles"] == 0
     assert report["synthetic_drill"]["per_class"] == 4
-    with pytest.raises(NotPortedError, match="A8"):
+    with pytest.raises(NotPortedError, match="by design: this main runs one process"):
         ttrust_cli.main(["matrix", "--synthetic", "--device", "cpu", "--distributed"])
 
 
