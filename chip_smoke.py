@@ -162,7 +162,20 @@ Phases, one JSON line each (`t_s`: seconds since the script started):
              /healthz, /readyz, /metrics, a swap to the push artifact
              (committed) and one to an uncalibrated copy (refused, the old
              model still answers), then SIGTERM with 16 requests in flight:
-             each answered typed, exit 0.
+             each answered typed, exit 0; (e) `cli.export --quantize int8
+             --calibrate` on the push checkpoint (a third process started
+             with (a)'s two, collected after (d)): the int8 artifact, its
+             dequantize-on-load twin and the f32 push artifact each served
+             through a ServingEngine at buckets 1/2/4/8 on the 64 images:
+             int8 vs twin within 1e-5 (0 expected), int8 vs the CPU plain
+             path within 1e-4 (float64 where the CPU departs), int8 vs f32
+             printed, the weights at rest equal to quant_config's
+             total_weight_bytes, launches (1 / 16 / 0 / 0 a dispatch), the
+             gate drill (the f32 calibration grafted in: quant_mismatch,
+             counted once, verify_head "quant_mismatch"); memory after load
+             and over a bucket-8 dispatch, its device ms and the
+             dequantize's launches and ms, artifact bytes, and the check's
+             seconds on a line of its own.
  13. elastic: (a) the async bank pipeline at the flagship (batch 80, a full
              seeded bank, cuDNN deterministic), 8 steps sync and 8 async
              from one cloned state in f32 and in bf16: the async run bit-
@@ -316,7 +329,8 @@ path's beside them; `launches` counted on the input phase's epoch,
 the interpret phase's run_interpret, `bf16_train_launches` on the options
 phase's bf16 steps, `backbone_launches` on phase 10's six steps of each
 trunk, `drill_launches` on phase 11's in-process drills, `serve_plane_launches`
-on phase 12's in-process plane, `async_launches` on phase 13's async
+on phase 12's in-process plane, `quant_serve_launches` on (e)'s int8
+engine, `async_launches` on phase 13's async
 steps and their flushes, `async_drill_launches` on its async drills,
 `elastic_serve_launches` on its autoscaled and tenant planes,
 `online_launches` on phase 14's consolidation on the card, `trust_launches`
@@ -3535,16 +3549,19 @@ def serve_plane_phase(smi):
         write_jpeg_tree(root, INPUT_CLASSES, INPUT_PER_CLASS, INPUT_HW)
     prune_ckpt, push_ckpt = serve_plane_checkpoints()
     run = os.path.dirname(prune_ckpt)
-    art = {name: os.path.join(SERVE_PLANE_DIR, f"{name}.mgproto") for name in ("prune", "push")}
+    art = {name: os.path.join(SERVE_PLANE_DIR, f"{name}.mgproto")
+           for name in ("prune", "push", "int8")}
     uncal = os.path.join(SERVE_PLANE_DIR, "uncalibrated.mgproto")
 
-    # 1. the export main on both checkpoints, as two processes at once
+    # 1. the export main on both checkpoints, and (e)'s int8 export of the
+    #    push checkpoint, as three processes at once
     t0 = time.perf_counter()
+    extra = {"prune": {"explain": True}, "push": {}, "int8": {"quantize": "int8"}}
     procs = {name: start_main("export", cli_flags(root, run, no_pretrained=True, checkpoint=ckpt,
-                                                 out=art[name], calibrate=True,
-                                                 **({"explain": True} if name == "prune" else {})),
+                                                 out=art[name], calibrate=True, **extra[name]),
                               stdout=subprocess.PIPE, stderr=subprocess.PIPE)
-             for name, ckpt in (("prune", prune_ckpt), ("push", push_ckpt))}
+             for name, ckpt in (("prune", prune_ckpt), ("push", push_ckpt),
+                                ("int8", push_ckpt))}
     for p in procs.values():  # a failed check below must not leave them running
         atexit.register(lambda p=p: p.poll() is None and p.kill())
 
@@ -3569,6 +3586,7 @@ def serve_plane_phase(smi):
     decode_one_s = time.perf_counter() - t1
 
     exports = {}
+    int8_proc = procs.pop("int8")  # collected by (e), so it runs beside 2.-4.
     for name, p in procs.items():
         out, err = p.communicate(timeout=600)
         check(p.returncode == 0, f"cli.export ({name}) exited {p.returncode}:\n{err[-3000:]}")
@@ -3836,7 +3854,181 @@ def serve_plane_phase(smi):
                                            for s, o, r in set(typed)},
                        "outcomes": final["outcomes"]},
          split_s=split_s, seconds=time.perf_counter() - t_phase)
-    return plane_launches
+    out, err = int8_proc.communicate(timeout=600)
+    check(int8_proc.returncode == 0,
+          f"cli.export --quantize int8 exited {int8_proc.returncode}:\n{err[-3000:]}")
+    int8_line = last_json(out)
+    check(int8_line["bytes"] == os.path.getsize(art["int8"]), f"cli.export (int8): {int8_line}")
+    quant_launches = quant_serve_check(smi, art, imgs[:SERVE_PLANE_IMAGES], int8_line)
+    return plane_launches, quant_launches
+
+
+def quant_serve_check(smi, art, x, export_line):
+    """Phase 12 (e): the int8 artifact of the push checkpoint
+    (`cli.export --quantize int8 --calibrate`, step 1) served on the card
+    beside its dequantize-on-load twin and the f32 push artifact, through
+    ServingEngines at buckets 1/2/4/8 on the phase's 64 test images. Held:
+    int8 vs twin within TAIL_ATOL (the same f32 weights, so 0 is expected),
+    int8 vs the CPU plain path on the dequantized weights within SERVE_ATOL
+    (the float64 forward of the twin decides where the CPU departs, as in
+    the serve phase), the weights at rest = quant_config's
+    total_weight_bytes, the kernels' launches, and the gate drill (the f32
+    artifact's unstamped calibration grafted into a copy of the int8 one
+    degrades it with quant_mismatch). int8 vs f32 is printed, not gated.
+    Returns the launch counts of the int8 engine's serve."""
+    import gc
+    import shutil
+
+    import numpy as np
+    import torch
+
+    from mgproto_tpu_torch.engine import export
+    from mgproto_tpu_torch.models.quantized import dequantize_weight, quantized_modules
+    from mgproto_tpu_torch.perf.quant import QUANT_TAG_INT8, resident_weight_bytes
+    from mgproto_tpu_torch.serving import metrics as sm
+    from mgproto_tpu_torch.serving.engine import ServingEngine
+    from mgproto_tpu_torch.serving.swap import REJECT_QUANT, verify_head
+
+    t_check = time.perf_counter()
+    gc.collect()
+    torch.cuda.empty_cache()
+    check(export_line["quantize"] == "int8" and export_line["calibrated"],
+          f"cli.export --quantize int8: {export_line}")
+    loaded, engines, memory = {}, {}, {}
+    for name, path, deq in (("f32", art["push"], False), ("int8", art["int8"], False),
+                            ("twin", art["int8"], True)):
+        torch.cuda.synchronize()
+        base = torch.cuda.memory_allocated()
+        loaded[name] = export.load_artifact(path, device="cuda", dequantize=deq)
+        torch.cuda.synchronize()
+        memory[name] = {"after_load_mb": (torch.cuda.memory_allocated() - base) / 1e6}
+        engines[name] = ServingEngine.from_loaded(loaded[name])
+        engines[name].warmup()
+    q = loaded["int8"]
+    qc = q.meta["quant_config"]
+    check(q.calibration.quant_config == QUANT_TAG_INT8 == engines["int8"].quant_config
+          and not engines["int8"].gate.degraded,
+          f"the int8 artifact is not gated by its stamped calibration: {q.calibration.quant_config!r}")
+    resident = resident_weight_bytes(q.evaluator.model, q.proxies)
+    check(resident == qc["total_weight_bytes"],
+          f"int8 weights at rest {resident} B != quant_config total_weight_bytes "
+          f"{qc['total_weight_bytes']} B")
+    mods = [m for _, m in quantized_modules(q.evaluator.model)]
+    check(len(mods) == qc["num_quantized"] and not list(quantized_modules(
+        loaded["twin"].evaluator.model)), "the int8 model's quantized modules are not the block's")
+
+    # the 64 images through each engine, the int8 one's launches counted
+    out = {}
+    for name, eng in engines.items():
+        if name == "int8":
+            reset_launch_counts()
+            d0 = eng.dispatch_count
+        resps = eng.serve_all(list(x))
+        if name == "int8":
+            launches = launch_counts()
+            dispatches = eng.dispatch_count - d0
+        check(all(r.outcome in ("predict", "abstain") for r in resps),
+              f"{name}: outcomes {sorted(set(r.outcome for r in resps))}")
+        parts = [eng._dispatch(x[i:i + 8]) for i in range(0, len(x), 8)]
+        out[name] = (np.concatenate([p[0] for p in parts]), np.concatenate([p[1] for p in parts]),
+                     [r.outcome for r in resps])
+    check(launches["score_pool"] == dispatches and launches["bn_epilogue"] == 16 * dispatches
+          and launches["score_pool_bwd"] == 0 and launches["em_estep"] == 0,
+          f"int8 serve launches {launches} over {dispatches} dispatches")
+    twin_err = [float(np.abs(out["int8"][j] - out["twin"][j]).max()) for j in (0, 1)]
+    check(max(twin_err) <= TAIL_ATOL, f"int8 vs its twin on the card: {twin_err}")
+
+    # the CPU plain path on the dequantized weights
+    t0 = time.perf_counter()
+    cpu = export.load_artifact(art["int8"], device="cpu")
+    cpu_logits = np.concatenate([cpu.infer(x[i:i + 8])["logits"] for i in range(0, len(x), 8)])
+    cpu_s = time.perf_counter() - t0
+    cpu_px = np.logaddexp.reduce(cpu_logits.astype(np.float64), axis=-1)
+    cpu_err = [float(np.abs(out["int8"][0] - cpu_logits).max()),
+               float(np.abs(out["int8"][1] - cpu_px).max())]
+    departure = None
+    if max(cpu_err) > SERVE_ATOL:
+        # ROADMAP §C item 3: the float64 forward of the twin's weights decides
+        twin_cpu = export.load_artifact(art["int8"], device="cpu", dequantize=True)
+        exact = float64_logits(twin_cpu.evaluator, x)
+        card_exact = [float(np.abs(out["int8"][0] - exact).max()),
+                      float(np.abs(out["int8"][1] - np.logaddexp.reduce(exact, axis=-1)).max())]
+        check(max(card_exact) <= SERVE_ATOL,
+              f"int8 on the card vs the CPU plain path {cpu_err}, vs float64 {card_exact}")
+        departure = {"card_vs_cpu": cpu_err, "card_vs_float64": card_exact}
+    agree = float((out["int8"][0].argmax(-1) == out["f32"][0].argmax(-1)).mean())
+    vs_f32 = {"logits_max_abs_diff": float(np.abs(out["int8"][0] - out["f32"][0]).max()),
+              "log_px_max_abs_diff": float(np.abs(out["int8"][1] - out["f32"][1]).max()),
+              "top1_agreement": agree,
+              "outcome_agreement": float(np.mean([a == b for a, b in
+                                                  zip(out["int8"][2], out["f32"][2])]))}
+
+    # bucket 8: peak memory over one dispatch and device ms, for each
+    xb = torch.from_numpy(np.ascontiguousarray(x[:8])).cuda()
+    dispatch_ms = {}
+    for name, ld in loaded.items():
+        ev = ld.evaluator
+        torch.cuda.synchronize()
+        base = torch.cuda.memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
+        ev(xb)
+        torch.cuda.synchronize()
+        memory[name]["peak_over_bucket8_dispatch_mb"] = (torch.cuda.max_memory_allocated()
+                                                         - base) / 1e6
+        # a dispatch issues a few hundred launches: 2 calls behind the spin
+        # keep the launch queue from filling; three such readings
+        dispatch_ms[name] = [device_ms(lambda ev=ev: ev(xb), iters=2) for _ in range(3)]
+    profile = device_breakdown(lambda: loaded["int8"].evaluator(xb), 3)
+    # the per-call dequantize alone: its launches and ms in one dispatch
+    calls0 = dequantize_weight.calls
+    engines["int8"]._dispatch(x[:8])
+    dequant_calls = dequantize_weight.calls - calls0
+    check(dequant_calls == len(mods), f"{dequant_calls} dequantizes in a dispatch of "
+          f"{len(mods)} quantized modules")
+
+    def dequant_all():
+        with torch.inference_mode():
+            for m in mods:
+                m.dequantized_weight(torch.float32)
+
+    dequant_ms = device_ms(dequant_all, iters=5)
+
+    # the gate drill: the f32 artifact's calibration grafted into the int8 one
+    grafted = os.path.join(SERVE_PLANE_DIR, "int8_grafted.mgproto")
+    shutil.copy(art["int8"], grafted)
+    export.embed_calibration(grafted, export.load_calibration(art["push"]))
+    prev = sm.set_current_registry(None)
+    try:
+        eng = ServingEngine.from_artifact(grafted, device="cuda")
+        drill = {"degraded": eng.gate.degraded, "quant_mismatch": eng.gate.quant_mismatch,
+                 "precision_mismatch": eng.gate.precision_mismatch,
+                 "quant_mismatch_total": sm.counter(sm.QUANT_MISMATCHES).value(),
+                 "verify_head": verify_head(eng.gate),
+                 "weight_bytes_gauge": sm.gauge(sm.QUANT_WEIGHT_BYTES).value()}
+    finally:
+        sm.set_current_registry(prev)
+    check(drill["degraded"] and drill["quant_mismatch"] and not drill["precision_mismatch"]
+          and drill["quant_mismatch_total"] == 1 and drill["verify_head"] == REJECT_QUANT
+          and drill["weight_bytes_gauge"] == qc["total_weight_bytes"],
+          f"the quant gate drill: {drill}")
+    seconds = time.perf_counter() - t_check
+    emit("quant_serve", card=smi, images=len(x), dispatches=dispatches, launches=launches,
+         int8_vs_twin_max_abs=twin_err, twin_tolerance=TAIL_ATOL,
+         int8_vs_cpu_max_abs=cpu_err, cpu_tolerance=SERVE_ATOL, cpu_plain_s=cpu_s,
+         cpu_reference_departure=departure, int8_vs_f32=vs_f32,
+         artifact_bytes={"f32": os.path.getsize(art["push"]),
+                         "int8": os.path.getsize(art["int8"])},
+         quant_config={k: qc[k] for k in ("num_quantized", "num_skipped", "total_weight_bytes",
+                                          "total_f32_bytes", "quantized_weight_bytes")},
+         resident_weight_bytes=resident, memory=memory, bucket8_device_ms=dispatch_ms,
+         int8_bucket8_profile=profile if profile is not None else "not measured",
+         dequantize={"launches_per_dispatch": dequant_calls, "device_ms_per_dispatch": dequant_ms},
+         gate_drill=drill, seconds=seconds)
+    emit("quant_serve_seconds", seconds=seconds, limit_s=30)
+    del engines, loaded, eng
+    gc.collect()
+    torch.cuda.empty_cache()
+    return launches
 
 
 # ----------------------------------------------------------- elastic plane
@@ -6425,7 +6617,7 @@ def main() -> int:
     epi_bf16, bf16_launches, bf16_steps = options_phase()
     backbone_launches, _ = backbone_phase(smi)
     drill_launches = cli_phase(smi, interp)
-    serve_plane_launches = serve_plane_phase(smi)
+    serve_plane_launches, quant_launches = serve_plane_phase(smi)
     elastic_launches, async_steps, elastic_dispatches = elastic_phase(smi)
     online_launches = online_phase(smi)
     trust_launches, trust_dispatches = trust_phase(smi)
@@ -6463,6 +6655,10 @@ def main() -> int:
         k["serve_plane_launches"] = serve_plane_launches[k["name"]]
         check((k["serve_plane_launches"] > 0) == (k["name"] in ("score_pool", "bn_epilogue")),
               f"{k['name']}: {k['serve_plane_launches']} launches on the serve plane")
+        # phase 12 (e): the int8 artifact's engine serving the 64 images
+        k["quant_serve_launches"] = quant_launches[k["name"]]
+        check((k["quant_serve_launches"] > 0) == (k["name"] in ("score_pool", "bn_epilogue")),
+              f"{k['name']}: {k['quant_serve_launches']} launches on the int8 serve")
         # phase 13: the async bank steps (f32 and bf16, their flushes
         # included), the async drills, and the autoscaled and tenant planes
         k["async_launches"] = elastic_launches["async"][k["name"]]

@@ -78,7 +78,6 @@ SERVE_REFUSED = (
 EXPORT_REFUSED = (
     ("aot_cache", False, "A7 (the AOT executable cache)"),
     ("aot_buckets", "1,2,4,8", "A7 (the AOT executable cache)"),
-    ("quantize", "none", "A9 (perf/quant.py: int8 serving)"),
 )
 
 

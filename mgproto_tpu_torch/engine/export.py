@@ -21,6 +21,18 @@ holding
   explain.json      optional, JAX's explanation table (priors and push
                     provenance per flat prototype index).
 
+An int8 artifact (`cli.export --quantize int8`, perf/quant.py) writes the
+meta.json block `quant_config` (JAX's keys; with `--quantize none` the key is
+not written and the zip's entries are byte for byte what they were). Its
+weights.pt holds each quantized conv and dense weight as an int8 `qweight`
+with its f32 `scale` (models/quantized.py) and no f32 copy of it, and, when
+the state had them, the proxies under `proxies`, so it carries every tensor
+its `quant_config` accounts for. `load_artifact` rebuilds the quantized
+model, which dequantizes at each call, and refuses weights whose
+`quant_fingerprint` is not meta.json's; `dequantize=True` builds the
+ordinary f32 model on the dequantized values instead (the twin of JAX's
+`dequant.stablehlo`).
+
 `load_artifact` rebuilds the model through models/registry.py on the device
 given: it serves through the score_pool and BN epilogue kernels on CUDA and
 their plain versions on the CPU (the JAX export forces its portable scoring
@@ -42,9 +54,12 @@ import numpy as np
 import torch
 
 from mgproto_tpu_torch.config import Config, ModelConfig
-from mgproto_tpu_torch.core.mgproto import GMMState, build_mgproto
+from mgproto_tpu_torch.core.mgproto import GMMState, build_mgproto, make_features
 from mgproto_tpu_torch.engine.eval import Evaluator
+from mgproto_tpu_torch.models.quantized import dequantized_state_dict, quantized_skeleton
+from mgproto_tpu_torch.numerics import resolve_device
 from mgproto_tpu_torch.perf.precision import policy_meta, resolve_policy
+from mgproto_tpu_torch.perf.quant import quant_fingerprint
 from mgproto_tpu_torch.serving.calibration import Calibration, gmm_fingerprint
 
 FORMAT = "mgproto-torch-artifact-v1"
@@ -62,10 +77,13 @@ class ArtifactFormatError(ValueError):
 
 
 def artifact_meta(cfg: Config, checkpoint_path: Optional[str], gmm_fp: str,
-                  static_batch: Optional[int] = None) -> Dict[str, Any]:
-    """meta.json: JAX's keys, this package's format and the model config."""
+                  static_batch: Optional[int] = None,
+                  quant: Optional[Dict[str, Any]] = None) -> Dict[str, Any]:
+    """meta.json: JAX's keys, this package's format and the model config;
+    `quant` (a `QuantizedModel.quant_config()`) as `quant_config`, which is
+    not written when None."""
     m = cfg.model
-    return {
+    meta = {
         "gmm_fingerprint": gmm_fp,
         "static_batch": int(static_batch) if static_batch else None,
         "format": FORMAT,
@@ -86,6 +104,15 @@ def artifact_meta(cfg: Config, checkpoint_path: Optional[str], gmm_fp: str,
         "torch_version": torch.__version__,
         "model_config": dataclasses.asdict(m),
     }
+    if quant is not None:
+        meta["quant_config"] = quant
+    return meta
+
+
+def quant_tag(meta: Dict[str, Any]) -> str:
+    """The serving-seam quant identity of an artifact's meta.json (its
+    `quant_config` tag; "" for an unquantized artifact)."""
+    return str((meta.get("quant_config") or {}).get("tag") or "")
 
 
 def explain_table(gmm: GMMState, provenance: Optional[Dict[str, Any]] = None,
@@ -125,11 +152,18 @@ def _calib_json(calibration: Union[Calibration, Dict]) -> str:
 
 def save_artifact(path: str, model: torch.nn.Module, gmm: GMMState, meta: Dict[str, Any],
                   calibration: Union[Calibration, Dict, None] = None,
-                  explain: Optional[Dict[str, Any]] = None) -> None:
-    """Write the zip (module docstring), through `path.tmp` and a rename."""
+                  explain: Optional[Dict[str, Any]] = None,
+                  proxies: Optional[torch.Tensor] = None) -> None:
+    """Write the zip (module docstring), through `path.tmp` and a rename.
+    `proxies` are written only into an int8 artifact."""
     buf = io.BytesIO()
-    torch.save({"model": {k: v.detach().cpu() for k, v in model.state_dict().items()},
-                "gmm": {k: v.detach().cpu() for k, v in gmm._asdict().items()}}, buf)
+    payload = {"model": {k: v.detach().cpu() for k, v in model.state_dict().items()},
+               "gmm": {k: v.detach().cpu() for k, v in gmm._asdict().items()}}
+    if proxies is not None:
+        if not quant_tag(meta):
+            raise ValueError("proxies are written only into an int8 artifact")
+        payload["proxies"] = proxies.detach().cpu()
+    torch.save(payload, buf)
     tmp = path + ".tmp"
     with zipfile.ZipFile(tmp, "w", compression=zipfile.ZIP_DEFLATED) as z:
         z.writestr(_WEIGHTS, buf.getvalue(), compress_type=zipfile.ZIP_STORED)
@@ -198,12 +232,14 @@ def model_config_of(meta: Dict[str, Any]) -> ModelConfig:
 
 class LoadedArtifact(NamedTuple):
     """An artifact on a device: its Evaluator (model and GMM), meta.json,
-    calibration and explanation table (None when absent)."""
+    calibration and explanation table (None when absent), and the proxies
+    an int8 artifact carries (None otherwise)."""
 
     evaluator: Evaluator
     meta: Dict[str, Any]
     calibration: Optional[Calibration]
     explain_table: Optional[Dict[str, Any]]
+    proxies: Optional[torch.Tensor] = None
 
     @property
     def static_batch(self) -> Optional[int]:
@@ -224,11 +260,15 @@ def check_batch(static_batch: Optional[int], n: int) -> None:
 
 
 def load_artifact(path: str, device: Union[str, torch.device, None] = None,
-                  split: Optional[Callable[[str], None]] = None) -> LoadedArtifact:
+                  split: Optional[Callable[[str], None]] = None,
+                  dequantize: bool = False) -> LoadedArtifact:
     """Rebuild the artifact's model and GMM on `device` (CUDA unless the
-    caller names another; raises without a card). `split(part)`, when
-    given, is called after the read ("artifact_read") and after the model
-    is built and its weights copied ("model_build")."""
+    caller names another; raises without a card). An int8 artifact gives
+    the quantized model, built on the host and moved with its weights still
+    int8; `dequantize=True` gives its f32 twin instead (a no-op on an
+    unquantized artifact). `split(part)`, when given, is called after the
+    read ("artifact_read") and after the model is built and its weights
+    copied ("model_build")."""
     meta = read_meta(path)
     with zipfile.ZipFile(path) as z:
         payload = torch.load(io.BytesIO(z.read(_WEIGHTS)), map_location="cpu", weights_only=True)
@@ -236,8 +276,20 @@ def load_artifact(path: str, device: Union[str, torch.device, None] = None,
     if split is not None:
         split("artifact_read")
     mcfg = model_config_of(meta)
-    model, _ = build_mgproto(mcfg, device=device)
-    model.load_state_dict(payload["model"], strict=True)
+    weights, proxies = payload["model"], None
+    quant = meta.get("quant_config")
+    if quant:
+        if quant_fingerprint(weights) != quant.get("fingerprint"):
+            raise ArtifactFormatError(f"{path}: weights.pt's int8 weights do not match "
+                                      "meta.json's quant_config fingerprint")
+        proxies = payload.get("proxies")
+    if quant and not dequantize:
+        model = quantized_skeleton(make_features(mcfg, resolve_device(device)))
+        model.load_state_dict(weights, strict=True)
+        model = model.to(device=resolve_device(device), memory_format=torch.channels_last).eval()
+    else:
+        model, _ = build_mgproto(mcfg, device=device)
+        model.load_state_dict(dequantized_state_dict(weights) if quant else weights, strict=True)
     gmm = GMMState(**payload["gmm"])
     if gmm_fingerprint(gmm) != meta.get("gmm_fingerprint"):
         raise ArtifactFormatError(f"{path}: weights.pt's GMM does not match meta.json's "
@@ -245,7 +297,9 @@ def load_artifact(path: str, device: Union[str, torch.device, None] = None,
     ev = Evaluator(model, gmm, Config(model=mcfg), device=device)
     if split is not None:
         split("model_build")
-    return LoadedArtifact(ev, meta, calibration, table)
+    if proxies is not None:
+        proxies = proxies.to(ev.device)
+    return LoadedArtifact(ev, meta, calibration, table, proxies)
 
 
 def make_explain_fn(evaluator: Evaluator, top_e: int = 5,

@@ -2,8 +2,10 @@
 
 A calibration carries percentile thresholds of held-out ID log p(x), a
 101-point quantile sketch, per-class logit temperatures, the compute dtype
-the scores were measured under and `gmm_fingerprint`, a digest of the GMM
-they were measured against. The trust gate fails closed on a mismatch.
+and the quant tag of the weights the scores were measured under (perf/quant.py;
+"" = unquantized, also when a payload has no such key) and
+`gmm_fingerprint`, a digest of the GMM they were measured against. The
+trust gate fails closed on a mismatch.
 
 The fingerprint is this package's own: sha256 over the shapes, dtypes and
 bytes of means/sigmas/priors/keep. It does not equal the JAX package's
@@ -53,7 +55,7 @@ class Calibration:
     num_id_samples: int
     source: str = ""
     compute_dtype: str = ""
-    # the JAX package's int8 stamp; this package serves f32 weights only
+    # the quant tag of the served weights the scores were measured under
     quant_config: str = ""
 
     @staticmethod
@@ -65,6 +67,7 @@ class Calibration:
         percentiles: Sequence[float] = DEFAULT_PERCENTILES,
         source: str = "",
         compute_dtype: str = "",
+        quant_config: str = "",
     ) -> "Calibration":
         """From per-sample held-out ID scores: log p(x) [N] and class
         log-likelihoods [N, C], host-side float64."""
@@ -95,6 +98,7 @@ class Calibration:
             num_id_samples=int(scores.size),
             source=source,
             compute_dtype=str(compute_dtype),
+            quant_config=str(quant_config),
         )
 
     def threshold_for(self, percentile: float) -> float:
@@ -151,9 +155,10 @@ class Calibration:
 
 
 def calibrate(evaluator, id_batches: Iterable, percentile: float = DEFAULT_PERCENTILE,
-              source: str = "") -> Calibration:
+              source: str = "", quant_config: str = "") -> Calibration:
     """A Calibration from held-out ID image batches ([b, H, W, 3] each),
-    scored through the same Evaluator the engine serves with."""
+    scored through the same Evaluator the engine serves with; `quant_config`
+    is the served weights' quant tag."""
     px, logits = [], []
     for images in id_batches:
         out = evaluator(images)
@@ -165,15 +170,17 @@ def calibrate(evaluator, id_batches: Iterable, percentile: float = DEFAULT_PERCE
         percentile=percentile,
         source=source,
         compute_dtype=evaluator.cfg.model.compute_dtype,
+        quant_config=quant_config,
     )
 
 
 def calibrate_from_config(cfg, trainer, state, percentile: float = DEFAULT_PERCENTILE,
-                          device=None) -> Calibration:
+                          device=None, quant_config: str = "") -> Calibration:
     """The calibration from the config's held-out ID loader
     (`cfg.data.test_dir`, through `data.build_pipelines`), scored by
     `trainer.eval_step` on `state` with the loader's pad rows dropped, its
-    source recorded. The one calibration behind both `cli.export
+    source recorded, stamped with `quant_config` (the tag of the weights
+    `state.model` holds). The one calibration behind both `cli.export
     --calibrate` and `cli.serve --calibrate`."""
     from mgproto_tpu_torch.data import build_pipelines
     from mgproto_tpu_torch.engine.evaluate import _run_eval
@@ -187,4 +194,5 @@ def calibrate_from_config(cfg, trainer, state, percentile: float = DEFAULT_PERCE
     return Calibration.from_scores(
         px, logits, fingerprint=gmm_fingerprint(state.gmm), percentile=percentile,
         source=f"test_dir={cfg.data.test_dir}", compute_dtype=cfg.model.compute_dtype,
+        quant_config=quant_config,
     )

@@ -129,6 +129,7 @@ class ServingEngine:
         explain_table: Optional[Dict[str, Any]] = None,
         tenants: Optional[Any] = None,
         device: Optional[Any] = None,
+        expected_quant: Optional[str] = None,
     ):
         """`infer_fn` maps float32 images [b, H, W, 3] to
         {"logits": [b, C], "log_px": [b]} numpy arrays (and, with an
@@ -136,7 +137,9 @@ class ServingEngine:
         `default_deadline_s` applies to requests submitted without one.
         `tenants`: a TenantDirectory (module docstring). `device`: the
         torch device `infer_fn` runs on (None when unknown), where the trust
-        matrix corrupts its chunks."""
+        matrix corrupts its chunks. `expected_quant`: the served weights'
+        quant tag ("" unquantized; None makes no claim), matched against
+        the calibration's stamp (serving/gate.py)."""
         if not buckets:
             raise ValueError("need at least one batch-size bucket")
         self.buckets = tuple(sorted(set(int(b) for b in buckets)))
@@ -152,7 +155,10 @@ class ServingEngine:
             calibration,
             expected_fingerprint=expected_fingerprint,
             expected_compute_dtype=expected_compute_dtype,
+            expected_quant=expected_quant,
         )
+        # the served weights' quant identity (perf/quant.py tag; "" unquantized)
+        self.quant_config = str(expected_quant or "")
         self.tenants = tenants
         self.device = device
         self.queue = AdmissionQueue(capacity=queue_capacity, clock=clock)
@@ -198,6 +204,8 @@ class ServingEngine:
             calibration=calibration,
             expected_fingerprint=gmm_fingerprint(evaluator.gmm),
             expected_compute_dtype=evaluator.cfg.model.compute_dtype,
+            # a live state serves unrounded f32 weights: a stamped calibration fails closed
+            expected_quant="",
             device=evaluator.device,
             **kw,
         )
@@ -209,7 +217,7 @@ class ServingEngine:
         share its model and GMM (replicas hold no copy of the weights). A
         static-batch artifact serves its one batch size as the only
         bucket; `explain=True` needs an artifact exported with --explain."""
-        from mgproto_tpu_torch.engine.export import make_explain_fn
+        from mgproto_tpu_torch.engine.export import make_explain_fn, quant_tag
 
         meta = artifact.meta
         if artifact.calibration is None and not allow_uncalibrated:
@@ -230,6 +238,12 @@ class ServingEngine:
                                     int(table.get("top_e", DEFAULT_EXPLAIN_TOP)),
                                     static_batch=artifact.static_batch)
         policy = meta.get("precision_policy") or {}
+        # the artifact's quant identity ("" unquantized): a calibration with
+        # another stamp fails closed in the gate; the resident weight bytes
+        # of a quantized artifact go on the gauge
+        qmeta = meta.get("quant_config") or {}
+        if qmeta.get("total_weight_bytes"):
+            _m.gauge(_m.QUANT_WEIGHT_BYTES).set(float(qmeta["total_weight_bytes"]))
         return cls(
             infer,
             img_size=int(meta["img_size"]),
@@ -237,6 +251,7 @@ class ServingEngine:
             calibration=artifact.calibration,
             expected_fingerprint=meta.get("gmm_fingerprint"),
             expected_compute_dtype=policy.get("compute_dtype") or meta.get("compute_dtype"),
+            expected_quant=quant_tag(meta),
             device=artifact.evaluator.device,
             **kw,
         )

@@ -5,10 +5,14 @@
   * `abstain`: at or below it (or non-finite);
   * `ungated`: degraded mode, no valid calibration.
 
-A calibration is honored only when its GMM fingerprint and compute dtype
-match what is served; otherwise the gate fails closed into degraded mode and
-counts the mismatch. This package serves unquantized weights, so a
-calibration stamped with a quant config is refused the same way.
+A calibration is honored only when its GMM fingerprint, compute dtype and
+quant tag match what is served; otherwise the gate fails closed into
+degraded mode and counts the mismatch, checked in that order (the first
+mismatch is the one reported). The quant rule is strict equality in both
+directions: `expected_quant=""` claims unquantized weights and refuses a
+stamped calibration, a tag refuses an unstamped one (thresholds measured on
+unrounded weights do not transfer to the rounded ones), and None makes no
+claim and checks nothing.
 """
 
 from __future__ import annotations
@@ -34,11 +38,13 @@ class TrustGate:
         window: int = 256,
         expected_compute_dtype: Optional[str] = None,
         percentile: Optional[float] = None,
+        expected_quant: Optional[str] = None,
     ):
         """`percentile` gates at another operating point of the
         calibration (`threshold_for`); None keeps its own."""
         self.fingerprint_mismatch = False
         self.precision_mismatch = False
+        self.quant_mismatch = False
         if (
             calibration is not None
             and expected_fingerprint is not None
@@ -47,15 +53,23 @@ class TrustGate:
             _m.counter(_m.FINGERPRINT_MISMATCHES).inc()
             self.fingerprint_mismatch = True
             calibration = None
-        # `quant_mismatch` says which of the two a precision mismatch was
-        self.quant_mismatch = bool(calibration is not None and calibration.quant_config)
-        if calibration is not None and (
-            (expected_compute_dtype and calibration.compute_dtype
-             and calibration.compute_dtype != expected_compute_dtype)
-            or self.quant_mismatch
+        if (
+            calibration is not None
+            and expected_compute_dtype
+            and calibration.compute_dtype
+            and calibration.compute_dtype != expected_compute_dtype
         ):
+            # an unstamped ("") dtype is honored
             _m.counter(_m.PRECISION_MISMATCHES).inc()
             self.precision_mismatch = True
+            calibration = None
+        if (
+            calibration is not None
+            and expected_quant is not None
+            and (calibration.quant_config or "") != (expected_quant or "")
+        ):
+            _m.counter(_m.QUANT_MISMATCHES).inc()
+            self.quant_mismatch = True
             calibration = None
         self.calibration = calibration
         self.threshold = None

@@ -28,6 +28,8 @@ BREAKER_STATE = "serving_breaker_state"
 BREAKER_TRANSITIONS = "serving_breaker_transitions_total"
 FINGERPRINT_MISMATCHES = "serving_fingerprint_mismatch_total"
 PRECISION_MISMATCHES = "serving_precision_mismatch_total"
+QUANT_MISMATCHES = "serving_quant_mismatch_total"
+QUANT_WEIGHT_BYTES = "serving_quant_weight_bytes"
 DEGRADED_REQUESTS = "serving_degraded_requests_total"
 DEVICE_ERRORS = "serving_device_errors_total"
 BATCH_FILL = "serving_batch_fill_ratio"
@@ -91,7 +93,12 @@ COUNTER_HELP = {
     SHED: "requests shed, by reason",
     BREAKER_TRANSITIONS: "circuit breaker state transitions, by edge",
     FINGERPRINT_MISMATCHES: "calibrations refused: measured under another GMM",
-    PRECISION_MISMATCHES: "calibrations refused: measured under another compute dtype or quant",
+    PRECISION_MISMATCHES: "calibrations refused: measured under another compute dtype",
+    QUANT_MISMATCHES:
+        "calibrations rejected because the served quant config (meta.json "
+        "quant_config.tag) does not match the one the thresholds were "
+        "measured under (perf/quant.py; int8 weight rounding moves the "
+        "p(x) scale the same way a dtype change does)",
     DEGRADED_REQUESTS: "requests answered WITHOUT OoD gating (degraded mode)",
     DEVICE_ERRORS: "inference dispatches that raised a device error",
     DISPATCHES: "micro-batch dispatches by trigger (bucket_full/deadline/linger/drain)",
@@ -117,6 +124,10 @@ GAUGE_HELP = {
     BREAKER_OPEN_FRACTION: "fraction of replica-seconds spent with the breaker OPEN",
     UPTIME_SECONDS: "seconds since the replica supervisor started",
     AUTOSCALE_TARGET: "replica count the autoscaler is steering toward",
+    QUANT_WEIGHT_BYTES:
+        "resident backbone weight bytes of the served program under its "
+        "quant config (int8 tensors + scale vectors + untouched f32 "
+        "leaves; 0 = unquantized or unknown)",
     TENANTS_MOUNTED: "tenant heads currently mounted in the directory",
     TENANT_QUEUE_DEPTH: "admission-queue entries held per tenant",
     TENANT_HEAD_BYTES: "resident bytes of a tenant's mounted head",

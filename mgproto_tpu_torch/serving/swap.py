@@ -9,8 +9,8 @@ Verification fails CLOSED, and the old model keeps serving:
     serving (the factory's `UncalibratedArtifactError` lands here too);
   * `fingerprint_mismatch`: the calibration was measured under another
     GMM (the port's own `gmm_fingerprint`, so a JAX calibration is one);
-  * `quant_mismatch`: the calibration carries a quant config the served
-    weights do not (the port serves f32 weights only);
+  * `quant_mismatch`: the calibration's quant stamp is not the served
+    weights' (an f32 calibration on quantized weights, or the other way);
   * `stage_failed`: the factory or the warmup raised.
 
 Only after every standby verifies does traffic flip, one replica at a
@@ -58,9 +58,10 @@ class SwapReport:
 
 
 def verify_head(gate, require_calibrated: bool = True) -> Optional[str]:
-    """The trust half of the promotion gate. A fingerprint mismatch
-    outranks uncalibrated (the gate degraded itself over a stale
-    calibration, not a missing one), and so does a quant stamp."""
+    """The trust half of the promotion gate, shared by the fleet's standbys
+    and a tenant's head swap. Fingerprint, then quant, then uncalibrated:
+    a gate that degraded itself over a stale calibration or a quant stamp
+    reports that operator error, not a missing calibration."""
     if gate.fingerprint_mismatch:
         return REJECT_FINGERPRINT
     if gate.quant_mismatch:

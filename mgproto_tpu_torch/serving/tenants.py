@@ -148,7 +148,8 @@ class TenantDirectory:
               expected_compute_dtype: Optional[str] = None,
               percentile: Optional[float] = None, drift_config: Optional[Any] = None,
               capture_config: Optional[Any] = None,
-              num_classes: Optional[int] = None) -> MountReport:
+              num_classes: Optional[int] = None,
+              expected_quant: Optional[str] = None) -> MountReport:
         """Mount one tenant head: a gate over `calibration`, a quota weight
         and, given their configs, a drift monitor and a capture reservoir
         (capture needs `num_classes`); `class_names` claim class-bucket
@@ -159,7 +160,8 @@ class TenantDirectory:
         if quota_weight <= 0.0:
             raise ValueError(f"tenant {tenant!r}: quota_weight must be > 0, got {quota_weight}")
         gate = TrustGate(calibration, expected_fingerprint=expected_fingerprint,
-                         expected_compute_dtype=expected_compute_dtype, percentile=percentile)
+                         expected_compute_dtype=expected_compute_dtype, percentile=percentile,
+                         expected_quant=expected_quant)
         slots: List[int] = []
         if class_names:
             if self.class_directory is None:
@@ -233,10 +235,14 @@ class TenantDirectory:
     def swap(self, tenant: str, calibration: Optional[Calibration],
              expected_fingerprint: Optional[str] = None,
              expected_compute_dtype: Optional[str] = None,
-             percentile: Optional[float] = None) -> TenantSwapReport:
+             percentile: Optional[float] = None,
+             expected_quant: Optional[str] = None) -> TenantSwapReport:
         """Tenant-scoped blue/green: stage a replacement head, verify it
         (`swap.verify_head`), and only then replace the mounted one. A
-        rejection leaves the old head serving; no other tenant is touched."""
+        rejection (uncalibrated, a stale fingerprint, a quant stamp that is
+        not the served trunk's) leaves the old head serving; no other
+        tenant is touched. The head itself is f32 whatever the trunk's
+        quant config."""
         from mgproto_tpu_torch.serving.swap import verify_head
 
         if self.head_for(tenant) is None:
@@ -247,7 +253,8 @@ class TenantDirectory:
         if chaos is not None and chaos.tenant_bad_swap_due():
             calibration = None  # the drill: a head with no trust data
         staged = TrustGate(calibration, expected_fingerprint=expected_fingerprint,
-                           expected_compute_dtype=expected_compute_dtype, percentile=percentile)
+                           expected_compute_dtype=expected_compute_dtype, percentile=percentile,
+                           expected_quant=expected_quant)
         reason = verify_head(staged)
         if reason is not None:
             _m.counter(_m.TENANT_SWAPS).inc(tenant=str(tenant), result=SWAP_REJECTED)

@@ -1106,3 +1106,87 @@ def test_two_ranks_on_one_card_step_bit_equal(tmp_path, mesh):
         torch.cat([p.detach().reshape(-1) for p in Trainer.params(st)]).cpu().numpy(),
         r0["params"])
 
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["f32", "bf16"])
+def test_a_quantized_conv_on_the_card_equals_a_conv_on_its_dequantized_weights(dtype):
+    """models/quantized.py's conv, its weight dequantized at the call, gives
+    the bits of the same conv on the dequantized weight (channels_last, the
+    served layout), in f32 and in bf16."""
+    _need_cuda()
+    from mgproto_tpu_torch.models.common import conv
+    from mgproto_tpu_torch.models.quantized import (
+        QuantConv2d,
+        dequantize_weight,
+        quantize_modules,
+    )
+    from mgproto_tpu_torch.perf.quant import quantize_array
+
+    g = torch.Generator().manual_seed(5)
+    layer = torch.nn.Sequential(conv(64, 128, 3, 2, 1))
+    with torch.no_grad():
+        layer[0].weight.copy_(torch.randn(layer[0].weight.shape, generator=g) * 0.05)
+    q, scale = quantize_array(layer[0].weight)
+    quantize_modules(layer, {"0": (q, scale)})
+    qconv = layer[0].cuda().to(memory_format=torch.channels_last).eval()
+    assert isinstance(qconv, QuantConv2d)
+    w = dequantize_weight(qconv.qweight, qconv.scale).contiguous(
+        memory_format=torch.channels_last)
+    x = torch.randn(8, 64, 56, 56, generator=g).cuda().to(dtype).contiguous(
+        memory_format=torch.channels_last)
+    with torch.inference_mode():
+        got = qconv(x)
+        want = torch.nn.functional.conv2d(x, w.to(dtype), None, 2, 1)
+    assert got.dtype == dtype
+    assert torch.equal(got, want)
+
+
+@pytest.mark.cuda
+def test_a_tiny_int8_engine_on_the_card_matches_the_cpu(tmp_path):
+    """A resnet18-width int8 artifact served on the card and on the CPU: one
+    score_pool and 8 epilogue launches a dispatch on the card, logits and
+    log p(x) within 1e-4 of the CPU's plain path; the weights at rest on the
+    card are the int8 ones (storage bytes = quant_config's
+    total_weight_bytes), and the dequantize-on-load twin gives the same
+    logits on the card within 1e-5."""
+    _need_cuda()
+    import dataclasses
+
+    import numpy as np
+
+    from mgproto_tpu_torch.config import tiny_test_config
+    from mgproto_tpu_torch.core.mgproto import build_mgproto
+    from mgproto_tpu_torch.engine import export
+    from mgproto_tpu_torch.perf.quant import QUANT_TAG_INT8, quantize_model, resident_weight_bytes
+    from mgproto_tpu_torch.serving.calibration import gmm_fingerprint
+    from mgproto_tpu_torch.serving.engine import ServingEngine
+
+    cfg = tiny_test_config(arch="resnet18")
+    cfg = cfg.replace(model=dataclasses.replace(cfg.model, fused_scoring=None,
+                                                fused_epilogue=None))
+    model, gmm = build_mgproto(cfg.model, device="cpu", seed=3)
+    qm = quantize_model(model)
+    path = str(tmp_path / "r18q.mgproto")
+    export.save_artifact(path, qm.model, gmm, export.artifact_meta(
+        cfg, None, gmm_fingerprint(gmm), quant=qm.quant_config()))
+    x = np.random.default_rng(4).normal(size=(6, 32, 32, 3)).astype(np.float32)
+    out = {}
+    for dev in ("cuda", "cpu"):
+        eng = ServingEngine.from_artifact(path, allow_uncalibrated=True, device=dev,
+                                          buckets=(8,))
+        assert eng.quant_config == QUANT_TAG_INT8
+        eng.warmup()
+        score_pool.launches = fe.fused_bn_epilogue.launches = 0
+        logits, log_px, _ = eng._dispatch(x)
+        out[dev] = (logits, log_px, (score_pool.launches, fe.fused_bn_epilogue.launches))
+    assert out["cuda"][2] == (1, 8) and out["cpu"][2] == (0, 0)
+    assert np.abs(out["cuda"][0] - out["cpu"][0]).max() <= ATOL
+    assert np.abs(out["cuda"][1] - out["cpu"][1]).max() <= ATOL
+    art = export.load_artifact(path, device="cuda")
+    model = art.evaluator.model
+    assert resident_weight_bytes(model) == qm.quant_config()["total_weight_bytes"]
+    twin = export.load_artifact(path, device="cuda", dequantize=True)
+    a, b = art.infer(x), twin.infer(x)
+    assert np.abs(a["logits"] - b["logits"]).max() <= 1e-5
+    assert np.abs(a["log_px"] - b["log_px"]).max() <= 1e-5

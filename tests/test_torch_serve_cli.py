@@ -351,7 +351,6 @@ SERVE_ARGVS = {
 EXPORT_ARGVS = {
     "aot_cache": (["--aot-cache"], "A7"),
     "aot_buckets": (["--aot_buckets", "1,2"], "A7"),
-    "quantize": (["--quantize", "int8"], "A9"),
 }
 
 
