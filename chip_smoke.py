@@ -51,6 +51,26 @@ Phases, one JSON line each (`t_s`: seconds since the script started):
              and the scoring route reports the score_pool kernel's index
              agreement with the plain pool on its own first-step features;
              then a profile of three steps by kernel family;
+     planner: the memory planner at the flagship, in process
+             (perf/planner.py): every candidate of `candidate_plans`
+             (batches 80 / 160 / 320, remat none and layer1, prefetch 2
+             and 0, the uint8 wire) measured by one step on the card from a
+             seeded throwaway state with a full bank: its peak, seconds and
+             launches (1 / 16 / 1 / 3 a program, 19 epilogues with layer1
+             recomputed), one candidate measured twice (spread within 5 %),
+             then `autotune` under a budget between the top batch's peaks
+             and the smaller ones', so rejections are exercised without an
+             out-of-memory error; beside it the planner pair: two gloo
+             ranks on cuda:0 (`chip_smoke.py --planner-child`, started
+             with the phase) run `cli.train`'s planning step at 40 rows a
+             rank with the default measure, rank 1 under a budget between
+             the in-process b80 and b160 program peaks, rank 0 under the
+             card's total: both choose the same plan under rank 1's
+             budget, each candidate's peak the larger rank's, and a
+             candidate that fits rank 0 alone is rejected;
+     telemetry_cost: three b80 steps of `train_epoch` with a StepMonitor
+             and without, twice each (cuDNN deterministic): the same
+             launches, the states bit-equal, the step times side by side;
   6. input:  the training input path: a seeded folder of 800 JPEGs (200
              classes x 4, 500x375, quality 90) under build/input_phase/,
              read by build_pipelines' train loader (ImageFolder, the
@@ -323,6 +343,17 @@ Phases, one JSON line each (`t_s`: seconds since the script started):
              save and images prints the pair's metrics by the same rule, rank 0
              alone printing and writing the CSV, each rank's epilogue
              launches exact.
+Telemetry: the mains' processes write their telemetry
+directories (phase 11's `cli.train` and `cli.evaluate`, phase 12 (b)'s
+`cli.serve --telemetry_dir`, phase 16 (c)'s rank pairs, the killed pair's
+stream cut mid-run), and each is read by `cli.telemetry summarize` and
+gated by `check --baseline` against itself (exit 0; a `telemetry_dir`
+line each). Phase 12 (e) adds the planner's serve ladders
+(`serve_ladders`: each bucket's program peak on the f32 and the int8
+engine plus the weight term; under the budget where int8's largest bucket
+just fits, its ladder is longer than f32's). Phase 15 (d) (`quant_record`)
+runs (a)'s matrix on 12 (e)'s int8 artifact in process and gates the
+record of (e)'s numbers with `check --quant` (exit 0; seeded weights).
 Then the kernel summary line (times at the train step's shapes, the serve
 path's beside them; `launches` counted on the input phase's epoch,
 `schedule_launches` on the schedule phase's run, `interpret_launches` on
@@ -330,7 +361,7 @@ the interpret phase's run_interpret, `bf16_train_launches` on the options
 phase's bf16 steps, `backbone_launches` on phase 10's six steps of each
 trunk, `drill_launches` on phase 11's in-process drills, `serve_plane_launches`
 on phase 12's in-process plane, `quant_serve_launches` on (e)'s int8
-engine, `async_launches` on phase 13's async
+engine, `planner_launches` on the planner's measured steps, `async_launches` on phase 13's async
 steps and their flushes, `async_drill_launches` on its async drills,
 `elastic_serve_launches` on its autoscaled and tenant planes,
 `online_launches` on phase 14's consolidation on the card, `trust_launches`
@@ -1492,6 +1523,326 @@ def train_phase():
     else:
         emit("profile", path="train", batch=TRAIN_BATCH, steps=3, **rec)
     return launches, TRAIN_STEPS + 1
+
+
+# ------------------------------------------------------ planner, telemetry
+TELEMETRY_STEPS = 3  # steps of each run of the telemetry cost check
+# the same candidate's program peak measured twice, the allocator emptied
+# and its peak reset between: cuDNN's workspace may be chosen anew
+PLANNER_SPREAD = 0.05
+PLANNER_PAIR_DIR = os.path.join(HERE, "build", "planner_pair")
+PLANNER_PAIR_BATCH = 40  # a rank's rows: candidates at global 80 / 160 / 320
+PLANNER_PAIR_WAIT_S = 600  # a child waits this long for the go file
+
+
+def planner_pair_start():
+    """Two gloo ranks on cuda:0 (`chip_smoke.py --planner-child`), started
+    with the planner phase; each plans once the go file exists, after the
+    in-process planner has given its memory back."""
+    import shutil
+
+    shutil.rmtree(PLANNER_PAIR_DIR, ignore_errors=True)
+    os.makedirs(PLANNER_PAIR_DIR)
+    port, procs = free_port(), []
+    for r in range(DIST_RANKS):
+        env = dict(os.environ, PYTHONUNBUFFERED="1", RANK=str(r), WORLD_SIZE=str(DIST_RANKS),
+                   LOCAL_RANK="0", MASTER_ADDR="localhost", MASTER_PORT=str(port))
+        log = open(os.path.join(PLANNER_PAIR_DIR, f"rank{r}.log"), "w")
+        procs.append(Started(subprocess.Popen(
+            [sys.executable, os.path.abspath(__file__), "--planner-child", PLANNER_PAIR_DIR],
+            cwd=HERE, stdout=log, stderr=subprocess.STDOUT, env=env), log.name))
+    return procs
+
+
+def planner_child(argv):
+    """`python3 chip_smoke.py --planner-child DIR`: one rank of the planner
+    pair. Joins the gloo group, waits for DIR/go.json (each rank's budget),
+    then runs `cli.train`'s planning step on the flagship at
+    PLANNER_PAIR_BATCH rows a rank with the default measure on the card,
+    and writes DIR/rank<r>.json: the outcome, the plan, the per-rank batch
+    and this rank's own program peaks, taken before the ranks agree."""
+    import dataclasses
+
+    from mgproto_tpu_torch.cli import train
+    from mgproto_tpu_torch.config import Config
+    from mgproto_tpu_torch.parallel.mesh import initialize_distributed, world
+    from mgproto_tpu_torch.perf import planner
+
+    initialize_distributed(backend=DIST_BACKEND, device="cuda:0", strict=True,
+                           timeout_s=DIST_CHILD_TIMEOUT_S)
+    rank = world()[0]
+    go = os.path.join(argv[0], "go.json")
+    deadline = time.time() + PLANNER_PAIR_WAIT_S
+    while not os.path.exists(go):
+        check(time.time() < deadline, f"planner pair: {go} did not appear")
+        time.sleep(0.2)
+    with open(go) as f:
+        os.environ[planner.BUDGET_ENV] = str(json.load(f)["budgets"][rank])
+    os.environ[planner.MARGIN_ENV] = "0"
+    own, measure = {}, planner.measure_candidate
+
+    def recorded(base_cfg, cand, *a, **k):
+        peak, detail = measure(base_cfg, cand, *a, **k)
+        own[f"{cand.batch}:{'+'.join(cand.remat_stages)}"] = detail["program_peak_bytes"]
+        return peak, detail
+
+    planner.measure_candidate = recorded
+    cfg = Config()
+    cfg = cfg.replace(data=dataclasses.replace(cfg.data, train_batch_size=PLANNER_PAIR_BATCH))
+    t0 = time.perf_counter()
+    cfg, outcome, plan = train._autotune(cfg, True, None, DIST_RANKS, "cuda:0", lambda s: None)
+    with open(os.path.join(argv[0], f"rank{rank}.json"), "w") as f:
+        json.dump({"outcome": outcome.to_meta(), "plan": plan, "own_peaks": own,
+                   "rank_batch": cfg.data.train_batch_size,
+                   "seconds": time.perf_counter() - t0}, f)
+    return 0
+
+
+def planner_pair_check(smi, pair, solo):
+    """The pair plans one batch for the world: rank 1's budget lies between
+    the in-process planner's program peaks at a rank's b80 and b160 (so
+    the global b320 without remat is over it on rank 1 only), rank 0's is
+    the card's total. Both ranks choose the same plan and rank batch, both
+    plan under rank 1's budget, each candidate's peak is the larger of the
+    two ranks' own, and a candidate that fits rank 0 alone is rejected."""
+    import torch
+
+    from mgproto_tpu_torch.config import Config
+    from mgproto_tpu_torch.perf import planner
+
+    img_size = Config().model.img_size
+    by = {(r.candidate.batch, r.candidate.remat_stages): r.detail["program_peak_bytes"]
+          for r in solo.reports if not r.error and not r.candidate.prefetch_depth}
+    low, high = by[(2 * PLANNER_PAIR_BATCH, ())], by[(4 * PLANNER_PAIR_BATCH, ())]
+    budgets = [int(torch.cuda.mem_get_info()[1]), (low + high) // 2]
+    with open(os.path.join(PLANNER_PAIR_DIR, "go.json.tmp"), "w") as f:
+        json.dump({"budgets": budgets}, f)
+    os.replace(os.path.join(PLANNER_PAIR_DIR, "go.json.tmp"),
+               os.path.join(PLANNER_PAIR_DIR, "go.json"))
+    for r, p in enumerate(pair):
+        code, _ = p.wait(timeout=PLANNER_PAIR_WAIT_S)
+        check(code == 0, f"planner pair rank {r} exited {code}:\n" + open(p.out).read()[-3000:])
+    got = [json.load(open(os.path.join(PLANNER_PAIR_DIR, f"rank{r}.json")))
+           for r in range(DIST_RANKS)]
+    check(got[0]["plan"] is not None and got[0]["plan"] == got[1]["plan"]
+          and got[0]["rank_batch"] == got[1]["rank_batch"],
+          f"planner pair: the ranks chose {[g['plan'] for g in got]}")
+    check(all(g["outcome"]["budget_bytes"] == budgets[1] for g in got),
+          f"planner pair: budgets {[g['outcome']['budget_bytes'] for g in got]}")
+    solo_fits = []
+    for row0, row1 in zip(got[0]["outcome"]["candidates"], got[1]["outcome"]["candidates"]):
+        check(row0["fits"] == row1["fits"] and row0["peak_bytes"] == row1["peak_bytes"],
+              f"planner pair: {row0} vs {row1}")
+        key = f"{row0['batch']}:{'+'.join(row0['remat_stages'])}"
+        if "error" in row0:
+            continue
+        own = [g["own_peaks"][key] for g in got]
+        headroom = row0["prefetch_depth"] * planner.batch_bytes(
+            row0["batch"] // DIST_RANKS, img_size, row0["device_augment"])
+        check(row0["peak_bytes"] == max(own) + headroom,
+              f"planner pair: {row0['name']} peak {row0['peak_bytes']} vs own {own}")
+        if own[0] + headroom <= budgets[0] and not row0["fits"]:
+            solo_fits.append(row0["name"])
+    check(solo_fits, "planner pair: no candidate that fits rank 0 alone was rejected")
+    emit("planner_pair", card=smi, ranks=DIST_RANKS, backend=DIST_BACKEND,
+         rank_batch=got[0]["rank_batch"], plan=got[0]["plan"]["name"], budgets=budgets,
+         rejected_for_rank_1=solo_fits,
+         own_peaks=[g["own_peaks"] for g in got],
+         agreed=[{k: c.get(k) for k in ("name", "peak_bytes", "fits", "error")}
+                 for c in got[0]["outcome"]["candidates"]],
+         seconds=[g["seconds"] for g in got],
+         note="two ranks share cuda:0 and measure at the same time; each rank's own peaks "
+              "are its process's")
+
+
+def planner_phase(smi):
+    """The memory planner at the flagship (perf/planner.py), in process:
+    every candidate of `candidate_plans` (batches 80 / 160 / 320, remat
+    none and layer1, prefetch 2 and 0, the uint8 wire) measured by one
+    step on the card from a full seeded bank, with its peak, its seconds
+    and its launches (1 / 16 / 1 / 3 a measured program, 19 epilogues with
+    layer1's 3 blocks recomputed; the prefetch variants are arithmetic),
+    one candidate measured twice for the spread,
+    then `autotune` under a budget halfway between the largest peak below
+    the top batch and the smallest at it, so rejections are exercised
+    without running out of memory. Then the planner pair: two gloo ranks
+    on the card plan one world's batch through `cli.train`'s planning step
+    with their own budgets (`planner_pair_check`). Returns the launch
+    counts of the in-process measures."""
+    import gc
+
+    import torch
+
+    gc.collect()
+    torch.cuda.empty_cache()
+    t_phase = time.perf_counter()
+    pair = planner_pair_start()
+    try:
+        launches = planner_in_process(smi, t_phase)
+        planner_pair_check(smi, pair, launches.pop("outcome"))
+    finally:
+        for p in pair:
+            if p.proc.poll() is None:
+                p.proc.kill()
+                p.proc.wait()
+    return launches
+
+
+def planner_in_process(smi, t_phase):
+    """`planner_phase`'s in-process part; returns the launch counts of the
+    measures and, under "outcome", the outcome under the card's total."""
+    import dataclasses
+    import gc
+
+    import torch
+
+    from mgproto_tpu_torch.config import Config
+    from mgproto_tpu_torch.perf import planner
+
+    cfg = Config()
+    cands = planner.candidate_plans(cfg, device="cuda")
+    measure = planner.make_cached_measure(cfg, device="cuda")
+    launches, per_program = {}, {}
+    reset_launch_counts()
+
+    def counted(cand):
+        before = launch_counts()
+        out = measure(cand)
+        delta = {k: v - before[k] for k, v in launch_counts().items()}
+        if any(delta.values()):
+            per_program[cand.name] = delta
+        return out
+
+    total = torch.cuda.mem_get_info()[1]
+    outcome = planner.HBMPlanner(budget_bytes=total, margin=0.0, measure=counted).plan(cfg, cands)
+    launches = launch_counts()
+    rows = [{"name": r.candidate.name, "peak_bytes": r.peak_bytes, "fits": r.fits,
+             "program_peak_bytes": r.detail.get("program_peak_bytes"),
+             "prefetch_headroom_bytes": r.detail.get("prefetch_headroom_bytes"),
+             "measure_s": r.detail.get("measure_s"), "error": r.error or None}
+            for r in outcome.reports]
+    check(all(r.fits or r.error for r in outcome.reports),
+          f"a flagship candidate neither measured within the card nor rejected: {rows}")
+    measured = [r for r in outcome.reports if not r.error]
+    check(len(measured) >= 2, f"fewer than two flagship candidates measured: {rows}")
+    # a rematted stage's blocks run their tails again in the recompute
+    stage_blocks = {f"layer{i + 1}": blocks for i, (blocks, _, _) in enumerate(R34_STAGES)}
+    by_name = {r.candidate.name: r for r in measured}
+    for name, delta in per_program.items():
+        cand, steps = by_name[name].candidate, by_name[name].detail["steps"]
+        want = {"score_pool": 1, "score_pool_bwd": 1, "em_estep": cfg.em.num_em_loop,
+                "bn_epilogue": 16 + sum(stage_blocks[s] for s in cand.remat_stages)}
+        check(delta == {k: v * steps for k, v in want.items()},
+              f"planner measure of {name}: launches {delta}, expected {want} a step")
+    programs = len({(r.candidate.batch, r.candidate.remat_stages) for r in outcome.reports})
+    check(len(per_program) == programs,
+          f"{len(per_program)} measured steps for {programs} programs (prefetch is arithmetic)")
+    # the spread: the first candidate's program again, the allocator reset
+    first = cands[0]
+    again, again_detail = planner.measure_candidate(
+        cfg, dataclasses.replace(first, prefetch_depth=0), device="cuda")
+    first_peak = next(r for r in outcome.reports if r.candidate == first).detail[
+        "program_peak_bytes"]
+    spread = abs(again - first_peak) / max(again, first_peak)
+    check(spread <= PLANNER_SPREAD, f"{first.name} measured twice: {first_peak} and {again} B")
+    # a budget between the largest peak below the top batch and the
+    # smallest at it: every top-batch candidate is rejected by the budget,
+    # not by the card
+    top = max(r.candidate.batch for r in measured)
+    below = max((r.peak_bytes for r in measured if r.candidate.batch < top), default=0)
+    above = min(r.peak_bytes for r in measured if r.candidate.batch == top)
+    peaks = sorted({r.peak_bytes for r in measured})
+    check(len(peaks) >= 2, f"the measured peaks are not distinct: {rows}")
+    # where remat brings the top batch under a smaller one's peak: between
+    # the two largest peaks
+    budget = (below + above) // 2 if 0 < below < above else (peaks[-2] + peaks[-1]) // 2
+    cfg2, tuned = planner.autotune(cfg, budget_bytes=budget, margin=0.0, candidates=cands,
+                                   measure=counted)
+    check(tuned.chosen is not None and tuned.chosen.peak_bytes <= budget and tuned.rejected >= 1
+          and all(not r.fits for r in tuned.reports if r.peak_bytes > budget),
+          f"autotune under {budget} B: {tuned.to_meta()}")
+    check(cfg2.data.train_batch_size == tuned.chosen.candidate.batch,
+          "autotune did not apply the chosen batch")
+    del measure
+    gc.collect()
+    torch.cuda.empty_cache()
+    emit("planner", card=smi, device_total_bytes=total, candidates=rows,
+         launches_per_program=per_program, launches=launches,
+         measure_s=sum({(r.candidate.batch, r.candidate.remat_stages): r.detail["measure_s"]
+                        for r in measured}.values()),
+         spread={"candidate": first.name, "program_peak_bytes": [first_peak, again],
+                 "relative": spread, "limit": PLANNER_SPREAD,
+                 "seconds": again_detail["measure_s"]},
+         budget={"bytes": budget, "chosen": tuned.chosen.candidate.name,
+                 "rejected": tuned.rejected},
+         state_bytes_per_chip=planner.state_bytes_per_chip(cfg),
+         seconds=time.perf_counter() - t_phase)
+    return dict(launches, outcome=outcome)
+
+
+def telemetry_cost_check(smi):
+    """Telemetry costs the step nothing: the flagship at batch 80 from two
+    clones of one seeded state with a full bank, TELEMETRY_STEPS steps of
+    `train_epoch` with a StepMonitor and without (cuDNN deterministic): the
+    same launches (1 / 16 / 1 / 3 a step), the states bit-equal, the step
+    times side by side."""
+    import numpy as np
+    import torch
+
+    from mgproto_tpu_torch.config import Config, DataConfig
+    from mgproto_tpu_torch.engine.train import Trainer
+    from mgproto_tpu_torch.perf.planner import ThrowawayState
+    from mgproto_tpu_torch.telemetry import MetricRegistry, StepMonitor
+
+    det = (torch.backends.cudnn.deterministic, torch.backends.cudnn.benchmark)
+    torch.backends.cudnn.deterministic, torch.backends.cudnn.benchmark = True, False
+    try:
+        cfg = Config(data=DataConfig(device_augment=False))
+        base = ThrowawayState(cfg, "cuda", seed=0)
+        rng = np.random.default_rng(17)
+        batches = [(rng.normal(size=(TRAIN_BATCH, 224, 224, 3)).astype(np.float32),
+                    rng.integers(0, cfg.model.num_classes, size=TRAIN_BATCH))
+                   for _ in range(TELEMETRY_STEPS)]
+        runs = {}
+        for on in (False, True, False, True):  # off, on, off, on: compare within one call
+            trainer = Trainer(cfg, steps_per_epoch=100, device="cuda")
+            state = base.clone(cfg)
+            reg = MetricRegistry()
+            monitor = StepMonitor(registry=reg).watch(trainer.cold_paths.total) if on else None
+            torch.cuda.synchronize()
+            reset_launch_counts()
+            state, _ = trainer.train_epoch(state, batches, 0, monitor=monitor,
+                                           flags={"warm": False, "use_mine": True,
+                                                  "update_gmm": True})
+            torch.cuda.synchronize()
+            key = "on" if on else "off"
+            run = runs.setdefault(key, {"step_s": [], "launches": launch_counts()})
+            run["step_s"].append([r.step_s for r in trainer.step_log])
+            run["state"] = [t.detach().clone() for t in (*state.model.state_dict().values(),
+                                                         *state.gmm, *state.memory)]
+            if on:
+                snap = reg.snapshot()
+                run["monitor"] = {k: snap[k]["series"][0]["value"] for k in
+                                  ("steps_total", "images_total", "host_transfer_bytes_total",
+                                   "jit_recompiles_total")}
+            del state, trainer
+    finally:
+        torch.backends.cudnn.deterministic, torch.backends.cudnn.benchmark = det
+    want = {"score_pool": 1, "bn_epilogue": 16, "score_pool_bwd": 1, "em_estep": 3}
+    for key, run in runs.items():
+        check(run["launches"] == {k: v * TELEMETRY_STEPS for k, v in want.items()},
+              f"telemetry {key}: launches {run['launches']} over {TELEMETRY_STEPS} steps")
+    equal = all(torch.equal(a, b) for a, b in zip(runs["on"]["state"], runs["off"]["state"]))
+    check(equal, "the state after the steps differs with telemetry on")
+    mon = runs["on"]["monitor"]
+    check(mon["steps_total"] == TELEMETRY_STEPS and mon["images_total"] ==
+          TELEMETRY_STEPS * TRAIN_BATCH and mon["jit_recompiles_total"] == 1,
+          f"the monitor counted {mon}")
+    emit("telemetry_cost", card=smi, steps=TELEMETRY_STEPS, batch=TRAIN_BATCH,
+         launches_per_step=want, state_bit_equal=equal, monitor=mon,
+         step_s={k: run["step_s"] for k, run in runs.items()},
+         median_step_s={k: float(np.median([s for r in run["step_s"] for s in r[1:]]))
+                        for k, run in runs.items()})
 
 
 # -------------------------------------------------------------------- input
@@ -3066,6 +3417,60 @@ def last_json(text):
     return json.loads(lines[-1])
 
 
+def captured(fn, argv):
+    """(return value, stdout) of a command's `main` called in this process."""
+    import io
+
+    out = io.StringIO()
+    with contextlib.redirect_stdout(out):
+        code = fn(argv)
+    return code, out.getvalue()
+
+
+def telemetry_dir_check(smi, part, run_dir, steps=None, serving_requests=None):
+    """The telemetry a main wrote (its session's directory, or a run dir
+    holding telemetry/): `cli.telemetry summarize` reads it (in this
+    process: the command imports no torch), `check --write-baseline` then
+    `check --baseline` against itself exit 0. `steps`: the train steps it
+    must count; `serving_requests`: the requests its serving section must
+    count. Returns the summary."""
+    from mgproto_tpu_torch.cli import telemetry as cli_telemetry
+
+    t0 = time.perf_counter()
+    code, text = captured(cli_telemetry.main, ["summarize", run_dir, "--json"])
+    summary = json.loads(text)
+    check(code is None and summary["snapshots"] > 0 and summary["artifacts"]["metrics.jsonl"],
+          f"{part}: summarize found no telemetry in {run_dir}")
+    if steps is not None:
+        check(summary["steps"]["steps_total"] == steps,
+              f"{part}: {summary['steps']['steps_total']} steps in the telemetry, {steps} run")
+    if serving_requests is not None:
+        got = sum((summary.get("serving") or {}).get("requests_by_outcome", {}).values())
+        check(got == serving_requests, f"{part}: {got} requests in the telemetry, "
+              f"{serving_requests} served")
+    baseline = os.path.join(os.path.dirname(summary["telemetry_dir"]),
+                            os.path.basename(summary["telemetry_dir"]) + "_baseline.json")
+    wcode, _ = captured(cli_telemetry.check_main, [run_dir, "--baseline", baseline,
+                                                   "--write-baseline"])
+    ccode, ctext = captured(cli_telemetry.check_main, [run_dir, "--baseline", baseline, "--json"])
+    result = json.loads(ctext)
+    check(wcode == 0 and ccode == 0 and result["ok"] and result["checked"] > 0,
+          f"{part}: check --baseline against itself exited {ccode}: {result}")
+    steps_s = summary.get("steps", {})
+    emit("telemetry_dir", card=smi, part=part, snapshots=summary["snapshots"],
+         steps_total=steps_s.get("steps_total"), images_total=steps_s.get("images_total"),
+         step_time_p50_s=steps_s.get("step_time_p50_seconds"),
+         step_time_p99_s=steps_s.get("step_time_p99_seconds"),
+         images_per_sec=steps_s.get("images_per_sec"),
+         recompiles=summary["recompiles"]["jit_recompiles_total"],
+         health_records=(summary.get("health") or {}).get("records", 0),
+         spans=sorted(summary.get("spans", {}))[:12],
+         serving=(summary.get("serving") or {}).get("requests_by_outcome"),
+         baseline_entries=result["checked"], check_exit=ccode,
+         seconds=time.perf_counter() - t0)
+    return summary
+
+
 def children(pid):
     """PIDs whose parent is `pid`, from /proc."""
     out = []
@@ -3129,6 +3534,9 @@ def cli_train_check(smi, root, base, beside=None):
     img_dir = os.path.join(run_dir, "img", "epoch-0")
     rendered = len(os.listdir(img_dir)) if os.path.isdir(img_dir) else 0
     check(rendered > 0 and records[-1].get("stage") == "prune", "cli.train: no render or prune")
+    # one epoch: the train record's step is the epoch's step count
+    telemetry_dir_check(smi, "11 (a) cli.train", run_dir,
+                        steps=[r for r in records if "train_s" in r][-1]["step"])
 
     with concurrent.futures.ThreadPoolExecutor(1) as pool:
         side = pool.submit(beside) if beside is not None else None
@@ -3143,6 +3551,7 @@ def cli_train_check(smi, root, base, beside=None):
     check(res["accuracy"] == records[-1]["acc"],
           f"cli.evaluate accuracy {res['accuracy']} != the run's last test pass "
           f"{records[-1]['acc']}")
+    telemetry_dir_check(smi, "11 (b) cli.evaluate", os.path.join(run_dir, "telemetry_eval"))
     emit("cli", card=smi, part="train_evaluate", arch="densenet121", epochs=1, batch=TRAIN_BATCH,
          train_wall_s=train_s, stages=stages, rendered_jpegs=rendered,
          train_s=[r["train_s"] for r in records if "train_s" in r],
@@ -3614,8 +4023,9 @@ def serve_plane_phase(smi):
     t0 = time.perf_counter()
     # the whole batch is admitted before the first dispatch: the queue holds it
     queue = str(2 * SERVE_PLANE_IMAGES)
+    serve_telemetry = os.path.join(SERVE_PLANE_DIR, "serve_telemetry")
     p = start_main("serve", ["--artifact", art["prune"], "--images", npy, "--stdin", "--explain",
-                             "--queue_capacity", queue],
+                             "--queue_capacity", queue, "--telemetry_dir", serve_telemetry],
                    stdin=subprocess.PIPE, stdout=subprocess.PIPE, stderr=subprocess.PIPE)
     out, err = p.communicate(stdin, timeout=600)
     batch_wall_s = time.perf_counter() - t0
@@ -3631,6 +4041,7 @@ def serve_plane_phase(smi):
     served = [r for r in resps if r["outcome"] in ("predict", "abstain")]
     check(len(served) == SERVE_PLANE_IMAGES + 2 and summary["steady_state_recompiles"] == 0
           and summary["warmup_compiles"] == 4, f"batch face summary {summary}")
+    telemetry_dir_check(smi, "12 (b) cli.serve", serve_telemetry, serving_requests=len(resps))
 
     # the same payloads through from_live on the restored checkpoint, this
     # process, this card, the same buckets: bit-equal
@@ -3884,7 +4295,7 @@ def quant_serve_check(smi, art, x, export_line):
 
     from mgproto_tpu_torch.engine import export
     from mgproto_tpu_torch.models.quantized import dequantize_weight, quantized_modules
-    from mgproto_tpu_torch.perf.quant import QUANT_TAG_INT8, resident_weight_bytes
+    from mgproto_tpu_torch.perf.quant import QUANT_TAG_INT8, resident_weight_bytes, weight_rows
     from mgproto_tpu_torch.serving import metrics as sm
     from mgproto_tpu_torch.serving.engine import ServingEngine
     from mgproto_tpu_torch.serving.swap import REJECT_QUANT, verify_head
@@ -3937,6 +4348,7 @@ def quant_serve_check(smi, art, x, export_line):
           f"int8 serve launches {launches} over {dispatches} dispatches")
     twin_err = [float(np.abs(out["int8"][j] - out["twin"][j]).max()) for j in (0, 1)]
     check(max(twin_err) <= TAIL_ATOL, f"int8 vs its twin on the card: {twin_err}")
+    ladders = serve_ladders_check(smi, engines, qc, resident)
 
     # the CPU plain path on the dequantized weights
     t0 = time.perf_counter()
@@ -4025,10 +4437,83 @@ def quant_serve_check(smi, art, x, export_line):
          dequantize={"launches_per_dispatch": dequant_calls, "device_ms_per_dispatch": dequant_ms},
          gate_drill=drill, seconds=seconds)
     emit("quant_serve_seconds", seconds=seconds, limit_s=30)
+    # (e)'s numbers in the JAX package's quant record schema; phase 15 adds
+    # the two trust matrices and gates the record
+    # the per-leaf rows by shape math, on the twin's float model
+    rows = weight_rows(loaded["twin"].evaluator.model, q.proxies)
+    QUANT_RECORD.update(
+        artifact=art["int8"], metric="quant", backend="cuda",
+        config={"seeded_weights": True, "images": len(x),
+                "buckets": list(engines["int8"].buckets),
+                "auroc_rederive_tol": 1e-9},
+        weights={"rows": rows, "f32_total": int(qc["total_f32_bytes"]),
+                 "int8_total": int(qc["total_weight_bytes"]),
+                 "num_quantized": qc["num_quantized"], "num_skipped": qc["num_skipped"]},
+        parity={"tolerance": QUANT_FLOORS["tolerance"],
+                "logit_delta_max_per_sample":
+                    np.abs(out["int8"][0] - out["twin"][0]).max(-1).tolist(),
+                "log_px_delta": np.abs(out["int8"][1] - out["twin"][1]).tolist(),
+                "max_logit_delta": twin_err[0], "max_log_px_delta": twin_err[1]},
+        planner=ladders, floors=dict(QUANT_FLOORS),
+        drill={"quant_mismatch_total": drill["quant_mismatch_total"],
+               "degraded": drill["degraded"], "swap_reject": drill["verify_head"]})
     del engines, loaded, eng
     gc.collect()
     torch.cuda.empty_cache()
     return launches
+
+
+# JAX's committed floors of its quant record (evidence/quant_bench.json):
+# weight reduction, int8 vs twin parity, the trust deltas, the int8 sketch
+QUANT_FLOORS = {"weight_reduction_min": 3.0, "tolerance": 1e-3, "auroc_delta_limit": 0.05,
+                "answered_accuracy_delta_limit": 0.1, "px_divergence_limit": 0.25}
+QUANT_RECORD = {}  # filled by phase 12 (e), completed and gated by phase 15
+
+
+def serve_ladders_check(smi, engines, qc, resident):
+    """12 (e), the planner's serve ladders (perf/planner.py
+    `plan_serve_buckets`) on the f32 and the int8 engines: each bucket's
+    program peak measured by one dispatch on the card (the loaded model in
+    the baseline), plus the weight term, quant_config's total_f32_bytes
+    and total_weight_bytes (= the int8 weights at rest). Planned once
+    under the card's budget, then replayed under the budget where every
+    int8 bucket just fits: the int8 ladder must be longer than the f32
+    one. Returns the record's planner block."""
+    from mgproto_tpu_torch.perf.planner import plan_serve_buckets
+
+    weights = {"f32": int(qc["total_f32_bytes"]), "int8": int(qc["total_weight_bytes"])}
+    check(weights["int8"] == resident, f"the int8 weight term {weights['int8']} != the weights "
+          f"at rest {resident}")
+    first, peaks = {}, {}
+    for name in ("f32", "int8"):
+        fit, outcome = plan_serve_buckets(engines[name], weight_bytes=weights[name])
+        check(fit == list(engines[name].buckets),
+              f"{name}: buckets {fit} of {engines[name].buckets} fit the card")
+        first[name] = outcome
+        peaks[name] = {r.candidate.batch: (r.detail["program_peak_bytes"], r.detail)
+                       for r in outcome.reports}
+    budget = max(p + weights["int8"] for p, _ in peaks["int8"].values())
+    block = {"budget_bytes": budget, "per_replica_hbm_drop_bytes": weights["f32"] - weights["int8"]}
+    for name in ("f32", "int8"):
+        fit, outcome = plan_serve_buckets(
+            engines[name], budget_bytes=budget, margin=0.0, weight_bytes=weights[name],
+            measure=lambda c, name=name: peaks[name][c.batch])
+        block[name] = {"weight_resident_bytes": weights[name], "rows": [
+            {"batch": r.candidate.batch, "program_peak_bytes": r.detail["program_peak_bytes"],
+             "weight_resident_bytes": r.detail["weight_resident_bytes"],
+             "total_bytes": r.peak_bytes, "fits": r.fits} for r in outcome.reports]}
+        block[f"{name}_buckets_fit"] = fit
+    check(len(block["int8_buckets_fit"]) > len(block["f32_buckets_fit"]),
+          f"under {budget} B the int8 ladder {block['int8_buckets_fit']} is not longer than "
+          f"the f32 one {block['f32_buckets_fit']}")
+    emit("serve_ladders", card=smi, budget_bytes=budget, weight_bytes=weights,
+         program_peak_bytes={n: {b: p for b, (p, _) in v.items()} for n, v in peaks.items()},
+         baseline_bytes={n: {b: d["baseline_bytes"] for b, (_, d) in v.items()}
+                         for n, v in peaks.items()},
+         measure_s={n: sum(d["measure_s"] for _, d in v.values()) for n, v in peaks.items()},
+         card_budget_bytes=first["int8"].budget_bytes,
+         fit={n: block[f"{n}_buckets_fit"] for n in ("f32", "int8")})
+    return block
 
 
 # ----------------------------------------------------------- elastic plane
@@ -5313,6 +5798,47 @@ def corruption_chunk_ms():
     return out
 
 
+def quant_record_check(smi, f32_report, root, ood):
+    """15 (d): the quant record of the card in the JAX package's schema
+    (`cli.telemetry check --quant`'s input): phase 12 (e)'s per-leaf weight
+    rows, int8-vs-twin parity per sample, serve ladders and gate drill,
+    with (a)'s f32 report and the same matrix run here, in process, on
+    (e)'s int8 artifact. `check --quant` on it must exit 0. The weights are
+    seeded, not trained: the AUROC and accuracy deltas between f32 and
+    int8 are measured where both sit near chance (ROADMAP A item 4's gap)."""
+    from mgproto_tpu_torch.cli import telemetry as cli_telemetry
+    from mgproto_tpu_torch.cli import trust as cli_trust
+
+    check(bool(QUANT_RECORD), "15 (d): phase 12 (e) did not run in this process")
+    t0 = time.perf_counter()
+    path = os.path.join(TRUST_DIR, "trust_report_int8.json")
+    code, _ = captured(cli_trust.main, [
+        "matrix", "--artifact", QUANT_RECORD["artifact"], "--device", "cuda",
+        "--max_samples", str(TRUST_MAX_SAMPLES), "--train_dir", root, "--push_dir", root,
+        "--test_dir", root, "--ood_dir", ood, "--out", path])
+    matrix_s = time.perf_counter() - t0
+    with open(path) as f:
+        int8_report = json.load(f)
+    record = {k: v for k, v in QUANT_RECORD.items() if k != "artifact"}
+    record["trust"] = {"f32": f32_report, "int8": int8_report}
+    rec_path = os.path.join(TRUST_DIR, "quant_record.json")
+    with open(rec_path, "w") as f:
+        json.dump(record, f)
+    qcode, text = captured(cli_telemetry.main, ["check", "--quant", rec_path, "--json"])
+    result = json.loads(text)
+    failed = [r for r in result["rows"] if not r["ok"]]
+    check(qcode == 0 and result["ok"], f"15 (d): check --quant on the card's record exited "
+          f"{qcode}: {failed}")
+    rows = {r["key"]: r["value"] for r in result["rows"]}
+    emit("quant_record", card=smi, int8_matrix_exit=code, int8_matrix_s=matrix_s,
+         check_exit=qcode, checked=result["checked"], failed=result["failed"],
+         weight_reduction=rows.get("quant.weight_reduction_floor"),
+         auroc_delta={k: v for k, v in rows.items() if k.startswith("quant.auroc_delta")},
+         ladders={k: record["planner"][f"{k}_buckets_fit"] for k in ("f32", "int8")},
+         record=os.path.relpath(rec_path, HERE), seeded_weights=True,
+         seconds=time.perf_counter() - t0)
+
+
 def trust_phase(smi):
     """Phase 15; returns the launch counts of (a)'s full-width matrix
     process and its dispatches. (a)'s process starts first; (b) and (c),
@@ -5372,6 +5898,8 @@ def trust_phase(smi):
     check(child["dispatches"] == 22 * TRUST_MAX_SAMPLES // 8
           and child["launches"] == {k: v * dispatches for k, v in want.items()},
           f"trust matrix: launches {child['launches']} over {dispatches} dispatches")
+    quant_record_check(smi, report, root, ood)
+    split_s["quant_record"] = time.perf_counter() - t_phase
     chunk_ms = corruption_chunk_ms()
     split_s["chunk_ms"] = time.perf_counter() - t_phase
     emit("trust", card=smi, exit=code, check_exit=ccode, matrix_wall_s=wall,
@@ -6440,6 +6968,10 @@ def pod_relaunch_check(smi, relaunch, killed, evaluate):
     check(res["checkpoint"] == clean_last
           and abs(res["accuracy"] - records[-1]["acc"]) <= 1 / n_test,
           f"16 (c): evaluate {res} vs the run's last test pass {records[-1]['acc']}")
+    # the clean pair's telemetry and the killed pair's (rank 1's stream cut
+    # mid-run, the relaunch's appended after it)
+    for name in ("clean", "kill"):
+        telemetry_dir_check(smi, f"16 (c) {name}", os.path.join(POD_DIR, name))
     emit("distributed", part="c", card=smi, backend=DIST_BACKEND, arch="resnet18",
          global_batch=POD_BATCH * DIST_RANKS, epochs=2, kill_at_step=POD_KILL_AT,
          barrier_timeout_s=POD_TIMEOUT_S, **killed, digest_equal=True,
@@ -6594,6 +7126,8 @@ def main() -> int:
         return pod_child(sys.argv[2:])
     if sys.argv[1:2] == ["--interp-child"]:
         return interp_child(sys.argv[2:])
+    if sys.argv[1:2] == ["--planner-child"]:
+        return planner_child(sys.argv[2:])
     smi = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
         capture_output=True, text=True, timeout=60,
@@ -6611,6 +7145,8 @@ def main() -> int:
     kernels = kernel_phase()
     serve_launches, dispatches = serve_phase()
     train_launches, train_steps = train_phase()
+    planner_launches = planner_phase(smi)
+    telemetry_cost_check(smi)
     input_launches, input_steps = input_phase()
     schedule_launches, schedule_cfg, push_ckpt = schedule_phase(smi)
     interpret_launches, interp = interpret_phase(smi, schedule_cfg, push_ckpt)
@@ -6630,6 +7166,9 @@ def main() -> int:
         k["launches_per_input_step"] = k["launches"] / input_steps
         k["train_launches"] = train_launches[k["name"]]
         k["launches_per_train_step"] = k["train_launches"] / train_steps
+        # the planner's measured flagship steps (one a distinct program)
+        k["planner_launches"] = planner_launches[k["name"]]
+        check(k["planner_launches"] > 0, f"{k['name']} was not launched by the planner's measure")
         k["serve_launches"] = serve_launches.get(k["name"], 0)
         k["schedule_launches"] = schedule_launches[k["name"]]
         # the interpret run: the trunk's block tails only (its density is

@@ -8,8 +8,8 @@ same name and default. Each either sets the port's field of the same name
 other than its default by `config_from_args`, naming the ROADMAP item
 that will port it (`REFUSED`). `maybe_init_distributed` joins the process
 group for --distributed before any device use, with --barrier_timeout_s
-as the timeout of every collective. `--no-telemetry`
-is accepted: the port writes no telemetry in any case. The port adds
+as the timeout of every collective. `--telemetry_dir` and
+`--no-telemetry` are read by the mains. The port adds
 `--device` (default cuda), its device rule: the entry points run on the
 card unless the caller names another device.
 """
@@ -47,12 +47,10 @@ DATASET_PRESETS: Dict[str, Dict] = {
 REFUSED = (
     ("straggler_threshold", 0.25, "A9 (obs and telemetry: straggler detection)"),
     ("straggler_patience", 5, "A9 (obs and telemetry: straggler detection)"),
-    ("auto_tune", False, "A9 (perf/planner.py)"),
     ("profile_dir", "", "A9 (obs and telemetry)"),
     ("profile_steps", "", "A9 (obs and telemetry)"),
     ("profile_on_anomaly", False, "A9 (obs and telemetry)"),
     ("profile_out", "", "A9 (obs and telemetry)"),
-    ("telemetry_dir", "", "A9 (obs and telemetry)"),
 )
 
 
@@ -173,7 +171,14 @@ def add_train_args(p: argparse.ArgumentParser) -> None:
                         "one-step-stale prototypes (default: off)")
     p.add_argument("--no_async_bank", dest="async_bank", action="store_false",
                    help="force the synchronous step")
-    p.add_argument("--auto_tune", action="store_true", help="not ported (A9): refused")
+    p.add_argument("--auto_tune", action="store_true",
+                   help="the memory planner (perf/planner.py): step candidate (batch, "
+                        "remat, prefetch, augment, async_bank) plans on the card, read "
+                        "their peak memory, and run the largest plan that fits the "
+                        "device's memory with margin (MGPROTO_HBM_MARGIN, default 0.08; "
+                        "budget override MGPROTO_HBM_BUDGET_BYTES). The chosen plan and "
+                        "every candidate's peak land in telemetry meta.json and in each "
+                        "checkpoint's metadata; --resume adopts the checkpoint's plan")
     p.add_argument("--seed", type=int, default=0)
     p.add_argument("--device", default="cuda",
                    help="torch device to run on (default cuda; 'cpu' runs the "
@@ -228,10 +233,11 @@ def add_train_args(p: argparse.ArgumentParser) -> None:
                    help="not ported (A9): refused")
     p.add_argument("--profile_out", default="", help="not ported (A9): refused")
     p.add_argument("--telemetry-dir", "--telemetry_dir", dest="telemetry_dir", default="",
-                   help="not ported (A9): refused")
+                   help="telemetry output dir (metrics.prom / metrics.jsonl / health.jsonl / "
+                        "trace.json / meta.json; default: <model_dir>/telemetry); summarize "
+                        "with `python -m mgproto_tpu_torch.cli.telemetry <dir>`")
     p.add_argument("--no-telemetry", "--no_telemetry", dest="no_telemetry",
-                   action="store_true",
-                   help="accepted: the port writes no telemetry in any case")
+                   action="store_true", help="disable the telemetry subsystem entirely")
     p.add_argument("--target_accu", type=float, default=0.0,
                    help="save checkpoints only at or above this test accuracy")
 

@@ -11,8 +11,9 @@ gate of `drift_drill_gates` fails:
     python -m mgproto_tpu_torch.cli.online drill --device cuda --out drill.json
 
 `--device` is the port's own flag (default cuda); the others are the JAX
-command's. `status` renders a telemetry directory's drift section, which
-needs the port's telemetry (ROADMAP A item 7): it raises NotPortedError.
+command's. `status` renders a telemetry directory's drift section:
+
+    python -m mgproto_tpu_torch.cli.online status <telemetry dir> [--json]
 """
 
 from __future__ import annotations
@@ -64,10 +65,32 @@ def drill_main(argv=None) -> int:
 
 
 def status_main(argv=None) -> int:
-    from mgproto_tpu_torch.cli.common import NotPortedError
+    """Render a telemetry directory's drift section (`cli.telemetry
+    summarize`'s), as the JAX command does; --json prints it as JSON."""
+    from mgproto_tpu_torch.cli.telemetry import _fmt, summarize
 
-    raise NotPortedError("online status reads a telemetry directory, and the port writes no "
-                         "telemetry; ROADMAP A item 7 (telemetry and obs)")
+    p = argparse.ArgumentParser(prog="python -m mgproto_tpu_torch.cli.online status",
+                                description="Render a telemetry dir's online-learning drift "
+                                            "section")
+    p.add_argument("dir", help="telemetry dir (or a run dir containing telemetry/)")
+    p.add_argument("--json", action="store_true")
+    args = p.parse_args(argv)
+    if not os.path.isdir(args.dir):
+        raise SystemExit(f"not a directory: {args.dir}")
+    drift = summarize(args.dir).get("drift")
+    if drift is None:
+        # a session always pre-registers the online family
+        raise SystemExit(f"no online_*/drift_* series under {args.dir} (pre-online "
+                         "telemetry dir?)")
+    if args.json:
+        print(json.dumps(drift, indent=2))
+        return 0
+    width = max(len(k) for k in drift)
+    for k, v in drift.items():
+        if isinstance(v, dict):
+            v = " ".join(f"{kk}={_fmt(vv)}" for kk, vv in sorted(v.items())) or "-"
+        print(f"{k:<{width}}  {_fmt(v)}")
+    return 0
 
 
 def main(argv: Optional[list] = None) -> Optional[int]:

@@ -59,6 +59,17 @@ build/torch_kernels/ after), `artifact_read` and `model_build` (the
 artifact face; the checkpoint face has `state_build` and `checkpoint_read`),
 and `warmup` (every bucket once, cuDNN's algorithm choice included).
 
+Telemetry: `--telemetry_dir DIR` (no default directory: a serve run has
+no model_dir of its own) writes a telemetry session there
+(telemetry/session.py) with the serving family pre-registered, each
+dispatch observed by its engine's StepMonitor, and the flight recorder's
+`replica_<dead|wedged>` dumps. `--auto_tune` plans the buckets before
+warmup (perf/planner.py `plan_serve_buckets`: one dispatch at each bucket
+on the card, plus the artifact's resident weight bytes, its quant_config's
+`total_weight_bytes` when it carries one) and fails closed when none
+fits; the plane faces also plan every engine a restart or a scale-up
+builds (serving/autoscale.py `hbm_bucket_prep`).
+
 The serving chaos drills read the environment (resilience/chaos.py
 `plan_from_env`, installed before anything is served): the
 MGPROTO_CHAOS_SERVE_* and MGPROTO_CHAOS_TENANT_* knobs, seeded by
@@ -105,6 +116,18 @@ class StartSplit:
         now = time.perf_counter()
         self.parts[part] = self.parts.get(part, 0.0) + now - self._last
         self._last = now
+
+
+def _weight_bytes(meta, model, proxies) -> int:
+    """The served weights' resident bytes for the planner: the artifact's
+    quant_config `total_weight_bytes` when it carries one, else the float
+    model's (perf/quant.py `resident_weight_bytes`)."""
+    qmeta = (meta or {}).get("quant_config") or {}
+    if qmeta.get("total_weight_bytes"):
+        return int(qmeta["total_weight_bytes"])
+    from mgproto_tpu_torch.perf.quant import resident_weight_bytes
+
+    return resident_weight_bytes(model, proxies)
 
 
 def _start_device(args, split: StartSplit) -> None:
@@ -206,6 +229,7 @@ def make_engine_factory(args, split: Optional[StartSplit] = None) -> Callable:
                                              **_engine_kw(args))
 
         factory.program = {}
+        factory.weight_bytes = _weight_bytes(art.meta, art.evaluator.model, art.proxies)
         return factory
 
     from mgproto_tpu_torch.engine.eval import Evaluator
@@ -249,6 +273,7 @@ def make_engine_factory(args, split: Optional[StartSplit] = None) -> Callable:
                                        **_engine_kw(args))
 
     factory.program = {"state_digest": digest}
+    factory.weight_bytes = _weight_bytes(None, state.model, state.proxies)
     factory.live_context = (trainer, state, calib)
     return factory
 
@@ -395,6 +420,31 @@ def _summary_line(responses, compiled, steady, gate, readiness, extra=None):
     print(json.dumps(line), flush=True)
 
 
+def _apply_auto_tune(args, engine, weight_bytes: int) -> None:
+    """--auto_tune: shrink the engine's buckets (and `args.buckets`, which
+    later engines read) to what fits the budget, before any warmup; no
+    fitting bucket fails closed. The outcome goes into the run's telemetry
+    session (`args.telemetry_session`, when there is one)."""
+    from mgproto_tpu_torch.perf.planner import plan_serve_buckets
+
+    fitting, outcome = plan_serve_buckets(engine, weight_bytes=weight_bytes)
+    print(json.dumps({"autotune": True, "buckets": list(fitting),
+                      "rejected": outcome.rejected, "budget_bytes": outcome.budget_bytes}),
+          flush=True)
+    telem = getattr(args, "telemetry_session", None)
+    if telem:
+        telem.observe_autotune(outcome)
+    if not fitting:
+        # warming the rejected set would run the very out-of-memory error
+        # the planner predicted; rerun without --auto_tune to override
+        raise SystemExit(f"auto_tune: no warmup bucket fits the HBM budget "
+                         f"({outcome.budget_bytes} bytes, margin {outcome.margin}); refusing "
+                         "to warm an over-budget bucket set")
+    if tuple(fitting) != engine.buckets:
+        engine.buckets = tuple(fitting)
+    args.buckets = ",".join(str(b) for b in fitting)
+
+
 def _main_batch_engine(args, handler, split: StartSplit) -> None:
     from mgproto_tpu_torch.online import capture as capture_mod
     from mgproto_tpu_torch.serving.health import HealthProbe
@@ -403,6 +453,8 @@ def _main_batch_engine(args, handler, split: StartSplit) -> None:
     capture, cons = _setup_online(args, factory)
     try:
         engine = factory()
+        if args.auto_tune:
+            _apply_auto_tune(args, engine, factory.weight_bytes)
         compiled = len(engine.warmup())
         split.mark("warmup")
         payloads, ids = _load_payloads(args)
@@ -423,12 +475,22 @@ def _main_batch_engine(args, handler, split: StartSplit) -> None:
 
 
 def _build_plane(args, factory):
+    """The replica set of the plane faces. With --auto_tune a probe engine
+    plans the buckets first, and every engine the set builds later plans
+    its own (`hbm_bucket_prep`)."""
     from mgproto_tpu_torch.serving.batcher import BatcherConfig
     from mgproto_tpu_torch.serving.replica import ReplicaSet
 
+    engine_prep = None
+    if args.auto_tune:
+        from mgproto_tpu_torch.serving.autoscale import hbm_bucket_prep
+
+        _apply_auto_tune(args, factory(), factory.weight_bytes)
+        engine_prep = hbm_bucket_prep(weight_bytes=factory.weight_bytes)
     return ReplicaSet(factory, replicas=args.replicas,
                       heartbeat_timeout_s=args.heartbeat_timeout_s,
-                      batcher_config=BatcherConfig(max_linger_s=args.linger_ms / 1000.0))
+                      batcher_config=BatcherConfig(max_linger_s=args.linger_ms / 1000.0),
+                      engine_prep=engine_prep)
 
 
 def _main_batch_plane(args, handler, split: StartSplit) -> None:
@@ -631,7 +693,15 @@ def main(argv: Optional[list] = None) -> None:
     uninstall = install_handlers()
     handler = get_handler()
     handler.reset()
-    _m.register_serving_metrics(_m.default_registry())
+    from mgproto_tpu_torch.obs.flightrec import FlightRecorder, set_recorder
+    from mgproto_tpu_torch.telemetry import make_session
+
+    # no default directory: telemetry is on when --telemetry_dir names one
+    telem = args.telemetry_session = make_session(args.telemetry_dir or "",
+                                                  not args.no_telemetry)
+    _m.register_serving_metrics(_m.default_registry())  # the session's, when there is one
+    # a replica's death dumps the recorder where the telemetry goes
+    prev_recorder = set_recorder(FlightRecorder(dump_dir=args.telemetry_dir or None))
     try:
         if args.listen:
             _main_listen(args, handler, split)
@@ -639,9 +709,14 @@ def main(argv: Optional[list] = None) -> None:
             _main_batch_plane(args, handler, split)
         else:
             _main_batch_engine(args, handler, split)
+        if telem:
+            telem.flush()
     finally:
+        set_recorder(prev_recorder)
         uninstall()
         chaos_mod.set_active(prev_chaos)
+        if telem:
+            telem.close()
 
 
 if __name__ == "__main__":

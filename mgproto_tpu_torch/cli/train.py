@@ -22,7 +22,21 @@ save a `preempt` checkpoint with the position in the epoch, write
 PREEMPTED.json and return; `resume="auto"` then skips the batches already
 applied and continues bit for bit. A fresh flight recorder records the
 rollbacks and preemptions and dumps into `model_dir/telemetry` on each of
-them and on a crash. The JAX CLI's telemetry, autotuning, profiler and
+them and on a crash.
+
+Telemetry (telemetry/session.py) is on by default, into
+`model_dir/telemetry` (`telemetry_dir`; `telemetry=False` turns it off):
+each step through the session's StepMonitor, each epoch's EM width and
+fallbacks, a ModelHealth record and a flush at each epoch's end, the
+run's settings and per-rank state bytes in meta.json, and spans of the
+epoch and its train / test / push parts in trace.json. `auto_tune` runs
+the memory planner (perf/planner.py) before anything sizes itself off the
+config: the chosen plan goes into meta.json and into every checkpoint's
+metadata as `autotune_plan`, and a resumed `auto_tune` run adopts the
+checkpoint's plan instead of planning again. Under several ranks the
+plan is one decision for the world (each rank measures its own card, the
+planner agrees on the worst), so every rank trains at the same batch. The
+JAX CLI's profiler and
 straggler detection are not ported (`cli/common.py` refuses their flags).
 
 Several ranks (`--distributed` under `torchrun --nproc_per_node N`, the
@@ -55,6 +69,7 @@ import itertools
 import json
 import os
 import sys
+from types import SimpleNamespace
 from typing import Optional, Tuple, Union
 
 import numpy as np
@@ -82,6 +97,7 @@ from mgproto_tpu_torch.resilience import chaos as chaos_mod
 from mgproto_tpu_torch.resilience import metrics as res_metrics
 from mgproto_tpu_torch.resilience import preemption
 from mgproto_tpu_torch.resilience.guard import DivergenceError, EpochGuard
+from mgproto_tpu_torch.telemetry import make_session, trace_span
 from mgproto_tpu_torch.utils.checkpoint import (
     adopt_checkpoint_train_config,
     apply_retention,
@@ -140,6 +156,9 @@ def run_training(
     chaos: Optional[chaos_mod.ChaosState] = None,
     ckpt_format: str = "auto",
     barrier_timeout_s: float = 300.0,
+    telemetry_dir: str = "",
+    telemetry: bool = True,
+    auto_tune: bool = False,
 ) -> Tuple[TrainState, float]:
     """Run the whole schedule of `cfg`; returns (final state, last test
     accuracy).
@@ -170,7 +189,13 @@ def run_training(
     several ranks). `barrier_timeout_s` > 0 arms the guarded barrier under
     several ranks: a lost peer raises `BarrierTimeoutError` out of here
     after the survivor wrote PEER_LOST.json and dumped the flight
-    recorder (`main` exits 75 on it)."""
+    recorder (`main` exits 75 on it).
+
+    `telemetry_dir` ("" = `model_dir/telemetry`) and `telemetry` (False
+    writes none): the run's telemetry session (module docstring).
+    `auto_tune`: plan the run's batch, remat, prefetch, augmentation and
+    async bank with perf/planner.py `autotune` (on the card; a resume
+    adopts the checkpoint's `autotune_plan`)."""
     if ckpt_format not in ("auto", "sharded", "replicated"):
         raise ValueError(f"unknown ckpt_format {ckpt_format!r}")
     resume_path = None
@@ -208,12 +233,19 @@ def run_training(
             log(note)
         metrics = MetricsWriter(os.path.join(cfg.model_dir, f"metrics.jsonl{host_tag}"))
         stack.callback(metrics.close)
+        cfg, autotune_outcome, autotune_plan_meta = _autotune(cfg, auto_tune, resume_path,
+                                                              nranks, device, log)
         log(describe(cfg))
         train_loader, push_loader, test_loader, ood_loaders = build_pipelines(cfg, device=device)
         for loader in (train_loader, push_loader, test_loader, *ood_loaders):
             stack.callback(loader.close)
         trainer = ShardedTrainer(cfg, len(train_loader), device=device)
         trainer.ckpt_sharded = {"auto": None, "sharded": True, "replicated": False}[ckpt_format]
+        # before the restore, so restore-time events land in this run's registry
+        telem = make_session(telemetry_dir or os.path.join(cfg.model_dir, "telemetry"), telemetry)
+        if telem:
+            stack.callback(telem.close)
+            telem.monitor.watch(trainer.cold_paths.total)
         backend = (torch.distributed.get_backend() if torch.distributed.is_initialized()
                    else "none")
         log(f"device: {trainer.device}  steps/epoch: {trainer.steps_per_epoch}  "
@@ -242,6 +274,11 @@ def run_training(
                     "precision_policy": policy_meta(trainer.precision),
                     # the async bank pipeline, resolved (one-step-stale EM when on)
                     "async_bank": trainer.async_bank}
+        if autotune_plan_meta is not None:
+            # a `resume --auto_tune` adopts it instead of planning again
+            run_meta["autotune_plan"] = autotune_plan_meta
+        if telem:
+            _write_telemetry_meta(telem, cfg, trainer, state, run_meta, autotune_outcome)
         img_dir = os.path.join(cfg.model_dir, "img") if render_push else None
         if nranks > 1 and barrier_timeout_s and barrier_timeout_s > 0:
             # armed after every fallible set-up step; cleared on every path
@@ -261,7 +298,7 @@ def run_training(
                 try:
                     state, accu = _run_epoch(cfg, trainer, state, epoch, train_loader, test_loader,
                                              push_loader, ood_loaders, log, metrics, run_meta,
-                                             img_dir, target_accu, guard, skip, flags)
+                                             img_dir, target_accu, guard, skip, flags, telem)
                 except DivergenceError as e:
                     rollbacks += 1
                     res_metrics.counter(res_metrics.ROLLBACKS).inc()
@@ -294,6 +331,8 @@ def run_training(
                         preemption.write_marker(cfg.model_dir, path, reason=handler.reason or "",
                                                 extra={"epoch": epoch,
                                                        "batch_in_epoch": guard.batches_done})
+                    if telem:
+                        telem.flush(step=state.step, extra={"event": "preemption"})
                     recorder.record("preemption", epoch=epoch, batch=guard.batches_done,
                                     reason=handler.reason or "")
                     recorder.maybe_dump("preemption")
@@ -301,6 +340,8 @@ def run_training(
                         f"{guard.batches_done}; resume with --resume auto")
                     return state, accu
                 skip, flags = 0, None
+                if telem:  # collectives under a mesh: every rank
+                    telem.end_epoch(_health_view(trainer, state), epoch=epoch, step=state.step)
                 if keep_last > 0 and primary:
                     apply_retention(cfg.model_dir, keep_last, keep_best)
                 epoch += 1
@@ -329,68 +370,138 @@ def run_training(
             raise
 
 
+def _autotune(cfg, auto_tune, resume_path, nranks, device, log):
+    """(cfg, PlanOutcome or None, the plan's meta or None): the planner's
+    plan applied to `cfg` when `auto_tune`; a resumed run adopts its
+    checkpoint's `autotune_plan` verbatim (the budget may have changed
+    since, and another batch would move the mid-epoch resume's skip)."""
+    if not auto_tune:
+        return cfg, None, None
+    from mgproto_tpu_torch.perf.planner import PlanCandidate, apply_plan, autotune
+
+    saved = (load_metadata(resume_path) or {}).get("autotune_plan") if resume_path else None
+    if saved:
+        cand = PlanCandidate(batch=max(int(saved["batch"]) // max(nranks, 1), 1),
+                             remat_stages=tuple(saved.get("remat_stages", ())),
+                             prefetch_depth=int(saved.get("prefetch_depth", 0)),
+                             device_augment=bool(saved.get("device_augment", False)),
+                             async_bank=bool(saved.get("async_bank", False)))
+        log(f"autotune: resume adopts checkpointed plan {saved.get('name', '?')} "
+            "(no re-planning)")
+        return apply_plan(cfg, cand), None, saved
+    cfg, outcome = autotune(cfg, log=log, device=device)
+    if outcome.chosen is None:
+        log("autotune: NO candidate plan fits the budget; keeping the hand-set config (see "
+            "telemetry meta for the rejections)")
+        return cfg, outcome, None
+    log(f"autotune: running {outcome.chosen.candidate.name}")
+    return cfg, outcome, outcome.chosen.to_meta()
+
+
+def _write_telemetry_meta(telem, cfg, trainer, state, run_meta, autotune_outcome):
+    """meta.json's run context and the per-rank state bytes (shape math)."""
+    from mgproto_tpu_torch.perf.planner import state_bytes_per_chip
+
+    per_chip = state_bytes_per_chip(cfg, trainer.mesh.model)
+    telem.observe_state_bytes(per_chip)
+    telem.write_meta({
+        **per_chip, **run_meta,
+        "fused_epilogue": any(getattr(m, "fused_epilogue", False)
+                              for m in state.model.modules()),
+        "prefetch_depth": cfg.data.prefetch_depth,
+        "em_max_active_classes": trainer.em_cfg.max_active_classes,
+        "remat": cfg.model.remat,
+        "remat_stages": list(cfg.model.remat_stages),
+        "device_augment": trainer.device_augment,
+        "wire_dtype": "uint8" if trainer.device_augment else "float32",
+        "worker_backend": cfg.data.worker_backend,
+    })
+    if autotune_outcome is not None:
+        telem.observe_autotune(autotune_outcome)
+
+
+def _health_view(trainer, state):
+    """The GMM and the bank with every class, for ModelHealth (gathers
+    under a mesh that splits the classes: every rank calls)."""
+    mesh = trainer._class_mesh
+    if mesh is None:
+        return state
+    from mgproto_tpu_torch.core.memory import Memory
+    from mgproto_tpu_torch.parallel.sharding import gather_classes, gather_gmm
+
+    c = trainer.cfg.model.num_classes
+    return SimpleNamespace(gmm=gather_gmm(state.gmm, mesh, c),
+                           memory=Memory(*(gather_classes(t, mesh, c) for t in state.memory)))
+
+
 def _run_epoch(cfg, trainer, state, epoch, train_loader, test_loader, push_loader,
-               ood_loaders, log, metrics, run_meta, img_dir, target_accu, guard, skip, flags):
-    """One epoch: train under the epoch's gates `flags` (the first `skip`
-    batches dropped), test, the `nopush` save, and at a push
-    epoch the push, its provenance, the render into `img_dir` (unless
-    None), a test and the `push` save. A preempted epoch returns after
-    training, with no test pass: the caller saves it."""
-    log(f"epoch: \t{epoch}")
-    log(f"use mining: \t{flags['use_mine']}")
-    log(f"update GMM: \t{flags['update_gmm']}")
+               ood_loaders, log, metrics, run_meta, img_dir, target_accu, guard, skip, flags,
+               telem=None):
+    """One epoch, under an `epoch` tracing span: train under the epoch's
+    gates `flags` (the first `skip` batches dropped; each step observed by
+    `telem`'s monitor), test, the `nopush` save, and at a push epoch the
+    push, its provenance, the render into `img_dir` (unless None), a test
+    and the `push` save. A preempted epoch returns after training, with no
+    test pass: the caller saves it."""
+    with trace_span("epoch", epoch=epoch):
+        log(f"epoch: \t{epoch}")
+        log(f"use mining: \t{flags['use_mine']}")
+        log(f"update GMM: \t{flags['update_gmm']}")
 
-    train_loader.epoch = epoch  # the (seed, epoch) streams of this epoch
-    batches = train_loader if not skip else itertools.islice(iter(train_loader), skip, None)
-    with timed_span(log, "train") as train_span:
-        state, last = trainer.train_epoch(state, batches, epoch, guard=guard, flags=flags)
-    if last is not None:
-        m = {k: (v.item() if isinstance(v, torch.Tensor) else v)
-             for k, v in last._asdict().items()}
-        if not np.isfinite(m["loss"]):
-            # the guard has not rolled back yet (its streak is below the
-            # limit): the update was skipped in the step
-            log(f"\tnon-finite loss at step {state.step}: update skipped (divergence guard)")
-        log("\tloss: {loss:.4f}  ce: {cross_entropy:.4f}  mine: {mine:.4f}  aux: {aux:.4f}"
-            "  acc: {accuracy:.4f}  mem: {full_mem_ratio:.3f}".format(**m))
-        metrics.write(state.step, {"epoch": epoch, "train_s": train_span["s"],
-                                   **{k: float(v) for k, v in m.items()}})
-    if guard.preempted:
-        return state, 0.0
+        train_loader.epoch = epoch  # the (seed, epoch) streams of this epoch
+        batches = train_loader if not skip else itertools.islice(iter(train_loader), skip, None)
+        with timed_span(log, "train") as train_span:
+            state, last = trainer.train_epoch(state, batches, epoch, guard=guard, flags=flags,
+                                              monitor=telem.monitor if telem else None)
+        if last is not None:
+            m = {k: (v.item() if isinstance(v, torch.Tensor) else v)
+                 for k, v in last._asdict().items()}
+            if telem:  # the epoch's widest EM call and its fallbacks
+                telem.observe_em(float(m["em_active"]), float(m["em_compact_fallback"]))
+            if not np.isfinite(m["loss"]):
+                # the guard has not rolled back yet (its streak is below the
+                # limit): the update was skipped in the step
+                log(f"\tnon-finite loss at step {state.step}: update skipped (divergence guard)")
+            log("\tloss: {loss:.4f}  ce: {cross_entropy:.4f}  mine: {mine:.4f}  aux: {aux:.4f}"
+                "  acc: {accuracy:.4f}  mem: {full_mem_ratio:.3f}".format(**m))
+            metrics.write(state.step, {"epoch": epoch, "train_s": train_span["s"],
+                                       **{k: float(v) for k, v in m.items()}})
+        if guard.preempted:
+            return state, 0.0
 
-    with timed_span(log, "test") as span:
-        accu, test_results = _test(trainer, state, test_loader, ood_loaders, log)
-    metrics.write(state.step, {"epoch": epoch, "test_s": span["s"], **test_results})
-    save_state_w_condition(cfg.model_dir, state, epoch, "nopush", accu, target_accu,
-                           metadata=run_meta, save=trainer.save)
-
-    if epoch in cfg.schedule.push_epochs():
-        with timed_span(log, "push") as span:
-            state, push_result = push_prototypes(trainer, state, push_loader)
-        primary = is_primary_host()
-        if primary:
-            with open(os.path.join(cfg.model_dir, "push_provenance.json"), "w") as f:
-                json.dump({"epoch": epoch, **provenance_dict(push_result)}, f)
-        log(f"\tpushed: \t{int(push_result.pushed.sum())} of {push_result.pushed.size}")
-        render = {}
-        if img_dir is not None:
-            push_ds = push_loader.dataset
-            gmm = trainer.full_gmm(state)  # a collective under a mesh: every rank
-            # push_prototypes(save_dir=img_dir, ...) in one call, split here
-            # so the render has its own span; rank 0 draws, every rank lends
-            # it the whole parameters (a collective too)
-            with trainer.full_params(state), timed_span(log, "push render") as render_span:
-                if primary:
-                    render_prototypes(trainer, state, push_result,
-                                      lambda i: push_ds.load(i)[0], img_dir, epoch, gmm=gmm)
-            render = {"render_s": render_span["s"]}
-        accu, test_results = _test(trainer, state, test_loader, ood_loaders, log)
-        metrics.write(state.step, {"epoch": epoch, "stage": "push", "push_s": span["s"],
-                                   **render, "pushed": int(push_result.pushed.sum()),
-                                   **test_results})
-        save_state_w_condition(cfg.model_dir, state, epoch, "push", accu, target_accu,
+        with timed_span(log, "test") as span:
+            accu, test_results = _test(trainer, state, test_loader, ood_loaders, log)
+        metrics.write(state.step, {"epoch": epoch, "test_s": span["s"], **test_results})
+        save_state_w_condition(cfg.model_dir, state, epoch, "nopush", accu, target_accu,
                                metadata=run_meta, save=trainer.save)
-    return state, accu
+
+        if epoch in cfg.schedule.push_epochs():
+            with timed_span(log, "push") as span:
+                state, push_result = push_prototypes(trainer, state, push_loader)
+            primary = is_primary_host()
+            if primary:
+                with open(os.path.join(cfg.model_dir, "push_provenance.json"), "w") as f:
+                    json.dump({"epoch": epoch, **provenance_dict(push_result)}, f)
+            log(f"\tpushed: \t{int(push_result.pushed.sum())} of {push_result.pushed.size}")
+            render = {}
+            if img_dir is not None:
+                push_ds = push_loader.dataset
+                gmm = trainer.full_gmm(state)  # a collective under a mesh: every rank
+                # push_prototypes(save_dir=img_dir, ...) in one call, split here
+                # so the render has its own span; rank 0 draws, every rank lends
+                # it the whole parameters (a collective too)
+                with trainer.full_params(state), timed_span(log, "push render") as render_span:
+                    if primary:
+                        render_prototypes(trainer, state, push_result,
+                                          lambda i: push_ds.load(i)[0], img_dir, epoch, gmm=gmm)
+                render = {"render_s": render_span["s"]}
+            accu, test_results = _test(trainer, state, test_loader, ood_loaders, log)
+            metrics.write(state.step, {"epoch": epoch, "stage": "push", "push_s": span["s"],
+                                       **render, "pushed": int(push_result.pushed.sum()),
+                                       **test_results})
+            save_state_w_condition(cfg.model_dir, state, epoch, "push", accu, target_accu,
+                                   metadata=run_meta, save=trainer.save)
+        return state, accu
 
 
 CHAOS_ENV_HELP = """\
@@ -433,6 +544,8 @@ def main(argv: Optional[list] = None) -> None:
             max_rollbacks=args.max_rollbacks, keep_best=args.keep_best,
             chaos=chaos_mod.ChaosState(plan) if plan else None,
             ckpt_format=args.ckpt_format, barrier_timeout_s=args.barrier_timeout_s,
+            telemetry_dir=args.telemetry_dir, telemetry=not args.no_telemetry,
+            auto_tune=args.auto_tune,
         )
     except multihost.BarrierTimeoutError as e:
         # the marker and the dump are on disk; exit hard with the status a

@@ -77,6 +77,52 @@ class BankAux(NamedTuple):
     em: Optional[EMAux]  # the EM call's aux, None when EM did not run
 
 
+def em_health_diagnostics(gmm: GMMState, memory: Memory, collapse_tol: float = 1e-3,
+                          sigma_floor: float = 1e-3, eps: float = 1e-10) -> dict:
+    """EM and prototype health scalars (the JAX `em_health_diagnostics`),
+    as 0-d f32 tensors on the state's device; telemetry's ModelHealth reads
+    them once an epoch. Over a whole state (every class):
+
+      prior_entropy_mean/min: per-class entropy (nats) of the renormalized
+        priors; 0 means one prototype owns the class.
+      min_interproto_dist: the smallest intra-class distance between
+        prototype means; 0 means duplicate prototypes.
+      collapse_frac: the share of intra-class prototype pairs closer than
+        `collapse_tol`.
+      sigma_floor_frac: the share of sigma entries at or below `sigma_floor`.
+      memory_occupancy: the mean fill of the per-class queues.
+      memory_full_frac: the share of classes with a full queue (EM's gate).
+      memory_updated_frac: the share of classes touched since the last EM.
+    """
+    with torch.no_grad():
+        priors = gmm.priors
+        p = priors / torch.clamp(priors.sum(-1, keepdim=True), min=eps)
+        ent = -torch.where(p > 0, p * torch.log(p + eps), torch.zeros_like(p)).sum(-1)  # [C]
+        c, k = gmm.num_classes, gmm.k_per_class
+        if k > 1:
+            means = gmm.means.detach()
+            sq = pairwise_sq_dists(means, means)  # [C, K, K]
+            off = ~torch.eye(k, dtype=torch.bool, device=means.device)
+            sq_off = torch.where(off, sq, torch.full_like(sq, float("inf")))
+            min_d = torch.sqrt(torch.clamp(sq_off.min(), min=0.0))
+            n_pairs = off.sum().to(torch.float32) * c
+            collapse = (sq_off < collapse_tol ** 2).sum().to(torch.float32) / n_pairs
+        else:  # a one-component mixture has no pairs to collapse
+            min_d = torch.zeros((), device=priors.device)
+            collapse = torch.zeros((), device=priors.device)
+        cap = memory.capacity
+        return {
+            "prior_entropy_mean": ent.mean(),
+            "prior_entropy_min": ent.min(),
+            "min_interproto_dist": min_d,
+            "collapse_frac": collapse,
+            "sigma_floor_frac": (gmm.sigmas <= sigma_floor).to(torch.float32).mean(),
+            "memory_occupancy": (memory.length.to(torch.float32) / cap).mean(),
+            "memory_full_frac": (memory.length == cap).to(torch.float32).mean(),
+            "memory_updated_frac": memory.updated.to(torch.float32).mean(),
+        }
+
+
 def make_mean_optimizer(means: torch.Tensor, cfg: EMConfig) -> torch.optim.Adam:
     """Adam on the [C, K, d] means tensor (made a leaf that requires grad;
     the optimizer updates it in place)."""

@@ -89,6 +89,7 @@ from mgproto_tpu_torch.parallel.sharding import (
     whole_params,
 )
 from mgproto_tpu_torch.perf.precision import resolve_policy
+from mgproto_tpu_torch.telemetry.monitor import ColdPaths
 from mgproto_tpu_torch.utils.checkpoint import restore_checkpoint, save_checkpoint
 
 
@@ -208,6 +209,9 @@ class Trainer:
         # checkpoint format: None = sharded under several ranks (run_training
         # sets it from --ckpt_format)
         self.ckpt_sharded: Optional[bool] = None
+        # the step's cold paths (telemetry/monitor.py): each batch shape's
+        # first step, kernel builds after the first step
+        self.cold_paths = ColdPaths()
 
     def init_state(self, seed: int = 0, for_restore: bool = False) -> TrainState:
         """A fresh state from `seed`; `for_restore=True` builds a restore
@@ -407,7 +411,9 @@ class Trainer:
             with torch.no_grad():  # inputs, not parameters
                 images = augment_tail(images, batch.draws)
         if self.async_bank:
-            return self._async_train_step(state, images, labels, use_mine, update_gmm, warm)
+            out = self._async_train_step(state, images, labels, use_mine, update_gmm, warm)
+            self.cold_paths.note(images.shape)
+            return out
         trunk = self._trunk_step(state, images, labels, use_mine, state.gmm)
         step0 = state.step
         state.step += 1  # counts attempts
@@ -417,6 +423,7 @@ class Trainer:
         )
         self.last_bank = bank
         self._apply_trunk(state, trunk, ok, warm)
+        self.cold_paths.note(images.shape)
         return state, self._metrics(trunk, self.full_mem_ratio(state.memory), bank, ok)
 
     def _trunk_step(self, state: TrainState, images: torch.Tensor, labels: torch.Tensor,
@@ -573,9 +580,12 @@ class Trainer:
         next train step sees the state as it was."""
         if labels is not None:
             labels = _host_tensor(labels).to(torch.int64)
+        x = to_device_images(images, self.device)
         with self.full_params(state), eval_mode(state.model) as model:
-            return eval_forward(model, state.gmm, to_device_images(images, self.device), labels,
-                                self.cfg.model.mine_T, self.fused, mesh=self._class_mesh)
+            out = eval_forward(model, state.gmm, x, labels, self.cfg.model.mine_T, self.fused,
+                               mesh=self._class_mesh)
+        self.cold_paths.note(("eval",) + tuple(x.shape))
+        return out
 
     def epoch_flags(self, state: TrainState, epoch: int) -> Dict[str, bool]:
         """Python-side epoch gates (the JAX `epoch_flags`)."""
@@ -588,7 +598,7 @@ class Trainer:
         }
 
     def train_epoch(self, state: TrainState, batches: Iterable, epoch: int, guard=None,
-                    flags: Optional[Dict[str, bool]] = None):
+                    flags: Optional[Dict[str, bool]] = None, monitor=None):
         """Steps over host batches, (images, labels[, ids][, seeds]) as
         `split_batch` reads them (a `DataLoader`'s batches as they come),
         placed by `put_batch` through `device_prefetch` with
@@ -604,7 +614,11 @@ class Trainer:
         `EpochGuard`) wraps the placed batches (the chaos drill) and sees
         each step's metrics: it may stop the epoch after the step in flight
         (a preemption), or raise `DivergenceError`. On a stop, the batches
-        already prefetched are dropped once their copies are done."""
+        already prefetched are dropped once their copies are done.
+
+        `monitor` (telemetry/monitor.py `StepMonitor`) observes each step
+        from the step log's figures: its interval, loader wait and
+        host-to-device bytes (host arithmetic, no device read of its own)."""
         self.reset_bank_pipeline()
         flags = self.epoch_flags(state, epoch) if flags is None else flags
         last = None
@@ -631,6 +645,9 @@ class Trainer:
                 # the step read the device, so the copy is done: no wait here
                 self.step_log.append(StepRecord(wait_s, now - t_prev, batch.image_bytes,
                                                 batch.h2d_bytes, batch.copy_ms()))
+                if monitor is not None:
+                    monitor.observe_step(int(batch.images.shape[0]), now - t_prev,
+                                         transfer_bytes=batch.h2d_bytes, wait_seconds=wait_s)
                 t_prev = now
                 em_max = max(em_max, last.em_active)
                 fb_sum += last.em_compact_fallback

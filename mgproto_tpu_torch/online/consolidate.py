@@ -50,6 +50,8 @@ from mgproto_tpu_torch.engine.eval import eval_mode, to_device_images
 from mgproto_tpu_torch.online import metrics as om
 from mgproto_tpu_torch.online.capture import CapturedSample, TrustedCapture
 from mgproto_tpu_torch.ops import _build
+from mgproto_tpu_torch.telemetry.monitor import StepMonitor
+from mgproto_tpu_torch.telemetry.session import current_session
 
 RESULT_RAN = "ran"
 RESULT_EMPTY = "empty"
@@ -106,7 +108,8 @@ class Consolidator:
     in the JAX package."""
 
     def __init__(self, trainer, state, capture: Optional[TrustedCapture] = None,
-                 config: Optional[ConsolidatorConfig] = None, clock=time.monotonic):
+                 config: Optional[ConsolidatorConfig] = None, clock=time.monotonic,
+                 monitor=None):
         self.config = config or ConsolidatorConfig()
         self.capture = capture
         self.clock = clock
@@ -135,6 +138,14 @@ class Consolidator:
         # [W, K] and the candidates' valid mask [W*K] (references to tensors
         # the batch made; a comparison of two devices reads them)
         self.last_enqueue = None
+        # telemetry (an open session's, or `monitor`): the first batch and
+        # every steady recompile are cold paths of phase "online"
+        # (telemetry/monitor.py)
+        if monitor is None and current_session() is not None:
+            monitor = StepMonitor(phase="online")  # into the session's registry
+        self.monitor = monitor
+        if monitor is not None:
+            monitor.watch(lambda: (self._shape is not None) + self.steady_recompiles())
         self.runs = 0
         self.batches = 0
         self.samples_consolidated = 0
@@ -218,6 +229,8 @@ class Consolidator:
                                                self._em_cfg)
         if self._builds0 is None:
             self._builds0 = _build.builds
+        if self.monitor is not None:
+            self.monitor.check_recompiles()
         return int(aux.num_active), int(aux.compact_fallback)
 
     # ------------------------------------------------------------- candidate

@@ -7,7 +7,8 @@ Each rank holds its own rows of every batch, so dataset-level results
 in rank order (`allgather_rows`), and run-wide side effects (checkpoint
 files, markers, rendered pictures) belong to rank 0 (`is_primary_host`).
 `any_across_hosts` is the preemption agreement: a signal reaches one rank,
-but every rank must stop after the same step. Every function is a no-op
+but every rank must stop after the same step; `max_across_hosts` is the
+memory planner's (every rank plans under the worst rank's numbers). Every function is a no-op
 (the identity) in one process.
 
 The collectives run on the backend's device: the CPU for gloo, this
@@ -93,6 +94,18 @@ def allgather_sum(x: float) -> float:
     t = torch.tensor([float(x)], dtype=torch.float64, device=_wire_device())
     sum_tensors([t], dist.group.WORLD)
     return float(t.item())
+
+
+def max_across_hosts(values: List[float]) -> List[float]:
+    """Each host float's maximum over the ranks, in float64 (one
+    all-reduce; a collective, guarded through the barrier like the
+    gathers). One process: the values."""
+    if world()[1] == 1:
+        return [float(v) for v in values]
+    guarded_barrier("max_across_hosts")
+    t = torch.tensor([float(v) for v in values], dtype=torch.float64, device=_wire_device())
+    dist.all_reduce(t, op=dist.ReduceOp.MAX)
+    return [float(v) for v in t.cpu().tolist()]
 
 
 def any_across_hosts(flag: bool) -> bool:

@@ -29,7 +29,7 @@ from __future__ import annotations
 import copy
 import dataclasses
 import hashlib
-from typing import Any, Dict, Mapping, Optional, Tuple
+from typing import Any, Dict, List, Mapping, Optional, Tuple
 
 import numpy as np
 import torch
@@ -235,18 +235,43 @@ def quantize_model(model: nn.Module, policy: Optional[QuantPolicy] = None,
     return QuantizedModel(policy=policy, model=qmodel, proxies=proxies, report=tuple(rows))
 
 
-def weight_bytes_report(model: nn.Module, proxies: Optional[torch.Tensor] = None
-                        ) -> Dict[str, int]:
-    """Shape-math weight bytes (no values read, so a model on the meta
-    device works): what the float model's weights cost resident as f32 and
-    as int8 + per-channel scales."""
+def weight_rows(model: nn.Module, proxies: Optional[torch.Tensor] = None
+                ) -> List[Dict[str, Any]]:
+    """`quantize_model`'s report rows by shape math (no values read, so a
+    model on the meta device works): per parameter, its f32 bytes and its
+    bytes as int8 + per-channel scales where it would be quantized."""
     eligible = _eligible(model)
-    f32_total = int8_total = 0
+    rows = []
     for name, p in _leaves(model, proxies):
         n = int(p.numel())
-        f32_total += n * 4
-        int8_total += n + int(p.shape[0]) * 4 if name in eligible else n * 4
-    return {"f32_bytes": int(f32_total), "int8_bytes": int(int8_total)}
+        quantized = name in eligible
+        rows.append({"path": name, "shape": list(p.shape), "quantized": quantized,
+                     "f32_bytes": n * 4,
+                     "quant_bytes": n + int(p.shape[0]) * 4 if quantized else n * 4})
+    return rows
+
+
+def weight_bytes_report(model: nn.Module, proxies: Optional[torch.Tensor] = None
+                        ) -> Dict[str, int]:
+    """Shape-math weight bytes: what the float model's weights cost
+    resident as f32 and as int8 + per-channel scales (`weight_rows`)."""
+    rows = weight_rows(model, proxies)
+    return {"f32_bytes": int(sum(r["f32_bytes"] for r in rows)),
+            "int8_bytes": int(sum(r["quant_bytes"] for r in rows))}
+
+
+def quantized_param_bytes(f32_bytes: int, model: nn.Module, proxies: Optional[torch.Tensor],
+                          mode: str) -> Optional[int]:
+    """`f32_bytes` of the parameters (or a per-rank share of them) as `mode`
+    holds them: scaled by `weight_bytes_report`'s int8 / f32 ratio of the
+    whole tree, rounded (the JAX planner's int8 term). None for a mode that
+    quantizes nothing; an unknown mode raises QuantError."""
+    if resolve_quant_policy(mode).mode != "int8":
+        return None
+    rep = weight_bytes_report(model, proxies)
+    if not rep["f32_bytes"]:
+        return int(f32_bytes)
+    return int(round(f32_bytes * rep["int8_bytes"] / rep["f32_bytes"]))
 
 
 def resident_weight_bytes(model: nn.Module, proxies: Optional[torch.Tensor] = None) -> int:

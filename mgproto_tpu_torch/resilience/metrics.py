@@ -2,7 +2,7 @@
 mgproto_tpu/resilience/metrics.py; imports no torch).
 
 Every recovery event of the resilience subsystem lands in the process-
-current registry (`serving/metrics.py::default_registry`) as a labeled
+current registry (`telemetry/registry.py::default_registry`) as a labeled
 counter under the JAX package's name and help string: checkpoint write
 failures and retries, rollbacks, preemption saves, missed barriers, peer
 losses and elastic restores among them. `register_resilience_metrics`
@@ -12,7 +12,7 @@ run reports explicit zeros instead of absent series.
 
 from __future__ import annotations
 
-from mgproto_tpu_torch.serving.metrics import Counter, default_registry
+from mgproto_tpu_torch.telemetry.registry import Counter, default_registry
 
 RETRIES = "resilience_retries_total"
 SENTINEL_ROWS = "loader_sentinel_rows_total"
@@ -45,11 +45,11 @@ ALL_COUNTERS = tuple(HELP)
 
 def counter(name: str) -> Counter:
     """The named resilience counter in the process-current registry."""
-    return default_registry().counter(name)
+    return default_registry().counter(name, HELP.get(name, ""))
 
 
 def register_resilience_metrics(registry) -> None:
     """Pre-create the whole counter family with an explicit zero-valued
     unlabeled series."""
     for name in ALL_COUNTERS:
-        registry.counter(name).inc(0.0)
+        registry.counter(name, HELP[name]).inc(0.0)

@@ -1,6 +1,5 @@
 """The autoscaler: grow and shrink a ReplicaSet under load (counterpart of
-mgproto_tpu/serving/autoscale.py, without `hbm_bucket_prep`, which needs
-the memory planner, ROADMAP A9).
+mgproto_tpu/serving/autoscale.py).
 
 A pump-hook policy on the plane's injectable clock (no threads, no
 sleeps): `tick()` runs where `ReplicaSet.poll()` runs (the HTTP frontend's
@@ -22,6 +21,11 @@ Window signals are deltas of the cumulative registry between evaluations
 latency histogram's bucket counts, so a decision sees the last window's
 tail. Every applied decision counts `autoscale_events_total{direction}`
 and sets the `autoscale_replicas_target` gauge.
+
+`hbm_bucket_prep` is the ReplicaSet's `engine_prep` hook of `cli.serve
+--auto_tune`: every engine a start, a restart or a scale-up builds plans
+its buckets with the memory planner before its warmup, and one whose
+buckets all exceed the budget fails closed.
 """
 
 from __future__ import annotations
@@ -248,3 +252,27 @@ class Autoscaler:
             "decisions": len(self.decisions),
             "last_decision": self.decisions[-1].to_dict() if self.decisions else None,
         }
+
+
+def hbm_bucket_prep(budget_bytes: Optional[int] = None, margin: Optional[float] = None,
+                    log: Optional[Callable[[str], None]] = None,
+                    weight_bytes: int = 0) -> Callable[[Any], None]:
+    """An `engine_prep` hook (ReplicaSet) that sizes every new engine's
+    buckets to its device's budget with perf/planner.py
+    `plan_serve_buckets` (`weight_bytes`: the artifact's resident weight
+    term) before its warmup. Fail-closed like `cli.serve --auto_tune`: no
+    fitting bucket raises, which sends the replica to backoff instead of
+    warming a predicted out-of-memory error."""
+
+    def prep(engine) -> None:
+        from mgproto_tpu_torch.perf.planner import plan_serve_buckets
+
+        fitting, outcome = plan_serve_buckets(engine, budget_bytes=budget_bytes, margin=margin,
+                                              log=log, weight_bytes=weight_bytes)
+        if not fitting:
+            raise RuntimeError("hbm_bucket_prep: no warmup bucket fits the HBM budget "
+                               f"({outcome.budget_bytes} bytes, margin {outcome.margin})")
+        if tuple(fitting) != engine.buckets:
+            engine.buckets = tuple(fitting)
+
+    return prep

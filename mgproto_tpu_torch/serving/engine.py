@@ -64,6 +64,8 @@ from mgproto_tpu_torch.serving.response import (
 )
 from mgproto_tpu_torch.serving.tenants import REASON_TENANT_UNMOUNTED
 from mgproto_tpu_torch.serving.validate import ValidationFailure, ValidationSpec, validate_image
+from mgproto_tpu_torch.telemetry.monitor import StepMonitor
+from mgproto_tpu_torch.telemetry.session import current_session
 
 DEFAULT_BUCKETS: Tuple[int, ...] = (1, 2, 4, 8)
 DEFAULT_EXPLAIN_TOP = 5
@@ -130,6 +132,7 @@ class ServingEngine:
         tenants: Optional[Any] = None,
         device: Optional[Any] = None,
         expected_quant: Optional[str] = None,
+        monitor: Optional[StepMonitor] = None,
     ):
         """`infer_fn` maps float32 images [b, H, W, 3] to
         {"logits": [b, C], "log_px": [b]} numpy arrays (and, with an
@@ -139,7 +142,11 @@ class ServingEngine:
         torch device `infer_fn` runs on (None when unknown), where the trust
         matrix corrupts its chunks. `expected_quant`: the served weights'
         quant tag ("" unquantized; None makes no claim), matched against
-        the calibration's stamp (serving/gate.py)."""
+        the calibration's stamp (serving/gate.py). `monitor`: the
+        StepMonitor each dispatch is observed by (default: one of phase
+        "serve" while a telemetry session is open, in its registry, else
+        none); its cold paths are the warmed buckets and the dispatches at
+        an unwarmed one."""
         if not buckets:
             raise ValueError("need at least one batch-size bucket")
         self.buckets = tuple(sorted(set(int(b) for b in buckets)))
@@ -171,6 +178,12 @@ class ServingEngine:
         self.draining = False
         self._warmed: set = set()
         self._cold = 0  # dispatches at an unwarmed bucket since the last check
+        self._cold_total = 0  # warmed buckets + unwarmed dispatches, ever
+        if monitor is None and current_session() is not None:
+            monitor = StepMonitor(phase="serve")  # into the session's registry
+        self.monitor = monitor
+        if monitor is not None:
+            monitor.watch(lambda: self._cold_total)
         self.dispatch_count = 0  # device dispatches that returned results
         self.last_dispatch_error: Optional[str] = None  # traceback text
         self._request_seq = 0
@@ -279,6 +292,8 @@ class ServingEngine:
             if np.asarray(out["log_px"]).shape != (b,):
                 raise RuntimeError(f"bucket {b}: infer_fn broke its output contract")
             self.warmup_report.append({"bucket": b, "seconds": time.perf_counter() - t0})
+            if b not in self._warmed:
+                self._cold_total += 1
             self._warmed.add(b)
         self.warmed_up = True
         return self.warmup_report
@@ -448,8 +463,13 @@ class ServingEngine:
             raise _chaos.ChaosError(f"chaos: simulated device failure at dispatch {seq}")
         if bucket not in self._warmed:
             self._cold += 1
+            self._cold_total += 1
+        t0 = time.perf_counter()
         out = self.infer_fn(padded)
         self.dispatch_count += 1
+        if self.monitor is not None:
+            self.monitor.observe_step(n, time.perf_counter() - t0,
+                                      transfer_bytes=int(padded.nbytes))
         extras = None
         if self._explain is not None:
             extras = (np.asarray(out["proto_idx"], np.int64)[:n],

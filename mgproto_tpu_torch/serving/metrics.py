@@ -1,24 +1,32 @@
-"""Serving and loader metrics: names and a minimal in-process registry.
+"""Serving and loader metric names and their registration (a trimmed copy
+of mgproto_tpu/serving/metrics.py; imports no torch).
 
-A trimmed copy of mgproto_tpu/serving/metrics.py on a registry of its own:
-labeled counters, gauges and histograms held in memory, read back with
-`value()` / `count()`, scraped as Prometheus text (`to_prometheus`, the
-frontend's GET /metrics) and as a nested dict (`snapshot`, which the
-autoscaler diffs between its evaluations; `percentile_from_buckets` reads
-a histogram series of it). The last two are copies of
-mgproto_tpu/telemetry/registry.py's. Metrics resolve through the
-process-current registry; `set_current_registry` swaps it (tests isolate
-themselves so). `register_serving_metrics` pre-creates the serving family
-with zero-valued unlabeled series, so a scrape shows "nothing happened"
-explicitly.
+Every serving-path event lands in the telemetry registry
+(telemetry/registry.py) as a labeled counter, gauge or histogram under the
+JAX package's name: scraped as Prometheus text (the frontend's GET
+/metrics), snapshotted into a telemetry directory's metrics.jsonl
+(telemetry/session.py), and diffed by the autoscaler between its
+evaluations. Metrics resolve through the process-current registry, which a
+live TelemetrySession installs; `set_current_registry` swaps it (None
+installs a fresh one: tests isolate themselves so).
+`register_serving_metrics` pre-creates the serving family with zero-valued
+unlabeled series, so a scrape shows "nothing happened" explicitly.
 """
 
 from __future__ import annotations
 
-import bisect
-import math
-import threading
-from typing import Any, Dict, Optional, Sequence, Tuple
+from typing import Optional
+
+from mgproto_tpu_torch.telemetry import registry as _registry
+from mgproto_tpu_torch.telemetry.registry import (  # noqa: F401 (re-exported)
+    DEFAULT_TIME_BUCKETS,
+    Counter,
+    Gauge,
+    Histogram,
+    MetricRegistry,
+    default_registry,
+    percentile_from_buckets,
+)
 
 REQUESTS = "serving_requests_total"
 REQUEST_SECONDS = "serving_request_seconds"
@@ -44,6 +52,13 @@ BREAKER_OPEN_FRACTION = "serving_breaker_open_fraction"
 UPTIME_SECONDS = "serving_uptime_seconds"
 SWAPS = "serving_swap_total"
 SWAP_TRANSFERRED = "serving_swap_transferred_total"
+# names the port writes no series under (the request tracer and the AOT
+# executable cache are not ported); `cli.telemetry summarize` reads them
+STAGE_SECONDS = "serving_stage_seconds"
+AOT_HITS = "serving_aot_hit_total"
+AOT_MISSES = "serving_aot_miss_total"
+AOT_REJECTS = "serving_aot_reject_total"
+AOT_STORES = "serving_aot_store_total"
 EXPLANATIONS = "serving_explanations_total"
 # the autoscaler and the tenant plane
 AUTOSCALE_TARGET = "autoscale_replicas_target"
@@ -208,223 +223,48 @@ HIST_HELP = {
 FILL_BUCKETS = (0.125, 0.25, 0.375, 0.5, 0.625, 0.75, 0.875, 1.0)
 # the JAX registry's default time buckets: the autoscaler's window p99 is
 # interpolated within them, so the two packages decide alike
-TIME_BUCKETS = (0.001, 0.0025, 0.005, 0.01, 0.025, 0.05, 0.1, 0.25, 0.5, 1.0, 2.5, 5.0, 10.0,
-                30.0, 60.0, 120.0, 300.0)
+TIME_BUCKETS = DEFAULT_TIME_BUCKETS
 
-_Labels = Tuple[Tuple[str, str], ...]
-
-
-def _key(labels: Dict[str, object]) -> _Labels:
-    return tuple(sorted((k, str(v)) for k, v in labels.items()))
+ALL_COUNTERS = tuple(COUNTER_HELP)
+ALL_GAUGES = tuple(GAUGE_HELP)
 
 
-class Counter:
-    kind = "counter"
-
-    def __init__(self):
-        self._v: Dict[_Labels, float] = {}
-        self._lock = threading.Lock()
-
-    def inc(self, amount: float = 1.0, **labels) -> None:
-        k = _key(labels)
-        with self._lock:
-            self._v[k] = self._v.get(k, 0.0) + float(amount)
-
-    def value(self, **labels) -> float:
-        return self._v.get(_key(labels), 0.0)
-
-
-class Gauge:
-    kind = "gauge"
-
-    def __init__(self):
-        self._v: Dict[_Labels, float] = {}
-
-    def set(self, value: float, **labels) -> None:
-        self._v[_key(labels)] = float(value)
-
-    def value(self, **labels) -> float:
-        return self._v.get(_key(labels), 0.0)
-
-
-class Histogram:
-    kind = "histogram"
-
-    def __init__(self, buckets: Sequence[float] = TIME_BUCKETS):
-        self.buckets = tuple(buckets)
-        self._counts: Dict[_Labels, list] = {}
-        self._sum: Dict[_Labels, float] = {}
-        self._min: Dict[_Labels, float] = {}
-        self._max: Dict[_Labels, float] = {}
-        self._lock = threading.Lock()
-
-    def observe(self, value: float, **labels) -> None:
-        k = _key(labels)
-        value = float(value)
-        with self._lock:
-            counts = self._counts.setdefault(k, [0] * (len(self.buckets) + 1))
-            counts[bisect.bisect_left(self.buckets, value)] += 1
-            self._sum[k] = self._sum.get(k, 0.0) + value
-            self._min[k] = min(self._min.get(k, math.inf), value)
-            self._max[k] = max(self._max.get(k, -math.inf), value)
-
-    def series(self) -> list:
-        """[(labels, {bounds, bucket_counts, count, sum, min, max})], the
-        snapshot form of every label set."""
-        with self._lock:
-            return [(k, {"bounds": list(self.buckets), "bucket_counts": list(c),
-                         "count": sum(c), "sum": self._sum[k],
-                         "min": self._min[k], "max": self._max[k]})
-                    for k, c in self._counts.items()]
-
-    def count(self, **labels) -> int:
-        return sum(self._counts.get(_key(labels), ()))
-
-    def _prometheus(self, name: str) -> list:
-        lines = []
-        with self._lock:
-            series = [(k, list(c), self._sum[k]) for k, c in self._counts.items()]
-        for key, counts, total in sorted(series):
-            cum = 0
-            for bound, n in zip([repr(float(b)) for b in self.buckets] + ["+Inf"], counts):
-                cum += n
-                lines.append(f"{name}_bucket{_prom_labels(key, ('le', bound))} {cum}")
-            lines.append(f"{name}_sum{_prom_labels(key)} {_prom_num(total)}")
-            lines.append(f"{name}_count{_prom_labels(key)} {sum(counts)}")
-        return lines
-
-
-def percentile_from_buckets(hist: Dict[str, Any], p: float) -> Optional[float]:
-    """Prometheus-style percentile estimate from a histogram snapshot dict
-    ({'bounds', 'bucket_counts', 'count', 'min', 'max'}): linear
-    interpolation within the bucket holding the target rank, clamped to the
-    observed [min, max]."""
-    count = hist.get("count", 0)
-    if not count:
-        return None
-    if not 0.0 <= p <= 100.0:
-        raise ValueError(f"percentile must be in [0, 100], got {p}")
-    bounds = list(hist["bounds"]) + [math.inf]
-    target = p / 100.0 * count
-    cum = 0
-    for i, n in enumerate(hist["bucket_counts"]):
-        prev_cum = cum
-        cum += n
-        if cum >= target and n > 0:
-            lo = bounds[i - 1] if i > 0 else hist.get("min") or 0.0
-            hi = bounds[i]
-            if math.isinf(hi):
-                hi = hist.get("max") or lo
-            est = lo + (hi - lo) * (target - prev_cum) / n
-            if hist.get("min") is not None:
-                est = max(est, hist["min"])
-            if hist.get("max") is not None:
-                est = min(est, hist["max"])
-            return est
-    return hist.get("max")
-
-
-def _prom_num(v: float) -> str:
-    f = float(v)
-    return str(int(f)) if f == int(f) and abs(f) < 1e15 else repr(f)
-
-
-def _prom_labels(key: _Labels, extra: Optional[Tuple[str, str]] = None) -> str:
-    items = list(key) + ([extra] if extra is not None else [])
-    if not items:
-        return ""
-    return "{" + ",".join(f'{k}="{v}"' for k, v in items) + "}"
-
-
-class MetricRegistry:
-    def __init__(self):
-        self._metrics: Dict[str, object] = {}
-        self._lock = threading.Lock()
-
-    def to_prometheus(self) -> str:
-        """Prometheus text exposition format (one scrape's worth)."""
-        lines = []
-        with self._lock:
-            metrics = sorted(self._metrics.items())
-        help_of = {**COUNTER_HELP, **GAUGE_HELP, **HIST_HELP, **ONLINE_COUNTER_HELP,
-                   **ONLINE_GAUGE_HELP, **TRUST_COUNTER_HELP, **TRUST_GAUGE_HELP}
-        for name, m in metrics:
-            if name in help_of:
-                lines.append(f"# HELP {name} {help_of[name]}")
-            lines.append(f"# TYPE {name} {m.kind}")
-            if isinstance(m, Histogram):
-                lines.extend(m._prometheus(name))
-            else:
-                for key, val in sorted(dict(m._v).items()):
-                    lines.append(f"{name}{_prom_labels(key)} {_prom_num(val)}")
-        return "\n".join(lines) + "\n"
-
-    def snapshot(self) -> Dict[str, Any]:
-        """{name: {"type", "series": [{"labels", "value"} or the histogram
-        fields]}} of every metric (the JAX registry's `snapshot` layout)."""
-        with self._lock:
-            metrics = sorted(self._metrics.items())
-        out: Dict[str, Any] = {}
-        for name, m in metrics:
-            if isinstance(m, Histogram):
-                series = [{"labels": dict(k), **h} for k, h in m.series()]
-            else:
-                series = [{"labels": dict(k), "value": v} for k, v in dict(m._v).items()]
-            out[name] = {"type": m.kind, "series": series}
-        return out
-
-    def _get(self, name: str, factory):
-        with self._lock:
-            m = self._metrics.get(name)
-            if m is None:
-                m = self._metrics[name] = factory()
-            return m
-
-    def counter(self, name: str) -> Counter:
-        return self._get(name, Counter)
-
-    def gauge(self, name: str) -> Gauge:
-        return self._get(name, Gauge)
-
-    def histogram(self, name: str, buckets: Sequence[float] = TIME_BUCKETS) -> Histogram:
-        return self._get(name, lambda: Histogram(buckets))
-
-
-_current = MetricRegistry()
-
-
-def default_registry() -> MetricRegistry:
-    return _current
+def help_of(name: str) -> str:
+    """The help string of a metric this module names ("" otherwise)."""
+    for table in (COUNTER_HELP, GAUGE_HELP, HIST_HELP, ONLINE_COUNTER_HELP, ONLINE_GAUGE_HELP,
+                  TRUST_COUNTER_HELP, TRUST_GAUGE_HELP):
+        if name in table:
+            return table[name]
+    return ""
 
 
 def set_current_registry(registry: Optional[MetricRegistry]) -> MetricRegistry:
     """Install `registry` (None = a fresh one) as process-current; returns
     the previous one."""
-    global _current
-    prev, _current = _current, registry if registry is not None else MetricRegistry()
-    return prev
+    return _registry.set_current_registry(
+        registry if registry is not None else MetricRegistry())
 
 
 def counter(name: str) -> Counter:
-    return default_registry().counter(name)
+    return default_registry().counter(name, help_of(name))
 
 
 def gauge(name: str) -> Gauge:
-    return default_registry().gauge(name)
+    return default_registry().gauge(name, help_of(name))
 
 
 def histogram(name: str) -> Histogram:
     buckets = FILL_BUCKETS if name == BATCH_FILL_HIST else TIME_BUCKETS
-    return default_registry().histogram(name, buckets)
+    return default_registry().histogram(name, help_of(name), buckets=buckets)
 
 
 def register_serving_metrics(registry: MetricRegistry) -> None:
     """Pre-create the serving family in `registry` with explicit zero-valued
-    unlabeled series (JAX's names; the port has no telemetry session, so
-    `cli/serve.py` registers into the process-current registry)."""
+    unlabeled series (JAX's names; histograms are registered name-only)."""
     for name in COUNTER_HELP:
-        registry.counter(name).inc(0.0)
+        registry.counter(name, COUNTER_HELP[name]).inc(0.0)
     for name in GAUGE_HELP:
-        registry.gauge(name).set(0.0)
+        registry.gauge(name, GAUGE_HELP[name]).set(0.0)
     for name in HIST_HELP:
-        registry.histogram(name, FILL_BUCKETS if name == BATCH_FILL_HIST else TIME_BUCKETS)
+        registry.histogram(name, HIST_HELP[name],
+                           buckets=FILL_BUCKETS if name == BATCH_FILL_HIST else TIME_BUCKETS)

@@ -1,6 +1,6 @@
 """Replica supervision: N serving engines behind one admission boundary
-(counterpart of mgproto_tpu/serving/replica.py, without its flight
-recorder and request tracing).
+(counterpart of mgproto_tpu/serving/replica.py, without its request
+tracing).
 
   * ROUTING: round-robin over replicas whose `HealthProbe.readiness()` is
     true. With none ready the request gets a typed shed (`no_replica`).
@@ -10,13 +10,16 @@ recorder and request tracing).
     stale, DRAINED (its queued requests move to the survivors with their
     deadlines and enqueue times kept; what finds no room is shed typed as
     `replica_lost`) and scheduled for a restart on `backoff_delays`'s
-    jitter-free schedule.
+    jitter-free schedule. The failure is recorded in the flight recorder
+    (obs/flightrec.py), which dumps `replica_<dead|wedged>` where it has a
+    directory (`cli.serve --telemetry_dir`).
   * RESTARTS: a due replica rebuilds its engine from the factory and warms
     every bucket before it rejoins; a failing factory waits the next,
     longer delay.
   * ELASTICITY (the autoscaler's arms, serving/autoscale.py):
     `add_replica` appends a due-now backoff entry that the next `poll`
-    builds and warms; `remove_replica` drains a victim with zero dropped
+    builds and warms (after `engine_prep`, serving/autoscale.py
+    `hbm_bucket_prep`, plans its buckets); `remove_replica` drains a victim with zero dropped
     requests: its queue moves to the survivors, what finds no room is
     answered through the victim's own device, and only an unresponsive
     victim's leftovers shed typed (`replica_lost`).
@@ -40,6 +43,7 @@ from __future__ import annotations
 import time
 from typing import Callable, List, Optional
 
+from mgproto_tpu_torch.obs.flightrec import get_recorder
 from mgproto_tpu_torch.resilience import chaos as _chaos
 from mgproto_tpu_torch.serving import metrics as _m
 from mgproto_tpu_torch.serving.admission import backoff_delays
@@ -65,12 +69,14 @@ class Replica:
 
     def __init__(self, name: str, factory: Callable[[], object], clock: Callable[[], float],
                  batcher_config: Optional[BatcherConfig] = None,
-                 pre_dispatch: Optional[Callable[[], None]] = None):
+                 pre_dispatch: Optional[Callable[[], None]] = None,
+                 engine_prep: Optional[Callable[[object], None]] = None):
         self.name = name
         self.factory = factory
         self.clock = clock
         self.batcher_config = batcher_config
         self.pre_dispatch = pre_dispatch
+        self.engine_prep = engine_prep
         self.engine = None
         self.batcher: Optional[MicroBatcher] = None
         self.probe: Optional[HealthProbe] = None
@@ -83,8 +89,12 @@ class Replica:
 
     def start(self) -> int:
         """Build and warm the engine; returns the buckets warmed. Raises on
-        a factory or warmup failure (the supervisor turns it into backoff)."""
+        a factory, `engine_prep` or warmup failure (the supervisor turns it
+        into backoff). `engine_prep` runs between the build and the warmup:
+        the per-replica bucket planning hook."""
         engine = self.factory()
+        if self.engine_prep is not None:
+            self.engine_prep(engine)
         warmed = len(engine.warmup())
         self.adopt(engine)
         return warmed
@@ -121,7 +131,8 @@ class ReplicaSet:
                  clock: Callable[[], float] = time.monotonic, heartbeat_timeout_s: float = 1.0,
                  restart_base_delay_s: float = 0.1, restart_max_delay_s: float = 5.0,
                  batcher_config: Optional[BatcherConfig] = None,
-                 pre_dispatch: Optional[Callable[[], None]] = None):
+                 pre_dispatch: Optional[Callable[[], None]] = None,
+                 engine_prep: Optional[Callable[[object], None]] = None):
         if replicas < 1:
             raise ValueError(f"need >= 1 replica, got {replicas}")
         self.engine_factory = engine_factory
@@ -131,6 +142,7 @@ class ReplicaSet:
         self.restart_max_delay_s = float(restart_max_delay_s)
         self.batcher_config = batcher_config
         self.pre_dispatch = pre_dispatch
+        self.engine_prep = engine_prep
         self._next_name = int(replicas)  # names stay unique across add/remove
         self.replicas: List[Replica] = [self._make_replica(f"r{i}")
                                         for i in range(int(replicas))]
@@ -144,7 +156,8 @@ class ReplicaSet:
         # late-bound: a hot swap retargets `engine_factory`, and later
         # restarts build the new model
         return Replica(name, lambda: self.engine_factory(), self.clock,
-                       batcher_config=self.batcher_config, pre_dispatch=self.pre_dispatch)
+                       batcher_config=self.batcher_config, pre_dispatch=self.pre_dispatch,
+                       engine_prep=self.engine_prep)
 
     def start(self) -> int:
         """Build and warm every replica; returns the buckets warmed."""
@@ -321,7 +334,12 @@ class ReplicaSet:
     def _fail(self, rep: Replica, now: float) -> List[ServeResponse]:
         """A heartbeat-stale replica: count it, move its queue to the
         survivors (deadlines and enqueue times kept), schedule the restart."""
-        _m.counter(_m.REPLICA_RESTARTS).inc(reason=FAILURE_WEDGED if rep.alive else FAILURE_DEAD)
+        reason = FAILURE_WEDGED if rep.alive else FAILURE_DEAD
+        _m.counter(_m.REPLICA_RESTARTS).inc(reason=reason)
+        # what the plane was doing before the heartbeat went stale
+        recorder = get_recorder()
+        recorder.record("replica_failure", replica=rep.name, reason=reason,
+                        queued=len(rep.engine.queue), restarts=rep.restarts)
         stranded = rep.engine.queue.drain_all() + rep.engine.queue.drain_shed()
         survivors = [s for s in self.replicas if s is not rep and s.responsive()]
         out: List[ServeResponse] = []
@@ -338,6 +356,7 @@ class ReplicaSet:
                 out.append(shed_response(req.request_id, REASON_REPLICA_LOST,
                                          latency_s=now - req.enqueued_at))
         self._to_backoff(rep, now)
+        recorder.maybe_dump(f"replica_{reason}")
         return out
 
     def _to_backoff(self, rep: Replica, now: float) -> None:

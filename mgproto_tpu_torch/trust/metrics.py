@@ -28,17 +28,17 @@ ALL_GAUGES = tuple(GAUGE_HELP)
 
 def counter(name: str) -> _m.Counter:
     """The named trust counter in the process-current registry."""
-    return _m.default_registry().counter(name)
+    return _m.default_registry().counter(name, COUNTER_HELP.get(name, ""))
 
 
 def gauge(name: str) -> _m.Gauge:
     """The named trust gauge in the process-current registry."""
-    return _m.default_registry().gauge(name)
+    return _m.default_registry().gauge(name, GAUGE_HELP.get(name, ""))
 
 
 def register_trust_metrics(registry: _m.MetricRegistry) -> None:
     """Pre-create the trust family with explicit zeros."""
     for name in ALL_COUNTERS:
-        registry.counter(name).inc(0.0)
+        registry.counter(name, COUNTER_HELP[name]).inc(0.0)
     for name in ALL_GAUGES:
-        registry.gauge(name).set(0.0)
+        registry.gauge(name, GAUGE_HELP[name]).set(0.0)

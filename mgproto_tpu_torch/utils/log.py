@@ -1,6 +1,8 @@
 """Run logs (the port's trimmed copy of mgproto_tpu/utils/log.py): a text log
-echoed to stdout, a JSONL stream of scalars, and wall-clock spans. No
-profiler and no metric registry."""
+echoed to stdout, a JSONL stream of scalars, and wall-clock spans that also
+record a tracing span (telemetry/tracing.py), so a run with a telemetry
+session gets its epoch / train / test / push spans in trace.json. No
+profiler."""
 
 from __future__ import annotations
 
@@ -10,6 +12,8 @@ import os
 import sys
 import time
 from typing import Any, Dict, Optional
+
+from mgproto_tpu_torch.telemetry.tracing import trace_span
 
 
 FLUSH_EVERY = 10
@@ -89,11 +93,13 @@ class MetricsWriter:
 @contextlib.contextmanager
 def timed_span(logger: Logger, name: str):
     """Log `name`'s wall time on exit; the dict it yields receives the
-    seconds under "s" (also when the body raises)."""
+    seconds under "s" (also when the body raises). The block is a span of
+    the process-current tracer too."""
     span: Dict[str, float] = {}
     t0 = time.perf_counter()
-    try:
-        yield span
-    finally:
-        span["s"] = time.perf_counter() - t0
-        logger.log(f"\t{name} time: \t{span['s']:.2f}s")
+    with trace_span(name):
+        try:
+            yield span
+        finally:
+            span["s"] = time.perf_counter() - t0
+            logger.log(f"\t{name} time: \t{span['s']:.2f}s")

@@ -125,12 +125,10 @@ def test_config_fields_equal_jax(case):
 REFUSED_ARGVS = {
     "straggler_threshold": (["--straggler_threshold", "0.5"], "A9"),
     "straggler_patience": (["--straggler_patience", "2"], "A9"),
-    "auto_tune": (["--auto_tune"], "A9"),
     "profile_dir": (["--profile_dir", "/p"], "A9"),
     "profile_steps": (["--profile_steps", "3:5"], "A9"),
     "profile_on_anomaly": (["--profile_on_anomaly"], "A9"),
     "profile_out": (["--profile_out", "/p"], "A9"),
-    "telemetry_dir": (["--telemetry-dir", "/t"], "A9"),
 }
 
 
@@ -144,6 +142,23 @@ def test_unported_flags_are_refused_with_their_roadmap_item(dest):
     args = _parser(tcommon).parse_args(argv)
     with pytest.raises(tcommon.NotPortedError, match=f"--{dest}=.*ROADMAP {item}"):
         tcommon.config_from_args(args)
+
+
+@pytest.mark.parametrize("argv,want", [
+    ([], {"telemetry_dir": "", "telemetry": True, "auto_tune": False}),
+    (["--auto_tune", "--telemetry-dir", "/t"],
+     {"telemetry_dir": "/t", "telemetry": True, "auto_tune": True}),
+    (["--telemetry_dir", "/u", "--no-telemetry"],
+     {"telemetry_dir": "/u", "telemetry": False, "auto_tune": False}),
+])
+def test_the_telemetry_and_auto_tune_flags_reach_run_training(argv, want, monkeypatch):
+    """--auto_tune and --telemetry_dir (refused before the planner and the
+    telemetry plane were ported) and --no-telemetry reach run_training."""
+    seen = {}
+    monkeypatch.setattr(ttrain, "run_training", lambda cfg, **kw: seen.update(kw))
+    monkeypatch.setattr(ttrain.preemption, "install_handlers", lambda: None)
+    ttrain.main(["--device", "cpu"] + argv)
+    assert {k: seen[k] for k in want} == want
 
 
 # ------------------------------------------------------------- the mains

@@ -1190,3 +1190,106 @@ def test_a_tiny_int8_engine_on_the_card_matches_the_cpu(tmp_path):
     a, b = art.infer(x), twin.infer(x)
     assert np.abs(a["logits"] - b["logits"]).max() <= 1e-5
     assert np.abs(a["log_px"] - b["log_px"]).max() <= 1e-5
+
+
+def _planner_cfg():
+    import dataclasses
+
+    from mgproto_tpu_torch.config import tiny_test_config
+
+    cfg = tiny_test_config(arch="resnet18")
+    return cfg.replace(model=dataclasses.replace(cfg.model, fused_scoring=None,
+                                                 fused_epilogue=None))
+
+
+def _launches():
+    return (score_pool.launches, fe.fused_bn_epilogue.launches, score_pool_bwd.launches,
+            em_estep_stats.launches)
+
+
+@pytest.mark.cuda
+def test_the_planner_measure_on_the_card_repeats_within_its_spread():
+    """perf/planner.py `measure_candidate` at a resnet18-width tiny config:
+    one step a candidate through the four kernels (1 / 8 / 1 / 3 launches),
+    a positive peak, the same candidate measured twice within 5 % (the
+    cache emptied and the peak reset between them), the async candidate
+    two steps, and nothing left allocated but the shared state."""
+    _need_cuda()
+    from mgproto_tpu_torch.perf import planner
+
+    cfg = _planner_cfg()
+    shared = {}
+    cand = planner.PlanCandidate(batch=8, prefetch_depth=0)
+    peaks = []
+    for _ in range(2):
+        before = _launches()
+        peak, detail = planner.measure_candidate(cfg, cand, device="cuda", shared=shared)
+        assert tuple(a - b for a, b in zip(_launches(), before)) == (1, 8, 1, 3)
+        assert peak == detail["program_peak_bytes"] > 0 and detail["steps"] == 1
+        peaks.append(peak)
+        assert torch.cuda.memory_allocated() == detail["baseline_bytes"]
+    assert abs(peaks[0] - peaks[1]) <= 0.05 * max(peaks), peaks
+    apeak, adetail = planner.measure_candidate(
+        cfg, planner.PlanCandidate(batch=8, prefetch_depth=0, async_bank=True), device="cuda",
+        shared=shared)
+    assert adetail["steps"] == 2 and apeak > 0
+    assert adetail["bank_bytes_per_chip"] == planner.state_bytes_per_chip(cfg)[
+        "bank_bytes_per_chip"]
+
+
+@pytest.mark.cuda
+def test_a_budget_under_the_measured_peak_rejects_and_an_oom_is_a_rejection():
+    """The planner on the card: a budget above the measured peak fits, one
+    below it rejects (no step runs out of memory); an out-of-memory error
+    (the process allocator capped) is a rejection carrying its message,
+    and the allocator is emptied after it."""
+    _need_cuda()
+    from mgproto_tpu_torch.perf import planner
+
+    cfg = _planner_cfg()
+    measure = planner.make_cached_measure(cfg, device="cuda")
+    cand = planner.PlanCandidate(batch=8, prefetch_depth=0)
+    peak, _ = measure(cand)
+    fits = planner.HBMPlanner(budget_bytes=2 * peak, margin=0.0, measure=measure).plan(
+        cfg, [cand])
+    tight = planner.HBMPlanner(budget_bytes=peak // 2, margin=0.0, measure=measure).plan(
+        cfg, [cand])
+    assert fits.chosen is not None and tight.chosen is None and tight.rejected == 1
+    total = torch.cuda.mem_get_info()[1]
+    torch.cuda.set_per_process_memory_fraction(
+        (torch.cuda.memory_allocated() + 64 * 1024 ** 2) / total)
+    try:
+        out = planner.HBMPlanner(budget_bytes=total, margin=0.0, device="cuda").plan(
+            cfg, [planner.PlanCandidate(batch=512, prefetch_depth=0)])
+    finally:
+        torch.cuda.set_per_process_memory_fraction(1.0)
+    assert out.chosen is None and "OutOfMemoryError" in out.reports[0].error
+    assert torch.cuda.memory_reserved() - torch.cuda.memory_allocated() < 64 * 1024 ** 2
+
+
+@pytest.mark.cuda
+def test_a_serve_bucket_program_peak_excludes_the_loaded_model():
+    """`serve_bucket_measure` on an engine over a model on the card: the
+    loaded model is in the baseline, not in the program peak; a larger
+    bucket peaks higher; with the weight term the ladder is
+    `plan_serve_buckets`'."""
+    _need_cuda()
+    from mgproto_tpu_torch.core.mgproto import build_mgproto
+    from mgproto_tpu_torch.engine.eval import Evaluator
+    from mgproto_tpu_torch.perf import planner
+    from mgproto_tpu_torch.perf.quant import resident_weight_bytes
+    from mgproto_tpu_torch.serving.engine import ServingEngine
+
+    cfg = _planner_cfg()
+    model, gmm = build_mgproto(cfg.model, device="cpu", seed=0)
+    ev = Evaluator(model, gmm, cfg, device="cuda")
+    eng = ServingEngine.from_live(ev, buckets=(1, 8))
+    measure = planner.serve_bucket_measure(eng)
+    p1, d1 = measure(planner.PlanCandidate(batch=1, prefetch_depth=0))
+    p8, d8 = measure(planner.PlanCandidate(batch=8, prefetch_depth=0))
+    weights = resident_weight_bytes(ev.model)
+    assert d1["baseline_bytes"] >= weights and d8["baseline_bytes"] >= weights
+    assert 0 < p1 < p8
+    fitting, out = planner.plan_serve_buckets(eng, budget_bytes=weights + (p1 + p8) // 2,
+                                              margin=0.0, weight_bytes=weights)
+    assert fitting == [1] and out.reports[1].detail["weight_resident_bytes"] == weights

@@ -563,7 +563,8 @@ def test_cli_evaluate_restores_the_ranks_sharded_checkpoint_in_one_process(two_r
     flags = ["--arch", "tiny", "--num_classes", "4", "--protos_per_class", "3", "--proto_dim",
              "8", "--aux_emb_sz", "8", "--mine_level", "4", "--mem_sz", "16", "--no_pretrained",
              "--num_workers", "0", "--device", "cpu", "--img_size", "32", "--batch_size", "4",
-             "--train_dir", tree, "--test_dir", tree, "--push_dir", tree]
+             "--train_dir", tree, "--test_dir", tree, "--push_dir", tree,
+             "--model_dir", str(tmp_path / "eval")]  # its telemetry_eval lands there
     printed = []
     for path in (two_ranks["saved"], rep):
         tevaluate.main(flags + ["--checkpoint", path])

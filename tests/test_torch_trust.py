@@ -219,10 +219,9 @@ def test_check_trust_exit_codes(tmp_path):
 
 
 @pytest.mark.parametrize("argv", [
-    ["check", "--drift-drill", BASELINE], ["check", "--autoscale", BASELINE],
-    ["check", "--tenants", BASELINE], ["check", "--weakscale", BASELINE],
-    ["check", "--quant", BASELINE], ["check", "--stall-report", BASELINE],
-    ["check", REPO, "--baseline", BASELINE], ["summarize", REPO], [REPO], ["fleet", REPO],
+    ["check", "--autoscale", BASELINE], ["check", "--tenants", BASELINE],
+    ["check", "--weakscale", BASELINE], ["check", "--stall-report", BASELINE],
+    ["fleet", REPO],
 ])
 def test_other_telemetry_gates_are_refused(argv):
     with pytest.raises(NotPortedError, match=r"A9 \(obs and telemetry\)"):
