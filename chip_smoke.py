@@ -86,7 +86,22 @@ Phases, one JSON line each (`t_s`: seconds since the script started):
              trained for one epoch (10 steps at batch 80, mining and EM on)
              through Trainer.train_epoch with the launches counted and each
              step's copy timed the same way (beside PCIe Gen5 x16's peak),
-             and a profile of the next epoch;
+             and a profile of the next epoch. The observatory rides on that
+             epoch: (a) a telemetry session's StepMonitor and a
+             ProfilerWindow over steps 3-4 observe it (the `input` line's
+             timing figures leave out steps 3-5, which carry the window's
+             start, trace and export); the window's
+             trace holds each kernel's device events at its launches a step
+             times its CUDA kernels a launch, each in its stall bucket; its
+             stall report (obs/stall.py: the CUDA streams merged, fractions
+             summing to 1, measured MFU against 67 TFLOP/s) has its device
+             busy a step within 10 % of the profile's; the cost counter
+             gives the same FLOPs, bytes and kernel rows on the card and
+             the CPU at batch 8; (b) a cold batch shape between two
+             epoch-shaped steps fires the recompile trigger and its capture
+             holds device events; (e) `cli.telemetry summarize` shows the
+             report in the session's directory as its perf section, and
+             `check --stall-report R --stall-baseline R` exits 0;
   7. schedule: the whole training schedule through cli/train.run_training
              at the flagship (the input phase's folder as the train, push
              and test set, a second seeded folder of 5 classes x 16 as one
@@ -146,7 +161,9 @@ Phases, one JSON line each (`t_s`: seconds since the script started):
              --arch densenet121` from phase 10's .pth on the input phase's
              folder, with the schedule phase's OoD folder as its test and
              push set, one epoch with the push (rendered) at epoch 0, then
-             the prune; (b) `cli.evaluate` on its prune checkpoint prints the
+             the prune, with `--profile_steps 2:4 --profile_out`: its
+             window's capture holds steps 3-4's device events and the head's
+             kernels at their launches; (b) `cli.evaluate` on its prune checkpoint prints the
              accuracy its last test pass wrote; (c) `cli.interpret` on the
              interpret phase's tree and checkpoint prints the metrics its
              run_interpret returned; (d) a real SIGTERM to a resnet18
@@ -155,7 +172,10 @@ Phases, one JSON line each (`t_s`: seconds since the script started):
              PREEMPTED.json, a preempt checkpoint with its batch position,
              its 2 spawn workers neither replaced nor left behind, and `--resume auto` finishes
              the run (the OoD folder as its test set) and clears the
-             marker; (e) the preempt and NaN drills
+             marker, with `--profile_dir --profile_on_anomaly`: the resumed
+             epoch's trace holds device events, and the recompile capture
+             that falls due inside it is skipped with a logged note (one
+             profiler a process); (e) the preempt and NaN drills
              through run_training (resnet18, cuDNN deterministic) end bit
              for bit at the clean run's state, and a budget of 0 rollbacks
              raises.
@@ -173,7 +193,12 @@ Phases, one JSON line each (`t_s`: seconds since the script started):
              from_live's on the same card and buckets and within 1e-4 of the
              CPU plain path, its explanations' indices equal and
              log-densities within 1e-4, no pruned prototype explained;
-             dispatch ms per bucket; (c) the plane in this process, 1 then
+             dispatch ms per bucket; with `--trace_requests` and
+             `--profile_warmup` (the observatory's (c)): every answered
+             request's timings and its frontend, batcher, replica and engine
+             spans in the session's trace, serving_stage_seconds counting
+             each request, the warmup trace's score_pool and epilogue events
+             at 1 and 16 a bucket, the tracer's host cost a request; (c) the plane in this process, 1 then
              2 replicas behind the frontend on a loopback port, 32 requests:
              the launches per dispatch (score_pool 1, epilogue 16, the
              training kernels 0) and the peak memory of each; (d)
@@ -207,7 +232,9 @@ Phases, one JSON line each (`t_s`: seconds since the script started):
              (1 / 16 / 1 / 3);
              median step s, a 3-step profile of each mode (idle share) and
              the ms in which bank-stream kernels ran beside main-stream ones
-             (its chrome trace); then phase 11's rollback and preemption
+             (its chrome trace), beside the async steps'
+             bank_dispatch_overlap_fraction gauge (the observatory's (d):
+             in (0, 1]); then phase 11's rollback and preemption
              drills on the async pipeline, bit-equal to the clean async run;
              (b) on phase 12's `push` artifact (exported here when phase 12
              did not run): a ReplicaSet at 1 replica under Autoscaler(1, 3)
@@ -1983,17 +2010,153 @@ def h2d_copies(trainers, batches, reps=5):
     return out
 
 
-def input_phase():
+# ----------------------------------------------------------------- observatory
+OBS_DIR = os.path.join(HERE, "build", "obs_phase")
+OBS_WINDOW = (2, 4)  # the profiler window's step range over the input epoch
+OBS_COST_BATCH = 8  # the batch the cost counter is held CPU vs card at
+OBS_BUSY_RTOL = 0.10  # the window's device busy vs device_breakdown's, a step
+CLI_PROFILE_STEPS = "2:4"  # 11 (a)'s --profile_steps
+OBS_REQTRACE_REQUESTS = 2000  # requests of the request tracer's cost loop
+# the CUDA kernels one launch of each wrapper runs (the backward's compact
+# and accumulate passes, the E-step's partial and combine kernels)
+KERNELS_PER_LAUNCH = {"score_pool": 1, "bn_epilogue": 1, "score_pool_bwd": 2, "em_estep": 2}
+# each kernel's stall bucket: its bound in PERF.md §6
+KERNEL_BUCKETS = {"score_pool": "mxu_busy", "bn_epilogue": "hbm_bound",
+                  "score_pool_bwd": "hbm_bound", "em_estep": "hbm_bound"}
+
+
+def kernel_events(events):
+    """The port's kernels' device events in a trace, by kernel family."""
+    from mgproto_tpu_torch.obs.stall import device_events
+
+    out = dict.fromkeys(KERNEL_FAMILIES, 0)
+    for e in device_events(events):
+        fam = family(e["name"])
+        if fam in out:
+            out[fam] += 1
+    return out
+
+
+def obs_cost_check(cfg):
+    """The cost counter on the card against the CPU for the same config at
+    OBS_COST_BATCH (the same FLOPs and bytes, the kernels' rows equal), and
+    the card's count of one step at the input epoch's batch. Returns that
+    count and the comparison's record."""
+    from mgproto_tpu_torch.obs.stall import step_costs
+
+    t0 = time.perf_counter()
+    card = step_costs(cfg, batch=OBS_COST_BATCH, device="cuda")
+    cpu = step_costs(cfg, batch=OBS_COST_BATCH, device="cpu")
+    keys = ("flops", "raw_bytes", "fused_bytes", "programs", "kernels")
+    diff = {k: (card[k], cpu[k]) for k in keys if card[k] != cpu[k]}
+    rows = {n: (card["rows"].get(n), cpu["rows"].get(n))
+            for n in set(card["rows"]) | set(cpu["rows"])
+            if card["rows"].get(n) != cpu["rows"].get(n)}
+    check(not diff, f"the cost counter's card and CPU counts differ: {diff}; rows {rows}")
+    full = step_costs(cfg, device="cuda")
+    return full, {"batch": OBS_COST_BATCH, "equal_on_cpu_and_card": True,
+                  "flops": card["flops"], "raw_bytes": card["raw_bytes"],
+                  "fused_bytes": card["fused_bytes"], "kernels": card["kernels"],
+                  "seconds": time.perf_counter() - t0}
+
+
+def obs_window_report(window, trainer, launches, steps, costs, cfg, out):
+    """(a): the window's capture over the input epoch: every kernel's device
+    events at the epoch's launches a step times its CUDA kernels a launch,
+    each in its bucket, and its stall report (fractions summing to 1, the
+    device span plus the host wait, measured MFU), written to `out`."""
+    from mgproto_tpu_torch.obs import stall
+
+    (cap,) = window.captures
+    check(not cap["fallback"] and cap["steps"] == OBS_WINDOW[1] - OBS_WINDOW[0]
+          and cap["device_events"] > 0, f"(a) the window's capture: {cap}")
+    t0 = time.perf_counter()
+    events = stall.load_chrome_trace(cap["dir"])
+    load_s = time.perf_counter() - t0
+    counts = kernel_events(events)
+    want = {k: cap["steps"] * launches[k] // steps * KERNELS_PER_LAUNCH[k] for k in counts}
+    check(counts == want, f"(a) kernel events in the window {counts}, expected {want}")
+    buckets = {}
+    for e in stall.device_events(events):
+        fam = family(e["name"])
+        if fam in KERNEL_BUCKETS:
+            buckets.setdefault(fam, set()).add(stall.classify_op(e["name"]))
+    check(buckets == {k: {v} for k, v in KERNEL_BUCKETS.items()},
+          f"(a) the kernels' stall buckets: {buckets}")
+    first = cap["step"]  # the window's steps, by their index in the epoch
+    host_wait = sum(r.wait_s for r in trainer.step_log[first:first + cap["steps"]])
+    peak = stall.default_peak_flops(cfg.model.compute_dtype)
+    rep = stall.finish_report(
+        stall.attribute_trace(events, host_infeed_s=host_wait),
+        flops=costs["flops"] * cap["steps"], peak_flops=peak,
+        extra={"trace": os.path.relpath(cap["trace"], HERE), "steps": cap["steps"],
+               "batch": TRAIN_BATCH, "compute_dtype": cfg.model.compute_dtype,
+               "byte_source": "counted_raw", "bytes_accessed": costs["raw_bytes"] * cap["steps"],
+               "top_byte_movers": stall.top_byte_movers_from_trace(events, top_n=8)})
+    # no fallback on the card: a report that took the cost path fails here
+    check(rep["source"] == "trace" and rep["device_lane"]["rule"] == "cuda_device_streams_merged",
+          f"(a) the stall report did not attribute the device trace: {rep['source']}")
+    check(abs(rep["fraction_sum"] - 1.0) <= 1e-4, f"(a) fractions sum to {rep['fraction_sum']}")
+    check(abs(rep["step_time_s"] - rep["span_s"] - host_wait) <= 1e-9 * rep["step_time_s"] + 1e-12,
+          "(a) the report's step time is not the device span plus the host wait")
+    with open(out, "w") as f:
+        f.write(json.dumps(rep, sort_keys=True) + "\n")
+    return rep, {"capture_s": cap["capture_s"], "export_s": cap["export_s"],
+                 "trace_mb": cap["trace_bytes"] / 1e6, "device_events": cap["device_events"],
+                 "load_s": load_s, "kernel_events": counts, "host_wait_s": host_wait}
+
+
+def obs_anomaly_check(trainer, state, monitor, batch):
+    """(b): a recompile-triggered capture: one step at another batch shape
+    (a cold path the monitor counts) between two at the epoch's; the window
+    opens after the cold step and holds the next step's device events."""
+    from mgproto_tpu_torch.obs.profiler import ProfilerWindow, Triggers
+
+    half = tuple(t[: TRAIN_BATCH // 2] if t is not None else None for t in batch)
+    monitor.check_recompiles()  # the window's baseline: the count so far
+    window = ProfilerWindow(os.path.join(OBS_DIR, "anomaly"), on_anomaly=True, capture_steps=1,
+                            monitor=monitor, triggers=Triggers(min_steps=1000), device="cuda")
+    state, _ = trainer.train_epoch(state, [batch, half, batch], 1, monitor=monitor, window=window)
+    window.close()
+    check([(c["reason"], c["step"]) for c in window.captures] == [("recompile", 2)],
+          f"(b) anomaly captures {window.captures}")
+    cap = window.captures[0]
+    check(os.path.isdir(cap["dir"]) and cap["device_events"] > 0,
+          f"(b) the anomaly capture holds no device events: {cap}")
+    return state, {"reason": cap["reason"], "step": cap["step"], "dir": os.path.relpath(
+        cap["dir"], HERE), "device_events": cap["device_events"],
+        "kernel_events": kernel_events(json.load(open(cap["trace"]))["traceEvents"])}
+
+
+def obs_gates_check(telem_dir, report_path):
+    """(e): the run's telemetry directory with the stall report in it:
+    `summarize` shows the perf section; `check --stall-report R
+    --stall-baseline R` exits 0."""
+    from mgproto_tpu_torch.cli import telemetry as cli_telemetry
+
+    code, text = captured(cli_telemetry.main, ["summarize", telem_dir])
+    check(code is None and "perf (stall attribution" in text and "byte_mover_1" in text,
+          f"(e) summarize shows no perf section:\n{text[-2000:]}")
+    ccode, ctext = captured(cli_telemetry.check_main, ["--stall-report", report_path,
+                                                       "--stall-baseline", report_path])
+    check(ccode == 0, f"(e) check --stall-report against itself exited {ccode}:\n{ctext}")
+    return {"summarize_perf_section": True, "stall_check_exit": ccode}
+
+
+def input_phase(smi):
     """The training input path on the card; returns the launch counts of the
     loader-fed epoch and its number of steps."""
     import dataclasses
+    import shutil
 
     import numpy as np
     import torch
 
     from mgproto_tpu_torch import native
     from mgproto_tpu_torch.engine.train import Trainer
+    from mgproto_tpu_torch.obs.profiler import ProfilerWindow
     from mgproto_tpu_torch.ops.augment import augment_draws, augment_tail
+    from mgproto_tpu_torch.telemetry import make_session
     from mgproto_tpu_torch.utils.images import IMAGENET_MEAN, IMAGENET_STD
 
     root = os.path.join(HERE, "build", "input_phase", "train")
@@ -2047,11 +2210,18 @@ def input_phase():
             {"uint8": first[0], "f32": (cpu.numpy(), labels)})
         del cpu
 
-        # the main path: one epoch from the loader, kernel launches counted
+        # the main path: one epoch from the loader, kernel launches counted,
+        # observed by a telemetry session's monitor and, over OBS_WINDOW, a
+        # profiler window (the observatory's (a))
+        shutil.rmtree(OBS_DIR, ignore_errors=True)
+        telem = make_session(os.path.join(OBS_DIR, "telemetry"))
+        telem.monitor.watch(trainer.cold_paths.total)
+        window = ProfilerWindow(os.path.join(OBS_DIR, "window"), steps=OBS_WINDOW, device="cuda")
         torch.cuda.synchronize()
         reset_launch_counts()
         t0 = time.perf_counter()
-        state, met = trainer.train_epoch(state, train_loader, 0)
+        state, met = trainer.train_epoch(state, train_loader, 0, monitor=telem.monitor,
+                                         window=window)
         torch.cuda.synchronize()
         epoch_s = time.perf_counter() - t0
         launches = launch_counts()
@@ -2067,8 +2237,13 @@ def input_phase():
         wait_s = [r.wait_s for r in log]
         copy_ms = [r.copy_ms for r in log]
         copy_gb_s = log[0].h2d_bytes / float(np.median(copy_ms)) / 1e6
-        steady = slice(1, None)
-        med = float(np.median(step_s[steady]))
+        # the window's steps and the step after them (its arm's synchronize
+        # falls in the first, its stop and export in the one after) stay
+        # out of the timing figures; step 0 waits for the loader's start
+        windowed = list(range(OBS_WINDOW[0] + 1, OBS_WINDOW[1] + 2))
+        clean = [i for i in range(steps) if i not in windowed]
+        steady = [i for i in clean if i > 0]
+        med = float(np.median([step_s[i] for i in steady]))
         emit("input", batch=TRAIN_BATCH, steps=steps, classes=INPUT_CLASSES,
              images=INPUT_CLASSES * INPUT_PER_CLASS, source_hw=list(INPUT_HW),
              workers=INPUT_WORKERS, backend="process", wire="uint8",
@@ -2079,14 +2254,30 @@ def input_phase():
              uint8_route=route, launches=launches, loss=met.loss.item(),
              em_active=met.em_active, epoch_s=epoch_s, step_s=step_s, wait_s=wait_s,
              step_s_median=med, img_per_s=TRAIN_BATCH / med,
-             loader_wait_share=sum(wait_s[steady]) / sum(step_s[steady]),
-             loader_wait_share_all_steps=sum(wait_s) / sum(step_s),
+             loader_wait_share=sum(wait_s[i] for i in steady) / sum(step_s[i] for i in steady),
+             loader_wait_share_all_steps=(sum(wait_s[i] for i in clean)
+                                          / sum(step_s[i] for i in clean)),
+             window_affected_steps=windowed, window_affected_s=sum(step_s[i] for i in windowed),
              h2d_image_bytes_per_step=log[0].image_bytes, h2d_bytes_per_step=log[0].h2d_bytes,
              h2d={"in_epoch_ms": copy_ms, "in_epoch_ms_median": float(np.median(copy_ms)),
                   "in_epoch_gb_s_median": copy_gb_s,
                   "in_epoch_share_of_pcie": copy_gb_s * 1e9 / PCIE_BYTES_S,
                   "alone": alone, "pcie_gb_s": PCIE_BYTES_S / 1e9},
-             peak_mem_gb=torch.cuda.max_memory_allocated() / 1e9)
+             peak_mem_gb=torch.cuda.max_memory_allocated() / 1e9,
+             window_steps=list(range(OBS_WINDOW[0] + 1, OBS_WINDOW[1] + 1)))
+
+        # the observatory: (a) the window's stall report, the cost counter
+        # card vs CPU, (b) an anomaly capture, (e) the telemetry gates
+        t_obs = time.perf_counter()
+        costs, cost_rec = obs_cost_check(cfg)
+        report_path = os.path.join(OBS_DIR, "telemetry", "stall_report.json")
+        report, window_rec = obs_window_report(window, trainer, launches, steps, costs, cfg,
+                                               report_path)
+        state, anomaly_rec = obs_anomaly_check(trainer, state, telem.monitor, first[0])
+        telem.flush(step=state.step)
+        gates_rec = obs_gates_check(telem.out_dir, report_path)
+        telem.close()
+        obs_s = time.perf_counter() - t_obs
 
         holder = [state]
 
@@ -2094,24 +2285,41 @@ def input_phase():
             holder[0], _ = trainer.train_epoch(holder[0], train_loader, 1)
 
         rec = device_breakdown(one_epoch, 1)
-        if rec is None:
-            emit("profile", path="input", note="profiler recorded no device events: not measured")
-        else:
-            per_step = {k: v / steps for k, v in rec["device_ms_per_call"].items()}
-            # the profiled epoch's first step waits for the loader's first
-            # two batches with the card idle; the share without that wait
-            first_wait_ms = trainer.step_log[0].wait_s * 1e3
-            busy, wall = rec["device_busy_ms_per_call"], rec["wall_ms_per_call"]
-            emit("profile", path="input", batch=TRAIN_BATCH, steps=steps,
-                 device_ms_per_step=per_step, device_busy_ms_per_step=busy / steps,
-                 wall_ms_per_step=wall / steps, device_idle_share=rec["device_idle_share"],
-                 first_step_wait_ms=first_wait_ms,
-                 device_idle_share_after_first_wait=1.0 - busy / (wall - first_wait_ms),
-                 other_top_ms_per_epoch=rec["other_top_ms_per_call"])
+        check(rec is not None, "the input profile recorded no device events")
+        # (a): the window's device busy a step against this profile's
+        busy_ms = {"window": report["device_busy_s"] * 1e3 / report["steps"],
+                   "device_breakdown": rec["device_busy_ms_per_call"] / steps}
+        busy_rel = busy_ms["window"] / busy_ms["device_breakdown"] - 1.0
+        check(abs(busy_rel) <= OBS_BUSY_RTOL,
+              f"(a) the window's device busy a step {busy_ms} is {busy_rel:+.1%} off the profile's")
+        emit("obs", card=smi, part="window_and_stall", batch=TRAIN_BATCH, window=window_rec,
+             stall_report={k: report[k] for k in ("source", "span_s", "device_busy_s",
+                                                  "stream_overlap_s", "step_time_s",
+                                                  "fraction_sum", "flops", "peak_flops",
+                                                  "measured_mfu", "device_lane")},
+             buckets={k: v["fraction"] for k, v in report["buckets"].items()},
+             bucket_s_per_step={k: v["seconds"] / report["steps"]
+                                for k, v in report["buckets"].items()},
+             measured_mfu=report["measured_mfu"], peak_tflops=report["peak_flops"] / 1e12,
+             device_busy_ms_per_step=busy_ms, busy_rel=busy_rel, cost=cost_rec,
+             step_flops=costs["flops"], step_raw_bytes=costs["raw_bytes"],
+             step_fused_bytes=costs["fused_bytes"], step_peak_bytes=costs["peak_bytes"],
+             anomaly=anomaly_rec, gates=gates_rec, seconds=obs_s)
+        per_step = {k: v / steps for k, v in rec["device_ms_per_call"].items()}
+        # the profiled epoch's first step waits for the loader's first two
+        # batches with the card idle; the share without that wait
+        first_wait_ms = trainer.step_log[0].wait_s * 1e3
+        busy, wall = rec["device_busy_ms_per_call"], rec["wall_ms_per_call"]
+        emit("profile", path="input", batch=TRAIN_BATCH, steps=steps,
+             device_ms_per_step=per_step, device_busy_ms_per_step=busy / steps,
+             wall_ms_per_step=wall / steps, device_idle_share=rec["device_idle_share"],
+             first_step_wait_ms=first_wait_ms,
+             device_idle_share_after_first_wait=1.0 - busy / (wall - first_wait_ms),
+             other_top_ms_per_epoch=rec["other_top_ms_per_call"])
     finally:
         for dl in (*loaders[:3], *loaders[3]):
             dl.close()
-    return launches, steps
+    return launches, steps, window_rec["kernel_events"]
 
 
 # ------------------------------------------------------------------ schedule
@@ -3521,10 +3729,13 @@ def cli_train_check(smi, root, base, beside=None):
     # the schedule phase's OoD folder (5 x 16) as the test and push set: the
     # schedule phase already renders the whole folder's push
     ood = trust_trees()[1]
+    captures = os.path.join(base, "captures")
     flags = cli_flags(root, run_dir, arch="densenet121", epochs=1, mine_start=0, gmm_start=0,
-                      push_start=0, push_every=1, test_dir=ood, push_dir=ood)
+                      push_start=0, push_every=1, test_dir=ood, push_dir=ood,
+                      profile_steps=CLI_PROFILE_STEPS, profile_out=captures)
     rc, out, err, train_s = run_main("train", flags, timeout=600)
     check(rc == 0, f"cli.train exited {rc}:\n{err[-3000:]}")
+    window = cli_capture_check(captures)
     stages = sorted({c[1] for c in ck.list_checkpoints(run_dir)})
     check(stages == ["nopush", "prune", "push"], f"cli.train stage checkpoints {stages}")
     log = open(os.path.join(run_dir, "train.log")).read()
@@ -3556,7 +3767,38 @@ def cli_train_check(smi, root, base, beside=None):
          train_wall_s=train_s, stages=stages, rendered_jpegs=rendered,
          train_s=[r["train_s"] for r in records if "train_s" in r],
          render_s=[r["render_s"] for r in records if "render_s" in r],
-         accuracy=records[-1]["acc"], evaluate_wall_s=eval_s, evaluate_accuracy=res["accuracy"])
+         accuracy=records[-1]["acc"], evaluate_wall_s=eval_s, evaluate_accuracy=res["accuracy"],
+         profile_window=window)
+
+
+def cli_capture_check(captures):
+    """11 (a)'s `--profile_steps` window: one capture of its two steps
+    (the range arms after step 2 and closes after step 4), its trace
+    with device events and the head's kernels at their launches a step
+    times their CUDA kernels a launch (densenet121 has no ResNet block
+    tail, so no epilogue). The E-step runs only on classes whose bank is
+    full, which a run from an empty bank may not have yet: its events are
+    whole launches, at most `num_em_loop` a step."""
+    from mgproto_tpu_torch.obs import stall
+
+    a, b = (int(x) for x in CLI_PROFILE_STEPS.split(":"))
+    dirs = os.listdir(captures) if os.path.isdir(captures) else []
+    check(dirs == [f"trace_steps_step{a + 1:06d}"], f"11 (a) --profile_steps captures {dirs}")
+    cap = os.path.join(captures, dirs[0])
+    meta = json.load(open(os.path.join(cap, "capture_meta.json")))
+    check(not meta["fallback"] and meta["steps"] == b - a and meta["device_events"] > 0,
+          f"11 (a) the window's capture meta {meta}")
+    events = stall.load_chrome_trace(cap)
+    counts = kernel_events(events)
+    want = {"score_pool": 1, "bn_epilogue": 0, "score_pool_bwd": 1}
+    want = {k: (b - a) * n * KERNELS_PER_LAUNCH[k] for k, n in want.items()}
+    estep = counts["em_estep"]
+    check({k: counts[k] for k in want} == want and estep % KERNELS_PER_LAUNCH["em_estep"] == 0
+          and estep <= (b - a) * 3 * KERNELS_PER_LAUNCH["em_estep"],
+          f"11 (a) kernel events in the window {counts}, expected {want} and whole E-steps")
+    return {"steps": meta["steps"], "device_events": meta["device_events"],
+            "trace_mb": meta["trace_bytes"] / 1e6, "capture_s": meta["capture_s"],
+            "kernel_events": counts}
 
 
 def cli_interpret_check(smi, interp):
@@ -3673,7 +3915,10 @@ def cli_preempt_check(smi, root, base):
           f"spawn workers {sorted(workers)} (signalled while starting: {starting}): "
           f"{orphans} still alive after the run exited")
 
-    rc, out, err2, resume_s = run_main("train", flags + ["--resume", "auto"], timeout=600)
+    epoch_trace, captures = os.path.join(base, "epoch_trace"), os.path.join(base, "held")
+    rc, out, err2, resume_s = run_main(
+        "train", flags + ["--resume", "auto", "--profile_dir", epoch_trace,
+                          "--profile_on_anomaly", "--profile_out", captures], timeout=600)
     check(rc == 0, f"resumed cli.train exited {rc}:\n{err2[-3000:]}")
     check(read_marker(run_dir) is None, "the resumed run left PREEMPTED.json")
     stages = [c[1] for c in ck.list_checkpoints(run_dir)]
@@ -3681,10 +3926,22 @@ def cli_preempt_check(smi, root, base):
     log = open(os.path.join(run_dir, "train.log")).read()
     check(f"skipping {meta['batch_in_epoch']} completed batches" in log,
           "the resumed run did not skip the applied batches")
+    # --profile_dir traced the resumed epoch; the cold first step's
+    # recompile capture fell due inside that trace and was held off
+    from mgproto_tpu_torch.obs.stall import device_events
+
+    trace = os.path.join(epoch_trace, "epoch.trace.json")
+    trace_mb = os.path.getsize(trace) / 1e6 if os.path.exists(trace) else 0.0
+    n_dev = len(device_events(json.load(open(trace))["traceEvents"])) if trace_mb else 0
+    check(n_dev > 0, f"11 (d) the --profile_dir trace {trace} holds no device event")
+    check("recompile capture at step 1 skipped while the --profile_dir trace" in log
+          and not os.path.exists(captures),
+          "11 (d) the anomaly window was not held while the --profile_dir trace was open")
     emit("cli", card=smi, part="sigterm", arch="resnet18", signal_sent_s=sent_s,
          preempted_wall_s=wall_s, batch_in_epoch=meta["batch_in_epoch"],
          spawn_workers=len(workers), starting_at_signal=len(starting), orphans=len(orphans),
-         resume_wall_s=resume_s, stages=stages)
+         resume_wall_s=resume_s, stages=stages,
+         profile_dir={"device_events": n_dev, "trace_mb": trace_mb, "held_capture": "recompile"})
 
 
 def drill_config(root, model_dir, async_bank=False):
@@ -3925,12 +4182,80 @@ def served_lines(text):
     return [ln for ln in lines if "request_id" in ln], lines[-1]
 
 
+def reqtrace_and_warmup_check(smi, resps, summary, telem_dir, warmup_dir, tel_summary):
+    """The observatory's (c), on phase 12's batch face: every answered
+    request carries its timings and has a frontend, batcher, replica and
+    engine span in the session's trace; `serving_stage_seconds` counts every
+    admitted request (total), the answered ones (queue, device); the warmup
+    trace holds score_pool and epilogue events at 1 and 16 a warmed bucket.
+    Then the tracer's host cost a request, in this process. Returns the
+    warmup trace's kernel events."""
+    from mgproto_tpu_torch.obs import reqtrace, stall
+    from mgproto_tpu_torch.serving.response import ServeResponse
+    from mgproto_tpu_torch.telemetry.tracing import Tracer
+
+    answered = [r for r in resps if r["outcome"] in ("predict", "abstain")]
+    check(all({"total_s", "queue_s", "device_s"} <= set(r.get("timings") or {})
+              for r in answered), "(c) an answered request carries no timings")
+    with open(os.path.join(telem_dir, "trace.json")) as f:
+        spans = json.load(f)["traceEvents"]
+    by_request = {}
+    for e in spans:
+        rid = (e.get("args") or {}).get("request")
+        if rid is not None:
+            by_request.setdefault(rid, set()).add(e["name"])
+    stages = {"frontend", "batcher", "replica", "engine"}
+    missing = [r["request_id"] for r in answered
+               if not stages <= by_request.get(r["request_id"], set())]
+    check(not missing, f"(c) requests without all four stage spans: {missing[:5]}")
+    stage = (tel_summary.get("serving") or {}).get("stage_seconds") or {}
+    admitted = [r for r in resps if r["outcome"] != "reject"]
+    counts = {k: (stage.get(k) or {}).get("count") for k in ("queue", "device", "total")}
+    check(counts == {"queue": len(answered), "device": len(answered), "total": len(admitted)},
+          f"(c) serving_stage_seconds counts {counts}: {len(admitted)} admitted, "
+          f"{len(answered)} answered")
+    (cap,) = os.listdir(warmup_dir)
+    with open(os.path.join(warmup_dir, cap, "capture_meta.json")) as f:
+        meta = json.load(f)
+    events = stall.load_chrome_trace(os.path.join(warmup_dir, cap))
+    kernels = kernel_events(events)
+    buckets = summary["warmup_compiles"]
+    check(not meta["fallback"] and kernels["score_pool"] == buckets
+          and kernels["bn_epilogue"] == 16 * buckets,
+          f"(c) the warmup trace's kernels {kernels} for {buckets} buckets ({meta})")
+    # the tracer's host cost: a request minted, admitted, dispatched alone
+    # and finished, against the same calls with tracing off
+    costs = {}
+    for on in (False, True):
+        if on:
+            reqtrace.enable(tracer=Tracer(), include_timings=True)
+        t0 = time.perf_counter()
+        for i in range(OBS_REQTRACE_REQUESTS):
+            rid = f"r{i}"
+            reqtrace.mint(rid)
+            reqtrace.on_enqueue(rid, time.monotonic())
+            reqtrace.dispatch_context("r0", "linger", time.monotonic())
+            reqtrace.on_dispatch([rid], bucket=1, fill=1.0)
+            reqtrace.finish(ServeResponse(request_id=rid, outcome="predict"))
+        costs["on" if on else "off"] = (time.perf_counter() - t0) / OBS_REQTRACE_REQUESTS * 1e6
+        reqtrace.disable()
+    emit("obs", card=smi, part="reqtrace_and_warmup", answered=len(answered),
+         admitted=len(admitted), stage_counts=counts,
+         stage_p50_s={k: (stage.get(k) or {}).get("p50") for k in counts},
+         warmup={"capture": cap, "kernel_events": kernels, "buckets": buckets,
+                 "device_events": meta.get("device_events"), "trace_mb":
+                 meta.get("trace_bytes", 0) / 1e6, "capture_s": meta.get("capture_s")},
+         reqtrace_host_us_per_request=costs, requests_timed=OBS_REQTRACE_REQUESTS)
+    return kernels
+
+
 def serve_plane_phase(smi):
     """Phase 12; returns the launch counts of the in-process plane's run."""
     import asyncio
     import atexit
     import concurrent.futures
     import gc
+    import shutil
     import signal
     import socket
     import threading
@@ -4024,8 +4349,13 @@ def serve_plane_phase(smi):
     # the whole batch is admitted before the first dispatch: the queue holds it
     queue = str(2 * SERVE_PLANE_IMAGES)
     serve_telemetry = os.path.join(SERVE_PLANE_DIR, "serve_telemetry")
+    warmup_profile = os.path.join(SERVE_PLANE_DIR, "warmup_profile")
+    shutil.rmtree(warmup_profile, ignore_errors=True)
+    shutil.rmtree(serve_telemetry, ignore_errors=True)
+    # with the observatory's (c): request tracing and the warmup's trace
     p = start_main("serve", ["--artifact", art["prune"], "--images", npy, "--stdin", "--explain",
-                             "--queue_capacity", queue, "--telemetry_dir", serve_telemetry],
+                             "--queue_capacity", queue, "--telemetry_dir", serve_telemetry,
+                             "--trace_requests", "--profile_warmup", warmup_profile],
                    stdin=subprocess.PIPE, stdout=subprocess.PIPE, stderr=subprocess.PIPE)
     out, err = p.communicate(stdin, timeout=600)
     batch_wall_s = time.perf_counter() - t0
@@ -4041,7 +4371,10 @@ def serve_plane_phase(smi):
     served = [r for r in resps if r["outcome"] in ("predict", "abstain")]
     check(len(served) == SERVE_PLANE_IMAGES + 2 and summary["steady_state_recompiles"] == 0
           and summary["warmup_compiles"] == 4, f"batch face summary {summary}")
-    telemetry_dir_check(smi, "12 (b) cli.serve", serve_telemetry, serving_requests=len(resps))
+    tel_summary = telemetry_dir_check(smi, "12 (b) cli.serve", serve_telemetry,
+                                      serving_requests=len(resps))
+    warmup_events = reqtrace_and_warmup_check(smi, resps, summary, serve_telemetry,
+                                              warmup_profile, tel_summary)
 
     # the same payloads through from_live on the restored checkpoint, this
     # process, this card, the same buckets: bit-equal
@@ -4271,7 +4604,7 @@ def serve_plane_phase(smi):
     int8_line = last_json(out)
     check(int8_line["bytes"] == os.path.getsize(art["int8"]), f"cli.export (int8): {int8_line}")
     quant_launches = quant_serve_check(smi, art, imgs[:SERVE_PLANE_IMAGES], int8_line)
-    return plane_launches, quant_launches
+    return plane_launches, quant_launches, warmup_events
 
 
 def quant_serve_check(smi, art, x, export_line):
@@ -4587,6 +4920,8 @@ def async_bank_check(smi):
 
     from mgproto_tpu_torch.config import Config, DataConfig
     from mgproto_tpu_torch.engine.train import Trainer
+    from mgproto_tpu_torch.telemetry.monitor import StepMonitor
+    from mgproto_tpu_torch.telemetry.registry import MetricRegistry
 
     # the oracle the CPU and card tests hold the pipeline to
     sys.path.insert(0, os.path.join(HERE, "tests"))
@@ -4616,6 +4951,10 @@ def async_bank_check(smi):
             src = trainers["sync"].init_state(seed=0)
             src.memory = full_bank(m, seed=1)
             runs = {}
+            # the observatory's (d): each step's overlap estimate into a
+            # StepMonitor's bank_dispatch_overlap_fraction gauge
+            gauge_reg = MetricRegistry()
+            monitor = StepMonitor(registry=gauge_reg)
             for mode, tr in trainers.items():
                 st = copy.deepcopy(src)  # the modes' configs differ in async_bank only
                 torch.cuda.synchronize()
@@ -4627,6 +4966,9 @@ def async_bank_check(smi):
                     st, met = tr.train_step(st, images, labels, use_mine=True, update_gmm=True)
                     torch.cuda.synchronize()
                     step_s.append(time.perf_counter() - t0)
+                    if mode == "async":
+                        monitor.observe_step(TRAIN_BATCH, step_s[-1], check_recompiles=False,
+                                             bank_overlap_seconds=tr.bank_overlap_step_s)
                     per_step.append({k: v - before[k] for k, v in launch_counts().items()})
                     losses.append(met.loss.clone())
                     mets.append(met)
@@ -4700,6 +5042,14 @@ def async_bank_check(smi):
                     profiles[mode].update(
                         {f"{k}_per_step": v / ASYNC_PROFILE_STEPS for k, v in streams.items()
                          if k.endswith("_ms")}, bank_streams=streams["bank_streams"])
+            overlap = gauge_reg.gauge("bank_dispatch_overlap_fraction").value(phase="train")
+            check(0.0 < overlap <= 1.0,
+                  f"{dtype}: bank_dispatch_overlap_fraction {overlap} on the async steps")
+            bank_ms = (profiles["async"].get("bank_stream_ms_per_step")
+                       if isinstance(profiles["async"], dict) else None)
+            emit("obs", card=smi, part="bank_overlap_gauge", dtype=dtype,
+                 bank_dispatch_overlap_fraction=overlap, bank_stream_ms_per_step=bank_ms,
+                 async_median_step_s=float(np.median(runs["async"]["step_s"][1:])))
             emit("elastic", card=smi, part="async_bank", dtype=dtype, steps=ASYNC_STEPS,
                  cudnn_deterministic=True,
                  median_step_s={k: float(np.median(r["step_s"][1:])) for k, r in runs.items()},
@@ -7147,13 +7497,13 @@ def main() -> int:
     train_launches, train_steps = train_phase()
     planner_launches = planner_phase(smi)
     telemetry_cost_check(smi)
-    input_launches, input_steps = input_phase()
+    input_launches, input_steps, window_events = input_phase(smi)
     schedule_launches, schedule_cfg, push_ckpt = schedule_phase(smi)
     interpret_launches, interp = interpret_phase(smi, schedule_cfg, push_ckpt)
     epi_bf16, bf16_launches, bf16_steps = options_phase()
     backbone_launches, _ = backbone_phase(smi)
     drill_launches = cli_phase(smi, interp)
-    serve_plane_launches, quant_launches = serve_plane_phase(smi)
+    serve_plane_launches, quant_launches, warmup_events = serve_plane_phase(smi)
     elastic_launches, async_steps, elastic_dispatches = elastic_phase(smi)
     online_launches = online_phase(smi)
     trust_launches, trust_dispatches = trust_phase(smi)
@@ -7164,6 +7514,11 @@ def main() -> int:
         # main run); the train phase's and the serve phase's beside them
         k["launches"] = input_launches[k["name"]]
         k["launches_per_input_step"] = k["launches"] / input_steps
+        # the observatory: the kernel's device events in the input epoch's
+        # profiler window (its launches there times its CUDA kernels a
+        # launch) and in phase 12's warmup trace
+        k["obs_window_device_events"] = window_events[k["name"]]
+        k["serve_warmup_trace_device_events"] = warmup_events[k["name"]]
         k["train_launches"] = train_launches[k["name"]]
         k["launches_per_train_step"] = k["train_launches"] / train_steps
         # the planner's measured flagship steps (one a distinct program)

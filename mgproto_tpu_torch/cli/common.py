@@ -47,10 +47,6 @@ DATASET_PRESETS: Dict[str, Dict] = {
 REFUSED = (
     ("straggler_threshold", 0.25, "A9 (obs and telemetry: straggler detection)"),
     ("straggler_patience", 5, "A9 (obs and telemetry: straggler detection)"),
-    ("profile_dir", "", "A9 (obs and telemetry)"),
-    ("profile_steps", "", "A9 (obs and telemetry)"),
-    ("profile_on_anomaly", False, "A9 (obs and telemetry)"),
-    ("profile_out", "", "A9 (obs and telemetry)"),
 )
 
 
@@ -70,8 +66,6 @@ SINGLE_PROCESS_REFUSED = (
 # before anything loads)
 SERVE_REFUSED = (
     ("aot_cache", "", "A7 (the AOT executable cache)"),
-    ("trace_requests", False, "A9 (obs: request tracing)"),
-    ("profile_warmup", "", "A9 (obs: the warmup profile)"),
 )
 EXPORT_REFUSED = (
     ("aot_cache", False, "A7 (the AOT executable cache)"),
@@ -227,11 +221,22 @@ def add_train_args(p: argparse.ArgumentParser) -> None:
                    help="checkpoint format: 'sharded' (every rank writes its own shards, "
                         "a COMMIT marker publishes), 'replicated' (rank 0 writes the "
                         "whole state), 'auto' (sharded under several ranks)")
-    p.add_argument("--profile_dir", default="", help="not ported (A9): refused")
-    p.add_argument("--profile_steps", default="", help="not ported (A9): refused")
+    p.add_argument("--profile_dir", default="",
+                   help="write a torch.profiler trace of the first epoch here "
+                        "(utils/log.py profiler_trace)")
+    # the observatory (obs/profiler.py): step-scoped capture windows, far
+    # cheaper than the epoch-wide --profile_dir trace
+    p.add_argument("--profile_steps", default="",
+                   help="open a profiler capture window for this step range ('120:130', or "
+                        "a bare step for one step); on the CPU (--device cpu) the window "
+                        "writes a counted cost report instead of a trace (obs/profiler.py)")
     p.add_argument("--profile_on_anomaly", action="store_true",
-                   help="not ported (A9): refused")
-    p.add_argument("--profile_out", default="", help="not ported (A9): refused")
+                   help="open a capture window on an anomaly: a step-time spike over the "
+                        "EMA, a cold path mid-run, or a loader-wait share over the "
+                        "threshold; traces land under --profile_out")
+    p.add_argument("--profile_out", default="",
+                   help="capture-window output dir (default: evidence/trace_<model_dir "
+                        "basename>)")
     p.add_argument("--telemetry-dir", "--telemetry_dir", dest="telemetry_dir", default="",
                    help="telemetry output dir (metrics.prom / metrics.jsonl / health.jsonl / "
                         "trace.json / meta.json; default: <model_dir>/telemetry); summarize "

@@ -75,9 +75,18 @@ The serving chaos drills read the environment (resilience/chaos.py
 MGPROTO_CHAOS_SERVE_* and MGPROTO_CHAOS_TENANT_* knobs, seeded by
 MGPROTO_CHAOS_SEED.
 
-Refused (cli/common.py `SERVE_REFUSED`, with their ROADMAP items):
-`--aot-cache`, `--trace_requests` and `--profile_warmup`; the training
-flags of `REFUSED` too.
+The observatory (obs/): `--trace_requests` turns request tracing on
+(obs/reqtrace.py, into the telemetry session's tracer when one is open):
+frontend, batcher, replica and engine spans per request on the plane's
+clock, the `serving_stage_seconds` histogram, and a `timings` block on
+every response. `--profile_warmup DIR` captures the warmup
+(obs/profiler.py `profile_block`, reason `serve_warmup`): a device trace
+on the card; on the CPU (--device cpu) the counted cost of one dispatch a
+warmed bucket (`ServingEngine.warmup_costs`) as the capture's
+cost_analysis.json.
+
+Refused (cli/common.py `SERVE_REFUSED`, with its ROADMAP item):
+`--aot-cache`; the training flags of `REFUSED` too.
 """
 
 from __future__ import annotations
@@ -445,6 +454,32 @@ def _apply_auto_tune(args, engine, weight_bytes: int) -> None:
     args.buckets = ",".join(str(b) for b in fitting)
 
 
+def _warmup_profile(args):
+    """--profile_warmup's capture around the warmup (a no-op context when
+    unset): a device trace on the card, the CPU's cost-only capture
+    elsewhere (its cost report is written by `_write_warmup_costs` once
+    the engines are warm)."""
+    from mgproto_tpu_torch.obs.profiler import profile_block
+
+    return profile_block(args.profile_warmup, reason="serve_warmup", device=args.device)
+
+
+def _write_warmup_costs(capture_dir, engine, device) -> None:
+    """The CPU's --profile_warmup capture: the counted cost of one dispatch
+    a warmed bucket into the capture dir (on the card the device trace
+    holds the warmup)."""
+    from mgproto_tpu_torch.obs.profiler import COST_FILE, trace_supported
+
+    if not capture_dir or engine is None or trace_supported(device):
+        return
+    with open(os.path.join(capture_dir, COST_FILE), "w") as f:
+        json.dump(engine.warmup_costs(), f, indent=2, sort_keys=True)
+
+
+def _first_engine(rs):
+    return next((r.engine for r in rs.replicas if r.engine is not None), None)
+
+
 def _main_batch_engine(args, handler, split: StartSplit) -> None:
     from mgproto_tpu_torch.online import capture as capture_mod
     from mgproto_tpu_torch.serving.health import HealthProbe
@@ -455,7 +490,9 @@ def _main_batch_engine(args, handler, split: StartSplit) -> None:
         engine = factory()
         if args.auto_tune:
             _apply_auto_tune(args, engine, factory.weight_bytes)
-        compiled = len(engine.warmup())
+        with _warmup_profile(args) as capture_dir:
+            compiled = len(engine.warmup())
+            _write_warmup_costs(capture_dir, engine, args.device)
         split.mark("warmup")
         payloads, ids = _load_payloads(args)
         responses = drive_batch_engine(engine, payloads, ids, handler,
@@ -500,7 +537,9 @@ def _main_batch_plane(args, handler, split: StartSplit) -> None:
     capture, cons = _setup_online(args, factory)
     try:
         rs = _build_plane(args, factory)
-        compiled = rs.start()
+        with _warmup_profile(args) as capture_dir:
+            compiled = rs.start()
+            _write_warmup_costs(capture_dir, _first_engine(rs), args.device)
         split.mark("warmup")
         payloads, ids = _load_payloads(args)
         swap_at = len(payloads) // 2 if args.swap else None
@@ -557,7 +596,9 @@ def _main_listen(args, handler, split: StartSplit) -> None:
         args.replicas = min(max(args.replicas, bounds[0]), bounds[1])
     factory = make_engine_factory(args, split)
     rs = _build_plane(args, factory)
-    compiled = rs.start()
+    with _warmup_profile(args) as capture_dir:
+        compiled = rs.start()
+        _write_warmup_costs(capture_dir, _first_engine(rs), args.device)
     split.mark("warmup")
     autoscaler = None
     if bounds is not None:
@@ -652,8 +693,14 @@ def main(argv: Optional[list] = None) -> None:
                         "within (--replicas is the starting size)")
     p.add_argument("--autoscale_interval_s", type=float, default=0.25,
                    help="the autoscaler's decision cadence")
-    p.add_argument("--trace_requests", action="store_true", help="not ported (A9): refused")
-    p.add_argument("--profile_warmup", default="", help="not ported (A9): refused")
+    p.add_argument("--trace_requests", action="store_true",
+                   help="end-to-end request tracing: frontend, batcher, replica and engine "
+                        "spans in the telemetry Chrome trace, serving_stage_seconds in "
+                        "/metrics, and a 'timings' block on every response (obs/reqtrace.py; "
+                        "no per-request cost when off)")
+    p.add_argument("--profile_warmup", default="",
+                   help="capture a profiler trace of the warmup into this dir (on the CPU: "
+                        "the counted cost of one dispatch a bucket; obs/profiler.py)")
     p.add_argument("--online", action="store_true",
                    help="stage trusted high-p(x) predictions (calibrated capture gate) and "
                         "consolidate them into the memory banks via compact EM after the "
@@ -693,6 +740,7 @@ def main(argv: Optional[list] = None) -> None:
     uninstall = install_handlers()
     handler = get_handler()
     handler.reset()
+    from mgproto_tpu_torch.obs import reqtrace
     from mgproto_tpu_torch.obs.flightrec import FlightRecorder, set_recorder
     from mgproto_tpu_torch.telemetry import make_session
 
@@ -702,6 +750,9 @@ def main(argv: Optional[list] = None) -> None:
     _m.register_serving_metrics(_m.default_registry())  # the session's, when there is one
     # a replica's death dumps the recorder where the telemetry goes
     prev_recorder = set_recorder(FlightRecorder(dump_dir=args.telemetry_dir or None))
+    if args.trace_requests:
+        # on the plane's production clock, into the session's tracer
+        reqtrace.enable(tracer=telem.tracer if telem else None, include_timings=True)
     try:
         if args.listen:
             _main_listen(args, handler, split)
@@ -712,6 +763,8 @@ def main(argv: Optional[list] = None) -> None:
         if telem:
             telem.flush()
     finally:
+        if args.trace_requests:
+            reqtrace.disable()
         set_recorder(prev_recorder)
         uninstall()
         chaos_mod.set_active(prev_chaos)

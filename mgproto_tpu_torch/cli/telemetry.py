@@ -6,13 +6,15 @@ summarize a telemetry directory and gate records and runs.
         [--write-baseline] [--json]
     python -m mgproto_tpu_torch.cli.telemetry check --trust FILE
         | --quant FILE | --drift-drill FILE
+        | --stall-report FILE [--stall-baseline FILE]
 
 `summarize` reads what a TelemetrySession wrote (telemetry/session.py):
 metrics.jsonl (registry snapshots; a torn last line of a killed run is
 skipped), health.jsonl, trace.json and meta.json, and renders steps (EMA,
-percentiles), cold paths, EM, data, meta (the planner's plan), resilience,
-drift, trust, serving, autoscale and tenants, model health and span
-totals, as JAX's does (a run's model_dir works too: its telemetry/
+percentiles), cold paths, EM, data, meta (the planner's plan), perf (the
+newest `stall_report*.json` in the directory), resilience, drift, trust,
+serving, autoscale and tenants, model health and span totals, as JAX's
+does (a run's model_dir works too: its telemetry/
 subdirectory). The `.h<rank>` sidecars of other ranks are left to the
 fleet view, which is not ported.
 
@@ -21,10 +23,12 @@ fleet view, which is not ported.
 `check_entry`, `check`; exit 1 on a regression). `--trust` re-derives a
 trust-matrix report's verdicts (`trust_gates`), `--drift-drill` a drift
 drill's (online/drill.py `drift_drill_gates`), `--quant` a quantized
-serving record's (`quant_gates`, perf/quant.py). `--autoscale`,
-`--tenants`, `--weakscale`, `--stall-report`, `--fleet-gates` and `fleet`
-raise NotPortedError: their producers (the load harness, the weak-scaling
-bench, the stall report, straggler detection) are not ported.
+serving record's (`quant_gates`, perf/quant.py), `--stall-report` a stall
+report's (`stall_report_gates`; cli/trace_report.py writes them), alone
+or against `--stall-baseline`. `--autoscale`, `--tenants`, `--weakscale`,
+`--fleet-gates` and `fleet` raise NotPortedError: their producers (the
+load harness, the weak-scaling bench, straggler detection) are not
+ported.
 
 Host-side: nothing here imports torch but `--quant` and `--drift-drill`,
 which read their gate modules.
@@ -59,7 +63,7 @@ from mgproto_tpu_torch.telemetry.session import (
 REFUSED_LABEL = "A9 (obs and telemetry)"
 # the JAX command's gate files whose producers the port lacks: parsed, then
 # refused
-OTHER_GATES = ("autoscale", "tenants", "weakscale", "stall_report", "stall_baseline")
+OTHER_GATES = ("autoscale", "tenants", "weakscale")
 
 
 def _refuse(what: str):
@@ -620,6 +624,12 @@ def summarize(telemetry_dir: str) -> Dict[str, Any]:
         except ValueError:
             pass
 
+    # perf: the newest stall-budget report in the dir (cli/trace_report.py
+    # --out, or copied in beside the metrics): its buckets and byte-ranked
+    # movers ride into the one-pager next to the throughput they explain
+    perf = _perf_section(d)
+    if perf is not None:
+        summary["perf"] = perf
 
     # recovery events (resilience subsystem): retries, sentinel rows,
     # skipped non-finite steps, rollbacks, preemption saves, chaos faults
@@ -700,6 +710,51 @@ def summarize(telemetry_dir: str) -> Dict[str, Any]:
 
 
 
+def _perf_section(d: str) -> Optional[Dict[str, Any]]:
+    """The newest `stall_report*.json` in the telemetry dir, reduced to the
+    summarize one-pager: bucket fractions, MFU line items, byte source and
+    the top byte movers (full rows stay in the report file / --json)."""
+    import glob as _glob
+
+    candidates = sorted(
+        _glob.glob(os.path.join(d, "stall_report*.json")),
+        key=os.path.getmtime,
+    )
+    if not candidates:
+        return None
+    path = candidates[-1]
+    try:
+        with open(path) as f:
+            rep = json.load(f)
+    except (OSError, ValueError):
+        return None
+    if not rep.get("stall_report"):
+        return None
+    out: Dict[str, Any] = {
+        "stall_report": os.path.basename(path),
+        "source": rep.get("source"),
+        "byte_source": rep.get("byte_source"),
+        "compute_dtype": rep.get("compute_dtype"),
+        "step_time_s": rep.get("step_time_s"),
+        "measured_mfu": rep.get("measured_mfu"),
+        "attainable_mfu": rep.get("attainable_mfu"),
+        "bytes_accessed": rep.get("bytes_accessed"),
+    }
+    for name, b in (rep.get("buckets") or {}).items():
+        out[f"{name}_fraction"] = (b or {}).get("fraction")
+    movers = (rep.get("top_byte_movers") or {}).get("rows") or []
+    out["top_byte_movers"] = [
+        {
+            "name": r.get("name"),
+            "bucket": r.get("bucket"),
+            "bytes_accessed": r.get("bytes_accessed"),
+            "bytes_fraction": r.get("bytes_fraction"),
+        }
+        for r in movers[:5]
+    ]
+    return out
+
+
 def _fmt_gb(v: Any) -> str:
     if not isinstance(v, (int, float)):
         return "-"
@@ -774,6 +829,21 @@ def render_table(summary: Dict[str, Any]) -> str:
             if k == "autotune" and isinstance(v, dict):
                 v = _fmt_autotune(v)
             rows.append((k, v))
+    if "perf" in summary:
+        section("perf (stall attribution + byte-ranked fusion targets)")
+        for k, v in summary["perf"].items():
+            if k == "top_byte_movers":
+                for i, r in enumerate(v):
+                    frac = r.get("bytes_fraction")
+                    rows.append((
+                        f"byte_mover_{i + 1}",
+                        f"{r.get('name')} "
+                        f"[{_fmt_gb(r.get('bytes_accessed'))}"
+                        + (f", {frac:.1%} of step bytes]"
+                           if isinstance(frac, float) else "]"),
+                    ))
+            else:
+                rows.append((k, v))
     if "resilience" in summary:
         section("resilience (recovery events)")
         for k, v in summary["resilience"].items():
@@ -1295,6 +1365,89 @@ def quant_gates(record: Dict[str, Any]) -> Dict[str, Any]:
             "failed": sum(not r["ok"] for r in rows), "rows": rows}
 
 
+def stall_report_gates(
+    record: Dict[str, Any],
+    baseline: Optional[Dict[str, Any]] = None,
+    bytes_rel_tol: float = 0.05,
+    hbm_abs_tol: float = 0.02,
+) -> Dict[str, Any]:
+    """Gate a stall-budget report (cli/trace_report.py) — schema sanity
+    alone, or byte/stall regression against a baseline report.
+
+    With a baseline, the two reports must share a byte source (comparing
+    counted raw bytes against fused ones would gate noise) AND a
+    comparable step time (fractions are fractions OF the reported step —
+    a slower window dilutes hbm_bound into bubble, so gating across step
+    times would pass real regressions), the new report's `bytes_accessed`
+    must not exceed the baseline's by more than `bytes_rel_tol` (THE
+    byte-regression gate: a change that quietly re-materializes trunk
+    traffic fails here), and the
+    hbm_bound fraction must not grow past the baseline's by more than
+    `hbm_abs_tol`."""
+    rows: List[Dict[str, Any]] = []
+
+    def gate(key, ok, why="", baseline_v=None, value=None):
+        rows.append({"key": key, "ok": bool(ok), "why": "" if ok else why,
+                     "baseline": baseline_v, "value": value,
+                     "direction": "stall"})
+
+    gate("stall.schema", bool(record.get("stall_report")),
+         "not a stall report (missing stall_report marker)")
+    frac_sum = record.get("fraction_sum")
+    gate("stall.fractions_sum_to_one",
+         isinstance(frac_sum, (int, float)) and abs(frac_sum - 1.0) < 1e-4,
+         f"fraction_sum={frac_sum}")
+    movers = (record.get("top_byte_movers") or {}).get("rows")
+    gate("stall.top_byte_movers_present", bool(movers),
+         "report carries no ranked top_byte_movers rows")
+    if baseline is not None:
+        b_src = (baseline.get("byte_source"), baseline.get("source"))
+        n_src = (record.get("byte_source"), record.get("source"))
+        gate("stall.byte_source_matches", b_src == n_src,
+             f"baseline measured via {b_src}, new via {n_src}",
+             baseline_v=str(b_src), value=str(n_src))
+        b_t = baseline.get("step_time_s")
+        n_t = record.get("step_time_s")
+        if isinstance(b_t, (int, float)) and isinstance(n_t, (int, float)):
+            gate("stall.step_time_comparable",
+                 abs(n_t - b_t) <= 0.05 * abs(b_t),
+                 f"step_time_s {n_t:.4g} vs baseline {b_t:.4g} — "
+                 "fractions are not comparable across step times; "
+                 "regenerate at the baseline's measured step",
+                 baseline_v=b_t, value=n_t)
+        else:
+            gate("stall.step_time_comparable", False,
+                 "step_time_s missing from report or baseline",
+                 baseline_v=b_t, value=n_t)
+        b_bytes = baseline.get("bytes_accessed")
+        n_bytes = record.get("bytes_accessed")
+        if isinstance(b_bytes, (int, float)) and isinstance(
+                n_bytes, (int, float)):
+            allowed = b_bytes * (1.0 + bytes_rel_tol)
+            gate("stall.bytes_accessed", n_bytes <= allowed,
+                 f"{n_bytes:.4g} > allowed {allowed:.4g}",
+                 baseline_v=b_bytes, value=n_bytes)
+        else:
+            gate("stall.bytes_accessed", False,
+                 "bytes_accessed missing from report or baseline",
+                 baseline_v=b_bytes, value=n_bytes)
+        b_hbm = ((baseline.get("buckets") or {}).get("hbm_bound")
+                 or {}).get("fraction")
+        n_hbm = ((record.get("buckets") or {}).get("hbm_bound")
+                 or {}).get("fraction")
+        if isinstance(b_hbm, (int, float)) and isinstance(
+                n_hbm, (int, float)):
+            gate("stall.hbm_bound_fraction", n_hbm <= b_hbm + hbm_abs_tol,
+                 f"{n_hbm:.4f} > allowed {b_hbm + hbm_abs_tol:.4f}",
+                 baseline_v=b_hbm, value=n_hbm)
+        else:
+            gate("stall.hbm_bound_fraction", False,
+                 "hbm_bound fraction missing", baseline_v=b_hbm,
+                 value=n_hbm)
+    return {"ok": all(r["ok"] for r in rows), "checked": len(rows),
+            "failed": sum(not r["ok"] for r in rows), "rows": rows}
+
+
 def _print_gate_result(result: Dict[str, Any], json_mode: bool) -> None:
     """Render one gate-suite result ({ok, checked, failed, rows})."""
     if json_mode:
@@ -1342,6 +1495,13 @@ def check_main(argv: Optional[list] = None) -> int:
                         "serve-bucket ladders re-derived and longer when quantized, trust "
                         "deltas re-derived inside their limits, the mismatch drill "
                         "fail-closed, zero steady-state recompiles — exit 1 on any failure")
+    p.add_argument("--stall-report", default=None, metavar="FILE",
+                   help="gate a stall-budget report (cli/trace_report.py output): schema "
+                        "sanity, and with --stall-baseline the byte-regression gate — "
+                        "bytes_accessed and the hbm_bound fraction must not grow past the "
+                        "baseline report's band")
+    p.add_argument("--stall-baseline", default=None, metavar="FILE",
+                   help="stall report to gate --stall-report against")
     for dest in OTHER_GATES:
         p.add_argument("--" + dest.replace("_", "-"), dest=dest, default=None, metavar="FILE",
                        help="not ported (A9): refused")
@@ -1383,6 +1543,14 @@ def check_main(argv: Optional[list] = None) -> int:
 
     suites_ok = True
     any_suite = False
+    if args.stall_report:
+        any_suite = True
+        record = _read_json(args.stall_report, "stall report")
+        baseline_rep = (_read_json(args.stall_baseline, "stall baseline")
+                        if args.stall_baseline else None)
+        result = stall_report_gates(record, baseline_rep)
+        _emit_suite("stall_report", result)
+        suites_ok = suites_ok and result["ok"]
     for flag, what, gates in (("drift_drill", "drift-drill record", _drift_drill_gates),
                               ("trust", "trust report", trust_gates),
                               ("quant", "quant record", quant_gates)):
@@ -1397,7 +1565,7 @@ def check_main(argv: Optional[list] = None) -> int:
         return 0 if suites_ok else 1
     if args.dir is None or args.baseline is None:
         raise SystemExit("check needs a telemetry dir AND --baseline (or --drift-drill / "
-                         "--trust / --quant FILE alone)")
+                         "--stall-report / --trust / --quant FILE alone)")
     if not os.path.isdir(args.dir):
         raise SystemExit(f"not a directory: {args.dir}")
     summary = summarize(args.dir)

@@ -35,9 +35,21 @@ config: the chosen plan goes into meta.json and into every checkpoint's
 metadata as `autotune_plan`, and a resumed `auto_tune` run adopts the
 checkpoint's plan instead of planning again. Under several ranks the
 plan is one decision for the world (each rank measures its own card, the
-planner agrees on the worst), so every rank trains at the same batch. The
-JAX CLI's profiler and
-straggler detection are not ported (`cli/common.py` refuses their flags).
+planner agrees on the worst), so every rank trains at the same batch.
+
+The observatory (obs/): `profile_dir` traces the first epoch this
+invocation trains (utils/log.py `profiler_trace`); `profile_steps` and
+`profile_on_anomaly` run an `obs.profiler.ProfilerWindow` over every step,
+fed by `Trainer.train_epoch`, its recompile trigger reading the session's
+StepMonitor, writing under `profile_out` (default
+`evidence/trace_<model_dir basename>`, each other rank under `h<rank>/`).
+Only one profiler runs in a process, so while the `profile_dir` trace is
+open the window is held: a capture that falls due in the first epoch is
+skipped with a logged note (the epoch's trace holds those steps), and
+later epochs capture as usual. No window exists without `profile_steps`
+or `profile_on_anomaly`: JAX's unarmed window under several ranks is the
+straggler trigger's target, and straggler detection is not ported
+(`cli/common.py` refuses its flags).
 
 Several ranks (`--distributed` under `torchrun --nproc_per_node N`, the
 mesh from --mesh_data/--mesh_model): training always runs through
@@ -106,7 +118,7 @@ from mgproto_tpu_torch.utils.checkpoint import (
     load_metadata,
     save_state_w_condition,
 )
-from mgproto_tpu_torch.utils.log import Logger, MetricsWriter, timed_span
+from mgproto_tpu_torch.utils.log import Logger, MetricsWriter, profiler_trace, timed_span
 
 
 def _labeled(loader):
@@ -159,6 +171,10 @@ def run_training(
     telemetry_dir: str = "",
     telemetry: bool = True,
     auto_tune: bool = False,
+    profile_dir: str = "",
+    profile_steps: str = "",
+    profile_on_anomaly: bool = False,
+    profile_out: str = "",
 ) -> Tuple[TrainState, float]:
     """Run the whole schedule of `cfg`; returns (final state, last test
     accuracy).
@@ -195,7 +211,10 @@ def run_training(
     writes none): the run's telemetry session (module docstring).
     `auto_tune`: plan the run's batch, remat, prefetch, augmentation and
     async bank with perf/planner.py `autotune` (on the card; a resume
-    adopts the checkpoint's `autotune_plan`)."""
+    adopts the checkpoint's `autotune_plan`).
+
+    `profile_dir`, `profile_steps`, `profile_on_anomaly`, `profile_out`:
+    the observatory's trace and capture windows (module docstring)."""
     if ckpt_format not in ("auto", "sharded", "replicated"):
         raise ValueError(f"unknown ckpt_format {ckpt_format!r}")
     resume_path = None
@@ -279,6 +298,21 @@ def run_training(
             run_meta["autotune_plan"] = autotune_plan_meta
         if telem:
             _write_telemetry_meta(telem, cfg, trainer, state, run_meta, autotune_outcome)
+        window = None
+        if profile_steps or profile_on_anomaly:
+            from mgproto_tpu_torch.obs.profiler import ProfilerWindow, parse_step_range
+            from mgproto_tpu_torch.obs.stall import step_costs
+
+            base_out = profile_out or os.path.join(
+                "evidence", f"trace_{os.path.basename(cfg.model_dir.rstrip(os.sep)) or 'run'}")
+            window = ProfilerWindow(
+                out_dir=base_out if primary else os.path.join(base_out, f"h{rank}"),
+                steps=parse_step_range(profile_steps), on_anomaly=profile_on_anomaly,
+                monitor=telem.monitor if telem else None,
+                # the CPU's capture counts one step of this run's program
+                cost_provider=lambda: step_costs(cfg, device=trainer.device),
+                log=log, device=trainer.device)
+            stack.callback(window.close)
         img_dir = os.path.join(cfg.model_dir, "img") if render_push else None
         if nranks > 1 and barrier_timeout_s and barrier_timeout_s > 0:
             # armed after every fallible set-up step; cleared on every path
@@ -298,7 +332,10 @@ def run_training(
                 try:
                     state, accu = _run_epoch(cfg, trainer, state, epoch, train_loader, test_loader,
                                              push_loader, ood_loaders, log, metrics, run_meta,
-                                             img_dir, target_accu, guard, skip, flags, telem)
+                                             img_dir, target_accu, guard, skip, flags, telem,
+                                             window=window,
+                                             profile_dir=(profile_dir if epoch == start_epoch
+                                                          else ""))
                 except DivergenceError as e:
                     rollbacks += 1
                     res_metrics.counter(res_metrics.ROLLBACKS).inc()
@@ -436,10 +473,11 @@ def _health_view(trainer, state):
 
 def _run_epoch(cfg, trainer, state, epoch, train_loader, test_loader, push_loader,
                ood_loaders, log, metrics, run_meta, img_dir, target_accu, guard, skip, flags,
-               telem=None):
+               telem=None, window=None, profile_dir=""):
     """One epoch, under an `epoch` tracing span: train under the epoch's
     gates `flags` (the first `skip` batches dropped; each step observed by
-    `telem`'s monitor), test, the `nopush` save, and at a push epoch the
+    `telem`'s monitor and `window`; the training traced into `profile_dir`
+    when set), test, the `nopush` save, and at a push epoch the
     push, its provenance, the render into `img_dir` (unless None), a test
     and the `push` save. A preempted epoch returns after training, with no
     test pass: the caller saves it."""
@@ -450,9 +488,13 @@ def _run_epoch(cfg, trainer, state, epoch, train_loader, test_loader, push_loade
 
         train_loader.epoch = epoch  # the (seed, epoch) streams of this epoch
         batches = train_loader if not skip else itertools.islice(iter(train_loader), skip, None)
-        with timed_span(log, "train") as train_span:
+        held = (window.held("the --profile_dir trace of the first epoch is open")
+                if profile_dir and window is not None else contextlib.nullcontext())
+        with timed_span(log, "train") as train_span, \
+                profiler_trace(profile_dir, trainer.device), held:
             state, last = trainer.train_epoch(state, batches, epoch, guard=guard, flags=flags,
-                                              monitor=telem.monitor if telem else None)
+                                              monitor=telem.monitor if telem else None,
+                                              window=window)
         if last is not None:
             m = {k: (v.item() if isinstance(v, torch.Tensor) else v)
                  for k, v in last._asdict().items()}
@@ -545,7 +587,9 @@ def main(argv: Optional[list] = None) -> None:
             chaos=chaos_mod.ChaosState(plan) if plan else None,
             ckpt_format=args.ckpt_format, barrier_timeout_s=args.barrier_timeout_s,
             telemetry_dir=args.telemetry_dir, telemetry=not args.no_telemetry,
-            auto_tune=args.auto_tune,
+            auto_tune=args.auto_tune, profile_dir=args.profile_dir,
+            profile_steps=args.profile_steps, profile_on_anomaly=args.profile_on_anomaly,
+            profile_out=args.profile_out,
         )
     except multihost.BarrierTimeoutError as e:
         # the marker and the dump are on disk; exit hard with the status a

@@ -57,7 +57,10 @@ def push_plan(mem: Memory, classes: torch.Tensor, valid: torch.Tensor):
     classes = classes.long()
     ok = valid & (classes >= 0) & (classes < c)
     cls = torch.where(ok, classes, torch.full_like(classes, c))  # sentinel c
-    one_hot = torch.nn.functional.one_hot(cls, c + 1)[:, :c]  # [N, C]
+    # [N, C] membership by an explicit compare: torch's one_hot takes
+    # another op path on each device (with a host read of the ids' range on
+    # the CPU), so a counted step (obs/opcount.py) would differ there
+    one_hot = cls[:, None] == torch.arange(c, device=cls.device)
     rank = one_hot.cumsum(0).gather(1, cls.clamp(0, c - 1)[:, None])[:, 0] - 1
     keep = ok & (rank < cap)
     counts = (one_hot * keep[:, None]).sum(0).to(torch.int32)

@@ -32,10 +32,15 @@ the trunk's reads; every tensor the bank reads is marked used by its stream
 the main stream while the bank still reads it; and the main stream waits
 for the bank's completion event before the step returns, so the metrics,
 the next copy and everything after the epoch read a finished bank.
-`train_epoch` resets the pipeline at its start and flushes it at its end
-and on a preemption; a `DivergenceError` leaves held work that the next
-reset discards. Under a mesh (parallel/trainer.py) the trunk holds its own
-rows' enqueue candidates, and the bank phase issues its collectives (the
+Each step also measures the JAX package's overlap estimate: the host
+dispatch clock from one held bank dispatch to the end of the next trunk's
+dispatch (`bank_overlap_step_s`, an upper bound on the device overlap),
+which `train_epoch` feeds to the StepMonitor's
+`bank_dispatch_overlap_fraction` gauge. `train_epoch` resets the
+pipeline at its start and flushes it at its end and on a preemption; a
+`DivergenceError` leaves held work that the next reset discards. Under a
+mesh (parallel/trainer.py) the trunk holds its own rows' enqueue
+candidates, and the bank phase issues its collectives (the
 gather of the global batch's candidates, EM's sums over the model group)
 on process groups of its own (`parallel/collectives.py::bank_groups`)
 from inside the bank stream, so gloo's staging copies of CUDA tensors
@@ -74,6 +79,7 @@ from mgproto_tpu_torch.data.loader import device_prefetch
 from mgproto_tpu_torch.engine.eval import EvalOutput, eval_forward, eval_mode, to_device_images
 from mgproto_tpu_torch.models.common import BatchNorm
 from mgproto_tpu_torch.numerics import apply_numerics_policy, resolve_device, use_kernel
+from mgproto_tpu_torch.obs.flightrec import record_event
 from mgproto_tpu_torch.ops.augment import augment_draws, augment_tail, resolve_device_augment
 from mgproto_tpu_torch.parallel.collectives import (
     all_gather,
@@ -193,6 +199,10 @@ class Trainer:
         self._held = None  # the held bank phase: (enq, step0, update_gmm, finite)
         self._snap_ready: Optional[torch.cuda.Event] = None  # main stream, after the copy
         self._bank_done: Optional[torch.cuda.Event] = None  # bank stream, after its phase
+        # the overlap clock: when the last held bank phase was dispatched,
+        # and the last step's estimate (host seconds; 0 in sync mode)
+        self._bank_dispatch_t: Optional[float] = None
+        self.bank_overlap_step_s = 0.0
         # one process: no mesh. parallel/trainer.py's ShardedTrainer sets
         # the mesh, the group its batch is sharded over (every rank) and,
         # when its model axis splits the classes, `_class_mesh`
@@ -493,6 +503,13 @@ class Trainer:
             self._snap_ready = torch.cuda.Event()
             self._snap_ready.record()
         trunk = self._trunk_step(state, images, labels, use_mine, gmm)
+        now = time.perf_counter()
+        # close the overlap window: the bank phase dispatched last was in
+        # flight across this step's fetch and trunk dispatch (JAX's host
+        # dispatch-clock estimate, an upper bound on the device overlap)
+        self.bank_overlap_step_s = (0.0 if self._bank_dispatch_t is None
+                                    else now - self._bank_dispatch_t)
+        self._bank_dispatch_t = None
         step0 = state.step
         state.step += 1  # counts attempts
         flushed = self._dispatch_pending_bank(state)
@@ -532,14 +549,17 @@ class Trainer:
 
         stream = self._bank_stream
         if stream is None:
-            return bank()
-        stream.wait_event(self._snap_ready)
-        for t in (feats, classes, valid, finite, *state.gmm, *state.memory):
-            t.record_stream(stream)
-        with torch.cuda.stream(stream):
             out = bank()
-            self._bank_done = torch.cuda.Event()
-            self._bank_done.record(stream)
+        else:
+            stream.wait_event(self._snap_ready)
+            for t in (feats, classes, valid, finite, *state.gmm, *state.memory):
+                t.record_stream(stream)
+            with torch.cuda.stream(stream):
+                out = bank()
+                self._bank_done = torch.cuda.Event()
+                self._bank_done.record(stream)
+        # opens the overlap window the next trunk dispatch closes
+        self._bank_dispatch_t = time.perf_counter()
         return out
 
     def _join_bank(self) -> None:
@@ -560,6 +580,7 @@ class Trainer:
             self._snap_ready = torch.cuda.Event()
             self._snap_ready.record()
         out = self._dispatch_pending_bank(state)
+        self._bank_dispatch_t = None  # no trunk follows: nothing overlaps
         self._join_bank()
         return state, out
 
@@ -572,6 +593,8 @@ class Trainer:
         if self._bank_stream is not None:
             torch.cuda.current_stream(self.device).wait_stream(self._bank_stream)
         self._bank_done = None
+        self._bank_dispatch_t = None
+        self.bank_overlap_step_s = 0.0
 
     def eval_step(self, state: TrainState, images, labels=None) -> EvalOutput:
         """The eval forward of `state` on one host batch of normalized f32
@@ -598,7 +621,7 @@ class Trainer:
         }
 
     def train_epoch(self, state: TrainState, batches: Iterable, epoch: int, guard=None,
-                    flags: Optional[Dict[str, bool]] = None, monitor=None):
+                    flags: Optional[Dict[str, bool]] = None, monitor=None, window=None):
         """Steps over host batches, (images, labels[, ids][, seeds]) as
         `split_batch` reads them (a `DataLoader`'s batches as they come),
         placed by `put_batch` through `device_prefetch` with
@@ -618,7 +641,15 @@ class Trainer:
 
         `monitor` (telemetry/monitor.py `StepMonitor`) observes each step
         from the step log's figures: its interval, loader wait and
-        host-to-device bytes (host arithmetic, no device read of its own)."""
+        host-to-device bytes (host arithmetic, no device read of its own),
+        and in async mode the step's bank-dispatch overlap estimate.
+
+        `window` (obs/profiler.py `ProfilerWindow`) observes each step too,
+        with the step's loader-wait share: it opens and closes a profiler
+        capture on its step range or its anomaly triggers (a spike over its
+        EMA, a cold path through `monitor`, loader wait). Every step also
+        lands on the flight recorder's ring, so a failure dump shows the
+        steps that led to it."""
         self.reset_bank_pipeline()
         flags = self.epoch_flags(state, epoch) if flags is None else flags
         last = None
@@ -642,13 +673,19 @@ class Trainer:
                 state, last = self.train_step(state, batch, None, **flags)
                 heartbeat_tick()  # the guarded barrier's liveness file, if armed
                 now = time.perf_counter()
+                step_s = now - t_prev
                 # the step read the device, so the copy is done: no wait here
-                self.step_log.append(StepRecord(wait_s, now - t_prev, batch.image_bytes,
+                self.step_log.append(StepRecord(wait_s, step_s, batch.image_bytes,
                                                 batch.h2d_bytes, batch.copy_ms()))
                 if monitor is not None:
-                    monitor.observe_step(int(batch.images.shape[0]), now - t_prev,
-                                         transfer_bytes=batch.h2d_bytes, wait_seconds=wait_s)
+                    monitor.observe_step(int(batch.images.shape[0]), step_s,
+                                         transfer_bytes=batch.h2d_bytes, wait_seconds=wait_s,
+                                         bank_overlap_seconds=self.bank_overlap_step_s)
                 t_prev = now
+                record_event("step", epoch=epoch, i=len(self.step_log) - 1,
+                             seconds=round(step_s, 6), wait_s=round(wait_s, 6))
+                if window is not None:
+                    window.on_step(step_s, wait_fraction=wait_s / step_s if step_s > 0 else 0.0)
                 em_max = max(em_max, last.em_active)
                 fb_sum += last.em_compact_fallback
                 fm = last.full_mem_ratio

@@ -21,7 +21,9 @@ objective from these statistics), so nothing differentiates through here.
 The statistics are RAW (unsmoothed); core/em.py applies the smoothing.
 
 On CUDA tensors `em_estep_stats` launches the kernels (or raises); on CPU
-tensors it runs `em_estep_stats_plain`.
+tensors it runs `em_estep_stats_plain`. Either way an active cost counter
+(obs/opcount.py) is told the kernel's analytic FLOPs and bytes
+(`em_estep_cost`).
 """
 
 from __future__ import annotations
@@ -30,11 +32,21 @@ from typing import Tuple
 
 import torch
 
+from mgproto_tpu_torch.obs import opcount
 from mgproto_tpu_torch.ops import _build
 from mgproto_tpu_torch.ops.gaussian import DEFAULT_SIGMA_EPS, precompute_diag_gaussian
 
 MAX_K = 32  # components per class the kernel takes
 MAX_D = 64  # widest feature the kernel takes (a multiple of 4)
+
+
+def em_estep_cost(a: int, n: int, d: int, k: int):
+    """(FLOPs, bytes) of one E-step over A classes: two products of d per
+    (row, component) pair for the density and two for Σr·x and Σr·x²; the
+    rows and the prototype constants read once, ll, Σr, Σr·x and Σr·x²
+    written once."""
+    return (8.0 * a * n * k * d,
+            4.0 * (a * n * d + 2 * a * k * d + a * k) + 4.0 * (a + a * k + 2 * a * k * d))
 
 
 def _prepare(means, sigmas, priors, eps):
@@ -107,13 +119,14 @@ def em_estep_stats(
       (ll [A] mean log-likelihood, s [A, K], sx [A, K, d], sxx [A, K, d]
        RAW responsibility statistics).
     """
-    if x.device.type == "cpu":
-        return em_estep_stats_plain(x, means, sigmas, priors, eps)
-    if x.device.type != "cuda":
+    if x.device.type not in ("cpu", "cuda"):
         raise ValueError(f"em_estep runs on cuda or cpu, not {x.device}")
-    msc, ivar, const = _prepare(means, sigmas, priors, eps)
-    return launch_em_estep(x.float().contiguous(), msc.contiguous(), ivar.contiguous(),
-                           const.contiguous())
+    with opcount.counted("em_estep", *em_estep_cost(*x.shape, means.shape[1])):
+        if x.device.type == "cpu":
+            return em_estep_stats_plain(x, means, sigmas, priors, eps)
+        msc, ivar, const = _prepare(means, sigmas, priors, eps)
+        return launch_em_estep(x.float().contiguous(), msc.contiguous(), ivar.contiguous(),
+                               const.contiguous())
 
 
 em_estep_stats.launches = 0  # E-steps launched on the card since the last reset

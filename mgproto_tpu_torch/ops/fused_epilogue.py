@@ -18,6 +18,10 @@ checks the layout on every device and never copies to fix it.
 
 On a CUDA tensor `fused_bn_epilogue` launches the kernel (or raises); on a
 CPU tensor it runs `epilogue_reference`, the plain BatchNorm arithmetic.
+Both go through the same autograd Function, so the backward runs the same
+ops on either device, and both report the forward to an active cost
+counter (obs/opcount.py) as the kernel's analytic FLOPs and bytes
+(`bn_epilogue_cost`).
 
 Mixed precision (perf/precision.py): under `compute_dtype="bfloat16"` x and
 the shortcut are bf16 and the statistics, scale and bias f32. The kernel
@@ -33,6 +37,7 @@ from __future__ import annotations
 import torch
 
 from mgproto_tpu_torch.models.common import BatchNorm
+from mgproto_tpu_torch.obs import opcount
 from mgproto_tpu_torch.ops import _build
 
 _KERNEL_DTYPES = {torch.float32: "bn_epilogue_f32", torch.bfloat16: "bn_epilogue_bf16"}
@@ -63,6 +68,21 @@ def fold_constants(mean, var, scale, bias, eps):
     """a = scale * rsqrt(var + eps), b = bias - mean * a, in f32."""
     a = torch.rsqrt(var.float() + eps) * scale.float()
     return a, bias.float() - mean.float() * a
+
+
+def bn_epilogue_cost(x: torch.Tensor):
+    """(FLOPs, bytes) of one epilogue on x: a multiply-add an element; x
+    and the shortcut read once, the output written once, the two [C]
+    constants read."""
+    return 2.0 * x.numel(), 3.0 * x.numel() * x.element_size() + 2 * 4 * x.shape[1]
+
+
+def _epilogue_forward(x, mean, var, scale, bias, residual, eps):
+    """The kernel on CUDA, the plain version on the CPU; one cost row."""
+    with opcount.counted("bn_epilogue", *bn_epilogue_cost(x)):
+        if x.device.type == "cpu":
+            return epilogue_reference(x, mean, var, scale, bias, residual, eps, x.dtype)
+        return launch_bn_epilogue(x, residual, *fold_constants(mean, var, scale, bias, eps))
 
 
 def launch_bn_epilogue(x, residual, a, b):
@@ -106,28 +126,27 @@ def fused_bn_epilogue(x, mean, var, scale, bias, residual, eps: float = 1e-5):
             "[M, C]) tensors; convert the trunk with "
             "memory_format=torch.channels_last"
         )
-    if x.device.type == "cpu":
-        return epilogue_reference(x, mean, var, scale, bias, residual, eps, x.dtype)
-    if x.device.type != "cuda":
+    if x.device.type not in ("cpu", "cuda"):
         raise ValueError(f"bn epilogue runs on cuda or cpu, not {x.device}")
     inputs = (x, mean, var, scale, bias, residual)
     if torch.is_grad_enabled() and any(t.requires_grad for t in inputs):
         return _EpilogueFn.apply(*inputs, eps)
-    return launch_bn_epilogue(x, residual, *fold_constants(mean, var, scale, bias, eps))
+    return _epilogue_forward(*inputs, eps)
 
 
 fused_bn_epilogue.launches = 0  # kernel launches since the last reset
 
 
 class _EpilogueFn(torch.autograd.Function):
-    """The kernel forward; the backward is autograd of `epilogue_reference`
-    on the saved inputs, recomputed (the JAX package's `_bn_add_relu_bwd`)."""
+    """The kernel forward (the plain one on the CPU); the backward is
+    autograd of `epilogue_reference` on the saved inputs, recomputed (the
+    JAX package's `_bn_add_relu_bwd`)."""
 
     @staticmethod
     def forward(ctx, x, mean, var, scale, bias, residual, eps):
         ctx.eps = eps
         ctx.save_for_backward(x, mean, var, scale, bias, residual)
-        return launch_bn_epilogue(x, residual, *fold_constants(mean, var, scale, bias, eps))
+        return _epilogue_forward(x, mean, var, scale, bias, residual, eps)
 
     @staticmethod
     def backward(ctx, g):

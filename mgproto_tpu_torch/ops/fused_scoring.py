@@ -19,7 +19,9 @@ atomics, so the result is deterministic.
 
 On a CUDA tensor `score_pool` launches the kernels (or raises); on a CPU
 tensor it runs the plain versions, `score_pool_plain` and
-`score_pool_bwd_plain`, through the same autograd Function.
+`score_pool_bwd_plain`, through the same autograd Function. Either way the
+work is reported to an active cost counter (obs/opcount.py) as the
+kernel's analytic FLOPs and bytes (`score_pool_cost`, `score_pool_bwd_cost`).
 """
 
 from __future__ import annotations
@@ -28,6 +30,7 @@ from typing import Tuple
 
 import torch
 
+from mgproto_tpu_torch.obs import opcount
 from mgproto_tpu_torch.ops import _build
 from mgproto_tpu_torch.ops.gaussian import DEFAULT_SIGMA_EPS, precompute_diag_gaussian
 from mgproto_tpu_torch.ops.pooling import top_t
@@ -45,6 +48,22 @@ def _check_kernel_widths(t_levels, d):
             f"score_pool kernels take at most T={KERNEL_MAX_T} levels and d={KERNEL_MAX_D}, "
             f"got T={t_levels}, d={d}"
         )
+
+
+def score_pool_cost(b: int, hw: int, p: int, d: int, t_levels: int):
+    """(FLOPs, bytes) of one forward: two products of d per (patch,
+    prototype) pair for the mean and the variance terms; the features and
+    the prototype constants read once, the values and int32 indices
+    written once."""
+    return 4.0 * b * hw * p * d, 4.0 * (b * hw * d + 2 * p * d + p) + 8.0 * b * p * t_levels
+
+
+def score_pool_bwd_cost(b: int, hw: int, p: int, d: int, t_levels: int):
+    """(FLOPs, bytes) of one backward, counted from the shapes alone: every
+    one of the B*P*T upstream entries live (a zero entry costs the kernel
+    nothing, so this is the dense case); g and idx read, the features and
+    the prototype constants read, the feature gradient written."""
+    return 4.0 * b * p * t_levels * d, 4.0 * (2 * b * p * t_levels + 2 * b * hw * d + 2 * p * d)
 
 
 def _plain_fwd(feat, m_scaled, inv_var, const, t_levels: int):
@@ -143,9 +162,12 @@ def launch_score_pool_bwd(g, idx, feat, m_scaled, inv_var):
 def score_pool_bwd(g, idx, feat, m_scaled, inv_var):
     """The feature gradient: the kernel on CUDA tensors, the plain version
     on CPU tensors."""
-    if feat.device.type == "cpu":
-        return score_pool_bwd_plain(g, idx, feat, m_scaled, inv_var)
-    return launch_score_pool_bwd(g.float().contiguous(), idx.contiguous(), feat, m_scaled, inv_var)
+    with opcount.counted("score_pool_bwd", *score_pool_bwd_cost(*feat.shape[:2], *m_scaled.shape,
+                                                                 g.shape[2])):
+        if feat.device.type == "cpu":
+            return score_pool_bwd_plain(g, idx, feat, m_scaled, inv_var)
+        return launch_score_pool_bwd(g.float().contiguous(), idx.contiguous(), feat, m_scaled,
+                                     inv_var)
 
 
 score_pool_bwd.launches = 0  # kernel launches since the last reset
@@ -157,10 +179,15 @@ class _ScorePoolFn(torch.autograd.Function):
 
     @staticmethod
     def forward(ctx, feat, m_scaled, inv_var, const, t_levels):
-        if feat.device.type == "cpu":
-            vals, idx = _plain_fwd(feat, m_scaled, inv_var, const, t_levels)
-        else:
-            vals, idx = launch_score_pool(feat, m_scaled, inv_var, const, t_levels)
+        with opcount.counted("score_pool", *score_pool_cost(*feat.shape[:2], *m_scaled.shape,
+                                                            t_levels)):
+            if feat.device.type == "cpu":
+                # int32 indices, as the kernel writes them: one program on
+                # either device (the widening below, the saved tensor)
+                vals, idx = _plain_fwd(feat, m_scaled, inv_var, const, t_levels)
+                idx = idx.int()
+            else:
+                vals, idx = launch_score_pool(feat, m_scaled, inv_var, const, t_levels)
         ctx.save_for_backward(feat, m_scaled, inv_var, idx)
         ctx.mark_non_differentiable(idx)
         return vals, idx

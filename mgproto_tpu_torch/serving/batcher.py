@@ -23,6 +23,7 @@ from __future__ import annotations
 import dataclasses
 from typing import Callable, List, Optional
 
+from mgproto_tpu_torch.obs import reqtrace as _reqtrace
 from mgproto_tpu_torch.serving import metrics as _m
 from mgproto_tpu_torch.serving.response import ServeResponse
 
@@ -100,9 +101,20 @@ class MicroBatcher:
         _m.counter(_m.DISPATCHES).inc(trigger=trigger)
         self.dispatches += 1
         t0 = self.clock()  # before the hook: its virtual time is the cost
-        if self.pre_dispatch is not None:
-            self.pre_dispatch()
-        responses = self.engine.process_pending()
+        if _reqtrace.enabled():
+            # the engine's on_dispatch stamps the batch with this replica's
+            # lane, the trigger and t0, so the trace's linger/device split
+            # is the cost EMA's
+            _reqtrace.dispatch_context(self.name or "", trigger, t0)
+        try:
+            if self.pre_dispatch is not None:
+                self.pre_dispatch()
+            responses = self.engine.process_pending()
+        finally:
+            # a pump that never reached on_dispatch (breaker open, empty
+            # pop, device error) must not leak its context into a later one
+            if _reqtrace.enabled():
+                _reqtrace.clear_dispatch_context()
         dt = self.clock() - t0
         if dt > 0:  # a virtual clock that did not move keeps the estimate
             a = self.config.cost_ema_alpha

@@ -44,6 +44,7 @@ from typing import Any, Callable, Dict, List, Optional, Sequence, Tuple
 
 import numpy as np
 
+from mgproto_tpu_torch.obs import reqtrace as _reqtrace
 from mgproto_tpu_torch.online import capture as _capture
 from mgproto_tpu_torch.resilience import chaos as _chaos
 from mgproto_tpu_torch.serving import metrics as _m
@@ -298,6 +299,34 @@ class ServingEngine:
         self.warmed_up = True
         return self.warmup_report
 
+    def warmup_costs(self) -> Dict[str, Any]:
+        """The counted cost of one dispatch at every bucket (obs/opcount.py:
+        FLOPs, raw and fused bytes, the kernels' rows): the CPU's
+        `--profile_warmup` capture, written by cli/serve.py as the capture's
+        cost_analysis.json (the JAX `warmup_costs`, there XLA's cost
+        analysis of each bucket's program). Runs each bucket once more:
+        call it only when profiling asked for it."""
+        from mgproto_tpu_torch.obs.opcount import OpCounter
+
+        with OpCounter() as counter:
+            for b in self.buckets:
+                counter.phase = f"b{b}"
+                self.infer_fn(np.zeros((b, self.img_size, self.img_size, 3), np.float32))
+        programs = {}
+        for b in self.buckets:
+            t = counter.totals(f"b{b}")
+            programs[f"b{b}"] = {"flops": t["flops"], "bytes_accessed": t["raw_bytes"],
+                                 "fused_bytes": t["fused_bytes"]}
+        return {
+            "cost_source": "counted",
+            "device": None if self.device is None else str(self.device),
+            "buckets": [int(b) for b in self.buckets],
+            "programs": programs,
+            "flops": sum(p["flops"] for p in programs.values()),
+            "bytes_accessed": sum(p["bytes_accessed"] for p in programs.values()),
+            "kernels": counter.kernel_rows(),
+        }
+
     def check_cold_dispatches(self) -> int:
         """Dispatches at a bucket that was not warmed, since the last call."""
         n, self._cold = self._cold, 0
@@ -349,6 +378,10 @@ class ServingEngine:
             ))]
         req, shed_reason = self.queue.submit(clean, request_id=request_id, deadline_s=deadline_s,
                                              tenant=tenant, quota=quota)
+        if shed_reason is None and _reqtrace.enabled():
+            # admission; mints here when nothing upstream did (the one
+            # engine's batch face), so every traced face gets its spans
+            _reqtrace.on_enqueue(req.request_id, req.enqueued_at)
         out = []
         for shed in self.queue.drain_shed():
             reason = shed_reason if shed is req else "deadline"
@@ -374,6 +407,7 @@ class ServingEngine:
         for requests shed while queued). Never raises from request content
         or device failure."""
         responses: List[ServeResponse] = []
+        t_pop = self.clock()  # the dispatch window when no batcher set a context
         batch = self.queue.pop_batch(self.buckets[-1])
         for req in self.queue.drain_shed():
             responses.append(self._respond(self._shed_response(req, "deadline")))
@@ -391,6 +425,10 @@ class ServingEngine:
             _m.counter(_m.DEVICE_ERRORS).inc()
             return responses + self._reject_batch(batch, REASON_DEVICE_ERROR)
         self.breaker.record_success()
+        if _reqtrace.enabled():
+            bucket = self._bucket_for(len(batch))
+            _reqtrace.on_dispatch([r.request_id for r in batch], bucket=bucket,
+                                  fill=len(batch) / bucket, fallback_t0=t_pop)
         responses.extend(self._gated_responses(batch, logits, log_px, extras))
         return responses
 

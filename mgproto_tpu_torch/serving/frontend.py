@@ -44,6 +44,7 @@ import time
 from collections import deque
 from typing import Any, Callable, Deque, Dict, List, Optional, Tuple
 
+from mgproto_tpu_torch.obs import reqtrace as _reqtrace
 from mgproto_tpu_torch.serving import metrics as _m
 from mgproto_tpu_torch.serving.replica import ReplicaSet
 from mgproto_tpu_torch.serving.response import (
@@ -293,6 +294,11 @@ class Frontend:
         rid = str(rec.get("id", f"h{self._seq}"))
         if rid in self._pending:  # a duplicate in flight: keep ids unique
             rid = f"{rid}#{self._seq}"
+        if _reqtrace.enabled():
+            # tracing starts at the HTTP boundary, on the PLANE's clock, so
+            # the frontend span holds the pump and inbox wait that the
+            # engine-side stages cannot see
+            _reqtrace.mint(rid, self.replicas.clock())
         if self._stopping():
             resp = shed_response(rid, REASON_SHUTDOWN)
             return http_status_for(resp), json.dumps(resp.to_dict()).encode(), None

@@ -52,9 +52,10 @@ BREAKER_OPEN_FRACTION = "serving_breaker_open_fraction"
 UPTIME_SECONDS = "serving_uptime_seconds"
 SWAPS = "serving_swap_total"
 SWAP_TRANSFERRED = "serving_swap_transferred_total"
-# names the port writes no series under (the request tracer and the AOT
-# executable cache are not ported); `cli.telemetry summarize` reads them
+# the request tracer's per-stage latency (obs/reqtrace.py)
 STAGE_SECONDS = "serving_stage_seconds"
+# names the port writes no series under (the AOT executable cache is not
+# ported); `cli.telemetry summarize` reads them
 AOT_HITS = "serving_aot_hit_total"
 AOT_MISSES = "serving_aot_miss_total"
 AOT_REJECTS = "serving_aot_reject_total"
@@ -216,6 +217,9 @@ TRUST_GAUGE_HELP = {
 HIST_HELP = {
     REQUEST_SECONDS: "per-request latency (admission to response), by outcome",
     BATCH_FILL_HIST: "occupied fraction of each padded serving batch (per dispatch)",
+    STAGE_SECONDS: "per-request stage latency by stage (queue=admission wait + batcher linger, "
+                   "device=dispatch time, total=arrival to response); populated only while "
+                   "request tracing (obs/reqtrace.py) is enabled",
     TENANT_REQUEST_SECONDS: "per-request latency by tenant and outcome",
     TENANT_MOUNT_SECONDS: "seconds to mount one tenant head",
 }

@@ -43,6 +43,7 @@ from __future__ import annotations
 import time
 from typing import Callable, List, Optional
 
+from mgproto_tpu_torch.obs import reqtrace as _reqtrace
 from mgproto_tpu_torch.obs.flightrec import get_recorder
 from mgproto_tpu_torch.resilience import chaos as _chaos
 from mgproto_tpu_torch.serving import metrics as _m
@@ -175,6 +176,7 @@ class ReplicaSet:
         rep.restart_at = self.clock()
         self.replicas.append(rep)
         _m.gauge(_m.REPLICAS_TOTAL).set(float(len(self.replicas)))
+        _reqtrace.plane_event("replica_added", replica=rep.name)
         self._observe()
         return rep
 
@@ -221,6 +223,7 @@ class ReplicaSet:
                 self._account(rep)
         self.replicas.remove(rep)
         _m.gauge(_m.REPLICAS_TOTAL).set(float(len(self.replicas)))
+        _reqtrace.plane_event("replica_removed", replica=rep.name)
         self._observe()
         return out
 
@@ -245,6 +248,10 @@ class ReplicaSet:
         seq = self._seq
         self._seq += 1
         rid = request_id or f"g{seq}"
+        if _reqtrace.enabled():
+            # frontend-less faces start the request trace here; after the
+            # HTTP frontend's mint this is a no-op (the first mint wins)
+            _reqtrace.mint(rid, self.clock())
         target = self._pick()
         chaos = _chaos.get_active()
         if chaos is not None and target is not None:
@@ -252,9 +259,11 @@ class ReplicaSet:
             # request itself reroutes
             if chaos.serve_replica_kill_due(seq):
                 target.alive = False
+                _reqtrace.plane_event("replica_kill", replica=target.name)
                 target = self._pick()
             elif chaos.serve_replica_wedge_due(seq):
                 target.wedged = True
+                _reqtrace.plane_event("replica_wedge", replica=target.name)
                 target = self._pick()
         if target is None:
             return [shed_response(rid, REASON_NO_REPLICA, tenant=tenant)]
@@ -340,6 +349,7 @@ class ReplicaSet:
         recorder = get_recorder()
         recorder.record("replica_failure", replica=rep.name, reason=reason,
                         queued=len(rep.engine.queue), restarts=rep.restarts)
+        _reqtrace.plane_event("replica_fail_detected", replica=rep.name, reason=reason)
         stranded = rep.engine.queue.drain_all() + rep.engine.queue.drain_shed()
         survivors = [s for s in self.replicas if s is not rep and s.responsive()]
         out: List[ServeResponse] = []
@@ -376,6 +386,7 @@ class ReplicaSet:
         rep.restarts += 1
         try:
             rep.start()
+            _reqtrace.plane_event("replica_restart", replica=rep.name)
         except Exception:
             # the factory or warmup failed: wait the next, longer delay
             self._to_backoff(rep, self.clock())

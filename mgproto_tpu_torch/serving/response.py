@@ -1,13 +1,15 @@
 """The one typed response every serving request is answered with
-(counterpart of mgproto_tpu/serving/response.py, without request tracing).
+(counterpart of mgproto_tpu/serving/response.py).
 
 The network plane (batcher, replica supervisor, swap, HTTP frontend) builds
 and accounts typed responses through this module without importing the
 engine, so a frontend can shed typed while the device stack is down.
 
 `record()` is the ONE metrics account of a response leaving the system
-(requests-by-outcome counter, latency histogram, degraded counter), and
-`shed_response()` the plane's recorded typed shed.
+(requests-by-outcome counter, latency histogram, degraded counter) and the
+one exit of request tracing (obs/reqtrace.py: stage spans, the per-stage
+histogram, the opt-in `timings`), and `shed_response()` the plane's
+recorded typed shed.
 """
 
 from __future__ import annotations
@@ -15,6 +17,7 @@ from __future__ import annotations
 import dataclasses
 from typing import Any, Dict, Optional
 
+from mgproto_tpu_torch.obs import reqtrace as _reqtrace
 from mgproto_tpu_torch.serving import metrics as _m
 
 OUTCOME_PREDICT = "predict"
@@ -43,6 +46,10 @@ class ServeResponse:
     degraded: bool = False
     reason: Optional[str] = None  # reject/shed cause
     latency_s: float = 0.0
+    # the opt-in timing breakdown of request tracing (obs/reqtrace.py with
+    # include_timings=True): total_s / queue_s / device_s / pad_fraction /
+    # replica; None, and absent from to_dict(), everywhere else
+    timings: Optional[Dict[str, Any]] = None
     # the top activated prototypes behind a PREDICT outcome (an engine
     # serving with explanations); None, and absent from to_dict(), elsewhere
     explain: Optional[Any] = None
@@ -52,14 +59,15 @@ class ServeResponse:
 
     def to_dict(self) -> Dict[str, Any]:
         d = dataclasses.asdict(self)
-        for opt in ("explain", "tenant"):
+        for opt in ("timings", "explain", "tenant"):
             if d.get(opt) is None:
                 d.pop(opt, None)
         return d
 
 
 def record(resp: ServeResponse) -> ServeResponse:
-    """The one metrics account of a response leaving the system."""
+    """The one metrics account of a response leaving the system, and the
+    request trace's finish when tracing is on."""
     _m.counter(_m.REQUESTS).inc(outcome=resp.outcome)
     _m.histogram(_m.REQUEST_SECONDS).observe(max(resp.latency_s, 0.0), outcome=resp.outcome)
     if resp.tenant is not None:
@@ -70,6 +78,11 @@ def record(resp: ServeResponse) -> ServeResponse:
             max(resp.latency_s, 0.0), tenant=resp.tenant, outcome=resp.outcome)
     if resp.degraded and resp.outcome == OUTCOME_PREDICT:
         _m.counter(_m.DEGRADED_REQUESTS).inc()
+    if _reqtrace.enabled():
+        # the one request-tracing exit: stage spans, histograms, timings
+        timings = _reqtrace.finish(resp)
+        if timings is not None:
+            resp = dataclasses.replace(resp, timings=timings)
     return resp
 
 

@@ -29,6 +29,7 @@ from __future__ import annotations
 import dataclasses
 from typing import Any, Callable, Dict, List, Optional, Tuple
 
+from mgproto_tpu_torch.obs import reqtrace as _reqtrace
 from mgproto_tpu_torch.resilience import chaos as _chaos
 from mgproto_tpu_torch.serving import metrics as _m
 from mgproto_tpu_torch.serving.replica import ReplicaSet
@@ -114,6 +115,7 @@ def stage_fleet(count: int, standby_factory: Callable[[], Any],
                                                require_calibrated=require_calibrated)
         if engine is None:
             _m.counter(_m.SWAPS).inc(result=SWAP_REJECTED, reason=reason)
+            _reqtrace.plane_event("swap_rejected", reason=reason)
             return [], SwapReport(ok=False, reason=reason, detail=detail)
         standbys.append(engine)
     return standbys, None
@@ -141,6 +143,7 @@ def flip_fleet(replica_set: ReplicaSet, standby_factory: Callable[[], Any],
     replica_set.engine_factory = standby_factory
     _m.counter(_m.SWAPS).inc(result=SWAP_COMMITTED)
     _m.counter(_m.SWAP_TRANSFERRED).inc(float(transferred))
+    _reqtrace.plane_event("swap_committed", replicas=swapped, transferred=transferred)
     return SwapReport(ok=True, reason=SWAP_COMMITTED, replicas_swapped=swapped,
                       transferred=transferred)
 

@@ -27,13 +27,11 @@ package's names:
     a ~4x drop).
   * `loader_wait_fraction` gauge: the share of the epoch's wall time the
     step loop spent blocked fetching the next batch.
-
-JAX's monitor also keeps `bank_dispatch_overlap_fraction`, an estimate
-from its dispatch clock of how much the async bank program overlapped the
-trunk. The port does not register it: nothing here measures that overlap
-per step (the bank stream's overlap is read from CUDA events in a trace),
-and a gauge held at 0 would misreport an async run. `summarize` shows it
-as not recorded.
+  * `bank_dispatch_overlap_fraction` gauge: the share of the epoch's wall
+    time a dispatched async bank phase was in flight beside trunk work,
+    from JAX's host dispatch clock (`Trainer.bank_overlap_step_s`: from
+    one held bank dispatch to the end of the next trunk's dispatch, an
+    upper bound on the device overlap); 0 in sync mode.
 """
 
 from __future__ import annotations
@@ -122,6 +120,13 @@ class StepMonitor:
             "over the epoch)",
         )
         self._g_wait_frac.set(0.0, phase=phase)
+        self._epoch_bank_overlap = 0.0
+        self._g_bank_overlap = r.gauge(
+            "bank_dispatch_overlap_fraction",
+            "fraction of epoch wall time the async bank program overlapped "
+            "trunk compute (host dispatch-clock estimate; 0 in sync mode)",
+        )
+        self._g_bank_overlap.set(0.0, phase=phase)
 
     # ------------------------------------------------------------ cold paths
     def watch(self, *counts: Callable[[], int]) -> "StepMonitor":
@@ -158,6 +163,7 @@ class StepMonitor:
         transfer_bytes: int = 0,
         check_recompiles: bool = True,
         wait_seconds: float = 0.0,
+        bank_overlap_seconds: float = 0.0,
     ) -> None:
         ph = self.phase
         self._h_step.observe(seconds, phase=ph)
@@ -180,6 +186,11 @@ class StepMonitor:
             self._g_wait_frac.set(
                 min(1.0, self._epoch_wait / self._epoch_seconds), phase=ph
             )
+        self._epoch_bank_overlap += float(bank_overlap_seconds)
+        if self._epoch_seconds > 0:
+            self._g_bank_overlap.set(
+                min(1.0, self._epoch_bank_overlap / self._epoch_seconds), phase=ph
+            )
         if check_recompiles:
             self.check_recompiles()
 
@@ -192,6 +203,7 @@ class StepMonitor:
         self._epoch_images = 0
         self._epoch_seconds = 0.0
         self._epoch_wait = 0.0
+        self._epoch_bank_overlap = 0.0
 
     @property
     def epoch_images(self) -> int:

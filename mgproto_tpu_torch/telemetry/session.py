@@ -60,9 +60,8 @@ META_FILE = "meta.json"
 # the dense fallbacks of the compact dirty-class slab
 EM_ACTIVE_GAUGE = "em_active_classes"
 EM_FALLBACK_COUNTER = "em_compact_fallback_total"
-# the async bank's overlap gauge (JAX's StepMonitor keeps it; the port
-# registers it nowhere, telemetry/monitor.py) and the planner's rejections
-# (perf/planner.py)
+# the async bank's overlap gauge (the StepMonitor's, telemetry/monitor.py)
+# and the planner's rejections (perf/planner.py)
 BANK_OVERLAP_GAUGE = "bank_dispatch_overlap_fraction"
 AUTOTUNE_REJECTED_COUNTER = "autotune_plan_rejected_total"
 # the input pipeline

@@ -1,8 +1,8 @@
 """Run logs (the port's trimmed copy of mgproto_tpu/utils/log.py): a text log
 echoed to stdout, a JSONL stream of scalars, and wall-clock spans that also
 record a tracing span (telemetry/tracing.py), so a run with a telemetry
-session gets its epoch / train / test / push spans in trace.json. No
-profiler."""
+session gets its epoch / train / test / push spans in trace.json;
+`profiler_trace`, the `--profile_dir` trace of a run's first epoch."""
 
 from __future__ import annotations
 
@@ -103,3 +103,29 @@ def timed_span(logger: Logger, name: str):
         finally:
             span["s"] = time.perf_counter() - t0
             logger.log(f"\t{name} time: \t{span['s']:.2f}s")
+
+
+@contextlib.contextmanager
+def profiler_trace(logdir: Optional[str], device=None):
+    """A torch.profiler trace of a block, written to
+    `logdir/epoch.trace.json`; a no-op when `logdir` is falsy. The JAX
+    package's `profiler_trace` (its `--profile_dir` trace of the first
+    epoch). On the card the CPU and CUDA activities, and the trace must
+    start and must hold device events (obs/profiler.py: no fallback); on
+    the CPU, which a caller asks for by naming it, the CPU activity alone.
+    On an exception in the block the profiler is stopped, nothing is
+    written, and a stop failure never masks the block's exception."""
+    if not logdir:
+        yield
+        return
+    from mgproto_tpu_torch.obs.profiler import start_profiler, stop_profiler
+
+    os.makedirs(logdir, exist_ok=True)
+    prof = start_profiler(device)
+    try:
+        yield
+    except BaseException:
+        with contextlib.suppress(Exception):
+            prof.stop()
+        raise
+    stop_profiler(prof, os.path.join(logdir, "epoch.trace.json"), device)

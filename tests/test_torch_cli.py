@@ -8,7 +8,8 @@ interpret}.py) against the JAX package's, on the CPU.
     bf16, each aux loss, the EM and input flags), every field of the
     port's Config equals the JAX Config's field of the same name.
   * The flags the port does not implement parse, and are refused at any
-    other value than their default with the ROADMAP item that ports them.
+    other value than their default with the ROADMAP item that ports them;
+    the profiler flags, refused before, reach run_training.
   * The mains end to end on the tiny config with `--device cpu` (the
     counterparts of tests/test_cli.py and tests/test_cli_eval_drivers.py):
     `cli.train.main` runs the schedule (stage checkpoints, logs, metrics);
@@ -120,15 +121,18 @@ def test_config_fields_equal_jax(case):
     _assert_fields_equal(port, ref)
 
 
-# the multi-GPU flags are ported but straggler detection, which waits for
-# the obs and telemetry plane
+# the multi-GPU flags and the profiler's are ported but straggler
+# detection, which waits for the rest of the obs plane
 REFUSED_ARGVS = {
     "straggler_threshold": (["--straggler_threshold", "0.5"], "A9"),
     "straggler_patience": (["--straggler_patience", "2"], "A9"),
-    "profile_dir": (["--profile_dir", "/p"], "A9"),
-    "profile_steps": (["--profile_steps", "3:5"], "A9"),
-    "profile_on_anomaly": (["--profile_on_anomaly"], "A9"),
-    "profile_out": (["--profile_out", "/p"], "A9"),
+}
+# refused until the observatory was ported: each now reaches run_training
+PROFILER_ARGVS = {
+    "profile_dir": (["--profile_dir", "/p"], "/p"),
+    "profile_steps": (["--profile_steps", "3:5"], "3:5"),
+    "profile_on_anomaly": (["--profile_on_anomaly"], True),
+    "profile_out": (["--profile_out", "/p"], "/p"),
 }
 
 
@@ -142,6 +146,19 @@ def test_unported_flags_are_refused_with_their_roadmap_item(dest):
     args = _parser(tcommon).parse_args(argv)
     with pytest.raises(tcommon.NotPortedError, match=f"--{dest}=.*ROADMAP {item}"):
         tcommon.config_from_args(args)
+
+
+@pytest.mark.parametrize("dest", sorted(PROFILER_ARGVS))
+def test_the_profiler_flags_reach_run_training(dest, monkeypatch):
+    """The profiler flags parse, pass config_from_args and reach
+    run_training (tests/test_torch_obs.py runs them end to end)."""
+    argv, want = PROFILER_ARGVS[dest]
+    tcommon.config_from_args(_parser(tcommon).parse_args(argv))
+    seen = {}
+    monkeypatch.setattr(ttrain, "run_training", lambda cfg, **kw: seen.update(kw))
+    monkeypatch.setattr(ttrain.preemption, "install_handlers", lambda: None)
+    ttrain.main(["--device", "cpu"] + argv)
+    assert seen[dest] == want
 
 
 @pytest.mark.parametrize("argv,want", [

@@ -3,6 +3,7 @@ cv2 nor matplotlib (neither is known to exist beside the card), and no
 silent CPU fallback at its entry points."""
 
 import ast
+import json
 import os
 import subprocess
 import sys
@@ -62,7 +63,7 @@ spec = importlib.util.spec_from_file_location("chip_smoke", {SMOKE!r})
 importlib.util.module_from_spec(spec)
 spec.loader.exec_module(importlib.util.module_from_spec(spec))
 missing = [m for m in {INPUT_PATH_MODULES + INTERPRET_MODULES + OPTION_MODULES + SERVE_MODULES
-                       + ONLINE_MODULES + TRUST_MODULES + PARALLEL_MODULES!r}
+                       + ONLINE_MODULES + TRUST_MODULES + PARALLEL_MODULES + OBS_MODULES!r}
            if m not in mods]
 assert not missing, missing
 print(len(mods))
@@ -115,6 +116,14 @@ PARALLEL_MODULES = ("mgproto_tpu_torch.parallel", "mgproto_tpu_torch.parallel.me
                     "mgproto_tpu_torch.parallel.trainer",
                     "mgproto_tpu_torch.resilience.metrics", "mgproto_tpu_torch.resilience.retry",
                     "mgproto_tpu_torch.trust.interp_sharded")
+# the observatory (obs/) and its report main
+OBS_MODULES = ("mgproto_tpu_torch.obs.profiler", "mgproto_tpu_torch.obs.stall",
+               "mgproto_tpu_torch.obs.opcount", "mgproto_tpu_torch.obs.reqtrace",
+               "mgproto_tpu_torch.cli.trace_report", "mgproto_tpu_torch.utils.log")
+# a trace's attribution, the stall gate and request tracing need no torch
+TORCHLESS_OBS_MODULES = ("mgproto_tpu_torch.obs.profiler", "mgproto_tpu_torch.obs.stall",
+                         "mgproto_tpu_torch.obs.reqtrace", "mgproto_tpu_torch.cli.trace_report",
+                         "mgproto_tpu_torch.serving.response")
 # the trust check re-derives a report's verdicts on a host without torch
 TORCHLESS_TRUST_MODULES = ("mgproto_tpu_torch.trust.auroc", "mgproto_tpu_torch.trust.metrics",
                            "mgproto_tpu_torch.cli.telemetry")
@@ -146,6 +155,32 @@ print(sorted(m for m in sys.modules if m.split(".")[0] == "torch" and sys.module
                          timeout=120)
     assert out.returncode == 0, out.stderr
     assert out.stdout.strip() == "[]"
+
+
+def test_a_trace_attribution_runs_without_torch(tmp_path):
+    """cli.trace_report's trace mode and check --stall-report on a host
+    without torch."""
+    trace = tmp_path / "t.json"
+    trace.write_text(json.dumps({"traceEvents": [
+        {"ph": "X", "cat": "kernel", "name": "void bn_epilogue_kernel<F32x4>()", "pid": 0,
+         "tid": 7, "ts": 0, "dur": 10}]}))
+    report = str(tmp_path / "r.json")
+    code = f"""
+import contextlib, importlib, io, sys
+for name in ("torch",) + {FORBIDDEN!r}:
+    sys.modules[name] = None
+for m in {TORCHLESS_OBS_MODULES!r}:
+    importlib.import_module(m)
+from mgproto_tpu_torch.cli import telemetry, trace_report
+with contextlib.redirect_stdout(io.StringIO()):
+    trace_report.main(["--trace", {str(trace)!r}, "--out", {report!r}])
+    code = telemetry.check_main(["--stall-report", {report!r}])
+print(code, sorted(m for m in sys.modules if m.split(".")[0] == "torch" and sys.modules[m]))
+"""
+    out = subprocess.run([sys.executable, "-c", code], cwd=REPO, capture_output=True, text=True,
+                         timeout=120)
+    assert out.returncode == 0, out.stderr
+    assert out.stdout.strip() == "0 []"
 
 
 def test_the_trust_check_runs_without_torch():

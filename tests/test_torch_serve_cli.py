@@ -15,7 +15,9 @@ plane's face (`--replicas 2 --swap`) refuses an uncalibrated swap target
 and commits a calibrated one on both. Then the port alone: the checkpoint
 face (`--checkpoint --calibrate`) serves what the artifact serves, bit for
 bit, with the state's digest; every serve and export flag the port does not
-implement raises `NotPortedError` with its ROADMAP item; `--help` runs with
+implement raises `NotPortedError` with its ROADMAP item; `--trace_requests`
+puts a timing breakdown on every response and `--profile_warmup` writes
+the warmup's capture (the counted cost of each bucket on the CPU); `--help` runs with
 JAX blocked; and the network face as a process (`--listen`, two replicas):
 predict, the probes, /metrics, a refused and a committed swap, then a
 SIGTERM with requests queued: each answered typed, exit 0.
@@ -37,7 +39,7 @@ import numpy as np
 import pytest
 
 from _torch_jax_states import port_state, write_jpeg_tree
-from test_torch_cli import REFUSED_ARGVS
+from test_torch_cli import PROFILER_ARGVS, REFUSED_ARGVS
 from mgproto_tpu.cli import serve as jserve
 from mgproto_tpu.config import DataConfig as JaxDataConfig
 from mgproto_tpu.config import tiny_test_config as jax_tiny_config
@@ -345,8 +347,6 @@ def test_online_is_refused_on_the_artifact_face_and_with_listen(artifacts):
 
 SERVE_ARGVS = {
     "aot_cache": (["--aot-cache", "auto"], "A7"),
-    "trace_requests": (["--trace_requests"], "A9"),
-    "profile_warmup": (["--profile_warmup", "/p"], "A9"),
 }
 EXPORT_ARGVS = {
     "aot_cache": (["--aot-cache"], "A7"),
@@ -371,6 +371,54 @@ def test_unported_serve_and_export_flags_are_refused(main, dest, tmp_path):
     # the JAX mains take the same flag
     jp = {"serve": jserve, "export": __import__("mgproto_tpu.cli.export", fromlist=["x"])}[main]
     assert f"--{dest}".replace("_", "-") in open(jp.__file__).read().replace("_", "-")
+
+
+@pytest.mark.parametrize("dest", ["trace_requests", "profile_warmup"])
+def test_the_observatory_serve_flags_work(dest, artifacts, capsys, tmp_path):
+    """--trace_requests and --profile_warmup (refused before the observatory
+    was ported) on the batch face: every answered line carries its stage
+    timings; the warmup's CPU capture holds the counted cost of one
+    dispatch a bucket."""
+    from mgproto_tpu_torch.obs import reqtrace
+    from mgproto_tpu_torch.obs.profiler import COST_FILE, META_FILE
+
+    a = artifacts
+    flag = ["--trace_requests"] if dest == "trace_requests" else [
+        "--profile_warmup", str(tmp_path / "warm")]
+    tserve.main(["--device", "cpu", "--artifact", a["port"], "--images", a["npy"]] + flag)
+    lines = _lines(capsys.readouterr().out)
+    answered = [r for r in lines[:-1] if r["outcome"] in ("predict", "abstain")]
+    assert answered
+    if dest == "trace_requests":
+        for r in answered:
+            t = r["timings"]
+            assert t["total_s"] >= t["queue_s"] >= 0.0 and t["device_s"] >= 0.0
+        assert not reqtrace.enabled()  # the main turns it off again
+    else:
+        assert all("timings" not in r for r in lines[:-1])
+        (cap,) = os.listdir(tmp_path / "warm")
+        meta = json.load(open(tmp_path / "warm" / cap / META_FILE))
+        assert meta["reason"] == "serve_warmup" and meta["fallback"] is True
+        costs = json.load(open(tmp_path / "warm" / cap / COST_FILE))
+        assert costs["buckets"] == [1, 2, 4, 8] and set(costs["programs"]) == {
+            "b1", "b2", "b4", "b8"}
+        flops = [costs["programs"][f"b{b}"]["flops"] for b in (1, 2, 4, 8)]
+        assert flops[0] > 0 and flops == [flops[0] * b for b in (1, 2, 4, 8)]
+
+
+@pytest.mark.parametrize("main,dest", [(m, d) for m in ("serve", "export")
+                                         for d in sorted(PROFILER_ARGVS)])
+def test_serve_and_export_take_the_profiler_training_flags(main, dest, tmp_path):
+    """Both mains parse the training parser's profiler flags (refused
+    before the observatory was ported) and pass them, as JAX's mains do
+    (they profile no training run): what stops them is the missing input,
+    not a NotPortedError."""
+    fn = tserve.main if main == "serve" else texport.main
+    extra = ["--out", str(tmp_path / "o.mgproto")] if main == "export" else []
+    with pytest.raises((Exception, SystemExit)) as e:
+        fn(["--device", "cpu", "--artifact" if main == "serve" else "--model_dir",
+            str(tmp_path / "none")] + extra + PROFILER_ARGVS[dest][0])
+    assert not isinstance(e.value, tcommon.NotPortedError), e.value
 
 
 @pytest.mark.parametrize("main,dest", [(m, d) for m in ("serve", "export")

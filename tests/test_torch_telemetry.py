@@ -181,10 +181,9 @@ def test_step_monitor_series_equal_jax():
     (js, *jrest), (ts, *trest) = snaps["jax"], snaps["torch"]
     assert trest == jrest
     assert {k: v for k, v in js.items() if k in ts} == ts
-    # XLA's cost analysis, and the async bank's overlap estimate the port
-    # does not register (telemetry/monitor.py)
-    assert set(js) - set(ts) == {"step_flops", "step_bytes_accessed",
-                                 "bank_dispatch_overlap_fraction"}
+    # XLA's cost analysis; the async bank's overlap gauge is in both
+    assert set(js) - set(ts) == {"step_flops", "step_bytes_accessed"}
+    assert ts["bank_dispatch_overlap_fraction"] == js["bank_dispatch_overlap_fraction"]
 
 
 def test_step_monitor_watches_cumulative_cold_path_counts():
@@ -321,11 +320,9 @@ def test_the_same_values_summarize_equal(tmp_path):
     _write_dir(str(tmp_path / "j"), "jax")
     port = ttelemetry.summarize(str(tmp_path / "t"))
     jax_summary = _no_dir(jtelemetry.summarize(str(tmp_path / "j")))
-    # JAX's StepMonitor holds the async bank's overlap estimate at 0.0 in a
-    # sync run; the port registers no such gauge, so it reads as absent
-    assert jax_summary["em"].pop("bank_dispatch_overlap_fraction") == 0.0
-    assert port["em"]["bank_dispatch_overlap_fraction"] is None
-    jax_summary["em"]["bank_dispatch_overlap_fraction"] = None
+    # both StepMonitors hold the async bank's overlap gauge at 0.0 in a
+    # sync run
+    assert port["em"]["bank_dispatch_overlap_fraction"] == 0.0
     assert _no_dir(port) == jax_summary
     assert set(port["spans"]) == {"epoch", "train"}
     # a port directory read by the JAX command gives the same

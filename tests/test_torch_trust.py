@@ -220,12 +220,26 @@ def test_check_trust_exit_codes(tmp_path):
 
 @pytest.mark.parametrize("argv", [
     ["check", "--autoscale", BASELINE], ["check", "--tenants", BASELINE],
-    ["check", "--weakscale", BASELINE], ["check", "--stall-report", BASELINE],
-    ["fleet", REPO],
+    ["check", "--weakscale", BASELINE], ["fleet", REPO],
 ])
 def test_other_telemetry_gates_are_refused(argv):
     with pytest.raises(NotPortedError, match=r"A9 \(obs and telemetry\)"):
         ttelemetry.main(argv)
+
+
+def test_check_stall_report_runs_and_gives_jax_rows():
+    """`check --stall-report` (refused before the observatory was ported)
+    gates a stall report: JAX's committed one passes, alone and against
+    itself, with JAX's rows; a trust report is no stall report."""
+    stall = os.path.join(REPO, "evidence", "stall_report_b256_bf16.json")
+    for argv in (["--stall-report", stall], ["--stall-report", stall, "--stall-baseline", stall]):
+        code, text = _run(ttelemetry.check_main, argv + ["--json"])
+        rec = json.load(open(stall))
+        base = rec if "--stall-baseline" in argv else None
+        assert code == 0 and json.loads(text) == jtelemetry.stall_report_gates(rec, base)
+    code, text = _run(ttelemetry.main, ["check", "--stall-report", BASELINE, "--json"])
+    assert code == 1
+    assert json.loads(text) == jtelemetry.stall_report_gates(json.load(open(BASELINE)))
 
 
 def _run(fn, argv):
